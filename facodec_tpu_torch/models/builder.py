@@ -1,0 +1,52 @@
+"""Model factory for the codec stage (port of facodec_tpu/models/builder.py).
+
+`build_codec(model_params)` takes the `model_params` mapping of the
+reference config.yml schema, including the optional scale-down keys the JAX
+builder reads (latent_dim, codebook_size, style_hidden_dim,
+prosody_hidden_dim). `build_from_fields` takes the module fields directly,
+as `config.FLAGSHIP` holds them.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import torch.nn as nn
+
+from facodec_tpu_torch.models.dac import Decoder, Encoder
+from facodec_tpu_torch.models.fa_quantizer import FAquantizer
+
+
+def codec_fields(model_params: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """Reference-schema `model_params` -> the fields of each codec module."""
+    mp = model_params
+    dac = mp["DAC"]
+    D = mp.get("latent_dim", 1024)
+    return dict(
+        encoder=dict(d_model=dac["encoder_dim"], strides=tuple(dac["encoder_rates"]),
+                     d_latent=D, causal=mp["causal"], lstm=mp["lstm"]),
+        quantizer=dict(
+            in_dim=D, n_p_codebooks=1, n_c_codebooks=mp["n_c_codebooks"], n_t_codebooks=2,
+            n_r_codebooks=3, codebook_size=mp.get("codebook_size", 1024), codebook_dim=8,
+            quantizer_dropout=0.5, causal=mp["causal"],
+            separate_prosody_encoder=mp["separate_prosody_encoder"],
+            timbre_norm=mp["timbre_norm"], sample_rate=dac["sr"],
+            style_hidden_dim=mp.get("style_hidden_dim", 512),
+            prosody_hidden_dim=mp.get("prosody_hidden_dim", 256),
+        ),
+        decoder=dict(input_channel=D, channels=dac["decoder_dim"],
+                     rates=tuple(dac["decoder_rates"]), causal=mp["causal"], lstm=mp["lstm"]),
+    )
+
+
+def build_from_fields(fields: Mapping[str, Mapping[str, Any]]) -> Dict[str, nn.Module]:
+    """{encoder, quantizer, decoder} modules, parameters uninitialised."""
+    return dict(
+        encoder=Encoder(**fields["encoder"]),
+        quantizer=FAquantizer(**fields["quantizer"]),
+        decoder=Decoder(**fields["decoder"]),
+    )
+
+
+def build_codec(model_params: Mapping[str, Any]) -> Dict[str, nn.Module]:
+    return build_from_fields(codec_fields(model_params))

@@ -1,0 +1,44 @@
+"""WaveNet stack with the gated tanh/sigmoid unit, eval mode, no global
+conditioning (port of facodec_tpu/models/wavenet.py `WN` with gin_channels=0).
+NTC layout. The codec's only caller passes an all-ones mask, a no-op that
+is left out here."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from facodec_tpu_torch.nn.conv import SConv1d
+
+
+class WN(nn.Module):
+    """n_layers of dilated conv -> gate -> 1x1 residual/skip split. The last
+    layer's res_skip conv has only the H skip channels."""
+
+    def __init__(self, hidden_channels: int, kernel_size: int, dilation_rate: int,
+                 n_layers: int, causal: bool = False):
+        super().__init__()
+        H = self.hidden_channels = hidden_channels
+        self.n_layers = n_layers
+        self.in_layers = nn.ModuleList([
+            SConv1d(H, 2 * H, kernel_size, dilation=dilation_rate**i, causal=causal)
+            for i in range(n_layers)
+        ])
+        self.res_skip_layers = nn.ModuleList([
+            SConv1d(H, 2 * H if i < n_layers - 1 else H, 1, causal=causal)
+            for i in range(n_layers)
+        ])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        H = self.hidden_channels
+        output = torch.zeros_like(x)
+        for i in range(self.n_layers):
+            x_in = self.in_layers[i](x)
+            acts = torch.tanh(x_in[..., :H]) * torch.sigmoid(x_in[..., H:])
+            res_skip = self.res_skip_layers[i](acts)
+            if i < self.n_layers - 1:
+                x = x + res_skip[..., :H]
+                output = output + res_skip[..., H:]
+            else:
+                output = output + res_skip
+        return output

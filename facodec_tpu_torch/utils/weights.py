@@ -1,0 +1,128 @@
+"""Weights by key name: the port's state dict and the JAX parameter tree.
+
+`torch_key_to_path` is re-homed from facodec_tpu/utils/checkpoint.py (the
+port must import without JAX): numeric key components merge into the name
+before them (`block.1` -> `block_1`), the reference's `conv`/`convtr`
+wrapper levels drop out, fixed DSP buffers map to None, and parametrized
+weight-norm keys become `weight_g`/`weight_v`.
+
+`load_jax_params` copies a JAX numpy parameter tree into a port module;
+`init_random_` gives a module seeded random weights from a torch.Generator,
+drawn as the JAX package's initialisers draw them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+_DROP_TOKENS = ("conv", "convtr")
+
+
+def torch_key_to_path(key: str) -> Optional[Tuple[str, ...]]:
+    """Map a flat torch state_dict key to a flax param path, or None to skip."""
+    if key.startswith("module."):
+        key = key[len("module.") :]
+    if key.endswith(".filter"):
+        return None
+    if key.startswith("to_mel.") or ".to_mel." in key:
+        return None
+    key = key.replace("parametrizations.weight.original0", "weight_g")
+    key = key.replace("parametrizations.weight.original1", "weight_v")
+    out = []
+    for tok in key.split("."):
+        if tok in _DROP_TOKENS:
+            continue
+        if tok.isdigit() and out:
+            out[-1] = f"{out[-1]}_{tok}"
+        else:
+            out.append(tok)
+    return tuple(out)
+
+
+def flatten_tree(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> dict:
+    """Nested mapping -> {path tuple: leaf}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(flatten_tree(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def load_jax_params(module: nn.Module, params: Mapping[str, Any]) -> None:
+    """Copy a JAX parameter tree (numpy leaves) into `module` by key name.
+
+    Raises on a port key with no JAX parameter, on a JAX parameter no port
+    key reaches, and on a shape mismatch."""
+    flat = flatten_tree(params)
+    state = module.state_dict()
+    missing, shapes, used = [], [], set()
+    for key, dst in state.items():
+        path = torch_key_to_path(key)
+        if path not in flat:
+            missing.append(key)
+            continue
+        src = np.asarray(flat[path])
+        if tuple(src.shape) != tuple(dst.shape):
+            shapes.append(f"{key}: jax {tuple(src.shape)} vs port {tuple(dst.shape)}")
+            continue
+        used.add(path)
+        with torch.no_grad():
+            dst.copy_(torch.from_numpy(np.array(src, dtype=np.float32)))
+    left = sorted("/".join(p) for p in set(flat) - used)
+    msgs = []
+    if missing:
+        msgs.append(f"{len(missing)} port keys without a JAX parameter: {missing[:8]}")
+    if shapes:
+        msgs.append(f"{len(shapes)} shape mismatches: {shapes[:8]}")
+    if left:
+        msgs.append(f"{len(left)} JAX parameters left over: {left[:8]}")
+    if msgs:
+        raise ValueError("load_jax_params: " + "; ".join(msgs))
+
+
+def _uniform(shape, bound: float, gen: torch.Generator) -> torch.Tensor:
+    return (torch.rand(shape, generator=gen, dtype=torch.float32) * 2.0 - 1.0) * bound
+
+
+@torch.no_grad()
+def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random weights, in `named_parameters` order.
+
+    Conv / linear weights (and weight-norm `weight_v`) and their biases:
+    U(-1/sqrt(fan_in), +), fan_in = prod(shape[1:]) of the weight; weight-norm
+    `weight_g` = ||v|| (so the effective weight is v); LSTM tensors:
+    U(-1/sqrt(H), +); codebooks: N(0, 1); snake alphas: 1; the timbre linear
+    bias: gamma half 1, beta half 0."""
+    params = dict(module.named_parameters())
+    for name, p in params.items():
+        leaf = name.rsplit(".", 1)[-1]
+        owner = name[: -len(leaf) - 1]
+        if leaf == "alpha":
+            p.fill_(1.0)
+        elif name.endswith("codebook.weight"):
+            p.copy_(torch.randn(p.shape, generator=generator))
+        elif leaf.startswith(("weight_ih_l", "weight_hh_l", "bias_ih_l", "bias_hh_l")):
+            hidden = params[f"{owner}.weight_hh_l0"].shape[1]
+            p.copy_(_uniform(p.shape, 1.0 / math.sqrt(hidden), generator))
+        elif leaf in ("weight", "weight_v"):
+            p.copy_(_uniform(p.shape, 1.0 / math.sqrt(math.prod(p.shape[1:])), generator))
+        elif leaf == "weight_g":
+            v = params[f"{owner}.weight_v"]
+            p.copy_(torch.sqrt(torch.sum(v * v, dim=tuple(range(1, v.ndim)), keepdim=True)))
+        elif leaf == "bias":
+            w = params.get(f"{owner}.weight", params.get(f"{owner}.weight_v"))
+            if owner.endswith("timbre_linear"):
+                d = p.shape[0] // 2
+                p.copy_(torch.cat([torch.ones(d), torch.zeros(d)]))
+            else:
+                p.copy_(_uniform(p.shape, 1.0 / math.sqrt(math.prod(w.shape[1:])), generator))
+        else:
+            raise ValueError(f"init_random_: no initialiser for parameter {name}")
+    return module
