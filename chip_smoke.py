@@ -11,7 +11,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    unit on the very inputs each of its 24 units receives in one reconstruct
    (captured with forward pre-hooks), and the VQ search at M = 4 * 800 rows
    against the 1024 x 8 codebook, plus a codebook with duplicated rows.
-   Times are medians of CUDA-event timings.
+   Times are medians of CUDA-event timings. For each residual-unit shape:
+   FLOP, the bound on float32 CUDA cores and on the kernel's 3xTF32 tensor
+   cores, TFLOP/s reached, and the error of kernel and plain version against
+   a float64 evaluation of the plain version.
 3. The slice at full width: the flagship FACodec with seeded random weights
    encodes, decodes and reconstructs the same batch of 4 x 10 s waves; the
    kernels' launch counts show that the path went through them.
@@ -54,6 +57,11 @@ VQ_TIE_SHARE = 1e-3
 CODE_MATCH_MIN = 0.99
 DECODE_MAX_DIFF = 1e-3
 REPEATS = 10
+RESUNIT_MAX_ERR = 1e-5  # the kernel's float32 sums against the plain version's
+# Published peaks of one H100 SXM (dense): the roofline of each kernel.
+FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+HBM_BYTES_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -100,18 +108,31 @@ def phase_device() -> str:
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     return smi
 
 
+def resunit_cost(B: int, T: int, C: int) -> tuple:
+    """(FLOP, bytes) of one residual unit: 2 * 8 * C^2 FLOP per row (conv7 and
+    1x1); x read once, out written once, the weights, biases and alphas once."""
+    return 16 * B * T * C * C, 4 * (2 * B * T * C + 8 * C * C + 4 * C)
+
+
+def bound_ms(flop: float, nbytes: float, peak_flops: float) -> float:
+    return 1e3 * max(flop / peak_flops, nbytes / HBM_BYTES_S)
+
+
 def phase_resunit(codec: FACodec, w: np.ndarray) -> dict:
     log(f"phase 2a: fused_residual_unit vs plain on the main path's inputs "
-        f"(one reconstruct, batch {BATCH} x {SECONDS:.0f} s), rtol=atol={RESUNIT_TOL}")
+        f"(one reconstruct, batch {BATCH} x {SECONDS:.0f} s), rtol=atol={RESUNIT_TOL}, "
+        f"max_abs_err <= {RESUNIT_MAX_ERR}; bounds at {FP32_FLOPS / 1e12:.0f} TFLOP/s float32 "
+        f"(CUDA cores) and 3 x FLOP at {TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 (3xTF32 route)")
     calls = unit_inputs(codec, w)
     if len(calls) != 24:
         raise AssertionError(f"one reconstruct called {len(calls)} residual units, expected 24")
-    worst, k_ms, p_ms = 0.0, 0.0, 0.0
+    worst = 0.0
+    tot = dict(ms=0.0, plain_ms=0.0, flops=0, bound_ms=0.0, bound_fp32_ms=0.0)
     for unit, x in calls:
         snake1, conv7, snake2, conv1 = unit.block
         with torch.no_grad(), float32_exact():
@@ -120,17 +141,34 @@ def phase_resunit(codec: FACodec, w: np.ndarray) -> dict:
                     unit.dilation, unit.causal)
             got = resunit.fused_residual_unit(*args)
             want = resunit.residual_unit_reference(*args)
+            exact = resunit.residual_unit_reference(
+                *(a.double() for a in args[:7]), unit.dilation, unit.causal)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
+            err64 = (got.double() - exact).abs().max().item()
+            plain64 = (want.double() - exact).abs().max().item()
+            del exact
             torch.testing.assert_close(got, want, rtol=RESUNIT_TOL, atol=RESUNIT_TOL)
+            if not err <= RESUNIT_MAX_ERR:
+                raise AssertionError(f"max_abs_err {err} > {RESUNIT_MAX_ERR}")
             tk = median_ms(lambda: resunit.fused_residual_unit(*args))
             tp = median_ms(lambda: resunit.residual_unit_reference(*args))
-        worst, k_ms, p_ms = max(worst, err), k_ms + tk, p_ms + tp
         B, T, C = x.shape
+        flop, nbytes = resunit_cost(B, T, C)
+        b3 = bound_ms(3 * flop, nbytes, TF32_FLOPS)
+        b1 = bound_ms(flop, nbytes, FP32_FLOPS)
+        worst = max(worst, err)
+        for k, v in (("ms", tk), ("plain_ms", tp), ("flops", flop), ("bound_ms", b3),
+                     ("bound_fp32_ms", b1)):
+            tot[k] += v
         log(f"  B={B} C={C:4d} T={T:6d} d={unit.dilation}: max|x| {x.abs().max().item():.3e} "
-            f"max_abs_err {err:.3e} kernel {tk:.3f} ms plain {tp:.3f} ms")
-    log(f"  24 units: kernel {k_ms:.3f} ms plain {p_ms:.3f} ms")
-    return dict(max_abs_err=worst, ms=k_ms, plain_ms=p_ms)
+            f"FLOP {flop:.4e} bound {b1:.3f} ms fp32 / {b3:.3f} ms 3xtf32; "
+            f"kernel {tk:.3f} ms ({flop / tk / 1e9:.1f} TFLOP/s) plain {tp:.3f} ms; "
+            f"max_abs_err vs plain {err:.3e}, vs float64: kernel {err64:.3e} plain {plain64:.3e}")
+    log(f"  24 units: kernel {tot['ms']:.3f} ms plain {tot['plain_ms']:.3f} ms; bound "
+        f"{tot['bound_fp32_ms']:.3f} ms fp32 ({tot['bound_fp32_ms'] / tot['ms']:.1%} of it reached) "
+        f"/ {tot['bound_ms']:.3f} ms 3xtf32 ({tot['bound_ms'] / tot['ms']:.1%})")
+    return dict(max_abs_err=worst, **tot)
 
 
 def _vq_check(lat: torch.Tensor, cb: torch.Tensor, label: str) -> tuple:
@@ -174,8 +212,13 @@ def phase_vq(codec: FACodec) -> dict:
             raise AssertionError("VQ: duplicated rows did not resolve to the first index")
         tk = median_ms(lambda: vq.nearest_code(lat, cb))
         tp = median_ms(lambda: vq_math.nearest_code(lat, cb))
-    log(f"  M={M}: kernel {tk:.3f} ms plain {tp:.3f} ms")
-    return dict(max_abs_err=err, ms=tk, plain_ms=tp)
+    K, D = cb.shape
+    flop = 2 * M * K * D + 2 * (M + K) * D  # e.c for every pair, and the two norms
+    nbytes = 4 * (2 * M * D + K * D + M)  # latents, codebook in; rows, indices out
+    b = bound_ms(flop, nbytes, FP32_FLOPS)
+    log(f"  M={M}: FLOP {flop:.4e} bytes {nbytes} bound {b * 1e3:.3f} us (fp32 CUDA cores); "
+        f"kernel {tk:.3f} ms ({b / tk:.2%} of the bound) plain {tp:.3f} ms")
+    return dict(max_abs_err=err, ms=tk, plain_ms=tp, flops=flop, bound_ms=b)
 
 
 def phase_slice(codec: FACodec, w: np.ndarray) -> dict:
@@ -264,12 +307,14 @@ def main() -> None:
     main_path = phase_slice(codec, w)
     phase_cpu(codec)
 
+    # no single PyTorch call computes either function: library_ms is null
     kernels = [
         dict(name="fused_residual_unit", route="cuda", source="facodec_tpu_torch/csrc/resunit.cu",
              replaces="facodec_tpu/ops/pallas/resunit.py:273", launches=main_path["resunit"],
-             **ru),
+             bound_by="operations", library_ms=None, **ru),
         dict(name="nearest_code", route="cuda", source="facodec_tpu_torch/csrc/vq.cu",
-             replaces="facodec_tpu/ops/pallas/vq.py:76", launches=main_path["vq"], **vqr),
+             replaces="facodec_tpu/ops/pallas/vq.py:76", launches=main_path["vq"],
+             bound_by="operations", library_ms=None, **vqr),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

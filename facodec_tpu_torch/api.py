@@ -64,10 +64,14 @@ class FACodec:
 
     @classmethod
     def from_fields(cls, fields: Mapping[str, Mapping[str, Any]], seed: int = 0,
-                    device: str = "cpu", n_c: int = 2) -> "FACodec":
+                    device: str = "cuda", n_c: int = 2) -> "FACodec":
         """Build from module fields (e.g. `config.FLAGSHIP`) with seeded
-        random weights; the weights are drawn on the CPU, so one seed gives
-        the same model on every device."""
+        random weights, on the card unless `device="cpu"` is asked for; the
+        weights are drawn on the CPU, so one seed gives the same model on
+        every device."""
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"FACodec.from_fields: device {device!r} asked for, but torch "
+                               f"sees no CUDA device; pass device='cpu' to run on the CPU")
         models = build_from_fields(fields)
         gen = torch.Generator().manual_seed(seed)
         names = ("encoder", "quantizer", "decoder")

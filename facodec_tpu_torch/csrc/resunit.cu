@@ -5,49 +5,80 @@
 //
 //   out[b,t,:] = x[b,t,:] + W1 . snake2(W7 (*)_d snake1(xpad)[b, t .. t+6d, :] + b7) + b1
 //
-// with the 7-tap conv dilated by d and xpad the input pre-padded like
-// SConv1d (reflect; causal (6d, 0)). Snake commutes with the pad, so it is
-// applied to the padded rows as they are staged.
+// with the 7-tap conv dilated by d and xpad the input padded like SConv1d
+// (reflect; causal (6d, 0)). The kernel reads x itself and reflects the row
+// index: a padded copy of x cost a strided pad and a transposing copy, 1.2 ms
+// of the 2.9 ms a C = 64 unit took. Snake commutes with the pad.
 //
-// What bounds it on this card: float32 FMAs on the CUDA cores (8*C^2 FMAs per
-// output row; TF32 tensor cores are off limits because the codec's codes must
-// stay float32-exact) and, before them, the shared-memory loads that feed
-// them: a thread's 4 x NJ register tile takes 4 + NJ loads per 4*NJ FMAs.
-// Device memory sees x once and out once: y1 and y2 never leave the SM.
+// Work and bound. Per output row the unit does 2 * 8 * C^2 FLOP (7 C^2 MACs
+// for the conv7, C^2 for the 1x1) and moves 2 * C * 4 bytes (x in, out out),
+// plus the 8 C^2 weights once. So at every width of the codec it is bound by
+// operations: at C = 768 and 19200 rows, 2.7 ms at 67 TFLOP/s of float32 FMAs
+// on the CUDA cores. This kernel runs both products on the tensor cores in
+// 3xTF32, three TF32 products per float32 one, so its own bound is
+// 3 * FLOP / 495 TFLOP/s: 1.1 ms at C = 768.
 //
-// Design. The TPU kernel walks time tiles in order and carries a 6d-row halo
-// between them; Hopper blocks run in no order, so each block owns one
-// (batch, TT-row time tile) and loads its own overlapping halo from the padded
-// input. The block computes all C outputs of the 7-tap conv for its tile,
-// because the 1x1 conv needs the whole y2 row: conv outputs go tile by tile of
-// NC channels, input channels stream through shared memory KC at a time (so
-// C = 768 at d = 9 fits; KC = 4 from C = 640, so that two blocks share an
-// SM), and snake2(y2) stays in shared memory for the 1x1.
-// Each thread holds a RT x NJ register tile (rows r0..r0+3, channels
-// lane + 32j): one warp shares its rows, so the activation loads are
-// broadcasts and the weight loads hit 32 consecutive banks.
-// The weights are read in torch's own layouts, w7 [out][in][tap] and w1
-// [out][in], so no caller transposes them: the staging loops walk each
-// output channel's contiguous run of inputs (and taps) and store it as a
-// column of a [tap][in][out] shared-memory tile whose rows are padded to
-// NC + 1 floats, so that the column stores spread over the banks. These
-// reads come in runs of 7*KC floats instead of rows of NC, which costs about
-// 1% of the kernel's time over the codec's 24 units (up to 18% at C = 512).
-// The snake reciprocals 1 / (alpha + 1e-9) come from the caller: a division
-// in the kernel's staging loops took 104-108 registers and cost 5%.
+// Precision: 3xTF32. Each operand a splits into hi = tf32_rna(a) and
+// lo = a - hi (see split_tf32), and a*b is taken as lo*hi' + hi*lo' + hi*hi'
+// (mma.sync m16n8k8 .tf32, float32 accumulation). That leaves out lo*lo',
+// about 2^-22 relative. The tensor cores do not round their float32 sums to
+// nearest: with the whole reduction accumulated in the mma, the error
+// reached 2.1e-5 at C = 768. So each k-step's three products go into a zeroed
+// fragment, and a round-to-nearest add folds it into the running sum. The
+// result is closer to float64 than cuDNN's float32 convolution is. Plain
+// TF32 (one product, about 3 decimal digits) is not used: the codec's codes
+// must stay float32-exact. Operands are split as they go from shared memory
+// into fragment registers. A split kept in shared memory would double the
+// shared-memory loads that feed the mma.
+//
+// Design. One block owns BM rows of one batch row and all C output channels.
+// Blocks run in no order, so each one loads its own 6d-row halo.
+//   0. snake1 of its BM + 6d padded rows, evaluated once per element, goes
+//      into the block's region of a scratch buffer. It stays in L2: the block
+//      reads it back at once.
+//   1. conv7 is a GEMM [BM x 7C] . [7C x C], BN output channels at a time.
+//      A chunk of 8 input channels is 8 * 7 contiguous floats of torch's w7
+//      [out][in][tap] per output channel. Each mma k-step takes one tap and
+//      the chunk's 8 channels; its A operand is the staged snake1 tile
+//      shifted by tap * d rows. snake2(acc + b7) goes to the block's region
+//      of the y2 scratch.
+//   2. The 1x1 conv is a GEMM [BM x C] . [C x C] over that y2 tile, plus b1
+//      and the residual, into out.
+// y2 leaves the SM because the 1x1 needs the whole row of C channels. Kept in
+// shared memory, it pinned the previous kernel to 32-row tiles (96 KB at
+// C = 768), and every block restaged all 8 C^2 weight floats for 32 rows.
+// With y2 in scratch the tile is 128 rows, so each staged weight float feeds
+// 64-128 rows. Where B * T gives fewer than 4 such blocks per SM (C = 512 and
+// 768 at the flagship's batch 4: 150 blocks), it is 64 rows instead, which
+// ran faster there. Both operands of both GEMMs are staged with
+// cp.async, 16 bytes a thread, into two shared-memory buffers, so the next
+// chunk's copies overlap the current chunk's mma. Eight warps form a
+// WM x (8 / WM) grid of 32 x 8*NT warp tiles:
+//   C % 128 == 0: BN = 128, BM = 128 (WM = 4, NT = 8) or 64 (WM = 2, NT = 4)
+//   C % 96 == 0: BN = 96 (WM = 4, NT = 6)
+//   C % 64 == 0: BN = 64 (WM = 4, NT = 4)
+//   else (C % 32 == 0): BN = 32 (WM = 4, NT = 2)
+// Shared memory is 2 x (A tile + B tile), 80-98 KB at the codec's dilations,
+// so two blocks (16 warps, 128 registers a thread) share an SM.
+// What bounds it now is the stream of mma.sync: cutting the three TF32
+// products to one cut the time far more than leaving out the snakes or the
+// fold did. wgmma is the next step.
 //
 // Rounding: the snake (sin^2 with its Cody-Waite reduction) is written with
 // __fmul_rn / __fadd_rn / __fsub_rn, so nvcc contracts none of it into FMAs
 // and it gives the same bits as the plain PyTorch version; only the conv sums
-// use FMAs and differ from it in summation order.
+// differ from it, in summation order and by the 3xTF32 split.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int TT = 32;        // time rows per block
-constexpr int THREADS = 256;  // 8 warps; warp w owns rows 4w .. 4w+3
-constexpr int RT = 4;         // rows per thread
+constexpr int THREADS = 256;  // 8 warps
+constexpr int STAGES = 2;     // cp.async buffers
+constexpr int KC7 = 8;        // input channels per conv7 chunk: K = 56
+constexpr int KC1 = 32;       // input channels per 1x1 chunk: K = 32
+constexpr int PAD = 4;        // floats added to each staged row (banks, 16 B rows)
 
 __device__ __forceinline__ float sin2f(float x) {
   x = fminf(fmaxf(x, -3.0e4f), 3.0e4f);
@@ -70,174 +101,289 @@ __device__ __forceinline__ float snakef(float x, float alpha, float recip) {
   return __fadd_rn(x, __fmul_rn(sin2f(__fmul_rn(alpha, x)), recip));
 }
 
-// Shared memory of one block, in floats: the y2 tile, the snake1 rows of one
-// chunk of KC input channels, and the weights of that chunk, 7*KC rows of
-// NC + 1 (the 1x1 conv stages 4*KC rows in the same space).
-constexpr size_t smem_floats(int C, int dil, int KC, int NC) {
-  return (size_t)TT * C + (size_t)(TT + 6 * dil) * KC + (size_t)7 * KC * (NC + 1);
+// a = hi + lo exactly, hi = tf32_rna(a). lo goes to the mma as it is: the
+// tensor core reads its top 10 mantissa bits, which drops at most
+// 2^-11 |lo| <= 2^-22 |a|, as much as the lo*lo' term that 3xTF32 leaves
+// out; rounding lo as well cost 6% of the kernel's time.
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(a));
+  lo = __float_as_uint(a - __uint_as_float(hi));
 }
 
-// xp (B, Tp, C) padded input; w7 (C, C, 7) and w1 (C, C, 1) in torch's
-// [out][in][tap] layout; alpha1, alpha2 (C) and their snake reciprocals
-// recip1, recip2 = 1 / (alpha + 1e-9) (C); out (B, T, C). Row t of out
-// reads its residual from row t + res_off of xp. KC input channels are
-// staged per chunk of the 7-tap conv, K1 = 4*KC per chunk of the 1x1 conv.
-template <int NJ, int KC>
-__global__ void __launch_bounds__(THREADS)
-resunit_kernel(const float* __restrict__ xp, const float* __restrict__ w7,
-               const float* __restrict__ b7, const float* __restrict__ w1,
-               const float* __restrict__ b1, const float* __restrict__ alpha1,
-               const float* __restrict__ recip1, const float* __restrict__ alpha2,
-               const float* __restrict__ recip2, float* __restrict__ out, int T, int Tp,
-               int C, int dil, int res_off) {
-  constexpr int NC = 32 * NJ;  // output channels per tile
-  constexpr int NCP = NC + 1;  // padded row of a staged weight tile
-  constexpr int K1 = 4 * KC;
-  constexpr int KW = 7 * KC;   // contiguous floats of one output channel in w7
-  extern __shared__ float smem[];
-  const int rows_in = TT + 6 * dil;
-  float* y2s = smem;                 // TT x C: snake2(conv7 + b7)
-  float* xs = y2s + TT * C;          // rows_in x KC: snake1 of the padded rows
-  float* ws = xs + rows_in * KC;     // KW x NCP as [tap][in][out] (conv7), K1 x NCP (1x1)
-  static_assert(32 % KC == 0, "KC divides the 32-channel width granule");
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TT;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int r0 = (tid >> 5) * RT;
-  const float* xb = xp + (size_t)b * Tp * C;
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
 
-  for (int co0 = 0; co0 < C; co0 += NC) {
-    float acc[RT][NJ];
+// acc[BM x BN tile of this warp] += A . B over all C input channels, where
+// A[m][(ci, tap)] = a_src[(m + tap * dil) * C + ci] (a_rows rows, the block's
+// scratch region) and B[(ci, tap)][n] = b_src[(n0 + n) * TAPS * C + ci * TAPS + tap]
+// (torch's weight layout). KCH input channels are staged per chunk, as
+// contiguous runs of global memory. Each mma k-step takes one tap and 8 of
+// the chunk's channels, so that a lane's loads, row g and channel t of its
+// fragment, fall on distinct banks: g * (KCH + 4) + t for A, and
+// g * (TAPS * KCH + 4) + TAPS * t for B (60g + 7t covers all 32 banks).
+template <int WM, int NT, int TAPS, int KCH>
+__device__ __forceinline__ void gemm_tile(float (&acc)[2][NT][4], const float* __restrict__ a_src,
+                                          const float* __restrict__ b_src, int C, int dil, int n0,
+                                          int a_rows, float* smem, int a_floats) {
+  constexpr int BN = 8 * NT * (8 / WM);
+  constexpr int AS = KCH + PAD;         // staged A row: KCH channels
+  constexpr int BS = TAPS * KCH + PAD;  // staged B row: TAPS * KCH reduction indices
+  constexpr int AV = KCH / 4, BV = TAPS * KCH / 4;  // 16-byte copies per row
+  static_assert(KCH % 8 == 0, "a k-step takes 8 channels of one tap");
+  const int stage = a_floats + BN * BS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (warp % WM) * 32, wc = (warp / WM) * NT * 8;
+
+  auto load = [&](int ci0, int buf) {
+    float* As = smem + buf * stage;
+    float* Bs = As + a_floats;
+    for (int e = tid; e < a_rows * AV; e += THREADS) {
+      const int r = e / AV, v = 4 * (e % AV);
+      cp_async16(As + r * AS + v, a_src + (size_t)r * C + ci0 + v);
+    }
+    for (int e = tid; e < BN * BV; e += THREADS) {
+      const int r = e / BV, v = 4 * (e % BV);
+      cp_async16(Bs + r * BS + v, b_src + (size_t)(n0 + r) * TAPS * C + ci0 * TAPS + v);
+    }
+  };
+
+  const int nch = C / KCH;
+  load(0, 0);
+  cp_async_commit();
+  for (int c = 0; c < nch; ++c) {
+    if (c + 1 < nch) load((c + 1) * KCH, (c + 1) & 1);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();
+    const float* As = smem + (c & 1) * stage;
+    const float* Bs = As + a_floats;
 #pragma unroll
-    for (int i = 0; i < RT; ++i)
+    for (int kk = 0; kk < TAPS * KCH / 8; ++kk) {
+      const int tap = kk % TAPS, c0 = (kk / TAPS) * 8 + t;  // channels c0, c0 + 4
+      const int ao = tap * dil * AS + c0, bo = c0 * TAPS + tap;
+      uint32_t ah[2][4], al[2][4];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-
-    for (int ci0 = 0; ci0 < C; ci0 += KC) {
-      __syncthreads();
-      for (int e = tid; e < rows_in * KC; e += THREADS) {
-        const int r = e / KC, c = e % KC, t = t0 + r;
-        // rows past the padded input belong to the ragged last tile's
-        // outputs beyond T, which are never stored
-        const int ci = ci0 + c;
-        xs[e] = t < Tp ? snakef(xb[(size_t)t * C + ci], alpha1[ci], recip1[ci]) : 0.f;
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* ar = As + (wr + mt * 16 + g) * AS + ao;
+        split_tf32(ar[0], ah[mt][0], al[mt][0]);
+        split_tf32(ar[8 * AS], ah[mt][1], al[mt][1]);
+        split_tf32(ar[4], ah[mt][2], al[mt][2]);
+        split_tf32(ar[8 * AS + 4], ah[mt][3], al[mt][3]);
       }
-      for (int e = tid; e < KW * NC; e += THREADS) {
-        const int n = e / KW, ck = e % KW;  // ck = c * 7 + tap
-        ws[((ck % 7) * KC + ck / 7) * NCP + n] = w7[((size_t)(co0 + n) * C + ci0) * 7 + ck];
-      }
-      __syncthreads();
 #pragma unroll
-      for (int k = 0; k < 7; ++k) {
-        const float* xk = xs + (r0 + k * dil) * KC;
-        const float* wk = ws + k * KC * NCP;
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* br = Bs + (wc + nt * 8 + g) * BS + bo;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(br[0], bh0, bl0);
+        split_tf32(br[4 * TAPS], bh1, bl1);
 #pragma unroll
-        for (int c = 0; c < KC; ++c) {
-          float a[RT], w[NJ];
+        for (int mt = 0; mt < 2; ++mt) {  // small terms first
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(d, al[mt], bh0, bh1);
+          mma_tf32(d, ah[mt], bl0, bl1);
+          mma_tf32(d, ah[mt], bh0, bh1);
 #pragma unroll
-          for (int i = 0; i < RT; ++i) a[i] = xk[i * KC + c];
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) w[j] = wk[c * NCP + lane + 32 * j];
-#pragma unroll
-          for (int i = 0; i < RT; ++i)
-#pragma unroll
-            for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = __fadd_rn(acc[mt][nt][i], d[i]);
         }
       }
     }
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int co = co0 + lane + 32 * j;
-        y2s[(r0 + i) * C + co] = snakef(__fadd_rn(acc[i][j], b7[co]), alpha2[co], recip2[co]);
-      }
+    __syncthreads();
   }
+}
 
-  for (int co0 = 0; co0 < C; co0 += NC) {
-    float acc[RT][NJ];
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[2][NT][4]) {
 #pragma unroll
-    for (int i = 0; i < RT; ++i)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+}
 
-    for (int ci0 = 0; ci0 < C; ci0 += K1) {
-      __syncthreads();  // the first one also publishes every y2s write
-      for (int e = tid; e < K1 * NC; e += THREADS) {
-        const int n = e / K1, c = e % K1;
-        ws[c * NCP + n] = w1[(size_t)(co0 + n) * C + ci0 + c];
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int c = 0; c < K1; ++c) {
-        float a[RT], w[NJ];
-#pragma unroll
-        for (int i = 0; i < RT; ++i) a[i] = y2s[(r0 + i) * C + ci0 + c];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) w[j] = ws[c * NCP + lane + 32 * j];
-#pragma unroll
-        for (int i = 0; i < RT; ++i)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-      }
+// Row p of the padded input, as ops/padding.py `pad1d` pads: x zero-extended
+// to ext rows (ext = T unless T <= the longer pad), reflected about its ends,
+// pad_left rows in front. -1 stands for a zero row.
+__device__ __forceinline__ int padded_row(int p, int T, int ext, int pad_left) {
+  int q = p - pad_left;
+  q = q < 0 ? -q : q;
+  q = q >= ext ? 2 * (ext - 1) - q : q;
+  return q < T ? q : -1;
+}
+
+// x (B, T, C); w7 (C, C, 7) and w1 (C, C, 1) in torch's [out][in][tap]
+// layout; alpha1, alpha2 (C) and their snake reciprocals recip1, recip2 =
+// 1 / (alpha + 1e-9) (C); out (B, T, C). scratch holds, per block, BM + 6d
+// rows of snake1(xpad) and then BM rows of y2.
+template <int WM, int NT>
+__global__ void __launch_bounds__(THREADS, 2)
+resunit_kernel(const float* __restrict__ x, const float* __restrict__ w7,
+               const float* __restrict__ b7, const float* __restrict__ w1,
+               const float* __restrict__ b1, const float* __restrict__ alpha1,
+               const float* __restrict__ recip1, const float* __restrict__ alpha2,
+               const float* __restrict__ recip2, float* __restrict__ out,
+               float* __restrict__ scratch, int T, int C, int dil, int pad_left, int ext,
+               int a_floats) {
+  constexpr int BM = 32 * WM, BN = 8 * NT * (8 / WM);
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.y, t0 = blockIdx.x * BM;
+  const size_t blk = (size_t)b * gridDim.x + blockIdx.x;
+  const size_t nblk = (size_t)gridDim.x * gridDim.y;
+  const int rows_in = BM + 6 * dil;
+  float* s1 = scratch + blk * rows_in * C;
+  float* y2 = scratch + nblk * rows_in * C + blk * BM * C;
+  const float* xb = x + (size_t)b * T * C;
+  const int Tp = T + 6 * dil;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (warp % WM) * 32, wc = (warp / WM) * NT * 8;
+
+  // 0. snake1 of the padded rows, once; rows past the padded input belong
+  // to the ragged last tile's outputs beyond T, which are never stored
+  const int C4 = C / 4;
+  for (int e = tid; e < rows_in * C4; e += THREADS) {
+    const int r = e / C4, c = 4 * (e % C4), p = t0 + r;
+    const int q = p < Tp ? padded_row(p, T, ext, pad_left) : -1;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q >= 0) {
+      v = *reinterpret_cast<const float4*>(xb + (size_t)q * C + c);
+      v.x = snakef(v.x, alpha1[c], recip1[c]);
+      v.y = snakef(v.y, alpha1[c + 1], recip1[c + 1]);
+      v.z = snakef(v.z, alpha1[c + 2], recip1[c + 2]);
+      v.w = snakef(v.w, alpha1[c + 3], recip1[c + 3]);
     }
+    *reinterpret_cast<float4*>(s1 + (size_t)r * C + c) = v;
+  }
+  __syncthreads();
+
+  float acc[2][NT][4];
+  // 1. y2 = snake2(conv7 + b7), BN output channels at a time
+  for (int n0 = 0; n0 < C; n0 += BN) {
+    zero(acc);
+    gemm_tile<WM, NT, 7, KC7>(acc, s1, w7, C, dil, n0, rows_in, smem, a_floats);
 #pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int t = t0 + r0 + i;
-      if (t >= T) continue;
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int co = co0 + lane + 32 * j;
-        out[((size_t)b * T + t) * C + co] =
-            __fadd_rn(xb[(size_t)(t + res_off) * C + co], __fadd_rn(acc[i][j], b1[co]));
-      }
-    }
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wr + mt * 16 + g + 8 * h, co = n0 + wc + nt * 8 + 2 * t;
+          float2 v;
+          v.x = snakef(__fadd_rn(acc[mt][nt][2 * h], b7[co]), alpha2[co], recip2[co]);
+          v.y = snakef(__fadd_rn(acc[mt][nt][2 * h + 1], b7[co + 1]), alpha2[co + 1],
+                       recip2[co + 1]);
+          *reinterpret_cast<float2*>(y2 + (size_t)r * C + co) = v;
+        }
+  }
+  __syncthreads();  // publishes the block's y2 rows to its own cp.async reads
+
+  // 2. out = x + conv1x1(y2) + b1
+  for (int n0 = 0; n0 < C; n0 += BN) {
+    zero(acc);
+    gemm_tile<WM, NT, 1, KC1>(acc, y2, w1, C, 1, n0, BM, smem, a_floats);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int tr = t0 + wr + mt * 16 + g + 8 * h, co = n0 + wc + nt * 8 + 2 * t;
+          if (tr >= T) continue;
+          const float2 xr = *reinterpret_cast<const float2*>(xb + (size_t)tr * C + co);
+          float2 v;
+          v.x = __fadd_rn(xr.x, __fadd_rn(acc[mt][nt][2 * h], b1[co]));
+          v.y = __fadd_rn(xr.y, __fadd_rn(acc[mt][nt][2 * h + 1], b1[co + 1]));
+          *reinterpret_cast<float2*>(out + ((size_t)b * T + tr) * C + co) = v;
+        }
   }
 }
 
 // The kernel's arguments, in its order.
 struct Args {
-  const float *xp, *w7, *b7, *w1, *b1, *alpha1, *recip1, *alpha2, *recip2;
-  float* out;
-  int B, T, Tp, C, dil, res_off;
+  const float *x, *w7, *b7, *w1, *b1, *alpha1, *recip1, *alpha2, *recip2;
+  float *out, *scratch;
+  int B, T, C, dil, pad_left, ext;
 };
 
-template <int NJ, int KC>
-cudaError_t launch_kc(const Args& a, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(a.C, a.dil, KC, 32 * NJ);
-  cudaError_t err = cudaFuncSetAttribute(
-      resunit_kernel<NJ, KC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int row_blocks(int T, int BM) { return (T + BM - 1) / BM; }
+
+// Rows per block: 128, or 64 where C % 128 == 0 and 128-row tiles give
+// fewer than 4 blocks per SM.
+int tile_rows(const Args& a) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const bool few = (size_t)row_blocks(a.T, 128) * a.B < (size_t)4 * sms;
+  return a.C % 128 == 0 && few ? 64 : 128;
+}
+
+template <int WM, int NT>
+cudaError_t launch_cfg(const Args& a, cudaStream_t stream) {
+  constexpr int BM = 32 * WM, BN = 8 * NT * (8 / WM);
+  const int a7 = (BM + 6 * a.dil) * (KC7 + PAD), a1 = BM * (KC1 + PAD);
+  const int a_floats = a7 > a1 ? a7 : a1;
+  const size_t smem = sizeof(float) * STAGES * (size_t)(a_floats + BN * (7 * KC7 + PAD));
+  cudaError_t err = cudaFuncSetAttribute(resunit_kernel<WM, NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.T + TT - 1) / TT, a.B);
-  resunit_kernel<NJ, KC><<<grid, THREADS, smem, stream>>>(
-      a.xp, a.w7, a.b7, a.w1, a.b1, a.alpha1, a.recip1, a.alpha2, a.recip2, a.out, a.T, a.Tp,
-      a.C, a.dil, a.res_off);
+  const dim3 grid(row_blocks(a.T, BM), a.B);
+  resunit_kernel<WM, NT><<<grid, THREADS, smem, stream>>>(
+      a.x, a.w7, a.b7, a.w1, a.b1, a.alpha1, a.recip1, a.alpha2, a.recip2, a.out, a.scratch,
+      a.T, a.C, a.dil, a.pad_left, a.ext, a_floats);
   return cudaGetLastError();
 }
 
-// Where the y2 tile is large (C >= 640: 80 KB and up), stage 4 input
-// channels per chunk instead of 8, so that two blocks fit an SM's 227 KB.
-template <int NJ>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  return a.C >= 640 ? launch_kc<NJ, 4>(a, stream) : launch_kc<NJ, 8>(a, stream);
+bool valid_shape(int B, int T, int C, int dil) {
+  return C > 0 && C % 32 == 0 && B > 0 && T > 0 && dil > 0;
+}
+
+// The pads are (pad_left, 6d - pad_left); reflection needs ext > either.
+bool valid_pads(int T, int dil, int pad_left, int ext) {
+  return pad_left >= 0 && pad_left <= 6 * dil && ext >= T && ext > pad_left &&
+         ext > 6 * dil - pad_left;
 }
 
 }  // namespace
 
+// Floats of scratch that facodec_resunit_f32 needs for these shapes (0 if
+// the shapes are refused).
+extern "C" long long facodec_resunit_scratch_floats(int B, int T, int C, int dil) {
+  if (!valid_shape(B, T, C, dil)) return 0;
+  Args a{};
+  a.B = B, a.T = T, a.C = C, a.dil = dil;
+  const int BM = tile_rows(a);  // per block: BM + 6d rows of snake1, BM rows of y2
+  return (long long)row_blocks(T, BM) * B * (2 * BM + 6 * dil) * C;
+}
+
 // C entry point, bound with ctypes. Returns a cudaError_t (0 = launched).
-extern "C" int facodec_resunit_f32(const float* xp, const float* w7, const float* b7,
+extern "C" int facodec_resunit_f32(const float* x, const float* w7, const float* b7,
                                    const float* w1, const float* b1, const float* alpha1,
                                    const float* recip1, const float* alpha2,
-                                   const float* recip2, float* out, int B, int T, int Tp, int C,
-                                   int dil, int res_off, void* stream) {
-  if (C <= 0 || C % 32 != 0 || B <= 0 || T <= 0 || dil <= 0 || Tp < T + 6 * dil)
+                                   const float* recip2, float* out, float* scratch, int B, int T,
+                                   int C, int dil, int pad_left, int ext, void* stream) {
+  if (!valid_shape(B, T, C, dil) || !valid_pads(T, dil, pad_left, ext))
     return (int)cudaErrorInvalidValue;
-  const Args a{xp, w7, b7, w1, b1, alpha1, recip1, alpha2, recip2, out, B, T, Tp, C, dil, res_off};
+  const Args a{x, w7, b7, w1, b1, alpha1, recip1, alpha2, recip2, out, scratch,
+               B, T, C, dil, pad_left, ext};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C % 128 == 0) return (int)launch<4>(a, s);
-  if (C % 96 == 0) return (int)launch<3>(a, s);
-  if (C % 64 == 0) return (int)launch<2>(a, s);
-  return (int)launch<1>(a, s);
+  if (C % 128 == 0) return (int)(tile_rows(a) == 64 ? launch_cfg<2, 4>(a, s) : launch_cfg<4, 8>(a, s));
+  if (C % 96 == 0) return (int)launch_cfg<4, 6>(a, s);
+  if (C % 64 == 0) return (int)launch_cfg<4, 4>(a, s);
+  return (int)launch_cfg<4, 2>(a, s);
 }

@@ -9,8 +9,9 @@ weights w7 (C, C, 7) and w1 (C, C, 1) and alphas of shape (1, C, 1). The pad
 is SConv1d's: reflect, (6d, 0) when causal, split otherwise.
 
 `fused_residual_unit` runs `residual_unit_reference` for a tensor on the
-CPU; for a CUDA tensor it launches csrc/resunit.cu or raises. Forward only:
-the slice serves, and no autograd is attached.
+CPU; for a CUDA tensor it launches csrc/resunit.cu (3xTF32 tensor cores,
+with a scratch buffer for the block-local snake1 and y2 rows) or raises.
+Forward only: the slice serves, and no autograd is attached.
 """
 
 from __future__ import annotations
@@ -24,8 +25,6 @@ from facodec_tpu_torch.nn.activations import snake
 from facodec_tpu_torch.nn.conv import conv1d_ntc
 from facodec_tpu_torch.ops.kernels import build
 from facodec_tpu_torch.ops.padding import pad1d
-
-MAX_CHANNELS = 1024  # y2 tile (32 rows x C floats) plus staging fits shared memory
 
 
 def _pads(dilation: int, causal: bool) -> Tuple[int, int]:
@@ -56,6 +55,10 @@ def _check(name: str, t: Optional[torch.Tensor], shape, device) -> None:
         raise ValueError(f"fused_residual_unit: {name} is on {t.device}, x on {device}")
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def fused_residual_unit(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
                         causal: bool) -> torch.Tensor:
     """out = x + conv1x1(snake(conv7(snake(x)))) in one kernel on the card."""
@@ -72,28 +75,37 @@ def fused_residual_unit(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
         raise ValueError(f"fused_residual_unit: no kernel for device {x.device}")
     if not x.is_contiguous():
         raise ValueError("fused_residual_unit: x must be contiguous")
-    if C % 32 or C > MAX_CHANNELS:
-        raise ValueError(f"fused_residual_unit: the kernel takes C % 32 == 0 and "
-                         f"C <= {MAX_CHANNELS}, got C={C}")
+    if C % 32:
+        raise ValueError(f"fused_residual_unit: the kernel takes C % 32 == 0, got C={C}")
     if dilation < 1:
         raise ValueError(f"fused_residual_unit: dilation must be >= 1, got {dilation}")
 
     pl, pr = _pads(dilation, causal)
-    xp = pad1d(x, (pl, pr)).contiguous()
-    # the kernel reads every weight in its torch layout, as given
-    w7, b7, w1, b1, alpha1, alpha2 = (t.contiguous() for t in (w7, b7, w1, b1, alpha1, alpha2))
+    # the kernel reflects x's rows itself, as `pad1d` pads: a short input is
+    # zero-extended to one row more than the longer pad first
+    ext = T if T > max(pl, pr) else max(pl, pr) + 1
+    # the kernel reads x and every weight in its torch layout, as given,
+    # with 16-byte loads
+    x, w7, w1 = (_aligned16(t.contiguous()) for t in (x, w7, w1))
+    b7, b1, alpha1, alpha2 = (t.contiguous() for t in (b7, b1, alpha1, alpha2))
     recip1, recip2 = (1.0 / (a + 1e-9) for a in (alpha1, alpha2))  # as `snake` takes them
     out = torch.empty_like(x)
 
     lib = build.library("resunit")
+    size = lib.facodec_resunit_scratch_floats
+    size.argtypes = [ctypes.c_int] * 4
+    size.restype = ctypes.c_longlong
     fn = lib.facodec_resunit_f32
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
+        # per block: its snake1 rows and its y2 rows (csrc/resunit.cu)
+        scratch = torch.empty(size(B, T, C, dilation), dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xp.data_ptr(), w7.data_ptr(), b7.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                 alpha1.data_ptr(), recip1.data_ptr(), alpha2.data_ptr(), recip2.data_ptr(),
-                 out.data_ptr(), B, T, xp.shape[1], C, dilation, pl, stream)
+        err = fn(x.data_ptr(), w7.data_ptr(), b7.data_ptr(), w1.data_ptr(),
+                 b1.data_ptr(), alpha1.data_ptr(), recip1.data_ptr(), alpha2.data_ptr(),
+                 recip2.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, T, C, dilation, pl,
+                 ext, stream)
     if err != 0:
         raise RuntimeError(f"fused_residual_unit: kernel launch failed, cudaError {err}")
     fused_residual_unit.launches += 1

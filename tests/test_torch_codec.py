@@ -23,7 +23,7 @@ from facodec_tpu.ops.spectral import hann_window as j_hann_window
 from facodec_tpu.utils.checkpoint import torch_key_to_path as j_torch_key_to_path
 from facodec_tpu.utils.config import load_config
 from facodec_tpu_torch.api import FACodec
-from facodec_tpu_torch.models.builder import build_codec, build_from_fields
+from facodec_tpu_torch.models.builder import build_codec, build_from_fields, codec_fields
 from facodec_tpu_torch.ops.spectral import _mel_filterbank_np, hann_window_np
 from facodec_tpu_torch.utils.signals import sweep_wave
 from facodec_tpu_torch.utils.weights import flatten_tree, load_jax_params, torch_key_to_path
@@ -132,6 +132,17 @@ def test_rehomed_mel_filterbank(n_mels, f_max, norm):
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(hann_window_np(1200), np.asarray(j_hann_window(1200)))
+
+
+def test_from_fields_defaults_to_the_card(monkeypatch):
+    """Without a device argument the codec is built on the card; where torch
+    sees none, it raises instead of building on the CPU."""
+    cfg = load_config(os.path.join(ROOT, "tests", "tiny_config.yml"))
+    fields = codec_fields(cfg.model_params)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FACodec.from_fields(fields)
+    assert FACodec.from_fields(fields, device="cpu").device.type == "cpu"
 
 
 def test_import_leaves_jax_out():

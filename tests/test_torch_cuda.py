@@ -23,13 +23,20 @@ def _need_cuda():
         pytest.skip("needs a CUDA device")
 
 
+# Every flagship width at d = 1 and 9, batch 4: T = 50 is shorter than one
+# time tile (64 or 128 rows) and, at d = 9, than the 54-row pad (pad1d's
+# zero-extend); T = 1000 leaves a ragged last tile for both tile heights.
+FLAGSHIP_CASES = [(4, C, d, T) for C in (64, 96, 128, 192, 256, 384, 512, 768)
+                  for d, T in ((1, 1000), (9, 50), (9, 1000))]
+
+
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("C,dilation,T", [(32, 3, 500), (64, 1, 1000), (96, 9, 777),
-                                          (192, 3, 40), (768, 9, 1000)])
-def test_resunit_kernel_matches_plain(C, dilation, T, causal):
+@pytest.mark.parametrize("B,C,dilation,T", [(2, 32, 3, 500), (2, 64, 1, 1000), (2, 96, 9, 777),
+                                            (2, 192, 3, 40), (2, 768, 9, 1000)] + FLAGSHIP_CASES)
+def test_resunit_kernel_matches_plain(B, C, dilation, T, causal):
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(C + dilation)
-    x = torch.randn(2, T, C, device="cuda", generator=g)
+    x = torch.randn(B, T, C, device="cuda", generator=g)
     w7 = torch.randn(C, C, 7, device="cuda", generator=g) / (7 * C) ** 0.5
     w1 = torch.randn(C, C, 1, device="cuda", generator=g) / C ** 0.5
     b7, b1 = (0.1 * torch.randn(C, device="cuda", generator=g) for _ in range(2))

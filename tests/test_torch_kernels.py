@@ -122,3 +122,47 @@ def test_vq_wrapper_rejects(fault):
     with pytest.raises(TypeError if fault == "dtype" else ValueError):
         vq.nearest_code(lat, cb)
     assert vq.nearest_code.launches == before
+
+
+def _tf32_rna(a: torch.Tensor) -> torch.Tensor:
+    """a rounded to TF32 (10 mantissa bits), ties away from zero, as
+    `cvt.rna.tf32.f32` rounds it."""
+    bits = a.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_3xtf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as csrc/resunit.cu takes it: hi = tf32(x), lo = x - hi, each
+    k-step of 8 sums lo*hi' + hi*lo' + hi*hi' (TF32 products are exact in
+    float32) into a fresh float32 sum, which is then added to the running one."""
+    ah = _tf32_rna(a)
+    bh = _tf32_rna(b)
+    al, bl = a - ah, b - bh
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        acc = acc + (al[:, s] @ bh[s] + ah[:, s] @ bl[s] + ah[:, s] @ bh[s])
+    return acc
+
+
+@pytest.mark.parametrize("C", [64, 256, 768])
+def test_3xtf32_sum_keeps_float32_error(C):
+    """The conv7's reduction (K = 7 * C) in 3xTF32 stays within 4x the error
+    of a float32 product against float64; one TF32 product does not."""
+    rng = np.random.default_rng(C)
+    K = 7 * C
+    a = torch.from_numpy(rng.standard_normal((64, K)).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal((K, 64)) / np.sqrt(K)).astype(np.float32))
+    exact = a.double() @ b.double()
+    err_f32 = ((a @ b).double() - exact).abs().max().item()
+    err_3x = (_split_3xtf32_matmul(a, b).double() - exact).abs().max().item()
+    err_tf32 = ((_tf32_rna(a) @ _tf32_rna(b)).double() - exact).abs().max().item()
+    assert err_3x <= 4 * err_f32, (err_3x, err_f32)
+    assert err_tf32 >= 50 * err_f32, (err_tf32, err_f32)
+
+
+def test_tf32_rna_rounds_ties_away():
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0],
+                     dtype=torch.float32)
+    want = torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, 3.0])
+    assert torch.equal(_tf32_rna(x), want)
