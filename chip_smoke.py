@@ -9,15 +9,19 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Kernels against their plain PyTorch versions on the card, at the shapes
    of the flagship codec's main path, batch 4 x 10 s: the fused residual
    unit on the very inputs each of its 24 units receives in one reconstruct
-   (captured with forward pre-hooks), and the VQ search at M = 4 * 800 rows
-   against the 1024 x 8 codebook, plus a codebook with duplicated rows.
-   Times are medians of CUDA-event timings. For each residual-unit shape:
-   FLOP, the bound on float32 CUDA cores and on the kernel's 3xTF32 tensor
-   cores, TFLOP/s reached, and the error of kernel and plain version against
-   a float64 evaluation of the plain version.
+   (captured with forward pre-hooks), and the VQ search on the 6 latents its
+   quantizers give it in one encode (forward hooks on each in_proj, M =
+   4 * 800 rows against a 1024 x 8 codebook), plus random latents and a
+   codebook with duplicated rows. Times are medians of CUDA-event timings;
+   the VQ search's device time per call is that of 200 calls replayed in
+   one CUDA graph, its wrapper time that of one call. For each residual-unit
+   shape: FLOP, the bound on float32 CUDA cores and on the kernel's 3xTF32
+   tensor cores, TFLOP/s reached, and the error of kernel and plain version
+   against a float64 evaluation of the plain version.
 3. The slice at full width: the flagship FACodec with seeded random weights
    encodes, decodes and reconstructs the same batch of 4 x 10 s waves; the
-   kernels' launch counts show that the path went through them.
+   kernels' launch counts show that the path went through them. The JSON's
+   `launches` are those of the encode -> decode round trip.
 4. The card against the CPU: the same weights at batch 1 x 2 s through the
    port on the CPU (plain versions) and on the card (kernels).
 
@@ -39,6 +43,7 @@ import torch
 from facodec_tpu_torch.api import FACodec, float32_exact
 from facodec_tpu_torch.config import FLAGSHIP
 from facodec_tpu_torch.models.dac import ResidualUnit
+from facodec_tpu_torch.models.quantize import VectorQuantize
 from facodec_tpu_torch.ops import vq_math
 from facodec_tpu_torch.ops.kernels import build, resunit, vq
 from facodec_tpu_torch.utils.signals import sweep_wave
@@ -57,6 +62,7 @@ VQ_TIE_SHARE = 1e-3
 CODE_MATCH_MIN = 0.99
 DECODE_MAX_DIFF = 1e-3
 REPEATS = 10
+GRAPH_LAUNCHES = 200  # calls per CUDA graph for a device time per call
 RESUNIT_MAX_ERR = 1e-5  # the kernel's float32 sums against the plain version's
 # Published peaks of one H100 SXM (dense): the roofline of each kernel.
 FP32_FLOPS = 67e12
@@ -193,15 +199,77 @@ def _vq_check(lat: torch.Tensor, cb: torch.Tensor, label: str) -> tuple:
     return idx, n_diff, err
 
 
-def phase_vq(codec: FACodec) -> dict:
+def device_ms(fn, launches: int = GRAPH_LAUNCHES) -> float:
+    """Device time per call of fn: `launches` calls captured in one CUDA graph,
+    the graph replayed between two events, over the count (median of
+    REPEATS replays). The graph takes the host out of the timing."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return median_ms(graph.replay) / launches
+
+
+def vq_inputs(codec: FACodec, w: np.ndarray) -> list:
+    """(name, codebook, latents (M, 8)) for every nearest_code call in one
+    encode of w, in call order (forward hooks on each quantizer's in_proj,
+    whose output is what the search receives)."""
+    calls = []
+    hooks = [vqm.in_proj.register_forward_hook(
+        lambda mod, args, out, name=name, vqm=vqm: calls.append(
+            (name, vqm.codebook.weight.detach(), out.detach().reshape(-1, out.shape[-1]))))
+        for name, vqm in codec.quantizer.named_modules() if isinstance(vqm, VectorQuantize)]
+    codec.encode(w)
+    for h in hooks:
+        h.remove()
+    return calls
+
+
+def vq_cost(M: int, K: int, D: int) -> tuple:
+    """(FLOP, bytes) of one search: e.c for every pair and the two norms;
+    latents and codebook read once, rows and indices written once."""
+    return 2 * M * K * D + 2 * (M + K) * D, 4 * (2 * M * D + K * D + M)
+
+
+def phase_vq(codec: FACodec, w: np.ndarray) -> dict:
     log(f"phase 2b: nearest_code vs plain, first-index ties, gap < {VQ_TIE_GAP} allowed "
-        f"in <= {VQ_TIE_SHARE:.1%} of rows")
+        f"in <= {VQ_TIE_SHARE:.1%} of rows; device time = {GRAPH_LAUNCHES} calls in one CUDA "
+        f"graph / {GRAPH_LAUNCHES}, wrapper time = one call between two events (median of "
+        f"{REPEATS}); bound at {FP32_FLOPS / 1e12:.0f} TFLOP/s float32 (CUDA cores)")
+    calls = vq_inputs(codec, w)
+    if len(calls) != 6:
+        raise AssertionError(f"one encode called nearest_code {len(calls)} times, expected 6")
     gen = torch.Generator(device="cuda").manual_seed(2)
     cb = codec.quantizer.content_quantizer.quantizers[0].codebook.weight.detach().contiguous()
     M = BATCH * int(SECONDS * SR / 300)
     lat = torch.randn(M, cb.shape[1], device="cuda", generator=gen)
+    worst = 0.0
+    tot = dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, plain_wrapper_ms=0.0, flops=0, bound_ms=0.0)
     with torch.no_grad(), float32_exact():
+        for name, book, x in calls:
+            _, _, err = _vq_check(x, book, name)
+            worst = max(worst, err)
+            tk = device_ms(lambda: vq.nearest_code(x, book))
+            tw = median_ms(lambda: vq.nearest_code(x, book))
+            tp = device_ms(lambda: vq_math.nearest_code(x, book))
+            tpw = median_ms(lambda: vq_math.nearest_code(x, book))
+            flop, nbytes = vq_cost(x.shape[0], *book.shape)
+            b = bound_ms(flop, nbytes, FP32_FLOPS)
+            for k, v in (("ms", tk), ("wrapper_ms", tw), ("plain_ms", tp),
+                         ("plain_wrapper_ms", tpw), ("flops", flop), ("bound_ms", b)):
+                tot[k] += v
+            log(f"    M={x.shape[0]} N={book.shape[0]}: FLOP {flop:.4e} bytes {nbytes} bound "
+                f"{b * 1e3:.3f} us; kernel device {tk * 1e3:.2f} us ({b / tk:.2%} of the bound), "
+                f"wrapper {tw * 1e3:.2f} us; plain device {tp * 1e3:.2f} us, one call "
+                f"{tpw * 1e3:.2f} us")
+        n = len(calls)
+        log(f"  mean of the {n} main-path calls: kernel device {tot['ms'] / n * 1e3:.2f} us "
+            f"({tot['bound_ms'] / tot['ms']:.2%} of the bound), wrapper "
+            f"{tot['wrapper_ms'] / n * 1e3:.2f} us; plain device {tot['plain_ms'] / n * 1e3:.2f} us")
         _, _, err = _vq_check(lat, cb, "random latents")
+        worst = max(worst, err)
         dup = cb.clone()
         dup[700], dup[901] = dup[10], dup[3]
         lat_dup = lat.clone()
@@ -210,15 +278,8 @@ def phase_vq(codec: FACodec) -> dict:
         idx, _, _ = _vq_check(lat_dup, dup, "duplicated codebook rows")
         if not (bool((idx[: M // 2] == 10).all()) and bool((idx[M // 2:] == 3).all())):
             raise AssertionError("VQ: duplicated rows did not resolve to the first index")
-        tk = median_ms(lambda: vq.nearest_code(lat, cb))
-        tp = median_ms(lambda: vq_math.nearest_code(lat, cb))
-    K, D = cb.shape
-    flop = 2 * M * K * D + 2 * (M + K) * D  # e.c for every pair, and the two norms
-    nbytes = 4 * (2 * M * D + K * D + M)  # latents, codebook in; rows, indices out
-    b = bound_ms(flop, nbytes, FP32_FLOPS)
-    log(f"  M={M}: FLOP {flop:.4e} bytes {nbytes} bound {b * 1e3:.3f} us (fp32 CUDA cores); "
-        f"kernel {tk:.3f} ms ({b / tk:.2%} of the bound) plain {tp:.3f} ms")
-    return dict(max_abs_err=err, ms=tk, plain_ms=tp, flops=flop, bound_ms=b)
+    # per launch: the means over the main path's calls
+    return dict(max_abs_err=worst, **{k: v / n for k, v in tot.items()})
 
 
 def phase_slice(codec: FACodec, w: np.ndarray) -> dict:
@@ -259,7 +320,7 @@ def phase_slice(codec: FACodec, w: np.ndarray) -> dict:
     if r.shape != y.shape or not np.isfinite(r).all():
         raise AssertionError(f"reconstructed wave {r.shape} is not finite (4, 240000)")
     log(f"  wave rms in {float(np.sqrt(np.mean(w ** 2))):.4f} out {float(np.sqrt(np.mean(y ** 2))):.4f}")
-    return dict(resunit=total[0], vq=total[1], roundtrip_s=rt, reconstruct_s=rt_rec)
+    return dict(resunit=counts[0], vq=counts[1], roundtrip_s=rt, reconstruct_s=rt_rec)
 
 
 def phase_cpu(codec: FACodec) -> None:
@@ -303,7 +364,7 @@ def main() -> None:
 
     w = sweep_wave(BATCH, SECONDS)
     ru = phase_resunit(codec, w)
-    vqr = phase_vq(codec)
+    vqr = phase_vq(codec, w)
     main_path = phase_slice(codec, w)
     phase_cpu(codec)
 

@@ -4,11 +4,21 @@ Port of facodec_tpu/ops/pallas/vq.py `nearest_code_pallas`. `nearest_code`
 runs `ops.vq_math.nearest_code` for tensors on the CPU; for CUDA tensors it
 launches csrc/vq.cu or raises. Returns (indices int32, the gathered
 un-normalised codebook rows). Forward only: the slice serves.
+
+One call launches two kernels on the current stream. The first normalises
+the codebook once into a scratch that this wrapper allocates: two float4
+planes of the normalised rows and their squared norms, padded to a multiple
+of 64 codes. The second, a programmatic dependent launch, scores 32 latent
+rows per block of 8 warps; each warp stages its own 128-code span of every
+1024-code chunk into shared memory and splits it over 8 code-lanes x 4
+row-lanes, 8 rows a lane. The launch count goes up by one per call, not per
+kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -17,6 +27,20 @@ from facodec_tpu_torch.ops import vq_math
 from facodec_tpu_torch.ops.kernels import build
 
 CODE_DIM = 8  # codebook_dim of every FAcodec quantizer; the kernel's row width
+
+
+@functools.lru_cache(maxsize=None)
+def _entry_points():
+    """(search, scratch size) from csrc/vq.cu, typed once per process."""
+    lib = build.library("vq")
+    size = lib.facodec_vq_scratch_floats
+    size.argtypes = [ctypes.c_int]
+    size.restype = ctypes.c_longlong
+    fn = lib.facodec_vq_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn, size
 
 
 def nearest_code(
@@ -48,14 +72,12 @@ def nearest_code(
     if M == 0:
         return idx, zq
 
-    fn = build.library("vq").facodec_vq_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn, size = _entry_points()
     with torch.cuda.device(encodings.device):
+        scratch = torch.empty(size(N), dtype=torch.float32, device=encodings.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(encodings.data_ptr(), codebook.data_ptr(), M, N, idx.data_ptr(),
-                 zq.data_ptr(), stream)
+                 zq.data_ptr(), scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"nearest_code: kernel launch failed, cudaError {err}")
     nearest_code.launches += 1

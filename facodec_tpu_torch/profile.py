@@ -26,7 +26,7 @@ from facodec_tpu_torch.utils.signals import sweep_wave
 # (kind, substrings of the kernel name), first match wins
 KINDS = (
     ("residual-unit kernel", ("resunit_kernel",)),
-    ("VQ kernel", ("vq_kernel",)),
+    ("VQ kernel", ("vq_norm_kernel", "vq_search_kernel")),
     ("cuDNN LSTM", ("LSTM", "lstm", "gemmSN", "RNN", "rnn")),
     ("copies", ("copy", "Copy", "memcpy", "Memcpy")),
     ("reflect pads", ("reflection_pad", "ReflectionPad")),
