@@ -24,6 +24,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    `launches` are those of the encode -> decode round trip.
 4. The card against the CPU: the same weights at batch 1 x 2 s through the
    port on the CPU (plain versions) and on the card (kernels).
+5. Zero-shot voice conversion at full width: `convert_voice` with the
+   phase-3 codec's modules at n_c = 1 and the published redecoder
+   (`FLAGSHIP_REDECODER`, seeded random weights: embed 512, WN 16, decoder
+   1536, non-causal, LSTM 2), source and target batches of 4 x 10 s. The
+   launch counts show that it ran 36 residual units (12 encoder units on the
+   source, 12 on the target, 12 non-causal decoder units) and 10 VQ searches.
+   5a holds the residual-unit kernel to its plain version on the inputs of
+   the 12 non-causal decoder units of one resynthesis, as phase 2a does.
+6. Voice conversion card against CPU: the same source codes and target
+   timbre through a CPU redecoder and a card redecoder of one seed, batch
+   1 x 2 s. 6a: a `.fac` file on the card: encode -> bytes -> decode equals
+   the decode of the file in memory, and every non-empty stream subset
+   decodes with 12 residual-unit launches and no VQ search.
 
 The line before the last is the kernels' JSON summary; the last line is the
 run's JSON result.
@@ -40,8 +53,9 @@ import time
 import numpy as np
 import torch
 
-from facodec_tpu_torch.api import FACodec, float32_exact
-from facodec_tpu_torch.config import FLAGSHIP
+from facodec_tpu_torch.api import FACodec, FARedecoder, convert_voice, float32_exact
+from facodec_tpu_torch.codec_file import FACodecFile
+from facodec_tpu_torch.config import FLAGSHIP, FLAGSHIP_REDECODER
 from facodec_tpu_torch.models.dac import ResidualUnit
 from facodec_tpu_torch.models.quantize import VectorQuantize
 from facodec_tpu_torch.ops import vq_math
@@ -87,16 +101,26 @@ def median_ms(fn, repeats: int = REPEATS) -> float:
     return statistics.median(times)
 
 
-def unit_inputs(codec: FACodec, w: np.ndarray) -> list:
-    """(unit, x) for every ResidualUnit call in one reconstruct of w."""
+def unit_inputs(parts, run, expected: int) -> list:
+    """(unit, x) for every ResidualUnit call of `parts` while `run()` runs."""
     calls = []
     hooks = [m.register_forward_pre_hook(lambda mod, args: calls.append((mod, args[0])))
-             for part in (codec.encoder, codec.decoder) for m in part.modules()
-             if isinstance(m, ResidualUnit)]
-    codec.reconstruct(w)
+             for part in parts for m in part.modules() if isinstance(m, ResidualUnit)]
+    run()
     for h in hooks:
         h.remove()
+    if len(calls) != expected:
+        raise AssertionError(f"{len(calls)} residual-unit calls, expected {expected}")
     return calls
+
+
+def reset_counts() -> None:
+    resunit.fused_residual_unit.launches = 0
+    vq.nearest_code.launches = 0
+
+
+def counts() -> tuple:
+    return resunit.fused_residual_unit.launches, vq.nearest_code.launches
 
 
 def phase_device() -> str:
@@ -129,14 +153,11 @@ def bound_ms(flop: float, nbytes: float, peak_flops: float) -> float:
     return 1e3 * max(flop / peak_flops, nbytes / HBM_BYTES_S)
 
 
-def phase_resunit(codec: FACodec, w: np.ndarray) -> dict:
-    log(f"phase 2a: fused_residual_unit vs plain on the main path's inputs "
-        f"(one reconstruct, batch {BATCH} x {SECONDS:.0f} s), rtol=atol={RESUNIT_TOL}, "
-        f"max_abs_err <= {RESUNIT_MAX_ERR}; bounds at {FP32_FLOPS / 1e12:.0f} TFLOP/s float32 "
-        f"(CUDA cores) and 3 x FLOP at {TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 (3xTF32 route)")
-    calls = unit_inputs(codec, w)
-    if len(calls) != 24:
-        raise AssertionError(f"one reconstruct called {len(calls)} residual units, expected 24")
+def phase_resunit(title: str, calls: list) -> dict:
+    """Each captured unit input through the kernel and the plain version."""
+    log(f"{title}, rtol=atol={RESUNIT_TOL}, max_abs_err <= {RESUNIT_MAX_ERR}; bounds at "
+        f"{FP32_FLOPS / 1e12:.0f} TFLOP/s float32 (CUDA cores) and 3 x FLOP at "
+        f"{TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 (3xTF32 route)")
     worst = 0.0
     tot = dict(ms=0.0, plain_ms=0.0, flops=0, bound_ms=0.0, bound_fp32_ms=0.0)
     for unit, x in calls:
@@ -167,11 +188,12 @@ def phase_resunit(codec: FACodec, w: np.ndarray) -> dict:
         for k, v in (("ms", tk), ("plain_ms", tp), ("flops", flop), ("bound_ms", b3),
                      ("bound_fp32_ms", b1)):
             tot[k] += v
-        log(f"  B={B} C={C:4d} T={T:6d} d={unit.dilation}: max|x| {x.abs().max().item():.3e} "
+        log(f"  B={B} C={C:4d} T={T:6d} d={unit.dilation} {'causal' if unit.causal else 'noncausal'}: "
+            f"max|x| {x.abs().max().item():.3e} "
             f"FLOP {flop:.4e} bound {b1:.3f} ms fp32 / {b3:.3f} ms 3xtf32; "
             f"kernel {tk:.3f} ms ({flop / tk / 1e9:.1f} TFLOP/s) plain {tp:.3f} ms; "
             f"max_abs_err vs plain {err:.3e}, vs float64: kernel {err64:.3e} plain {plain64:.3e}")
-    log(f"  24 units: kernel {tot['ms']:.3f} ms plain {tot['plain_ms']:.3f} ms; bound "
+    log(f"  {len(calls)} units: kernel {tot['ms']:.3f} ms plain {tot['plain_ms']:.3f} ms; bound "
         f"{tot['bound_fp32_ms']:.3f} ms fp32 ({tot['bound_fp32_ms'] / tot['ms']:.1%} of it reached) "
         f"/ {tot['bound_ms']:.3f} ms 3xtf32 ({tot['bound_ms'] / tot['ms']:.1%})")
     return dict(max_abs_err=worst, **tot)
@@ -288,18 +310,17 @@ def phase_slice(codec: FACodec, w: np.ndarray) -> dict:
     log(f"phase 3: flagship round trip, batch {B} x {SECONDS:.0f} s, float32")
     frames = int(SECONDS * SR / 300)
 
-    resunit.fused_residual_unit.launches = 0
-    vq.nearest_code.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     codes = codec.encode(w)
     y = codec.decode(codes)
     torch.cuda.synchronize()
     rt = time.perf_counter() - t0
-    counts = (resunit.fused_residual_unit.launches, vq.nearest_code.launches)
+    rt_counts = counts()
     log(f"  encode -> decode: {rt:.3f} s, {B * SECONDS / rt:.1f}x realtime; "
-        f"launches resunit {counts[0]} vq {counts[1]}")
-    if counts != (24, 6):
-        raise AssertionError(f"encode -> decode launched {counts}, expected (24, 6)")
+        f"launches resunit {rt_counts[0]} vq {rt_counts[1]}")
+    if rt_counts != (24, 6):
+        raise AssertionError(f"encode -> decode launched {rt_counts}, expected (24, 6)")
     shapes = (codes.codes_p.shape, codes.codes_c.shape, codes.codes_r.shape, codes.timbre.shape)
     want = ((B, 1, frames), (B, 2, frames), (B, 3, frames), (B, 1024))
     if shapes != want:
@@ -311,16 +332,16 @@ def phase_slice(codec: FACodec, w: np.ndarray) -> dict:
     r = codec.reconstruct(w)
     torch.cuda.synchronize()
     rt_rec = time.perf_counter() - t0
-    total = (resunit.fused_residual_unit.launches, vq.nearest_code.launches)
+    total = counts()
     log(f"  reconstruct: {rt_rec:.3f} s, {B * SECONDS / rt_rec:.1f}x realtime; "
-        f"launches resunit {total[0] - counts[0]} vq {total[1] - counts[1]}")
+        f"launches resunit {total[0] - rt_counts[0]} vq {total[1] - rt_counts[1]}")
     if total != (48, 12):
         raise AssertionError(f"reconstruct launched {(total[0] - 24, total[1] - 6)}, "
                              f"expected (24, 6)")
     if r.shape != y.shape or not np.isfinite(r).all():
         raise AssertionError(f"reconstructed wave {r.shape} is not finite (4, 240000)")
     log(f"  wave rms in {float(np.sqrt(np.mean(w ** 2))):.4f} out {float(np.sqrt(np.mean(y ** 2))):.4f}")
-    return dict(resunit=counts[0], vq=counts[1], roundtrip_s=rt, reconstruct_s=rt_rec)
+    return dict(resunit=rt_counts[0], vq=rt_counts[1], roundtrip_s=rt, reconstruct_s=rt_rec)
 
 
 def phase_cpu(codec: FACodec) -> None:
@@ -346,6 +367,86 @@ def phase_cpu(codec: FACodec) -> None:
         raise AssertionError(f"decode difference {diff} > {DECODE_MAX_DIFF}")
 
 
+def phase_vc(codec_vc: FACodec, red: FARedecoder, w: np.ndarray, target: np.ndarray,
+             smi: str) -> tuple:
+    """Two counted convert_voice runs, the second one warm, then its parts
+    timed one by one. Returns the launch counts, the codes and the timbre."""
+    B = w.shape[0]
+    log(f"phase 5: convert_voice, FLAGSHIP_REDECODER, source and target batch {B} x "
+        f"{SECONDS:.0f} s, float32 ({smi})")
+    for run in ("first", "second"):
+        reset_counts()
+        t0 = time.perf_counter()
+        y = convert_voice(codec_vc, red, w, target)
+        torch.cuda.synchronize()
+        rt = time.perf_counter() - t0
+        vc_counts = counts()
+        log(f"  {run} call: {rt:.3f} s, {B * SECONDS / rt:.1f}x realtime; "
+            f"launches resunit {vc_counts[0]} vq {vc_counts[1]}")
+        if vc_counts != (36, 10):
+            raise AssertionError(f"convert_voice launched {vc_counts}, expected (36, 10)")
+        if y.shape != (B, int(SR * SECONDS)) or not np.isfinite(y).all():
+            raise AssertionError(f"converted wave {y.shape} is not a finite (4, 240000) wave")
+    log(f"  wave rms source {float(np.sqrt(np.mean(w ** 2))):.4f} "
+        f"out {float(np.sqrt(np.mean(y ** 2))):.4f}")
+    parts = []
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts.append(f"{name} {time.perf_counter() - t0:.3f} s")
+        return out
+
+    codes = timed("encode source", lambda: codec_vc.encode(w))
+    timbre = timed("timbre_of target", lambda: codec_vc.timbre_of(target))
+    timed("resynthesize", lambda: red.resynthesize(codes, timbre))
+    log(f"  its parts, one call each: {', '.join(parts)}")
+    return vc_counts, codes, timbre
+
+
+def phase_vc_cpu(codec_vc: FACodec, red: FARedecoder) -> None:
+    log("phase 6: voice conversion card against CPU, FLAGSHIP_REDECODER seed 1, batch 1 x 2 s, "
+        "the same source codes and target timbre")
+    cpu = FARedecoder.from_fields(FLAGSHIP_REDECODER, seed=1, device="cpu")
+    codes = codec_vc.encode(sweep_wave(1, 2.0, seed=6))
+    timbre = codec_vc.timbre_of(sweep_wave(1, 2.0, seed=7))
+    t0 = time.perf_counter()
+    y_cpu = cpu.resynthesize(codes, timbre)
+    y_gpu = red.resynthesize(codes, timbre)
+    diff = float(np.abs(y_cpu - y_gpu).max())
+    log(f"  max abs wave difference {diff:.3e} ({time.perf_counter() - t0:.1f} s)")
+    if not diff <= DECODE_MAX_DIFF:
+        raise AssertionError(f"VC card vs CPU difference {diff} > {DECODE_MAX_DIFF}")
+
+
+def phase_fac(codec: FACodec, w: np.ndarray) -> None:
+    log(f"phase 6a: .fac on the card, batch {w.shape[0]} x {SECONDS:.0f} s")
+    f = codec.encode(w)
+    blob = f.to_bytes()
+    g = FACodecFile.from_bytes(blob)
+    for name in ("codes_p", "codes_c", "codes_r", "timbre"):
+        if not np.array_equal(getattr(f, name), getattr(g, name)):
+            raise AssertionError(f".fac round trip changed {name}")
+    y, y_file = codec.decode(f), codec.decode(g)
+    if not np.array_equal(y, y_file):
+        raise AssertionError(f"decode of the read-back file differs by "
+                             f"{float(np.abs(y - y_file).max())}")
+    log(f"  {len(blob)} bytes; decode of the read-back file equals the in-memory decode")
+    for subset in [(p, c, r) for p in (True, False) for c in (True, False)
+                   for r in (True, False) if p or c or r]:
+        reset_counts()
+        y = codec.decode_subset(f, *subset)
+        n = counts()
+        name = "".join(s for s, on in zip("pcr", subset) if on)
+        log(f"  subset {name:3s}: launches resunit {n[0]} vq {n[1]}, rms "
+            f"{float(np.sqrt(np.mean(y ** 2))):.4f}")
+        if n != (12, 0):
+            raise AssertionError(f"decode_subset {name} launched {n}, expected (12, 0)")
+        if y.shape != w.shape or not np.isfinite(y).all():
+            raise AssertionError(f"decode_subset {name}: wave {y.shape} is not finite")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -363,19 +464,38 @@ def main() -> None:
     log(f"flagship codec: {n_params} parameters, seed 0, built in {time.perf_counter() - t0:.1f} s")
 
     w = sweep_wave(BATCH, SECONDS)
-    ru = phase_resunit(codec, w)
+    ru = phase_resunit(
+        f"phase 2a: fused_residual_unit vs plain on the main path's inputs (one reconstruct, "
+        f"batch {BATCH} x {SECONDS:.0f} s)",
+        unit_inputs((codec.encoder, codec.decoder), lambda: codec.reconstruct(w), 24))
     vqr = phase_vq(codec, w)
     main_path = phase_slice(codec, w)
     phase_cpu(codec)
+
+    t0 = time.perf_counter()
+    red = FARedecoder.from_fields(FLAGSHIP_REDECODER, seed=1, device="cuda")
+    n_params = sum(p.numel() for m in (red.encoder, red.decoder) for p in m.parameters())
+    log(f"flagship redecoder: {n_params} parameters, seed 1, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    codec_vc = FACodec(codec.encoder, codec.quantizer, codec.decoder, n_c=1)
+    target = sweep_wave(BATCH, SECONDS, seed=1)
+    vc_counts, codes, timbre = phase_vc(codec_vc, red, w, target, smi)
+    ru_vc = phase_resunit(
+        f"phase 5a: fused_residual_unit vs plain on the 12 non-causal decoder units of one "
+        f"resynthesis (batch {BATCH} x {SECONDS:.0f} s)",
+        unit_inputs((red.decoder,), lambda: red.resynthesize(codes, timbre), 12))
+    ru["max_abs_err"] = max(ru["max_abs_err"], ru_vc["max_abs_err"])
+    phase_vc_cpu(codec_vc, red)
+    phase_fac(codec, w)
 
     # no single PyTorch call computes either function: library_ms is null
     kernels = [
         dict(name="fused_residual_unit", route="cuda", source="facodec_tpu_torch/csrc/resunit.cu",
              replaces="facodec_tpu/ops/pallas/resunit.py:273", launches=main_path["resunit"],
-             bound_by="operations", library_ms=None, **ru),
+             vc_launches=vc_counts[0], bound_by="operations", library_ms=None, **ru),
         dict(name="nearest_code", route="cuda", source="facodec_tpu_torch/csrc/vq.cu",
              replaces="facodec_tpu/ops/pallas/vq.py:76", launches=main_path["vq"],
-             bound_by="operations", library_ms=None, **vqr),
+             vc_launches=vc_counts[1], bound_by="operations", library_ms=None, **vqr),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

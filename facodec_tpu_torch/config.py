@@ -3,6 +3,21 @@
 `FLAGSHIP` is the released FAcodec configuration, copied from the JAX
 package's driver entry (`__graft_entry__.py` FLAGSHIP): the module fields of
 the encoder, the factorized quantizer and the decoder at published widths.
+
+`FLAGSHIP_REDECODER` is the released voice-conversion redecoder at published
+widths, under the module names of the redecoder stage (`encoder` is the
+Redecoder). The reference's `configs/config_redecoder.yml` is not in this
+repository, so each field names its source:
+- Redecoder: 1 prosody and 2 content code embeddings of 1024 x 512, a
+  16-layer WN of width 512 conditioned on the 1024-d timbre, a 1x1 conv out
+  to the 1024-d latent (SURVEY.md, Redecoder row; the defaults of
+  facodec_tpu/models/redecoder.py `Redecoder` and the JAX builder's
+  redecoder stage, which sets gin_channels = out_dim = latent_dim).
+- Decoder: the codec decoder's widths and rates (the builder reads the same
+  `DAC` block for both stages), non-causal, as the released redecoder is
+  trained with `decoder_causal: False` (README.md, streaming section), and
+  two LSTM layers, as the repository's own analogue of that config has
+  (`scripts/train_redecoder_demo.py` REDECODER_KEYS, `decoder_lstm: 2`).
 """
 
 FLAGSHIP = dict(
@@ -14,4 +29,10 @@ FLAGSHIP = dict(
         timbre_norm=True,
     ),
     decoder=dict(input_channel=1024, channels=1536, rates=(6, 5, 5, 2), causal=True, lstm=2),
+)
+
+FLAGSHIP_REDECODER = dict(
+    encoder=dict(n_p_codebooks=1, n_c_codebooks=2, codebook_size=1024, embed_dim=512,
+                 n_layers=16, causal=False, gin_channels=1024, out_dim=1024),
+    decoder=dict(input_channel=1024, channels=1536, rates=(6, 5, 5, 2), causal=False, lstm=2),
 )

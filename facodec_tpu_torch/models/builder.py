@@ -1,10 +1,14 @@
-"""Model factory for the codec stage (port of facodec_tpu/models/builder.py).
+"""Model factory for the codec and redecoder stages (port of
+facodec_tpu/models/builder.py).
 
-`build_codec(model_params)` takes the `model_params` mapping of the
-reference config.yml schema, including the optional scale-down keys the JAX
-builder reads (latent_dim, codebook_size, style_hidden_dim,
-prosody_hidden_dim). `build_from_fields` takes the module fields directly,
-as `config.FLAGSHIP` holds them.
+`codec_fields(model_params)` and `redecoder_fields(model_params)` read the
+`model_params` mapping of the reference config.yml schema, including the
+optional scale-down keys the JAX builder reads (latent_dim, codebook_size,
+style_hidden_dim, prosody_hidden_dim), into the fields of each module.
+`build_from_fields` and `build_redecoder_from_fields` take those fields
+directly, as `config.FLAGSHIP` and `config.FLAGSHIP_REDECODER` hold them.
+The redecoder stage's modules are named as in the JAX builder and in its
+checkpoints: `encoder` (the Redecoder) and `decoder`.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import torch.nn as nn
 
 from facodec_tpu_torch.models.dac import Decoder, Encoder
 from facodec_tpu_torch.models.fa_quantizer import FAquantizer
+from facodec_tpu_torch.models.redecoder import Redecoder
 
 
 def codec_fields(model_params: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
@@ -50,3 +55,29 @@ def build_from_fields(fields: Mapping[str, Mapping[str, Any]]) -> Dict[str, nn.M
 
 def build_codec(model_params: Mapping[str, Any]) -> Dict[str, nn.Module]:
     return build_from_fields(codec_fields(model_params))
+
+
+def redecoder_fields(model_params: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """Reference-schema `model_params` -> the fields of the redecoder stage."""
+    mp = model_params
+    dac = mp["DAC"]
+    D = mp.get("latent_dim", 1024)
+    return dict(
+        encoder=dict(n_p_codebooks=mp["n_p_codebooks"], n_c_codebooks=mp["n_c_codebooks"],
+                     codebook_size=mp.get("codebook_size", 1024),
+                     embed_dim=mp["wavenet_embed_dim"], n_layers=16,
+                     causal=mp["decoder_causal"], gin_channels=D, out_dim=D),
+        decoder=dict(input_channel=D, channels=dac["decoder_dim"],
+                     rates=tuple(dac["decoder_rates"]), causal=mp["decoder_causal"],
+                     lstm=mp["decoder_lstm"]),
+    )
+
+
+def build_redecoder_from_fields(fields: Mapping[str, Mapping[str, Any]]
+                                ) -> Dict[str, nn.Module]:
+    """{encoder (the Redecoder), decoder} modules, parameters uninitialised."""
+    return dict(encoder=Redecoder(**fields["encoder"]), decoder=Decoder(**fields["decoder"]))
+
+
+def build_redecoder(model_params: Mapping[str, Any]) -> Dict[str, nn.Module]:
+    return build_redecoder_from_fields(redecoder_fields(model_params))

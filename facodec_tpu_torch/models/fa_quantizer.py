@@ -2,7 +2,8 @@
 
 Port of facodec_tpu/models/fa_quantizer.py `FAquantizer` for serving:
 `preprocess`, `_prosody_features`, `forward_v2` (eval, with codes),
-`_timbre_condition` and `decode_from_codes_v2`. The legacy 4-stream
+`_timbre_condition` and `decode_streams_v2` (any non-empty subset of the
+streams; all three is JAX's `decode_from_codes_v2`). The legacy 4-stream
 `forward_v1`, training-mode masking and the predictor heads are not ported.
 Layout: latents (B, T, C), waves (B, Tw), mels (B, Tf, n_mels).
 """
@@ -39,6 +40,7 @@ class FAquantizer(nn.Module):
             raise NotImplementedError(
                 "only the timbre_norm model with a separate prosody encoder is ported")
         self.hop_length = hop_length
+        self.codebook_size = codebook_size
 
         def rvq(n):
             return ResidualVectorQuantize(in_dim, n, codebook_size, codebook_dim)
@@ -87,13 +89,22 @@ class FAquantizer(nn.Module):
         outs = self._timbre_condition(z_p + z_c + z_r, timbre)
         return outs, [codes_p, codes_c, codes_r], timbre
 
-    def decode_from_codes_v2(self, codes_p: torch.Tensor, codes_c: torch.Tensor,
-                             codes_r: Optional[torch.Tensor], timbre: torch.Tensor
-                             ) -> torch.Tensor:
-        """(B, n, T) code streams + timbre -> decoder-ready latent;
-        codes_r=None drops the residual stream."""
-        outs = self.prosody_quantizer.from_codes(codes_p)
-        outs = outs + self.content_quantizer.from_codes(codes_c)
-        if codes_r is not None:
-            outs = outs + self.residual_quantizer.from_codes(codes_r)
+    def decode_streams_v2(self, codes_p: torch.Tensor, codes_c: torch.Tensor,
+                          codes_r: Optional[torch.Tensor], timbre: torch.Tensor,
+                          use_p: bool = True, use_c: bool = True, use_r: bool = True
+                          ) -> torch.Tensor:
+        """(B, n, T) code streams + timbre -> decoder-ready latent from the
+        selected streams; codes_r=None drops the residual stream."""
+        parts = []
+        if use_p:
+            parts.append(self.prosody_quantizer.from_codes(codes_p))
+        if use_c:
+            parts.append(self.content_quantizer.from_codes(codes_c))
+        if use_r and codes_r is not None:
+            parts.append(self.residual_quantizer.from_codes(codes_r))
+        if not parts:
+            raise ValueError("decode_streams_v2: at least one stream must be selected")
+        outs = parts[0]
+        for p in parts[1:]:
+            outs = outs + p
         return self._timbre_condition(outs, timbre)

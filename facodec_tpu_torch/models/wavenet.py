@@ -1,9 +1,11 @@
-"""WaveNet stack with the gated tanh/sigmoid unit, eval mode, no global
-conditioning (port of facodec_tpu/models/wavenet.py `WN` with gin_channels=0).
-NTC layout. The codec's only caller passes an all-ones mask, a no-op that
-is left out here."""
+"""WaveNet stack with the gated tanh/sigmoid unit and optional global
+conditioning, eval mode (port of facodec_tpu/models/wavenet.py `WN`).
+NTC layout. Every caller passes an all-ones mask, a no-op that is left out
+here."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -13,13 +15,17 @@ from facodec_tpu_torch.nn.conv import SConv1d
 
 class WN(nn.Module):
     """n_layers of dilated conv -> gate -> 1x1 residual/skip split. The last
-    layer's res_skip conv has only the H skip channels."""
+    layer's res_skip conv has only the H skip channels. With gin_channels > 0
+    a weight-normed 1x1 `cond_layer` maps g (B, 1, gin) to 2H channels per
+    layer, added before each layer's gate."""
 
     def __init__(self, hidden_channels: int, kernel_size: int, dilation_rate: int,
-                 n_layers: int, causal: bool = False):
+                 n_layers: int, gin_channels: int = 0, causal: bool = False):
         super().__init__()
         H = self.hidden_channels = hidden_channels
         self.n_layers = n_layers
+        if gin_channels:
+            self.cond_layer = SConv1d(gin_channels, 2 * H * n_layers, 1)
         self.in_layers = nn.ModuleList([
             SConv1d(H, 2 * H, kernel_size, dilation=dilation_rate**i, causal=causal)
             for i in range(n_layers)
@@ -29,11 +35,16 @@ class WN(nn.Module):
             for i in range(n_layers)
         ])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, T, H); g (B, 1, gin) or None."""
         H = self.hidden_channels
         output = torch.zeros_like(x)
+        if g is not None:
+            g = self.cond_layer(g)
         for i in range(self.n_layers):
             x_in = self.in_layers[i](x)
+            if g is not None:
+                x_in = x_in + g[..., 2 * H * i : 2 * H * (i + 1)]
             acts = torch.tanh(x_in[..., :H]) * torch.sigmoid(x_in[..., H:])
             res_skip = self.res_skip_layers[i](acts)
             if i < self.n_layers - 1:

@@ -7,8 +7,12 @@ wrapper levels drop out, fixed DSP buffers map to None, and parametrized
 weight-norm keys become `weight_g`/`weight_v`.
 
 `load_jax_params` copies a JAX numpy parameter tree into a port module;
-`init_random_` gives a module seeded random weights from a torch.Generator,
-drawn as the JAX package's initialisers draw them.
+`load_torch_checkpoint` copies a torch-saved checkpoint file (one state dict
+per module, as the reference's `pytorch_model.bin`) into port modules, both
+by the same path rule and with the same checks. Orbax training checkpoints
+are the JAX trainer's format and are not read here. `init_random_` gives a
+module seeded random weights from a torch.Generator, drawn as the JAX
+package's initialisers draw them.
 """
 
 from __future__ import annotations
@@ -55,12 +59,11 @@ def flatten_tree(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> dict:
     return out
 
 
-def load_jax_params(module: nn.Module, params: Mapping[str, Any]) -> None:
-    """Copy a JAX parameter tree (numpy leaves) into `module` by key name.
-
-    Raises on a port key with no JAX parameter, on a JAX parameter no port
-    key reaches, and on a shape mismatch."""
-    flat = flatten_tree(params)
+def _copy_by_path(module: nn.Module, flat: Mapping[Tuple[str, ...], Any], caller: str,
+                  source: str) -> None:
+    """Copy {param path: array} into `module`, each port key through
+    `torch_key_to_path`. Raises on a port key with no source parameter, on a
+    source parameter no port key reaches, and on a shape mismatch."""
     state = module.state_dict()
     missing, shapes, used = [], [], set()
     for key, dst in state.items():
@@ -70,7 +73,7 @@ def load_jax_params(module: nn.Module, params: Mapping[str, Any]) -> None:
             continue
         src = np.asarray(flat[path])
         if tuple(src.shape) != tuple(dst.shape):
-            shapes.append(f"{key}: jax {tuple(src.shape)} vs port {tuple(dst.shape)}")
+            shapes.append(f"{key}: {source} {tuple(src.shape)} vs port {tuple(dst.shape)}")
             continue
         used.add(path)
         with torch.no_grad():
@@ -78,13 +81,45 @@ def load_jax_params(module: nn.Module, params: Mapping[str, Any]) -> None:
     left = sorted("/".join(p) for p in set(flat) - used)
     msgs = []
     if missing:
-        msgs.append(f"{len(missing)} port keys without a JAX parameter: {missing[:8]}")
+        msgs.append(f"{len(missing)} port keys without a {source} parameter: {missing[:8]}")
     if shapes:
         msgs.append(f"{len(shapes)} shape mismatches: {shapes[:8]}")
     if left:
-        msgs.append(f"{len(left)} JAX parameters left over: {left[:8]}")
+        msgs.append(f"{len(left)} {source} parameters left over: {left[:8]}")
     if msgs:
-        raise ValueError("load_jax_params: " + "; ".join(msgs))
+        raise ValueError(f"{caller}: " + "; ".join(msgs))
+
+
+def load_jax_params(module: nn.Module, params: Mapping[str, Any]) -> None:
+    """Copy a JAX parameter tree (numpy leaves) into `module` by key name."""
+    _copy_by_path(module, flatten_tree(params), "load_jax_params", "JAX")
+
+
+def load_torch_checkpoint(modules: Mapping[str, nn.Module], path: str) -> None:
+    """Copy a torch-saved checkpoint, {module name: state dict} (under a
+    `net` key for a training checkpoint), into `modules` by key name.
+
+    Checkpoint keys go through `torch_key_to_path` as the port's keys do,
+    so `module.` prefixes, `conv`/`convtr` wrapper levels and parametrized
+    weight-norm keys are read, and fixed DSP buffers are skipped. Raises on
+    a module the file does not hold and on any key that does not line up."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(ckpt.get("net"), Mapping):
+        ckpt = ckpt["net"]
+    for name, module in modules.items():
+        if not isinstance(ckpt.get(name), Mapping):
+            raise ValueError(f"load_torch_checkpoint: {path} holds no state dict for "
+                             f"{name!r} (has {sorted(ckpt)})")
+        flat = {}
+        for key, value in ckpt[name].items():
+            p = torch_key_to_path(key)
+            if p is None:
+                continue
+            if p in flat:
+                raise ValueError(f"load_torch_checkpoint: {name}: two keys map to "
+                                 f"{'/'.join(p)}")
+            flat[p] = value.detach().cpu().numpy()
+        _copy_by_path(module, flat, f"load_torch_checkpoint ({name})", "checkpoint")
 
 
 def _uniform(shape, bound: float, gen: torch.Generator) -> torch.Tensor:
@@ -98,15 +133,15 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     Conv / linear weights (and weight-norm `weight_v`) and their biases:
     U(-1/sqrt(fan_in), +), fan_in = prod(shape[1:]) of the weight; weight-norm
     `weight_g` = ||v|| (so the effective weight is v); LSTM tensors:
-    U(-1/sqrt(H), +); codebooks: N(0, 1); snake alphas: 1; the timbre linear
-    bias: gamma half 1, beta half 0."""
+    U(-1/sqrt(H), +); embedding tables (codebooks, code embeddings): N(0, 1);
+    snake alphas: 1; the timbre linear bias: gamma half 1, beta half 0."""
     params = dict(module.named_parameters())
     for name, p in params.items():
         leaf = name.rsplit(".", 1)[-1]
         owner = name[: -len(leaf) - 1]
         if leaf == "alpha":
             p.fill_(1.0)
-        elif name.endswith("codebook.weight"):
+        elif isinstance(module.get_submodule(owner), nn.Embedding):
             p.copy_(torch.randn(p.shape, generator=generator))
         elif leaf.startswith(("weight_ih_l", "weight_hh_l", "bias_ih_l", "bias_hh_l")):
             hidden = params[f"{owner}.weight_hh_l0"].shape[1]

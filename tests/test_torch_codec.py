@@ -147,7 +147,11 @@ def test_from_fields_defaults_to_the_card(monkeypatch):
 
 def test_import_leaves_jax_out():
     code = ("import sys, facodec_tpu_torch.api, facodec_tpu_torch.ops.kernels.resunit, "
-            "facodec_tpu_torch.ops.kernels.vq; "
+            "facodec_tpu_torch.ops.kernels.vq, facodec_tpu_torch.codec_file, "
+            "facodec_tpu_torch.cli.reconstruct, facodec_tpu_torch.cli.codec, "
+            "facodec_tpu_torch.cli.convert, facodec_tpu_torch.__main__, "
+            "facodec_tpu_torch.models.redecoder, facodec_tpu_torch.utils.config, "
+            "facodec_tpu_torch.utils.audio, facodec_tpu_torch.ops.loudness; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'facodec_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

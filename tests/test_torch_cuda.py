@@ -11,9 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from facodec_tpu_torch.api import float32_exact
+from facodec_tpu_torch.api import FACodec, FARedecoder, convert_voice, float32_exact
 from facodec_tpu_torch.ops import vq_math
 from facodec_tpu_torch.ops.kernels import resunit, vq
+from facodec_tpu_torch.utils.signals import sweep_wave
 
 pytestmark = pytest.mark.cuda
 
@@ -28,11 +29,15 @@ def _need_cuda():
 # zero-extend); T = 1000 leaves a ragged last tile for both tile heights.
 FLAGSHIP_CASES = [(4, C, d, T) for C in (64, 96, 128, 192, 256, 384, 512, 768)
                   for d, T in ((1, 1000), (9, 50), (9, 1000))]
+# The redecoder's non-causal decoder widths at d = 9 around its (27, 27)
+# pad: T = 20 and 27 zero-extend to 28 rows before the reflect, T = 28 does not.
+SHORT_CASES = [(4, C, 9, T) for C in (96, 768) for T in (20, 27, 28)]
 
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,C,dilation,T", [(2, 32, 3, 500), (2, 64, 1, 1000), (2, 96, 9, 777),
-                                            (2, 192, 3, 40), (2, 768, 9, 1000)] + FLAGSHIP_CASES)
+                                            (2, 192, 3, 40), (2, 768, 9, 1000)]
+                         + FLAGSHIP_CASES + SHORT_CASES)
 def test_resunit_kernel_matches_plain(B, C, dilation, T, causal):
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(C + dilation)
@@ -162,3 +167,39 @@ def test_vq_kernel_duplicates_take_the_first(first, copy, N):
     idx, zq = _vq_launch(lat, cb)
     assert bool((idx[:150] == first).all())
     _assert_vq_matches_plain(lat, cb, idx, zq)
+
+
+# A small codec and redecoder whose residual units are all kernel widths
+# (C % 32 == 0): encoder units 32-256, decoder units 256-32.
+SMALL_CODEC = dict(
+    encoder=dict(d_model=32, strides=(2, 5, 5, 6), d_latent=64, causal=True, lstm=1),
+    quantizer=dict(in_dim=64, n_p_codebooks=1, n_c_codebooks=2, n_t_codebooks=2,
+                   n_r_codebooks=3, codebook_size=32, codebook_dim=8, quantizer_dropout=0.5,
+                   causal=True, separate_prosody_encoder=True, timbre_norm=True,
+                   style_hidden_dim=32, prosody_hidden_dim=16),
+    decoder=dict(input_channel=64, channels=512, rates=(6, 5, 5, 2), causal=True, lstm=1),
+)
+SMALL_REDECODER = dict(
+    encoder=dict(n_p_codebooks=1, n_c_codebooks=2, codebook_size=32, embed_dim=32,
+                 n_layers=16, causal=False, gin_channels=64, out_dim=64),
+    decoder=dict(input_channel=64, channels=512, rates=(6, 5, 5, 2), causal=False, lstm=1),
+)
+
+
+def test_convert_voice_card_matches_cpu():
+    """One seed on both devices: the card's convert_voice (kernels) equals
+    the CPU's (plain versions) and launches 36 residual units and 10 VQ
+    searches."""
+    _need_cuda()
+    src, tgt = sweep_wave(2, 0.5, seed=11), sweep_wave(2, 0.5, seed=12)
+    out = {}
+    for device in ("cpu", "cuda"):
+        codec = FACodec.from_fields(SMALL_CODEC, seed=3, device=device, n_c=1)
+        red = FARedecoder.from_fields(SMALL_REDECODER, seed=4, device=device)
+        before = resunit.fused_residual_unit.launches, vq.nearest_code.launches
+        out[device] = convert_voice(codec, red, src, tgt)
+        after = resunit.fused_residual_unit.launches, vq.nearest_code.launches
+        launched = (after[0] - before[0], after[1] - before[1])
+        assert launched == ((0, 0) if device == "cpu" else (36, 10)), launched
+    assert out["cuda"].shape == src.shape and np.isfinite(out["cuda"]).all()
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4)
