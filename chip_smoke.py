@@ -37,6 +37,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    1 x 2 s. 6a: a `.fac` file on the card: encode -> bytes -> decode equals
    the decode of the file in memory, and every non-empty stream subset
    decodes with 12 residual-unit launches and no VQ search.
+7. Exact chunked streaming at full width: a `StreamingFACodec` session of
+   the phase-3 codec over batch 1 x 10 s in 16-frame (200 ms) chunks, then
+   batch 4 x 10 s in 4-frame chunks (T < 6d at the d = 9 units of encoder
+   stage 4 and decoder stage 1), through `roundtrip_chunk` and
+   `flush_encode`, against the card's one-shot `encode` / `reconstruct` of
+   the same wave and timbre (codes >= 0.99 equal, wave max abs <= 1e-3).
+   Every steady chunk launches exactly 24 residual units through the
+   kernel's halo entry and 6 VQ searches. Per-chunk wall latency, from the
+   call until the chunk's wave is on the host (p50, p95, after 3 warm
+   chunks), the realtime factor and the priming step's time; 10 further
+   steady chunks run under torch.profiler, for the device kernels' time per
+   chunk by kind (facodec_tpu_torch/profile.py), and are left out of p50
+   and p95.
+   7a holds the halo entry to its plain version at every flagship unit (C,
+   d) for the chunk T of 16 and 4 frames at batch 1 and 4 (the inputs of
+   one steady chunk of phase 7 where it ran that combination, captured
+   with forward pre-hooks; random inputs of the same shape otherwise), and
+   at T = 1, 53, 54, 55 at d = 9: max abs error <= 1e-5, new halo bit-equal.
+   7b: `encode_streaming` of batch 1 x 40 s (80-frame chunks) against a
+   one-shot encode (codes), `timbre_of` its first 10 s (timbre <= 1e-3),
+   and `decode_streaming` against `decode` (<= 1e-3). 7c: a
+   `StreamingRedecoder` at the FLAGSHIP_REDECODER widths made causal (a
+   field override of this script), batch 1 x 10 s in 16-frame chunks,
+   against `resynthesize` (<= 1e-3).
 
 The line before the last is the kernels' JSON summary; the last line is the
 run's JSON result.
@@ -57,9 +81,11 @@ from facodec_tpu_torch.api import FACodec, FARedecoder, convert_voice, float32_e
 from facodec_tpu_torch.codec_file import FACodecFile
 from facodec_tpu_torch.config import FLAGSHIP, FLAGSHIP_REDECODER
 from facodec_tpu_torch.models.dac import ResidualUnit
+from facodec_tpu_torch.models.streaming import HOP, StreamingFACodec
 from facodec_tpu_torch.models.quantize import VectorQuantize
 from facodec_tpu_torch.ops import vq_math
 from facodec_tpu_torch.ops.kernels import build, resunit, vq
+from facodec_tpu_torch.profile import device_ms as traced_device_ms
 from facodec_tpu_torch.utils.signals import sweep_wave
 
 SR = 24000
@@ -116,11 +142,18 @@ def unit_inputs(parts, run, expected: int) -> list:
 
 def reset_counts() -> None:
     resunit.fused_residual_unit.launches = 0
+    resunit.fused_residual_unit_stream.launches = 0
     vq.nearest_code.launches = 0
 
 
 def counts() -> tuple:
+    """(one-shot residual-unit launches, VQ launches); the halo entry's
+    are `stream_count()`."""
     return resunit.fused_residual_unit.launches, vq.nearest_code.launches
+
+
+def stream_count() -> int:
+    return resunit.fused_residual_unit_stream.launches
 
 
 def phase_device() -> str:
@@ -447,6 +480,252 @@ def phase_fac(codec: FACodec, w: np.ndarray) -> None:
             raise AssertionError(f"decode_subset {name}: wave {y.shape} is not finite")
 
 
+STREAM_SECONDS = 10.0
+LONG_SECONDS = 40.0
+WARM_CHUNKS = 3
+TRACED_CHUNKS = 10  # steady chunks of phase 7 run under torch.profiler, left out of p50 / p95
+
+
+def stream_inputs(codec: FACodec) -> tuple:
+    """Forward pre-hooks on every ResidualUnit of the codec that, while
+    `armed["tag"]` is set, keep the (unit, x, halo) of each streamed call
+    under that tag. Returns (hooks, captured, armed)."""
+    captured: dict = {}
+    armed = {"tag": None}
+
+    def hook(mod, args):
+        if armed["tag"] is not None and len(args) >= 3 and not args[2]:
+            captured.setdefault(armed["tag"], []).append((mod, args[0], args[1]["block_1"]))
+
+    hooks = [m.register_forward_pre_hook(hook) for part in (codec.encoder, codec.decoder)
+             for m in part.modules() if isinstance(m, ResidualUnit)]
+    return hooks, captured, armed
+
+
+def phase_stream(codec: FACodec, B: int, chunk: int, armed: dict) -> dict:
+    """One flagship streaming session over B x STREAM_SECONDS of sweep,
+    checked against the card's one-shot path; the fourth steady chunk's unit
+    inputs are captured under the tag (chunk, B), and TRACED_CHUNKS later
+    steady chunks run under torch.profiler for the device's busy time.
+    Returns its numbers."""
+    w = sweep_wave(B, STREAM_SECONDS, seed=8)
+    step = chunk * HOP
+    wt = torch.from_numpy(w).cuda()
+    timbre = torch.from_numpy(codec.timbre_of(w)).cuda()
+    sess = StreamingFACodec(codec.encoder, codec.quantizer, codec.decoder,
+                            chunk_frames=chunk, n_c=codec.n_c)
+    log(f"phase 7: StreamingFACodec, flagship, batch {B} x {STREAM_SECONDS:.0f} s, chunk {chunk} "
+        f"frames ({step / SR * 1e3:.0f} ms), prime {sess.prime_frames} frames")
+    est, dst = sess.init_encode_state(B), sess.init_decode_state(B)
+    waves, codes, lat, steady, traced = [], [], [], [], []
+    prime_s = None
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    trace_from = WARM_CHUNKS + 2  # steady chunks before the traced ones
+    torch.cuda.synchronize()
+    reset_counts()
+    t_run = time.perf_counter()
+    for i in range(0, wt.shape[1], step):
+        before = (*counts(), stream_count())
+        if len(lat) == WARM_CHUNKS:
+            armed["tag"] = (chunk, B)
+        tracing = prime_s is not None and len(lat) + len(traced) >= trace_from and \
+            len(traced) < TRACED_CHUNKS
+        if tracing and not traced:
+            prof.start()
+        t0 = time.perf_counter()
+        est, dst, y, c = sess.roundtrip_chunk(est, dst, wt[:, i : i + step], timbre)
+        if y is None:
+            continue
+        y = y.cpu().numpy()  # the chunk's wave on the host
+        dt = time.perf_counter() - t0
+        armed["tag"] = None
+        n = tuple(a - b for a, b in zip((*counts(), stream_count()), before))
+        if prime_s is None:
+            prime_s = dt
+        else:
+            (traced if tracing else lat).append(dt)
+            steady.append(n)
+            if tracing and len(traced) == TRACED_CHUNKS:
+                prof.stop()
+        waves.append(y)
+        codes.append([x.cpu().numpy() for x in c])
+    outs_t, codes_t = sess.flush_encode(est, timbre)
+    dst, y = sess.decode_chunk(dst, outs_t)
+    waves.append(y.cpu().numpy())
+    codes.append([x.cpu().numpy() for x in codes_t])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    total = (*counts(), stream_count())
+    if set(steady) != {(0, 6, 24)}:
+        raise AssertionError(f"steady chunks launched (one-shot resunit, vq, halo entry) "
+                             f"{sorted(set(steady))}, expected only (0, 6, 24)")
+    if len(traced) != TRACED_CHUNKS:
+        raise AssertionError(f"{len(traced)} traced chunks, expected {TRACED_CHUNKS}")
+    n_emit = len(steady) + 1
+    want_total = (0, 6 * n_emit + 6, 24 * n_emit + 12)
+    if total != want_total:
+        raise AssertionError(f"session launched {total}, expected {want_total}")
+
+    recon = np.concatenate(waves, axis=1)
+    stream_codes = [np.concatenate([c[j] for c in codes], axis=-1) for j in range(3)]
+    f = codec.encode(w)
+    one_shot = codec.reconstruct(w)
+    same = sum(int((a == b).sum()) for a, b in
+               zip(stream_codes, (f.codes_p, f.codes_c, f.codes_r)))
+    n_codes = sum(a.size for a in stream_codes)
+    diff = float(np.abs(recon - one_shot).max())
+    warm = lat[WARM_CHUNKS:]
+    p50, p95 = (float(np.percentile(warm, q)) for q in (50, 95))
+    audio_s = B * step / SR
+    log(f"  {len(lat) + 1} emitted chunks + flush in {run_s:.3f} s; priming step ({sess.prime_frames} "
+        f"frames) {prime_s * 1e3:.2f} ms; steady chunk latency p50 {p50 * 1e3:.2f} ms p95 "
+        f"{p95 * 1e3:.2f} ms over {len(warm)} chunks (call until its wave is on the host); "
+        f"realtime factor at p50 {audio_s / p50:.1f}x ({B} x {step / SR * 1e3:.0f} ms of audio "
+        f"per chunk)")
+    by_kind, _, _ = traced_device_ms(prof)
+    dev_ms = sum(by_kind.values()) / TRACED_CHUNKS
+    wall_ms = 1e3 * sum(traced) / TRACED_CHUNKS
+    log(f"  traced ({TRACED_CHUNKS} steady chunks under torch.profiler): wall {wall_ms:.2f} ms "
+        f"per chunk, device kernels {dev_ms:.2f} ms per chunk ({dev_ms / wall_ms:.1%} busy): "
+        + ", ".join(f"{k} {v / TRACED_CHUNKS:.2f} ms" for k, v in
+                    sorted(by_kind.items(), key=lambda kv: -kv[1])))
+    log(f"  launches per steady chunk: halo entry 24, vq 6, one-shot entry 0; session total "
+        f"{total}; codes equal to the one-shot encode {same}/{n_codes} ({same / n_codes:.5f}); "
+        f"wave max abs diff to the one-shot reconstruct {diff:.3e}")
+    if recon.shape != w.shape or not np.isfinite(recon).all():
+        raise AssertionError(f"streamed wave {recon.shape} is not a finite {w.shape} wave")
+    if same / n_codes < CODE_MATCH_MIN:
+        raise AssertionError(f"stream code match {same / n_codes} < {CODE_MATCH_MIN}")
+    if not diff <= DECODE_MAX_DIFF:
+        raise AssertionError(f"stream vs one-shot wave difference {diff} > {DECODE_MAX_DIFF}")
+    return dict(p50_ms=p50 * 1e3, p95_ms=p95 * 1e3, prime_ms=prime_s * 1e3,
+                rtf=audio_s / p50, device_ms=dev_ms, traced_wall_ms=wall_ms, halo=24, vq=6)
+
+
+def stream_unit_cost(B: int, T: int, C: int, d: int) -> tuple:
+    """(FLOP, bytes) of one streamed unit: as `resunit_cost`, plus the halo
+    read and the new halo written."""
+    flop, nbytes = resunit_cost(B, T, C)
+    return flop, nbytes + 4 * 2 * B * 6 * d * C
+
+
+def phase_halo(codec: FACodec, captured: dict) -> dict:
+    """The halo entry against its plain version at every flagship unit."""
+    log(f"phase 7a: fused_residual_unit_stream (halo entry) vs plain, max_abs_err <= "
+        f"{RESUNIT_MAX_ERR}, new halo bit-equal; one call between two events (median of "
+        f"{REPEATS}); bound = max(3 x FLOP at {TF32_FLOPS / 1e12:.0f} TFLOP/s, bytes at "
+        f"{HBM_BYTES_S / 1e12:.2f} TB/s)")
+    units = [m for part in (codec.encoder, codec.decoder) for m in part.modules()
+             if isinstance(m, ResidualUnit)]
+    # rows per latent frame at each unit, from the captured 16-frame chunk
+    rows = {id(m): x.shape[1] // 16 for m, x, _ in captured[(16, 1)]}
+    real = {(key, id(m)): (x, halo) for key, calls in captured.items() for m, x, halo in calls}
+    cases = []
+    for m in units:
+        for chunk in (16, 4):
+            for B in (1, 4):
+                cases.append((m, B, chunk * rows[id(m)], real.get(((chunk, B), id(m)))))
+        if m.dilation == 9:
+            cases += [(m, B, T, None) for T in (1, 53, 54, 55) for B in (1, 4)]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    worst = 0.0
+    main = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for m, B, T, x_halo in cases:
+        snake1, conv7, snake2, conv1 = m.block
+        C, d = conv7.bias.shape[0], m.dilation
+        if x_halo is None:
+            x = 0.5 * torch.randn(B, T, C, device="cuda", generator=gen)
+            halo = 0.5 * torch.randn(B, 6 * d, C, device="cuda", generator=gen)
+        else:
+            x, halo = x_halo
+        with torch.no_grad(), float32_exact():
+            args = (x.contiguous(), halo, conv7.effective_weight(), conv7.bias,
+                    conv1.effective_weight(), conv1.bias, snake1.alpha, snake2.alpha, d)
+            before = stream_count()
+            got, got_halo = resunit.fused_residual_unit_stream(*args)
+            want, want_halo = resunit.residual_unit_stream_reference(*args)
+            torch.cuda.synchronize()
+            launched = stream_count() - before
+            err = (got - want).abs().max().item()
+            if not torch.equal(got_halo, want_halo):
+                raise AssertionError(f"halo entry C={C} d={d} B={B} T={T}: new halo differs "
+                                     f"by {(got_halo - want_halo).abs().max().item()}")
+            if not err <= RESUNIT_MAX_ERR:
+                raise AssertionError(f"halo entry C={C} d={d} B={B} T={T}: max_abs_err {err}")
+            tk = median_ms(lambda: resunit.fused_residual_unit_stream(*args))
+            tp = median_ms(lambda: resunit.residual_unit_stream_reference(*args))
+        flop, nbytes = stream_unit_cost(B, T, C, d)
+        b = bound_ms(3 * flop, nbytes, TF32_FLOPS)
+        by = "operations" if 3 * flop / TF32_FLOPS > nbytes / HBM_BYTES_S else "bytes"
+        worst = max(worst, err)
+        src = "phase 7 input" if x_halo is not None else "random input"
+        if x_halo is not None and (B, T) == (1, 16 * rows[id(m)]):
+            for k, v in (("ms", tk), ("plain_ms", tp), ("bound_ms", b)):
+                main[k] += v
+        log(f"  C={C:4d} d={d} B={B} T={T:5d} ({src}): kernel {tk:.4f} ms plain {tp:.4f} ms "
+            f"bound {b * 1e3:.2f} us ({by}); launches {launched}; max_abs_err {err:.3e}")
+    log(f"  the 24 units of a 16-frame steady chunk at batch 1: kernel {main['ms']:.3f} ms "
+        f"plain {main['plain_ms']:.3f} ms bound {main['bound_ms'] * 1e3:.2f} us")
+    return dict(max_abs_err=worst, cases=len(cases), **{f"stream_{k}": v for k, v in main.items()})
+
+
+def phase_encode_streaming(codec: FACodec) -> None:
+    w = sweep_wave(1, LONG_SECONDS, seed=10)
+    log(f"phase 7b: encode_streaming, flagship, batch 1 x {LONG_SECONDS:.0f} s, chunk 80 frames")
+    reset_counts()
+    t0 = time.perf_counter()
+    f = codec.encode_streaming(w, chunk_frames=80)
+    t_enc = time.perf_counter() - t0
+    n_enc = (*counts(), stream_count())
+    reset_counts()
+    t0 = time.perf_counter()
+    y = codec.decode_streaming(f, chunk_frames=80)
+    t_dec = time.perf_counter() - t0
+    n_dec = (*counts(), stream_count())
+    g = codec.encode(w)
+    same = sum(int((getattr(f, n) == getattr(g, n)).sum()) for n in ("codes_p", "codes_c", "codes_r"))
+    n_codes = sum(getattr(f, n).size for n in ("codes_p", "codes_c", "codes_r"))
+    t_diff = float(np.abs(f.timbre - codec.timbre_of(w[:, : int(10 * SR)])).max())
+    y_one = codec.decode(f)
+    diff = float(np.abs(y - y_one).max())
+    log(f"  encode_streaming {t_enc:.3f} s (launches one-shot resunit, vq, halo entry {n_enc}), "
+        f"decode_streaming {t_dec:.3f} s ({n_dec}); codes equal to the one-shot encode "
+        f"{same}/{n_codes} ({same / n_codes:.5f}); timbre max diff to timbre_of(first 10 s) "
+        f"{t_diff:.3e}; decode_streaming vs decode max abs {diff:.3e}")
+    if n_enc[2] == 0 or n_dec[2] == 0:
+        raise AssertionError("the streaming route launched no halo entry")
+    if same / n_codes < CODE_MATCH_MIN:
+        raise AssertionError(f"encode_streaming code match {same / n_codes} < {CODE_MATCH_MIN}")
+    if not t_diff <= DECODE_MAX_DIFF:
+        raise AssertionError(f"encode_streaming timbre difference {t_diff} > {DECODE_MAX_DIFF}")
+    if y.shape != w.shape or not np.isfinite(y).all() or not diff <= DECODE_MAX_DIFF:
+        raise AssertionError(f"decode_streaming {y.shape}, difference {diff}")
+
+
+def phase_stream_vc(codec_vc: FACodec) -> None:
+    fields = {k: dict(v, causal=True) for k, v in FLAGSHIP_REDECODER.items()}
+    red = FARedecoder.from_fields(fields, seed=2, device="cuda")
+    w = sweep_wave(1, STREAM_SECONDS, seed=11)
+    codes = codec_vc.encode(w)
+    timbre = codec_vc.timbre_of(sweep_wave(1, STREAM_SECONDS, seed=12))
+    log(f"phase 7c: StreamingRedecoder, FLAGSHIP_REDECODER widths with causal redecoder and "
+        f"decoder, batch 1 x {STREAM_SECONDS:.0f} s, chunk 16 frames")
+    want = red.resynthesize(codes, timbre)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = red.resynthesize_streaming(codes, timbre, chunk_frames=16)
+    dt = time.perf_counter() - t0
+    n = (*counts(), stream_count())
+    diff = float(np.abs(got - want).max())
+    log(f"  resynthesize_streaming {dt:.3f} s, {STREAM_SECONDS / dt:.1f}x realtime; launches "
+        f"(one-shot resunit, vq, halo entry) {n}; max abs difference to resynthesize {diff:.3e}")
+    if n[0] or n[1] or n[2] == 0:
+        raise AssertionError(f"streamed VC launched {n}")
+    if got.shape != w.shape or not np.isfinite(got).all() or not diff <= DECODE_MAX_DIFF:
+        raise AssertionError(f"streamed VC {got.shape}, difference {diff} > {DECODE_MAX_DIFF}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -488,15 +767,31 @@ def main() -> None:
     phase_vc_cpu(codec_vc, red)
     phase_fac(codec, w)
 
+    hooks, captured, armed = stream_inputs(codec)
+    st16 = phase_stream(codec, 1, 16, armed)
+    st4 = phase_stream(codec, 4, 4, armed)
+    for h in hooks:
+        h.remove()
+    halo = phase_halo(codec, captured)
+    ru["max_abs_err"] = max(ru["max_abs_err"], halo.pop("max_abs_err"))
+    phase_encode_streaming(codec)
+    phase_stream_vc(codec_vc)
+
     # no single PyTorch call computes either function: library_ms is null
     kernels = [
         dict(name="fused_residual_unit", route="cuda", source="facodec_tpu_torch/csrc/resunit.cu",
              replaces="facodec_tpu/ops/pallas/resunit.py:273", launches=main_path["resunit"],
-             vc_launches=vc_counts[0], bound_by="operations", library_ms=None, **ru),
+             vc_launches=vc_counts[0], stream_launches=st16["halo"], bound_by="operations",
+             library_ms=None, **ru, **halo),
         dict(name="nearest_code", route="cuda", source="facodec_tpu_torch/csrc/vq.cu",
              replaces="facodec_tpu/ops/pallas/vq.py:76", launches=main_path["vq"],
-             vc_launches=vc_counts[1], bound_by="operations", library_ms=None, **vqr),
+             vc_launches=vc_counts[1], stream_launches=st16["vq"], bound_by="operations",
+             library_ms=None, **vqr),
     ]
+    log(f"streaming: chunk 16 batch 1 p50 {st16['p50_ms']:.2f} ms ({st16['rtf']:.1f}x realtime, "
+        f"device {st16['device_ms']:.2f} ms of a traced {st16['traced_wall_ms']:.2f} ms), "
+        f"chunk 4 batch 4 p50 {st4['p50_ms']:.2f} ms ({st4['rtf']:.1f}x realtime, device "
+        f"{st4['device_ms']:.2f} ms of a traced {st4['traced_wall_ms']:.2f} ms)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

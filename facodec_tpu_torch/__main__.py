@@ -6,6 +6,7 @@
   encode        wav -> .fac code file
   decode        .fac -> wav
   convert       zero-shot voice conversion (codec + redecoder)
+  stream        chunked streaming round trip, with its per-chunk latency
 
 Each command runs on the card unless given `--device cpu`.
 """
@@ -18,6 +19,7 @@ import sys
 from facodec_tpu_torch.cli import codec as codec_cli
 from facodec_tpu_torch.cli import convert as convert_cli
 from facodec_tpu_torch.cli import reconstruct as reconstruct_cli
+from facodec_tpu_torch.cli import stream as stream_cli
 
 
 def main(argv=None):
@@ -27,8 +29,10 @@ def main(argv=None):
     convert_cli.add_args(sub.add_parser("convert"))
     codec_cli.add_encode_args(sub.add_parser("encode"))
     codec_cli.add_decode_args(sub.add_parser("decode"))
+    stream_cli.add_args(sub.add_parser("stream"))
     commands = dict(reconstruct=reconstruct_cli.main, convert=convert_cli.main,
-                    encode=codec_cli.main_encode, decode=codec_cli.main_decode)
+                    encode=codec_cli.main_encode, decode=codec_cli.main_decode,
+                    stream=stream_cli.main)
     args = parser.parse_args(argv)
     return commands[args.command](args)
 

@@ -1,10 +1,13 @@
 """High-level API: the codec and voice conversion.
 
-Port of facodec_tpu/api.py, one-shot and float32:
-- `FACodec`: encode / decode / decode_subset / reconstruct / timbre_of.
+Port of facodec_tpu/api.py, float32:
+- `FACodec`: encode / decode / decode_subset / reconstruct / timbre_of,
+  the bounded-memory `encode_streaming` / `decode_streaming` for long
+  inputs (the exact chunked session of models/streaming.py), and `latency`.
   Codes come back in a `FACodecFile` (codec_file.py), which reads and
   writes `.fac` files that the JAX package reads too.
-- `FARedecoder`: resynthesis of source codes in a target timbre.
+- `FARedecoder`: resynthesis of source codes in a target timbre, one-shot
+  or streamed (`resynthesize_streaming`, causal models).
 - `convert_voice`: zero-shot voice conversion with both.
 
 Waves go in and come out as numpy arrays (24 kHz, (T,) or (B, T)). Every
@@ -177,6 +180,71 @@ class FACodec:
             out = out[:, : f.original_length]
         return out
 
+    def encode_streaming(self, wave: np.ndarray, chunk_frames: int = 80,
+                         timbre_seconds: float = 10.0) -> FACodecFile:
+        """Bounded-memory encode for inputs of any length: the exact
+        streaming session, chunk by chunk (codes equal the one-shot
+        encoder's). The timbre, a global vector of the utterance, is taken
+        from the first `timbre_seconds`: timbre is speaker-stationary, and
+        the style encoder's attention is quadratic in frames. An input too
+        short to prime the session, or shorter than two chunks, is encoded
+        one-shot, as the JAX package does."""
+        from facodec_tpu_torch.models.streaming import StreamingFACodec
+
+        w = self._prep(wave)
+        B, T = w.shape
+        n_frames = T // HOP
+        sess = StreamingFACodec(self.encoder, self.quantizer, self.decoder,
+                                chunk_frames=chunk_frames, n_c=self.n_c)
+        if n_frames < max(2 * chunk_frames, sess.prime_frames + 1):
+            return self.encode(wave)
+        twin = min(T, max(HOP, int(timbre_seconds * SR) // HOP * HOP))
+        _, _, timbre = self.encode_tensor(w[:, :twin])
+        est = sess.init_encode_state(B)
+        step = chunk_frames * HOP
+        parts = []
+        for i in range(0, T, step):
+            est, _, codes = sess.encode_chunk(est, w[:, i : i + step], timbre)
+            if codes is not None:
+                parts.append(codes)
+        parts.append(sess.flush_encode(est, timbre)[1])
+        cp, cc, cr = (torch.cat([p[j] for p in parts], dim=-1).cpu().numpy().astype(np.uint16)
+                      for j in range(3))
+        return FACodecFile(codes_p=cp, codes_c=cc, codes_r=cr, timbre=timbre.cpu().numpy(),
+                           sample_rate=SR, hop_length=HOP, original_length=int(T))
+
+    @torch.no_grad()
+    def decode_streaming(self, f: FACodecFile, use_residual: bool = True,
+                         chunk_frames: int = 80) -> np.ndarray:
+        """Bounded-memory decode: the frame-local code decode and the
+        streaming decoder, chunk by chunk (equal to `decode`)."""
+        from facodec_tpu_torch.models.dac import decoder_stream_state
+        from facodec_tpu_torch.models.streaming import min_first_frames_decoder
+
+        need = min_first_frames_decoder(self.decoder.rates)
+        if chunk_frames < need:
+            raise ValueError(f"decode_streaming: chunk_frames must be >= {need}, "
+                             f"got {chunk_frames}")
+        dev = self.device
+        n_codes = self.quantizer.codebook_size
+        cp, cc = _codes(f.codes_p, n_codes, dev), _codes(f.codes_c, n_codes, dev)
+        cr = (_codes(f.codes_r, n_codes, dev)
+              if use_residual and f.codes_r is not None else None)
+        timbre = _timbre(f.timbre, dev)
+        state = decoder_stream_state(self.decoder, cp.shape[0])
+        parts = []
+        with float32_exact():
+            for i in range(0, cp.shape[-1], chunk_frames):
+                sl = slice(i, i + chunk_frames)
+                outs = self.quantizer.decode_streams_v2(
+                    cp[..., sl], cc[..., sl], None if cr is None else cr[..., sl], timbre)
+                wave, state = self.decoder(outs, state, i == 0)
+                parts.append(wave[:, :, 0].cpu().numpy())
+        out = np.concatenate(parts, axis=1)
+        if f.original_length:
+            out = out[:, : f.original_length]
+        return out
+
     def reconstruct(self, wave: np.ndarray) -> np.ndarray:
         """Round trip through the quantized latent."""
         outs, _, _ = self.encode_tensor(self._prep(wave))
@@ -186,6 +254,17 @@ class FACodec:
         """Global timbre vector of each utterance, (B, d)."""
         _, _, timbre = self.encode_tensor(self._prep(wave))
         return timbre.cpu().numpy()
+
+    def latency(self, chunk_frames: Optional[int] = None, sample_rate: int = SR):
+        """Analytic delay and latency report of this configuration
+        (models/latency.py): algorithmic latency, lookahead (0 when causal),
+        conv receptive fields and, given `chunk_frames`, the streaming
+        session's chunk buffering and first emission."""
+        from facodec_tpu_torch.models.latency import codec_latency
+
+        return codec_latency(tuple(self.encoder.strides), tuple(self.decoder.rates),
+                             causal=self.encoder.causal, sample_rate=sample_rate,
+                             chunk_frames=chunk_frames)
 
 
 class FARedecoder:
@@ -230,6 +309,34 @@ class FARedecoder:
                              use_p_code=use_p_code, n_c=n_c)
             wave = self.decoder(z)[:, :, 0]
         out = wave.cpu().numpy()
+        if codes.original_length:
+            out = out[:, : codes.original_length]
+        return out
+
+    def resynthesize_streaming(self, codes: FACodecFile, target_timbre: np.ndarray,
+                               chunk_frames: int = 16, use_p_code: bool = False,
+                               n_c: int = 1) -> np.ndarray:
+        """Chunked real-time voice conversion (equal to `resynthesize`;
+        causal models only), in bounded memory for sources of any length.
+        A source too short to prime the session is resynthesized one-shot."""
+        from facodec_tpu_torch.models.streaming import StreamingRedecoder
+
+        sess = StreamingRedecoder(self.encoder, self.decoder, chunk_frames=chunk_frames,
+                                  use_p_code=use_p_code, n_c=n_c)
+        dev = self.device
+        n_codes = self.encoder.codebook_size
+        cp, cc = _codes(codes.codes_p, n_codes, dev), _codes(codes.codes_c, n_codes, dev)
+        if cp.shape[-1] < sess.prime_frames:
+            return self.resynthesize(codes, target_timbre, use_p_code=use_p_code, n_c=n_c)
+        timbre = _timbre(target_timbre, dev)
+        state = sess.init_state(cp.shape[0])
+        parts = []
+        for i in range(0, cp.shape[-1], chunk_frames):
+            sl = slice(i, i + chunk_frames)
+            state, wave = sess.vc_chunk(state, cp[..., sl], cc[..., sl], timbre)
+            if wave is not None:
+                parts.append(wave.cpu().numpy())
+        out = np.concatenate(parts, axis=1)
         if codes.original_length:
             out = out[:, : codes.original_length]
         return out

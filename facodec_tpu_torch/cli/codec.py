@@ -2,15 +2,19 @@
 facodec_tpu/cli/codec.py).
 
     python -m facodec_tpu_torch encode --input in.wav [--output out.fac]
-        [--no-normalize] [--normalize-db -16] [--n-c 2] [--device cuda]
+        [--no-normalize] [--normalize-db -16] [--n-c 2]
+        [--streaming-threshold 30] [--chunk-frames 80] [--device cuda]
     python -m facodec_tpu_torch decode --input in.fac [--output out.wav]
-        [--no-residual] [--no-restore-loudness] [--device cuda]
+        [--no-residual] [--no-restore-loudness] [--streaming-threshold 30]
+        [--chunk-frames 80] [--device cuda]
 
 As in the reference's compress path, the input is loudness-normalized to
 -16 dB LUFS before encoding; the measured input loudness rides in the `.fac`
-header as `input_db`, and decode restores it. Both run one-shot at any
-length: the JAX CLI's streaming route for long inputs is not ported yet,
-and it gives the same codes.
+header as `input_db`, and decode restores it. Inputs longer than
+--streaming-threshold seconds go through the exact bounded-memory streaming
+route (`FACodec.encode_streaming` / `decode_streaming`), as in the JAX CLI:
+the codes equal the one-shot encoder's, and the timbre is taken from the
+first 10 s.
 """
 
 from __future__ import annotations
@@ -28,12 +32,21 @@ def _model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--config-path", type=str, default=None)
 
 
+def _streaming_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--streaming-threshold", type=float, default=30.0,
+                   help="inputs longer than this many seconds take the bounded-memory "
+                        "streaming route")
+    p.add_argument("--chunk-frames", type=int, default=80,
+                   help="streaming route's chunk size in latent frames")
+
+
 def add_encode_args(p: argparse.ArgumentParser) -> None:
     _model_args(p)
     p.add_argument("--n-c", type=int, default=2)
     p.add_argument("--normalize-db", type=float, default=-16.0,
                    help="loudness-normalize the input to this LUFS before encoding")
     p.add_argument("--no-normalize", action="store_true")
+    _streaming_args(p)
     add_device_arg(p)
 
 
@@ -42,6 +55,7 @@ def add_decode_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--no-residual", action="store_true",
                    help="decode from prosody + content only (lower bitrate)")
     p.add_argument("--no-restore-loudness", action="store_true")
+    _streaming_args(p)
     add_device_arg(p)
 
 
@@ -57,7 +71,10 @@ def main_encode(args: argparse.Namespace) -> str:
     input_db = None
     if not args.no_normalize:
         wave, input_db = normalize_loudness(wave, SR, args.normalize_db)
-    f = codec.encode(wave)
+    if len(wave) / SR > args.streaming_threshold:
+        f = codec.encode_streaming(wave, chunk_frames=args.chunk_frames)
+    else:
+        f = codec.encode(wave)
     if input_db is not None and np.isfinite(input_db):
         f.metadata["input_db"] = float(input_db)
     out = args.output or os.path.splitext(args.input)[0] + ".fac"
@@ -76,7 +93,11 @@ def main_decode(args: argparse.Namespace) -> str:
 
     codec = load_codec(args.config_path, args.ckpt_path, 2, args.device)
     f = FACodecFile.load(args.input)
-    wave = codec.decode(f, use_residual=not args.no_residual)
+    if f.codes_p.shape[-1] * f.hop_length / f.sample_rate > args.streaming_threshold:
+        wave = codec.decode_streaming(f, use_residual=not args.no_residual,
+                                      chunk_frames=args.chunk_frames)
+    else:
+        wave = codec.decode(f, use_residual=not args.no_residual)
     input_db = f.metadata.get("input_db")
     if input_db is not None and not args.no_restore_loudness:
         # restore the loudness the input had before normalization

@@ -64,6 +64,16 @@
 // products to one cut the time far more than leaving out the snakes or the
 // fold did. wgmma is the next step.
 //
+// Streaming. A second entry, facodec_resunit_halo_f32, runs one chunk of a
+// causal stream. Its padded input is the carried halo, (B, 6d, C) rows that
+// are already snake1'd (the JAX stream state of the unit's conv7), and then
+// the chunk's x rows through snake1; or, on a stream's first chunk (no halo),
+// x reflected as the causal one-shot unit reflects it. It also writes
+// new_halo, the last 6d rows of that padded snake1 input: the last block
+// stages all of them in step 0 and copies them out as it stages them, so they
+// are the staged values bit for bit. A chunk shorter than 6d rows (T = 24 at
+// the flagship's 4-frame chunks, d = 9) leaves old halo rows in new_halo.
+//
 // Rounding: the snake (sin^2 with its Cody-Waite reduction) is written with
 // __fmul_rn / __fadd_rn / __fsub_rn, so nvcc contracts none of it into FMAs
 // and it gives the same bits as the plain PyTorch version; only the conv sums
@@ -230,7 +240,10 @@ __device__ __forceinline__ int padded_row(int p, int T, int ext, int pad_left) {
 // x (B, T, C); w7 (C, C, 7) and w1 (C, C, 1) in torch's [out][in][tap]
 // layout; alpha1, alpha2 (C) and their snake reciprocals recip1, recip2 =
 // 1 / (alpha + 1e-9) (C); out (B, T, C). scratch holds, per block, BM + 6d
-// rows of snake1(xpad) and then BM rows of y2.
+// rows of snake1(xpad) and then BM rows of y2. halo (B, 6d, C), or null:
+// padded rows p < 6d are halo[b, p] as they are, rows p >= 6d x[b, p - 6d]
+// through snake1 (pad_left and ext are then unused). new_halo (B, 6d, C), or
+// null: padded rows T .. T + 6d - 1 are written there.
 template <int WM, int NT>
 __global__ void __launch_bounds__(THREADS, 2)
 resunit_kernel(const float* __restrict__ x, const float* __restrict__ w7,
@@ -238,7 +251,8 @@ resunit_kernel(const float* __restrict__ x, const float* __restrict__ w7,
                const float* __restrict__ b1, const float* __restrict__ alpha1,
                const float* __restrict__ recip1, const float* __restrict__ alpha2,
                const float* __restrict__ recip2, float* __restrict__ out,
-               float* __restrict__ scratch, int T, int C, int dil, int pad_left, int ext,
+               float* __restrict__ scratch, const float* __restrict__ halo,
+               float* __restrict__ new_halo, int T, int C, int dil, int pad_left, int ext,
                int a_floats) {
   constexpr int BM = 32 * WM, BN = 8 * NT * (8 / WM);
   extern __shared__ __align__(16) float smem[];
@@ -256,19 +270,26 @@ resunit_kernel(const float* __restrict__ x, const float* __restrict__ w7,
 
   // 0. snake1 of the padded rows, once; rows past the padded input belong
   // to the ragged last tile's outputs beyond T, which are never stored
-  const int C4 = C / 4;
+  const int C4 = C / 4, H = 6 * dil;
+  const bool last = blockIdx.x == gridDim.x - 1;
   for (int e = tid; e < rows_in * C4; e += THREADS) {
     const int r = e / C4, c = 4 * (e % C4), p = t0 + r;
-    const int q = p < Tp ? padded_row(p, T, ext, pad_left) : -1;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q >= 0) {
-      v = *reinterpret_cast<const float4*>(xb + (size_t)q * C + c);
-      v.x = snakef(v.x, alpha1[c], recip1[c]);
-      v.y = snakef(v.y, alpha1[c + 1], recip1[c + 1]);
-      v.z = snakef(v.z, alpha1[c + 2], recip1[c + 2]);
-      v.w = snakef(v.w, alpha1[c + 3], recip1[c + 3]);
+    if (halo != nullptr && p < H) {
+      v = *reinterpret_cast<const float4*>(halo + ((size_t)b * H + p) * C + c);
+    } else {
+      const int q = p >= Tp ? -1 : halo != nullptr ? p - H : padded_row(p, T, ext, pad_left);
+      if (q >= 0) {
+        v = *reinterpret_cast<const float4*>(xb + (size_t)q * C + c);
+        v.x = snakef(v.x, alpha1[c], recip1[c]);
+        v.y = snakef(v.y, alpha1[c + 1], recip1[c + 1]);
+        v.z = snakef(v.z, alpha1[c + 2], recip1[c + 2]);
+        v.w = snakef(v.w, alpha1[c + 3], recip1[c + 3]);
+      }
     }
     *reinterpret_cast<float4*>(s1 + (size_t)r * C + c) = v;
+    if (new_halo != nullptr && last && p >= T && p < Tp)
+      *reinterpret_cast<float4*>(new_halo + ((size_t)b * H + p - T) * C + c) = v;
   }
   __syncthreads();
 
@@ -318,6 +339,8 @@ resunit_kernel(const float* __restrict__ x, const float* __restrict__ w7,
 struct Args {
   const float *x, *w7, *b7, *w1, *b1, *alpha1, *recip1, *alpha2, *recip2;
   float *out, *scratch;
+  const float* halo;
+  float* new_halo;
   int B, T, C, dil, pad_left, ext;
 };
 
@@ -345,8 +368,15 @@ cudaError_t launch_cfg(const Args& a, cudaStream_t stream) {
   const dim3 grid(row_blocks(a.T, BM), a.B);
   resunit_kernel<WM, NT><<<grid, THREADS, smem, stream>>>(
       a.x, a.w7, a.b7, a.w1, a.b1, a.alpha1, a.recip1, a.alpha2, a.recip2, a.out, a.scratch,
-      a.T, a.C, a.dil, a.pad_left, a.ext, a_floats);
+      a.halo, a.new_halo, a.T, a.C, a.dil, a.pad_left, a.ext, a_floats);
   return cudaGetLastError();
+}
+
+cudaError_t launch(const Args& a, cudaStream_t s) {
+  if (a.C % 128 == 0) return tile_rows(a) == 64 ? launch_cfg<2, 4>(a, s) : launch_cfg<4, 8>(a, s);
+  if (a.C % 96 == 0) return launch_cfg<4, 6>(a, s);
+  if (a.C % 64 == 0) return launch_cfg<4, 4>(a, s);
+  return launch_cfg<4, 2>(a, s);
 }
 
 bool valid_shape(int B, int T, int C, int dil) {
@@ -380,10 +410,22 @@ extern "C" int facodec_resunit_f32(const float* x, const float* w7, const float*
   if (!valid_shape(B, T, C, dil) || !valid_pads(T, dil, pad_left, ext))
     return (int)cudaErrorInvalidValue;
   const Args a{x, w7, b7, w1, b1, alpha1, recip1, alpha2, recip2, out, scratch,
-               B, T, C, dil, pad_left, ext};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C % 128 == 0) return (int)(tile_rows(a) == 64 ? launch_cfg<2, 4>(a, s) : launch_cfg<4, 8>(a, s));
-  if (C % 96 == 0) return (int)launch_cfg<4, 6>(a, s);
-  if (C % 64 == 0) return (int)launch_cfg<4, 4>(a, s);
-  return (int)launch_cfg<4, 2>(a, s);
+               nullptr, nullptr, B, T, C, dil, pad_left, ext};
+  return launch(a, static_cast<cudaStream_t>(stream));
+}
+
+// C entry point of one causal stream chunk (see "Streaming" above). halo is
+// (B, 6d, C) or null on a stream's first chunk, which needs T > 6d; new_halo
+// (B, 6d, C) is written. The scratch is facodec_resunit_scratch_floats'.
+extern "C" int facodec_resunit_halo_f32(const float* x, const float* halo, const float* w7,
+                                        const float* b7, const float* w1, const float* b1,
+                                        const float* alpha1, const float* recip1,
+                                        const float* alpha2, const float* recip2, float* out,
+                                        float* new_halo, float* scratch, int B, int T, int C,
+                                        int dil, void* stream) {
+  if (!valid_shape(B, T, C, dil) || new_halo == nullptr) return (int)cudaErrorInvalidValue;
+  if (halo == nullptr && !valid_pads(T, dil, 6 * dil, T)) return (int)cudaErrorInvalidValue;
+  const Args a{x, w7, b7, w1, b1, alpha1, recip1, alpha2, recip2, out, scratch,
+               halo, new_halo, B, T, C, dil, 6 * dil, T};
+  return launch(a, static_cast<cudaStream_t>(stream));
 }

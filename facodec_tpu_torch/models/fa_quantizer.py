@@ -2,8 +2,9 @@
 
 Port of facodec_tpu/models/fa_quantizer.py `FAquantizer` for serving:
 `preprocess`, `_prosody_features`, `forward_v2` (eval, with codes),
-`_timbre_condition` and `decode_streams_v2` (any non-empty subset of the
-streams; all three is JAX's `decode_from_codes_v2`). The legacy 4-stream
+`_timbre_condition`, `decode_streams_v2` (any non-empty subset of the
+streams; all three is JAX's `decode_from_codes_v2`) and the frame-synchronous
+`encode_streaming`. The legacy 4-stream
 `forward_v1`, training-mode masking and the predictor heads are not ported.
 Layout: latents (B, T, C), waves (B, Tw), mels (B, Tf, n_mels).
 """
@@ -39,7 +40,7 @@ class FAquantizer(nn.Module):
         if not (timbre_norm and separate_prosody_encoder):
             raise NotImplementedError(
                 "only the timbre_norm model with a separate prosody encoder is ported")
-        self.hop_length = hop_length
+        self.in_dim, self.sample_rate, self.hop_length = in_dim, sample_rate, hop_length
         self.codebook_size = codebook_size
 
         def rvq(n):
@@ -88,6 +89,22 @@ class FAquantizer(nn.Module):
         z_r, codes_r = self.residual_quantizer(x - z_p - z_c, 3)
         outs = self._timbre_condition(z_p + z_c + z_r, timbre)
         return outs, [codes_p, codes_c, codes_r], timbre
+
+    def encode_streaming(self, x: torch.Tensor, mel20: torch.Tensor, timbre: torch.Tensor,
+                         wn_stream, n_c: int = 1, first: bool = False):
+        """One chunk, frame-synchronous, with a fixed stream timbre. x: the
+        encoder latent (B, T, in_dim); mel20 (B, T, 20) the aligned log-mel;
+        timbre (B, in_dim); wn_stream the prosody WN's carries. Equals
+        forward_v2 frame by frame. Returns (outs, [codes_p, codes_c,
+        codes_r], new_wn_stream)."""
+        f0_input, new_wn = self.melspec_encoder(self.melspec_linear(mel20), stream=wn_stream,
+                                                first=first)
+        f0_input = self.melspec_linear2(f0_input)
+        z_p, codes_p = self.prosody_quantizer(f0_input, 1)
+        z_c, codes_c = self.content_quantizer(x, n_c)
+        z_r, codes_r = self.residual_quantizer(x - z_p - z_c, 3)
+        outs = self._timbre_condition(z_p + z_c + z_r, timbre)
+        return outs, [codes_p, codes_c, codes_r], new_wn
 
     def decode_streams_v2(self, codes_p: torch.Tensor, codes_c: torch.Tensor,
                           codes_r: Optional[torch.Tensor], timbre: torch.Tensor,

@@ -1,7 +1,9 @@
 """Convolution layers in NTC layout with torch parameter layout.
 
-Port of facodec_tpu/nn/conv.py, one-shot only (no streaming state), with
-the options the codec uses: every conv has a bias and one group. Conv
+Port of facodec_tpu/nn/conv.py with the options the codec uses: every conv
+has a bias and one group. The causal `SConv1d` and `SConvTranspose1d` also
+stream: given a carried `state` they return `(y, new_state)`, and chunked
+output equals the one-shot output (see each class). Conv
 weights are (O, I, K), transposed-conv weights (I, O, K); weight norm keeps
 `weight_g` / `weight_v` as parameters and computes `v * (g / ||v||)` over
 every dim but 0 on each call. Activations are NTC at every public function;
@@ -69,18 +71,35 @@ class Conv1d(_WeightNormConv):
 class SConv1d(_WeightNormConv):
     """Conv1d with the codec's automatic reflect padding: causal=True pads
     `(k_eff - stride, extra)`; causal=False splits `k_eff - stride` with the
-    extra on the right."""
+    extra on the right.
+
+    Streaming (causal only): pass `state` (B, k_eff - stride, C_in), the
+    carried left context, and get `(y, new_state)`. With `first=True` the
+    chunk is reflect-padded on the left from itself, as the one-shot forward
+    pads; later chunks are the state and the chunk, run valid. A chunk must
+    be a stride multiple. `init_state` / `state_len` build the carry.
+    """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, causal: bool = False,
                  norm: str = "weight_norm"):
         super().__init__()
-        self.kernel_size, self.stride, self.dilation, self.causal = (
-            kernel_size, stride, dilation, causal)
+        self.in_channels, self.kernel_size, self.stride, self.dilation, self.causal = (
+            in_channels, kernel_size, stride, dilation, causal)
         self._init_weight((out_channels, in_channels, kernel_size), norm == "weight_norm",
                           out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def state_len(self) -> int:
+        return (self.kernel_size - 1) * self.dilation + 1 - self.stride
+
+    def init_state(self, batch: int) -> torch.Tensor:
+        return self.bias.new_zeros(batch, self.state_len, self.in_channels)
+
+    def forward(self, x: torch.Tensor, state: Optional[torch.Tensor] = None,
+                first: bool = False):
+        if state is not None:
+            return self._stream(x, state, first)
         k_eff = (self.kernel_size - 1) * self.dilation + 1
         padding_total = k_eff - self.stride
         extra = get_extra_padding_for_conv1d(x.shape[1], k_eff, self.stride, padding_total)
@@ -93,10 +112,33 @@ class SConv1d(_WeightNormConv):
         return conv1d_ntc(x, self.effective_weight(), self.bias, stride=self.stride,
                           dilation=self.dilation)
 
+    def _stream(self, x: torch.Tensor, state: torch.Tensor, first: bool):
+        if not self.causal:
+            raise ValueError("SConv1d: streaming state requires causal mode")
+        if x.shape[1] % self.stride:
+            raise ValueError(f"SConv1d: chunk of {x.shape[1]} is not a multiple of the "
+                             f"stride {self.stride}")
+        pad = self.state_len
+        if first:
+            x = pad1d(x, (pad, 0)) if pad else x
+        else:
+            x = torch.cat([state, x], dim=1)
+        new_state = x[:, x.shape[1] - pad:]
+        y = conv1d_ntc(x, self.effective_weight(), self.bias, stride=self.stride,
+                       dilation=self.dilation)
+        return y, new_state
+
 
 class SConvTranspose1d(_WeightNormConv):
     """Weight-normed ConvTranspose1d (I, O, K) that trims `k - stride`
-    samples: all on the right when causal, split otherwise."""
+    samples: all on the right when causal, split otherwise.
+
+    Streaming (causal only): pass `state` (B, k - stride, C_out), the part
+    of the previous chunk's raw output that falls on this chunk's first
+    samples, and get `(y, new_state)`: the state is added onto the head,
+    the raw output past T * stride is carried, and the bias is added after
+    the overlap-add so that each sample gets it once.
+    """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, causal: bool = False):
@@ -104,9 +146,29 @@ class SConvTranspose1d(_WeightNormConv):
         self.kernel_size, self.stride, self.causal = kernel_size, stride, causal
         self._init_weight((in_channels, out_channels, kernel_size), True, out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def state_len(self) -> int:
+        return self.kernel_size - self.stride
+
+    def init_state(self, batch: int) -> torch.Tensor:
+        return self.bias.new_zeros(batch, self.state_len, self.bias.shape[0])
+
+    def forward(self, x: torch.Tensor, state: Optional[torch.Tensor] = None):
+        if state is not None:
+            return self._stream(x, state)
         y = F.conv_transpose1d(x.transpose(1, 2), self.effective_weight(), self.bias,
                                stride=self.stride).transpose(1, 2)
         padding_total = self.kernel_size - self.stride
         pr = padding_total if self.causal else padding_total // 2
         return y[:, padding_total - pr : y.shape[1] - pr]
+
+    def _stream(self, x: torch.Tensor, state: torch.Tensor):
+        if not self.causal:
+            raise ValueError("SConvTranspose1d: streaming requires causal mode")
+        y = F.conv_transpose1d(x.transpose(1, 2), self.effective_weight(), None,
+                               stride=self.stride).transpose(1, 2)
+        n = x.shape[1] * self.stride
+        emit, new_state = y[:, :n], y[:, n:]
+        if self.state_len:
+            emit = torch.cat([emit[:, : self.state_len] + state, emit[:, self.state_len:]], 1)
+        return emit + self.bias, new_state

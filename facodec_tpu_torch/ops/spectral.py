@@ -5,6 +5,10 @@ zero-padded to the centre of the FFT frame), hop 300, centred reflect
 padding, power 2, 80 HTK mel bands, `(log(1e-5 + mel) + 4) / 4`. The window
 and the filterbank are built in numpy (re-homed from the JAX module so the
 port needs no JAX) and held as non-persistent buffers.
+
+`mel_frames` is the streaming form (port of facodec_tpu/models/streaming.py
+`_mel_frames`): the same log-mel from explicit frames of a context, with
+`reflect_front` / `reflect_back` for a stream's ends.
 """
 
 from __future__ import annotations
@@ -88,3 +92,30 @@ class LogMelSpectrogram(nn.Module):
         spec = torch.square(torch.abs(z)).transpose(1, 2)  # (B, frames, freqs)
         mel = spec @ self.fb
         return (torch.log(1e-5 + mel) - MEL_MEAN) / MEL_STD
+
+
+def mel_frames(wave_ctx: torch.Tensor, n_frames: int, hop_length: int, sample_rate: int,
+               n_mels: int = N_MELS) -> torch.Tensor:
+    """(B, n_frames * hop + WIN_LENGTH - hop) context -> (B, n_frames, n_mels)
+    normalised log-mel; frame i's window is ctx[i * hop : i * hop + WIN_LENGTH].
+    Its magnitude equals the centred STFT's, whose Hann window is zero-padded
+    to N_FFT: only the phase differs."""
+    dev = wave_ctx.device
+    win = torch.from_numpy(hann_window_np(WIN_LENGTH)).to(dev, wave_ctx.dtype)
+    idx = (torch.arange(n_frames, device=dev)[:, None] * hop_length
+           + torch.arange(WIN_LENGTH, device=dev)[None, :])
+    frames = wave_ctx[:, idx] * win
+    spec = torch.square(torch.abs(torch.fft.rfft(frames, n=N_FFT, dim=-1)))
+    fb = _mel_filterbank_np(N_FFT // 2 + 1, n_mels, sample_rate, 0.0, None, None)
+    mel = spec @ torch.from_numpy(fb).to(dev, spec.dtype)
+    return (torch.log(1e-5 + mel) - MEL_MEAN) / MEL_STD
+
+
+def reflect_front(chunk: torch.Tensor, pad: int) -> torch.Tensor:
+    """torch-style left reflect of a stream's start: out[j] = chunk[pad - j]."""
+    return torch.flip(chunk[:, 1 : pad + 1], dims=[1])
+
+
+def reflect_back(tail: torch.Tensor, pad: int) -> torch.Tensor:
+    """torch-style right reflect of a stream's end: out[j] = tail[-2 - j]."""
+    return torch.flip(tail[:, tail.shape[1] - 1 - pad : tail.shape[1] - 1], dims=[1])

@@ -44,6 +44,20 @@ def kind_of(name: str) -> str:
     return "other"
 
 
+def device_ms(prof) -> tuple:
+    """(ms by kind, ms by kernel name, launches by kernel name) of the
+    device events of a finished `torch.profiler` trace."""
+    by_kind, by_name, count = defaultdict(float), defaultdict(float), defaultdict(int)
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        by_kind[kind_of(ev.name)] += us / 1e3
+        by_name[ev.name] += us / 1e3
+        count[ev.name] += 1
+    return by_kind, by_name, count
+
+
 def main(batch: int = 4, seconds: float = 10.0) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile: torch sees no CUDA device")
@@ -70,14 +84,7 @@ def main(batch: int = 4, seconds: float = 10.0) -> None:
         codec.decode(codec.encode(w))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_kind, by_name, count = defaultdict(float), defaultdict(float), defaultdict(int)
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = ev.time_range.elapsed_us()
-        by_kind[kind_of(ev.name)] += us / 1e3
-        by_name[ev.name] += us / 1e3
-        count[ev.name] += 1
+    by_kind, by_name, count = device_ms(prof)
     total = sum(by_kind.values())
     print(f"traced encode -> decode: wall {wall * 1e3:.1f} ms, device kernels {total:.1f} ms "
           f"({total / (wall * 1e3):.1%} of the wall)")

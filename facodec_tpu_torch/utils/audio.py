@@ -1,13 +1,13 @@
 """Wav files in and out: mono float32 at the codec's rate.
 
-Port of facodec_tpu/cli/_io.py `save_wav` and the scipy route of
-facodec_tpu/train/data.py `load_wav`, with one difference: signed integer
-samples are scaled by 2^(bits-1) (1/32768 for int16), as the JAX package's
-native reader does (facodec_tpu/native/wav_io.cpp), the route its CLI takes
-wherever that library builds; its scipy route divides by 32767. Channels
-are averaged to mono. A file at another rate is resampled by linear
-interpolation, as the scipy route does; the native reader's resampler is
-not copied.
+Port of facodec_tpu/cli/_io.py `save_wav` and of the reader the JAX CLI
+takes wherever its native library builds (facodec_tpu/native/wav_io.cpp,
+chosen by facodec_tpu/train/data.py `load_wav`), in numpy: signed integer
+samples are scaled by 2^(bits-1) (1/32768 for int16), channels are summed
+in float32 and scaled by 1/channels, and a file at another rate is
+resampled as that reader resamples: output sample i reads the float64
+position i * (file_sr / sr) by linear interpolation, clamped at the last
+sample, and there are floor(n_in * sr / file_sr) of them.
 """
 
 from __future__ import annotations
@@ -17,6 +17,19 @@ import os
 import numpy as np
 
 SR = 24000
+
+
+def resample_linear(data: np.ndarray, file_sr: int, sr: int = SR) -> np.ndarray:
+    """Linear resampling of a mono float32 wave, as the native reader does
+    it (the module docstring)."""
+    n_in = len(data)
+    n_out = int(n_in * sr / file_sr)
+    pos = np.arange(n_out, dtype=np.float64) * (file_sr / sr)
+    j = pos.astype(np.int64)
+    frac = pos - j
+    a = data[np.minimum(j, n_in - 1)].astype(np.float64)
+    b = data[np.minimum(j + 1, n_in - 1)].astype(np.float64)
+    return (a * (1.0 - frac) + b * frac).astype(np.float32)
 
 
 def load_wav(path: str, sr: int = SR) -> np.ndarray:
@@ -31,11 +44,12 @@ def load_wav(path: str, sr: int = SR) -> np.ndarray:
     else:
         data = data.astype(np.float32)
     if data.ndim > 1:
-        data = data.mean(axis=1)
+        acc = data[:, 0].copy()
+        for c in range(1, data.shape[1]):
+            acc += data[:, c]
+        data = acc * np.float32(1.0 / data.shape[1])
     if file_sr != sr:
-        t = np.linspace(0.0, len(data) / file_sr, int(len(data) * sr / file_sr), endpoint=False)
-        src_t = np.arange(len(data)) / file_sr
-        data = np.interp(t, src_t, data).astype(np.float32)
+        data = resample_linear(data, file_sr, sr)
     return data
 
 

@@ -66,6 +66,72 @@ def test_resunit_kernel_rejects_odd_width():
         resunit.fused_residual_unit(*args, dilation=1, causal=True)
 
 
+def _unit_args(B, T, C, dilation, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed + C + dilation)
+    x = torch.randn(B, T, C, device="cuda", generator=g)
+    halo = torch.randn(B, 6 * dilation, C, device="cuda", generator=g)
+    w7 = torch.randn(C, C, 7, device="cuda", generator=g) / (7 * C) ** 0.5
+    w1 = torch.randn(C, C, 1, device="cuda", generator=g) / C ** 0.5
+    b7, b1 = (0.1 * torch.randn(C, device="cuda", generator=g) for _ in range(2))
+    a1, a2 = (0.5 + torch.rand(1, C, 1, device="cuda", generator=g) for _ in range(2))
+    return x, halo, (w7, b7, w1, b1, a1, a2, dilation)
+
+
+# The halo entry at every flagship unit width and dilation, batch 1 and 4,
+# with chunks shorter than, equal to and longer than the 6d-row halo (54 rows
+# at d = 9; T = 24 is the 4-frame chunk of encoder stage 4 and decoder stage 1).
+STREAM_CASES = [(B, C, d, T) for C in (64, 128, 256, 512, 768, 384, 192, 96)
+                for d in (1, 3, 9) for T in (1, 6, 24, 53, 54, 55, 300) for B in (1, 4)]
+
+
+@pytest.mark.parametrize("B,C,dilation,T", STREAM_CASES)
+def test_resunit_halo_entry_matches_plain(B, C, dilation, T):
+    """A steady chunk: output within 1e-5 of the plain version, the new halo
+    bit-equal, one launch."""
+    _need_cuda()
+    x, halo, rest = _unit_args(B, T, C, dilation)
+    before = resunit.fused_residual_unit_stream.launches
+    with float32_exact():
+        want, want_halo = resunit.residual_unit_stream_reference(x, halo, *rest)
+        got, got_halo = resunit.fused_residual_unit_stream(x, halo, *rest)
+    torch.cuda.synchronize()
+    assert resunit.fused_residual_unit_stream.launches == before + 1
+    assert torch.equal(got_halo, want_halo)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("C,dilation,T", [(C, d, T) for C in (64, 768, 96) for d in (1, 9)
+                                          for T in (6 * d + 1, 300)])
+def test_resunit_halo_entry_first_chunk(C, dilation, T):
+    """A stream's first chunk (no halo): the causal reflect, as the one-shot
+    entry pads, and the last 6d padded rows as the new halo."""
+    _need_cuda()
+    x, _, rest = _unit_args(4, T, C, dilation, seed=1)
+    with float32_exact():
+        want, want_halo = resunit.residual_unit_stream_reference(x, None, *rest)
+        got, got_halo = resunit.fused_residual_unit_stream(x, None, *rest)
+        one_shot = resunit.fused_residual_unit(x, *rest, True)
+    assert torch.equal(got_halo, want_halo)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, one_shot)
+
+
+@pytest.mark.parametrize("fault", ["strided", "float64", "short_first"])
+def test_resunit_halo_entry_rejects(fault):
+    _need_cuda()
+    x, halo, rest = _unit_args(2, 30, 64, 9)
+    if fault == "strided":
+        halo = torch.randn(2, 54, 128, device="cuda")[:, :, ::2]
+    elif fault == "float64":
+        halo = halo.double()
+    else:
+        halo = None  # a first chunk of 30 <= 54 rows
+    before = resunit.fused_residual_unit_stream.launches
+    with pytest.raises(TypeError if fault == "float64" else ValueError):
+        resunit.fused_residual_unit_stream(x, halo, *rest)
+    assert resunit.fused_residual_unit_stream.launches == before
+
+
 @pytest.mark.parametrize("M", [1, 37, 3200])
 def test_vq_kernel_matches_plain(M):
     _need_cuda()
@@ -184,6 +250,45 @@ SMALL_REDECODER = dict(
                  n_layers=16, causal=False, gin_channels=64, out_dim=64),
     decoder=dict(input_channel=64, channels=512, rates=(6, 5, 5, 2), causal=False, lstm=1),
 )
+
+
+def test_streaming_session_card_matches_cpu():
+    """One seed on both devices, 4-frame chunks (primed, then T < 6d at the
+    d = 9 units of encoder stage 4 and decoder stage 1): the card's session
+    (halo entry, VQ kernel) against the CPU's (plain versions), with the
+    limits chip_smoke.py holds the card to; 24 halo-entry and 6 VQ launches
+    per steady chunk, and none of the one-shot entry."""
+    _need_cuda()
+    from facodec_tpu_torch.models.streaming import StreamingFACodec
+
+    wave = sweep_wave(2, 40 * 300 / 24000, seed=13)
+    out = {}
+    for device in ("cpu", "cuda"):
+        codec = FACodec.from_fields(SMALL_CODEC, seed=5, device=device, n_c=2)
+        sess = StreamingFACodec(codec.encoder, codec.quantizer, codec.decoder, chunk_frames=4,
+                                n_c=2)
+        w = torch.from_numpy(wave).to(device)
+        timbre = torch.from_numpy(codec.timbre_of(wave)).to(device)
+        est, dst = sess.init_encode_state(2), sess.init_decode_state(2)
+        waves, codes = [], []
+        for i in range(0, w.shape[1], 1200):
+            before = (resunit.fused_residual_unit.launches,
+                      resunit.fused_residual_unit_stream.launches, vq.nearest_code.launches)
+            est, dst, y, c = sess.roundtrip_chunk(est, dst, w[:, i : i + 1200], timbre)
+            after = (resunit.fused_residual_unit.launches,
+                     resunit.fused_residual_unit_stream.launches, vq.nearest_code.launches)
+            launched = tuple(a - b for a, b in zip(after, before))
+            if y is None:
+                continue
+            if device == "cuda":
+                assert launched == (0, 24, 6), launched
+            waves.append(y.cpu().numpy())
+            codes.append(torch.cat(c, 1).cpu().numpy())
+        out[device] = np.concatenate(waves, 1), np.concatenate(codes, -1)
+    (w_cpu, c_cpu), (w_gpu, c_gpu) = out["cpu"], out["cuda"]
+    assert w_gpu.shape == w_cpu.shape and np.isfinite(w_gpu).all()
+    assert (c_gpu == c_cpu).mean() >= 0.99
+    assert float(np.abs(w_gpu - w_cpu).max()) <= 1e-3
 
 
 def test_convert_voice_card_matches_cpu():

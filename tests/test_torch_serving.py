@@ -372,6 +372,44 @@ def test_load_wav_matches_jax(env, channels):
     assert float(np.abs(got).max()) <= 1.0
 
 
+# the JAX CLI's reader resamples other rates on the fly; odd lengths, so the
+# last output position falls past the last input sample and is clamped
+RESAMPLE_CASES = [(16000, 16001), (22050, 22053), (44100, 44103), (48000, 48007)]
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("file_sr,n_in", RESAMPLE_CASES)
+def test_load_wav_resamples_as_jax(tmp_path, file_sr, n_in, channels):
+    """At another rate the port reads what the JAX CLI's native reader reads,
+    within 1e-6 (its float64 positions and clamp, copied in numpy)."""
+    if not facodec_tpu.native.available():
+        pytest.skip("the JAX package's native wav reader did not build (needs g++)")
+    rng = np.random.default_rng(file_sr + channels)
+    data = rng.integers(-32768, 32768, (n_in, channels) if channels > 1 else n_in)
+    path = str(tmp_path / f"sr{file_sr}_{channels}.wav")
+    wavfile.write(path, file_sr, data.astype(np.int16))
+    got, want = load_wav(path), facodec_tpu.native.load_wav_native(path, 24000)
+    assert got.dtype == want.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("file_sr,n_in", RESAMPLE_CASES)
+def test_load_wav_resample_rule(tmp_path, file_sr, n_in):
+    """floor(n_in * 24000 / file_sr) samples; sample i is the linear
+    interpolation at i * file_sr / 24000, clamped at the last input sample."""
+    data = (np.arange(n_in) % 2000 - 1000).astype(np.int16) * 16
+    path = str(tmp_path / f"rule{file_sr}.wav")
+    wavfile.write(path, file_sr, data)
+    got = load_wav(path)
+    assert len(got) == n_in * 24000 // file_sr
+    x = data.astype(np.float64) / 32768.0
+    pos = np.arange(len(got)) * (file_sr / 24000)
+    j = pos.astype(np.int64)
+    a, b = x[np.minimum(j, n_in - 1)], x[np.minimum(j + 1, n_in - 1)]
+    want = a + (b - a) * (pos - j)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
 # ------------------------------------------------------------------ CLIs
 def _args(add, argv):
     p = argparse.ArgumentParser()
