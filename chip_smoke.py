@@ -62,6 +62,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    field override of this script), batch 1 x 10 s in 16-frame chunks,
    against `resynthesize` (<= 1e-3).
 
+8. The `hybrid` codec (float32 encode, bf16-activation decode) at full
+   width, batch 4 x 10 s, built on the phase-3 codec's modules: its codes
+   equal the float32 codes, its decode is within err / scale 8e-2 of the
+   float32 decode and within 2e-2 of a hybrid decode on the CPU (batch 1 x
+   2 s, equal codes), both at the worst sample. One round trip launches 12 float32
+   units (the encoder's), 12 bf16 units (the decoder's) and 6 VQ searches.
+   Round-trip times against float32, in turns. 8a holds the bf16 entry to
+   its plain version on the inputs of the 12 decoder units of one hybrid
+   decode (forward pre-hooks): no element more than 2 bf16 ulps off at
+   `resunit.bf16_error_scale`, with the bit-equal share, kernel and plain
+   times, FLOP and the bf16 bound (989 TFLOP/s, or the bytes at 3.35 TB/s).
+9. `serve` in process: a `CodecService` over the hybrid codec (the serve
+   default) behind `make_server` on 127.0.0.1:0. 8 concurrent 10 s
+   /reconstruct requests inside a 200 ms batch window run as one device call
+   of batch 8; each output is within err / scale 2e-2 of the same request
+   sent alone at the worst sample. Then /encode -> /decode, /health,
+   /metrics; requests per second concurrent and sequential. Any status but
+   200 fails.
+9a. Live streams. First a `BatchedStreamGroup` of capacity 8 alone, 4-frame
+   (50 ms) chunks: tick times with 1, 4 and 8 active slots, and 10 ticks at
+   8 slots under torch.profiler. Then a `StreamingService` with group
+   capacity 8 behind `make_stream_server`, and 1, 4 and 8 concurrent
+   connections of 10 s each from a client process of their own (the port's
+   `stream_wav` in threads, each sending as fast as it is answered):
+   per-tick p50 / p95, slots per tick, each stream's time per chunk against
+   the 50 ms of audio it carries; every stream's output within 1e-3 of a
+   solo session; every tick launches 24 halo entries and 6 VQ searches.
+
 The line before the last is the kernels' JSON summary; the last line is the
 run's JSON result.
 """
@@ -72,12 +100,16 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
 
 from facodec_tpu_torch.api import FACodec, FARedecoder, convert_voice, float32_exact
+from facodec_tpu_torch.cli import serve as serve_cli
+from facodec_tpu_torch.cli import stream_serve
 from facodec_tpu_torch.codec_file import FACodecFile
 from facodec_tpu_torch.config import FLAGSHIP, FLAGSHIP_REDECODER
 from facodec_tpu_torch.models.dac import ResidualUnit
@@ -107,7 +139,18 @@ RESUNIT_MAX_ERR = 1e-5  # the kernel's float32 sums against the plain version's
 # Published peaks of one H100 SXM (dense): the roofline of each kernel.
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 HBM_BYTES_S = 3.35e12
+# The bf16 entry against its plain version (tests/test_torch_precision.py).
+BF16_MAX_ULPS = 2
+# A bf16 decode against another evaluation of it (the CPU's, another
+# batch's): two orders of summation flip roundings, and a flip moves every
+# later layer's input, so the worst sample differs by a few output ulps.
+# err / scale at the worst sample; the RMS is printed beside it.
+HYBRID_BF16 = 2e-2
+# The hybrid decode against the float32 decode: the JAX package's limit
+# (tests/test_precision.py).
+HYBRID_VS_F32 = 8e-2
 
 
 def log(msg: str) -> None:
@@ -142,8 +185,31 @@ def unit_inputs(parts, run, expected: int) -> list:
 
 def reset_counts() -> None:
     resunit.fused_residual_unit.launches = 0
+    resunit.fused_residual_unit.bf16_launches = 0
     resunit.fused_residual_unit_stream.launches = 0
     vq.nearest_code.launches = 0
+
+
+def all_counts() -> dict:
+    return dict(f32=resunit.fused_residual_unit.launches,
+                bf16=resunit.fused_residual_unit.bf16_launches,
+                halo=resunit.fused_residual_unit_stream.launches, vq=vq.nearest_code.launches)
+
+
+def wave_gap(got: np.ndarray, want: np.ndarray) -> tuple:
+    """(worst-sample err / scale, RMS err / RMS) of two waves."""
+    worst = float(np.abs(got - want).max() / np.abs(want).max())
+    rms = float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2)))
+    return worst, rms
+
+
+def check_hybrid_gap(label: str, got: np.ndarray, want: np.ndarray) -> tuple:
+    worst, rms = wave_gap(got, want)
+    log(f"  {label}: err/scale {worst:.3e} at the worst sample (limit {HYBRID_BF16}), "
+        f"{rms:.3e} in RMS")
+    if not worst <= HYBRID_BF16:
+        raise AssertionError(f"{label}: err/scale {worst} > {HYBRID_BF16}")
+    return worst, rms
 
 
 def counts() -> tuple:
@@ -377,7 +443,8 @@ def phase_slice(codec: FACodec, w: np.ndarray) -> dict:
     return dict(resunit=rt_counts[0], vq=rt_counts[1], roundtrip_s=rt, reconstruct_s=rt_rec)
 
 
-def phase_cpu(codec: FACodec) -> None:
+def phase_cpu(codec: FACodec) -> FACodec:
+    """Returns the CPU codec, for phase 8."""
     log("phase 4: card against CPU, flagship weights, batch 1 x 2 s")
     cpu = FACodec.from_fields(FLAGSHIP, seed=0, device="cpu")
     w = sweep_wave(1, 2.0, seed=3)
@@ -398,6 +465,7 @@ def phase_cpu(codec: FACodec) -> None:
         raise AssertionError(f"code match {match} < {CODE_MATCH_MIN}")
     if not diff <= DECODE_MAX_DIFF:
         raise AssertionError(f"decode difference {diff} > {DECODE_MAX_DIFF}")
+    return cpu
 
 
 def phase_vc(codec_vc: FACodec, red: FARedecoder, w: np.ndarray, target: np.ndarray,
@@ -726,6 +794,383 @@ def phase_stream_vc(codec_vc: FACodec) -> None:
         raise AssertionError(f"streamed VC {got.shape}, difference {diff} > {DECODE_MAX_DIFF}")
 
 
+# ------------------------------------------------------------- phase 8-9a
+def phase_hybrid(codec: FACodec, codec_hy: FACodec, cpu: FACodec, w: np.ndarray) -> dict:
+    """The hybrid round trip against float32 on the card, and against the
+    hybrid decode on the CPU."""
+    B = w.shape[0]
+    log(f"phase 8: hybrid round trip (float32 encode, bfloat16_act decode), flagship, batch {B} "
+        f"x {SECONDS:.0f} s")
+    f32 = codec.encode(w)
+    y32 = codec.decode(f32)
+    codec_hy.decode(codec_hy.encode(w))  # warm the bf16 path up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    fhy = codec_hy.encode(w)
+    yhy = codec_hy.decode(fhy)
+    torch.cuda.synchronize()
+    rt = time.perf_counter() - t0
+    n = all_counts()
+    log(f"  encode -> decode {rt:.3f} s; launches {n}")
+    if n != dict(f32=12, bf16=12, halo=0, vq=6):
+        raise AssertionError(f"hybrid round trip launched {n}, expected 12 float32 units, "
+                             f"12 bf16 units, 6 VQ searches")
+    for name in ("codes_p", "codes_c", "codes_r"):
+        a, b = getattr(fhy, name), getattr(f32, name)
+        per_row = [int((a[i] == b[i]).sum()) for i in range(B)]
+        log(f"  {name}: equal to float32's {per_row} of {a[0].size} per row")
+        if not np.array_equal(a, b):
+            raise AssertionError(f"hybrid {name} differ from float32's")
+    if not np.array_equal(fhy.timbre, f32.timbre):
+        raise AssertionError("hybrid timbre differs from float32's")
+    if yhy.dtype != np.float32 or yhy.shape != y32.shape or not np.isfinite(yhy).all():
+        raise AssertionError(f"hybrid wave {yhy.dtype} {yhy.shape} is not a finite float32 wave")
+    # against float32, the JAX package's limit (tests/test_precision.py)
+    worst32, rms32 = wave_gap(yhy, y32)
+    log(f"  hybrid decode vs float32 decode, same codes: err/scale {worst32:.3e} at the worst "
+        f"sample (limit {HYBRID_VS_F32}), {rms32:.3e} in RMS")
+    if not worst32 < HYBRID_VS_F32:
+        raise AssertionError(f"hybrid vs float32 err/scale {worst32} >= {HYBRID_VS_F32}")
+
+    # times in turns: float32, hybrid, hybrid, float32
+    times = {"float32": [], "hybrid": []}
+    for name in ("float32", "hybrid", "hybrid", "float32"):
+        c = codec if name == "float32" else codec_hy
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c.decode(c.encode(w))
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        c.reconstruct(w)
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+    log("  warm times (encode -> decode, reconstruct; in turns f32, hybrid, hybrid, f32): "
+        + "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in v)} s" for k, v in times.items()))
+
+    wc = sweep_wave(1, 2.0, seed=3)
+    f = codec.encode(wc)
+    cpu_hy = FACodec(cpu.encoder, cpu.quantizer, cpu.decoder, precision="hybrid")
+    t0 = time.perf_counter()
+    y_cpu = cpu_hy.decode(f)
+    y_gpu = codec_hy.decode(f)
+    log(f"  card vs CPU, batch 1 x 2 s, equal codes ({time.perf_counter() - t0:.1f} s):")
+    worst_cpu, rms_cpu = check_hybrid_gap("hybrid decode card vs CPU", y_gpu, y_cpu)
+    return dict(hybrid_s=rt, f32_times=times["float32"], hybrid_times=times["hybrid"],
+                worst32=worst32, rms32=rms32, worst_cpu=worst_cpu, rms_cpu=rms_cpu,
+                launches=n, f=f32)
+
+
+def bf16_unit_cost(B: int, T: int, C: int) -> tuple:
+    """(FLOP, bytes) of one bf16 unit: 16 C^2 FLOP per row; x read and out
+    written in bf16, the float32 weights, biases and alphas read once."""
+    return 16 * B * T * C * C, 2 * 2 * B * T * C + 4 * (8 * C * C + 4 * C)
+
+
+def phase_bf16(calls: list) -> dict:
+    log(f"phase 8a: the bf16 entry vs its plain version (bfloat16_act) on the 12 decoder units' "
+        f"inputs of one hybrid decode; <= {BF16_MAX_ULPS} bf16 ulps at bf16_error_scale; bound "
+        f"= max(FLOP at {BF16_FLOPS / 1e12:.0f} TFLOP/s, bytes at {HBM_BYTES_S / 1e12:.2f} TB/s)")
+    tot = dict(ms=0.0, plain_ms=0.0, flops=0, bound_ms=0.0)
+    worst_abs, worst_ulps = 0.0, 0.0
+    rows = []
+    for unit, x in calls:
+        snake1, conv7, snake2, conv1 = unit.block
+        with torch.no_grad(), float32_exact():
+            args = (x.contiguous(), conv7.effective_weight(), conv7.bias,
+                    conv1.effective_weight(), conv1.bias, snake1.alpha, snake2.alpha,
+                    unit.dilation, unit.causal)
+            if x.dtype != torch.bfloat16:
+                raise AssertionError(f"decoder unit input is {x.dtype}, expected bfloat16")
+            got = resunit.fused_residual_unit(*args)
+            want = resunit.residual_unit_reference(*args)
+            scale = resunit.bf16_error_scale(*args)
+            torch.cuda.synchronize()
+            ulps = resunit.bf16_ulps(got, want, scale).max().item()
+            err = (got.float() - want.float()).abs().max().item()
+            equal = (got == want).float().mean().item()
+            if not ulps <= BF16_MAX_ULPS:
+                raise AssertionError(f"bf16 entry {tuple(x.shape)} d={unit.dilation}: "
+                                     f"{ulps} ulps > {BF16_MAX_ULPS}")
+            tk = median_ms(lambda: resunit.fused_residual_unit(*args))
+            tp = median_ms(lambda: resunit.residual_unit_reference(*args))
+        B, T, C = x.shape
+        flop, nbytes = bf16_unit_cost(B, T, C)
+        b = bound_ms(flop, nbytes, BF16_FLOPS)
+        by = "operations" if flop / BF16_FLOPS > nbytes / HBM_BYTES_S else "bytes"
+        worst_abs, worst_ulps = max(worst_abs, err), max(worst_ulps, ulps)
+        for k, v in (("ms", tk), ("plain_ms", tp), ("flops", flop), ("bound_ms", b)):
+            tot[k] += v
+        rows.append((C, T, unit.dilation, tk, tp, b, by, equal))
+        log(f"  B={B} C={C:4d} T={T:6d} d={unit.dilation}: FLOP {flop:.4e} bound {b:.3f} ms "
+            f"({by}); kernel {tk:.3f} ms ({flop / tk / 1e9:.1f} TFLOP/s, {b / tk:.1%} of the "
+            f"bound) plain {tp:.3f} ms; {equal:.4%} bit-equal, worst {ulps:.2f} ulps, max abs "
+            f"{err:.3e}")
+    log(f"  12 units: kernel {tot['ms']:.3f} ms plain {tot['plain_ms']:.3f} ms; bound "
+        f"{tot['bound_ms']:.3f} ms ({tot['bound_ms'] / tot['ms']:.1%} of it reached)")
+    return dict(max_abs_err=worst_abs, max_ulps=worst_ulps, **tot)
+
+
+def _http(method: str, url: str, data: bytes = None) -> bytes:
+    resp = urllib.request.urlopen(urllib.request.Request(url, data=data, method=method),
+                                  timeout=600)
+    if resp.status != 200:
+        raise AssertionError(f"{method} {url}: HTTP {resp.status}")
+    return resp.read()
+
+
+def phase_serve(codec_hy: FACodec) -> dict:
+    n_req = 8
+    svc = serve_cli.CodecService(codec_hy, max_batch=n_req, batch_window_ms=200.0)
+    server = serve_cli.make_server(svc, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    log(f"phase 9: serve in process ({base}), precision {codec_hy.precision}, max batch "
+        f"{svc.max_batch}, batch window 200 ms; {n_req} requests of {SECONDS:.0f} s")
+    try:
+        blobs = [serve_cli.write_wav_bytes(w) for w in sweep_wave(n_req, SECONDS, seed=20)]
+        _http("POST", f"{base}/reconstruct", blobs[0])  # warm up
+        seq = []
+        t0 = time.perf_counter()
+        for b in blobs:
+            seq.append(serve_cli.read_wav_bytes(_http("POST", f"{base}/reconstruct", b)))
+        t_seq = time.perf_counter() - t0
+        calls0 = svc._batcher.calls
+        reset_counts()
+        results = [None] * n_req
+        errors = []
+
+        def worker(i):
+            try:
+                results[i] = serve_cli.read_wav_bytes(_http("POST", f"{base}/reconstruct",
+                                                            blobs[i]))
+            except Exception as e:  # noqa: BLE001 -- reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(n_req)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        t_conc = time.perf_counter() - t0
+        n = all_counts()
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"concurrent requests failed: {errors}")
+        calls, seen = svc._batcher.calls - calls0, svc._batcher.max_seen
+        log(f"  {n_req} concurrent /reconstruct: {calls} device call(s), largest batch {seen}, "
+            f"launches {n}; {t_conc:.3f} s ({n_req / t_conc:.2f} requests/s, "
+            f"{n_req * SECONDS / t_conc:.1f}x realtime); sequential {t_seq:.3f} s "
+            f"({n_req / t_seq:.2f} requests/s)")
+        if calls != 1 or seen != n_req:
+            raise AssertionError(f"{n_req} concurrent requests ran as {calls} calls, largest "
+                                 f"batch {seen}")
+        if n != dict(f32=12, bf16=12, halo=0, vq=6):
+            raise AssertionError(f"the batch-8 call launched {n}")
+        gaps = [check_hybrid_gap(f"request {i}, batch 8 vs alone", results[i], seq[i])
+                for i in range(n_req)]
+        fac = _http("POST", f"{base}/encode", blobs[0])
+        wav = _http("POST", f"{base}/decode", fac)
+        f = FACodecFile.from_bytes(fac)
+        if wav[:4] != b"RIFF" or f.codes_c.shape != (1, 2, int(SECONDS * SR / HOP)):
+            raise AssertionError(f"/encode -> /decode gave {f.codes_c.shape}, {wav[:4]!r}")
+        health = json.loads(_http("GET", f"{base}/health"))
+        metrics = _http("GET", f"{base}/metrics").decode()
+        if health["status"] != "ok" or "facodec_device_calls_total" not in metrics:
+            raise AssertionError(f"/health {health}")
+        log(f"  /encode -> /decode: {len(fac)} bytes of codes, {len(wav)} bytes of wav; "
+            f"/health {health}")
+        return dict(rps_concurrent=n_req / t_conc, rps_sequential=n_req / t_seq,
+                    t_conc=t_conc, t_seq=t_seq, worst=max(g[0] for g in gaps),
+                    rms=max(g[1] for g in gaps))
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+
+
+def _solo_stream(sess: StreamingFACodec, wave: np.ndarray, timbre: torch.Tensor) -> np.ndarray:
+    """A dedicated batch-1 session over the wave, flush included."""
+    est, dst = sess.init_encode_state(1), sess.init_decode_state(1)
+    w = torch.from_numpy(wave)[None].cuda()
+    step = sess.chunk_frames * HOP
+    parts = []
+    for i in range(0, w.shape[1], step):
+        est, dst, out, _ = sess.roundtrip_chunk(est, dst, w[:, i : i + step], timbre)
+        if out is not None:
+            parts.append(out.cpu().numpy()[0])
+    outs_t, _ = sess.flush_encode(est, timbre)
+    dst, out_t = sess.decode_chunk(dst, outs_t)
+    parts.append(out_t.cpu().numpy()[0])
+    return np.concatenate(parts)
+
+
+# The live-stream clients run in a process of their own, so that their
+# socket threads do not share the server's interpreter lock: N threads, each
+# streaming one wave of `waves` as fast as the server answers it.
+STREAM_CLIENT = r"""
+import json, sys, threading, time
+import numpy as np
+sys.path.insert(0, sys.argv[4])
+from facodec_tpu_torch.cli.stream_serve import stream_wav
+port, chunk, stem = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+waves = np.load(stem + ".in.npy")
+outs, errors = [None] * len(waves), []
+def run(i):
+    try:
+        outs[i] = stream_wav("127.0.0.1", port, waves[i], chunk_frames=chunk)[0]
+    except Exception as e:
+        errors.append(repr(e))
+threads = [threading.Thread(target=run, args=(i,)) for i in range(len(waves))]
+t0 = time.perf_counter()
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+wall = time.perf_counter() - t0
+if not errors:
+    np.save(stem + ".out.npy", np.stack(outs))
+print(json.dumps({"wall": wall, "errors": errors}))
+"""
+
+
+def phase_group_ticks(codec: FACodec, chunk: int, capacity: int) -> dict:
+    """The group alone, no server: ticks of a group of `capacity` slots
+    with 1, 4 and 8 of them active, then TRACED_CHUNKS ticks of all under
+    torch.profiler."""
+    from facodec_tpu_torch.models.stream_batch import BatchedStreamGroup
+
+    sess = StreamingFACodec(codec.encoder, codec.quantizer, codec.decoder, chunk_frames=chunk,
+                            n_c=codec.n_c)
+    group = BatchedStreamGroup(sess, capacity)
+    P, step, n_ticks = sess.prime_frames, chunk * HOP, 60
+    w = sweep_wave(capacity, (P * HOP + (3 * n_ticks + TRACED_CHUNKS) * step) / SR, seed=40)
+    timbre = torch.from_numpy(codec.timbre_of(w[:, : P * HOP])).cuda()
+    slots = [group.join(torch.from_numpy(w[i : i + 1, : P * HOP]).cuda(), timbre[i : i + 1])[0]
+             for i in range(capacity)]
+    log(f"phase 9a: BatchedStreamGroup alone (capacity {capacity}, {chunk}-frame chunks): "
+        f"{n_ticks} ticks each with 1, 4 and 8 active slots (the call until the outputs are on "
+        f"the host; first 10 left out)")
+    out = {}
+    pos = P * HOP
+    for n in (1, 4, 8):
+        times = []
+        for i in range(n_ticks):
+            chunks = {s: w[s, pos : pos + step] for s in slots[:n]}
+            pos += step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            group.tick(chunks)
+            times.append(time.perf_counter() - t0)
+        t = np.array(times[10:]) * 1e3
+        out[n] = dict(p50_ms=float(np.percentile(t, 50)), p95_ms=float(np.percentile(t, 95)))
+        log(f"  {n} active slot(s): tick p50 {out[n]['p50_ms']:.2f} ms p95 "
+            f"{out[n]['p95_ms']:.2f} ms")
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with prof:
+        for i in range(TRACED_CHUNKS):
+            group.tick({s: w[s, pos + i * step : pos + (i + 1) * step] for s in slots})
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TRACED_CHUNKS
+    by_kind, _, _ = traced_device_ms(prof)
+    dev_ms = sum(by_kind.values()) / TRACED_CHUNKS
+    log(f"  traced, 8 slots: wall {wall_ms:.2f} ms per tick, device kernels {dev_ms:.2f} ms "
+        f"({dev_ms / wall_ms:.1%} busy): " + ", ".join(
+            f"{k} {v / TRACED_CHUNKS:.2f} ms" for k, v in
+            sorted(by_kind.items(), key=lambda kv: -kv[1])))
+    out["traced"] = dict(wall_ms=wall_ms, device_ms=dev_ms)
+    return out
+
+
+def phase_live(codec_hy: FACodec) -> dict:
+    import os
+    import tempfile
+
+    chunk, capacity = 4, 8
+    group_alone = phase_group_ticks(codec_hy, chunk, capacity)
+    svc = serve_cli.CodecService(codec_hy)
+    streaming = stream_serve.StreamingService(svc, group_capacity=capacity)
+    server = stream_serve.make_stream_server(streaming, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    disp = streaming.dispatcher(chunk)
+    tick_counts = []
+    group_tick = disp.group.tick
+
+    def counted_tick(chunks, **kw):  # runs under the service lock
+        before = all_counts()
+        out = group_tick(chunks, **kw)
+        tick_counts.append({k: v - before[k] for k, v in all_counts().items()})
+        return out
+
+    disp.group.tick = counted_tick
+    chunk_ms = chunk * HOP / SR * 1e3
+    log(f"phase 9a: live streams through StreamingService (group capacity {capacity}, window "
+        f"{disp.window_s * 1e3:.0f} ms) on tcp://127.0.0.1:{port}, {chunk}-frame "
+        f"({chunk_ms:.0f} ms) chunks, {SECONDS:.0f} s per stream, clients in a separate process")
+    sess = streaming.session(chunk)
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {"group_alone": group_alone}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            def run_clients(waves, stem):
+                np.save(os.path.join(tmp, stem + ".in.npy"), waves)
+                res = subprocess.run([sys.executable, "-c", STREAM_CLIENT, str(port), str(chunk),
+                                      os.path.join(tmp, stem), root],
+                                     capture_output=True, text=True, timeout=900)
+                if res.returncode != 0:
+                    raise AssertionError(f"stream clients failed: {res.stderr[-2000:]}")
+                info = json.loads(res.stdout.strip().splitlines()[-1])
+                if info["errors"]:
+                    raise AssertionError(f"stream clients failed: {info['errors']}")
+                return np.load(os.path.join(tmp, stem + ".out.npy")), info["wall"]
+
+            run_clients(sweep_wave(1, 1.0, seed=29), "warm")
+            for n in (1, 4, 8):
+                waves = sweep_wave(n, SECONDS, seed=30 + n)
+                disp.tick_s.clear()
+                tick_counts.clear()
+                results, wall = run_clients(waves, f"s{n}")
+                ticks = list(disp.tick_s)
+                dts = np.array([dt for dt, _ in ticks]) * 1e3
+                stacked = np.array([k for _, k in ticks])
+                p50, p95 = (float(np.percentile(dts, q)) for q in (50, 95))
+                bad = [c for c in tick_counts if c != dict(f32=0, bf16=0, halo=24, vq=6)]
+                if bad:
+                    raise AssertionError(f"ticks launched {bad[:3]}, expected 24 halo entries "
+                                         f"and 6 VQ searches each")
+                worst = 0.0
+                for i in range(n):
+                    timbre = torch.from_numpy(streaming.timbre_from_wave(
+                        waves[i][: sess.prime_frames * HOP])).cuda()
+                    want = _solo_stream(sess, waves[i], timbre)
+                    if results[i].shape != want.shape:
+                        raise AssertionError(f"stream {i}: {results[i].shape} vs {want.shape}")
+                    worst = max(worst, float(np.abs(results[i] - want).max()))
+                # each client sends as fast as it is answered: one stream's
+                # time per chunk is the wall over its chunks
+                period = wall / (waves.shape[1] // (chunk * HOP)) * 1e3
+                log(f"  {n} stream(s): a stream's chunk every {period:.2f} ms "
+                    f"({'faster' if period < chunk_ms else 'slower'} than real time); "
+                    f"{len(ticks)} ticks, slots per tick mean {stacked.mean():.2f} max "
+                    f"{stacked.max()}; tick p50 {p50:.2f} ms p95 {p95:.2f} ms "
+                    f"({'under' if p95 < chunk_ms else 'over'} the {chunk_ms:.0f} ms chunk at "
+                    f"p95); every tick 24 halo / 6 VQ; max abs vs solo sessions {worst:.3e}")
+                if not worst <= DECODE_MAX_DIFF:
+                    raise AssertionError(f"grouped streams vs solo: {worst} > {DECODE_MAX_DIFF}")
+                out[n] = dict(p50_ms=p50, p95_ms=p95, period_ms=period, ticks=len(ticks),
+                              mean_slots=float(stacked.mean()), max_abs=worst)
+    finally:
+        server.shutdown()
+        server.server_close()
+        streaming.close()
+        svc.close()
+    return out
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -749,7 +1194,7 @@ def main() -> None:
         unit_inputs((codec.encoder, codec.decoder), lambda: codec.reconstruct(w), 24))
     vqr = phase_vq(codec, w)
     main_path = phase_slice(codec, w)
-    phase_cpu(codec)
+    cpu = phase_cpu(codec)
 
     t0 = time.perf_counter()
     red = FARedecoder.from_fields(FLAGSHIP_REDECODER, seed=1, device="cuda")
@@ -777,21 +1222,42 @@ def main() -> None:
     phase_encode_streaming(codec)
     phase_stream_vc(codec_vc)
 
+    codec_hy = FACodec(codec.encoder, codec.quantizer, codec.decoder, precision="hybrid")
+    hy = phase_hybrid(codec, codec_hy, cpu, w)
+    f32_codes = hy.pop("f")
+    bf = phase_bf16(unit_inputs((codec_hy.decoder,), lambda: codec_hy.decode(f32_codes), 12))
+    sv = phase_serve(codec_hy)
+    live = phase_live(codec_hy)
+
     # no single PyTorch call computes either function: library_ms is null
     kernels = [
         dict(name="fused_residual_unit", route="cuda", source="facodec_tpu_torch/csrc/resunit.cu",
              replaces="facodec_tpu/ops/pallas/resunit.py:273", launches=main_path["resunit"],
-             vc_launches=vc_counts[0], stream_launches=st16["halo"], bound_by="operations",
+             vc_launches=vc_counts[0], stream_launches=st16["halo"],
+             hybrid_launches=hy["launches"]["f32"], bound_by="operations",
              library_ms=None, **ru, **halo),
         dict(name="nearest_code", route="cuda", source="facodec_tpu_torch/csrc/vq.cu",
              replaces="facodec_tpu/ops/pallas/vq.py:76", launches=main_path["vq"],
-             vc_launches=vc_counts[1], stream_launches=st16["vq"], bound_by="operations",
+             vc_launches=vc_counts[1], stream_launches=st16["vq"],
+             hybrid_launches=hy["launches"]["vq"], bound_by="operations",
              library_ms=None, **vqr),
+        # the bf16 entry of csrc/resunit.cu: its main path is the hybrid
+        # round trip (the serve default), whose 12 decoder units it runs
+        dict(name="fused_residual_unit_bf16", route="cuda",
+             source="facodec_tpu_torch/csrc/resunit.cu",
+             replaces="facodec_tpu/ops/pallas/resunit.py:273", launches=hy["launches"]["bf16"],
+             hybrid_launches=hy["launches"]["bf16"], bound_by="operations", library_ms=None,
+             **bf),
     ]
     log(f"streaming: chunk 16 batch 1 p50 {st16['p50_ms']:.2f} ms ({st16['rtf']:.1f}x realtime, "
         f"device {st16['device_ms']:.2f} ms of a traced {st16['traced_wall_ms']:.2f} ms), "
         f"chunk 4 batch 4 p50 {st4['p50_ms']:.2f} ms ({st4['rtf']:.1f}x realtime, device "
         f"{st4['device_ms']:.2f} ms of a traced {st4['traced_wall_ms']:.2f} ms)")
+    log(f"hybrid: round trip {hy['hybrid_s']:.3f} s (warm f32 {hy['f32_times']}, hybrid "
+        f"{hy['hybrid_times']}); serve {sv['rps_concurrent']:.2f} requests/s concurrent, "
+        f"{sv['rps_sequential']:.2f} sequential; live ticks "
+        + ", ".join(f"{n} streams p50 {v['p50_ms']:.2f} p95 {v['p95_ms']:.2f} ms"
+                    for n, v in live.items() if n != "group_alone"))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -7,6 +7,7 @@
   decode        .fac -> wav
   convert       zero-shot voice conversion (codec + redecoder)
   stream        chunked streaming round trip, with its per-chunk latency
+  serve         HTTP inference server (and, with --stream-port, live streams)
 
 Each command runs on the card unless given `--device cpu`.
 """
@@ -19,6 +20,7 @@ import sys
 from facodec_tpu_torch.cli import codec as codec_cli
 from facodec_tpu_torch.cli import convert as convert_cli
 from facodec_tpu_torch.cli import reconstruct as reconstruct_cli
+from facodec_tpu_torch.cli import serve as serve_cli
 from facodec_tpu_torch.cli import stream as stream_cli
 
 
@@ -30,9 +32,10 @@ def main(argv=None):
     codec_cli.add_encode_args(sub.add_parser("encode"))
     codec_cli.add_decode_args(sub.add_parser("decode"))
     stream_cli.add_args(sub.add_parser("stream"))
+    serve_cli.add_args(sub.add_parser("serve"))
     commands = dict(reconstruct=reconstruct_cli.main, convert=convert_cli.main,
                     encode=codec_cli.main_encode, decode=codec_cli.main_decode,
-                    stream=stream_cli.main)
+                    stream=stream_cli.main, serve=serve_cli.main)
     args = parser.parse_args(argv)
     return commands[args.command](args)
 

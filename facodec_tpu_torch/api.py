@@ -1,6 +1,6 @@
 """High-level API: the codec and voice conversion.
 
-Port of facodec_tpu/api.py, float32:
+Port of facodec_tpu/api.py:
 - `FACodec`: encode / decode / decode_subset / reconstruct / timbre_of,
   the bounded-memory `encode_streaming` / `decode_streaming` for long
   inputs (the exact chunked session of models/streaming.py), and `latency`.
@@ -18,6 +18,13 @@ from a torch checkpoint by `from_config`.
 Every call runs with TF32 off for cuDNN convolutions and cuBLAS matmuls,
 scoped to the call: cuDNN convolutions default to TF32 on Hopper, and the
 codes of a float32 codec must not depend on it.
+
+`FACodec(precision=)` takes the policies of ops/precision.py: "float32"
+(the default) or "hybrid", which encodes in float32 (codes exact) and
+decodes under `bfloat16_act` (bf16 activations; decoded waves come back as
+float32 numpy), as the JAX package's "hybrid" does; "bfloat16_act" runs
+both under it. The streaming methods and sessions stay float32 under every
+policy, as the JAX package's do. `FARedecoder` is float32.
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ from facodec_tpu_torch.codec_file import FACodecFile
 from facodec_tpu_torch.models.builder import (
     build_from_fields, build_redecoder_from_fields, codec_fields, redecoder_fields,
 )
+from facodec_tpu_torch.ops.precision import check as check_policy
+from facodec_tpu_torch.ops.precision import policy
 from facodec_tpu_torch.utils.config import load_config
 from facodec_tpu_torch.utils.weights import init_random_, load_torch_checkpoint
 
@@ -44,15 +53,20 @@ REDECODER_MODULES = ("encoder", "decoder")
 
 @contextlib.contextmanager
 def float32_exact() -> Iterator[None]:
-    """Turn TF32 off for cuDNN and cuBLAS inside the block, then restore."""
-    cudnn, matmul = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    """Turn TF32 off for cuDNN and cuBLAS inside the block, and cuBLAS's
+    bf16 reductions in bf16 (its bf16 GEMMs then sum in float32, as the
+    bfloat16_act policy asks), then restore."""
+    flags = torch.backends.cuda.matmul
+    saved = (torch.backends.cudnn.allow_tf32, flags.allow_tf32,
+             flags.allow_bf16_reduced_precision_reduction)
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    flags.allow_tf32 = False
+    flags.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = cudnn
-        torch.backends.cuda.matmul.allow_tf32 = matmul
+        (torch.backends.cudnn.allow_tf32, flags.allow_tf32,
+         flags.allow_bf16_reduced_precision_reduction) = saved
 
 
 def _build(who: str, build: Callable[[Mapping], Dict[str, nn.Module]],
@@ -90,29 +104,35 @@ class FACodec:
     """The codec: encoder + factorized quantizer + decoder, in eval mode."""
 
     def __init__(self, encoder: nn.Module, quantizer: nn.Module, decoder: nn.Module,
-                 n_c: int = 2):
+                 n_c: int = 2, precision: str = "float32"):
         self.encoder = encoder.eval()
         self.quantizer = quantizer.eval()
         self.decoder = decoder.eval()
         self.n_c = n_c
+        self.precision = check_policy(precision)
+        hybrid = self.precision == "hybrid"
+        self.enc_policy = "float32" if hybrid else self.precision
+        self.dec_policy = "bfloat16_act" if hybrid else self.precision
 
     @classmethod
     def from_fields(cls, fields: Mapping[str, Mapping[str, Any]], seed: int = 0,
-                    device: str = "cuda", n_c: int = 2,
-                    ckpt_path: Optional[str] = None) -> "FACodec":
+                    device: str = "cuda", n_c: int = 2, ckpt_path: Optional[str] = None,
+                    precision: str = "float32") -> "FACodec":
         """Build from module fields (e.g. `config.FLAGSHIP`) with seeded
         random weights, or a torch checkpoint's, on the card unless
         `device="cpu"` is asked for."""
+        check_policy(precision)
         return cls(*_build("FACodec", build_from_fields, fields, CODEC_MODULES, seed, device,
-                           ckpt_path), n_c=n_c)
+                           ckpt_path), n_c=n_c, precision=precision)
 
     @classmethod
     def from_config(cls, config_path: str, ckpt_path: Optional[str] = None, seed: int = 0,
-                    n_c: int = 2, device: str = "cuda") -> "FACodec":
+                    n_c: int = 2, device: str = "cuda", precision: str = "float32") -> "FACodec":
         """Build from a reference-schema config.yml (needs pyyaml) and, if
         given, a torch checkpoint holding `encoder`, `quantizer`, `decoder`."""
         fields = codec_fields(load_config(config_path).model_params)
-        return cls.from_fields(fields, seed=seed, device=device, n_c=n_c, ckpt_path=ckpt_path)
+        return cls.from_fields(fields, seed=seed, device=device, n_c=n_c, ckpt_path=ckpt_path,
+                               precision=precision)
 
     @property
     def device(self) -> torch.device:
@@ -120,27 +140,33 @@ class FACodec:
 
     # ------------------------------------------------------------- tensors
     @torch.no_grad()
-    def encode_tensor(self, wave: torch.Tensor):
-        """wave (B, T) on the device -> (outs, [codes_p, codes_c, codes_r], timbre)."""
-        with float32_exact():
+    def encode_tensor(self, wave: torch.Tensor, wave_lens: Optional[torch.Tensor] = None):
+        """wave (B, T) on the device -> (outs, [codes_p, codes_c, codes_r],
+        timbre). Given the rows' true lengths `wave_lens` (B,) in samples,
+        the timbre pools each row's first wave_lens // 300 frames only (a
+        batch zero-padded to a length bucket)."""
+        with float32_exact(), policy(self.enc_policy):
             z = self.encoder(wave[:, :, None])
-            return self.quantizer.forward_v2(z, wave, n_c=self.n_c)
+            if wave_lens is None:
+                return self.quantizer.forward_v2(z, wave, n_c=self.n_c)
+            return self.quantizer.forward_v2(z, wave, n_c=self.n_c, full_waves=wave,
+                                             wave_lens=wave_lens)
 
     @torch.no_grad()
     def decode_tensor(self, codes_p, codes_c, codes_r, timbre, use_p: bool = True,
                       use_c: bool = True, use_r: bool = True) -> torch.Tensor:
-        """Code streams (B, n, T) + timbre (B, d) -> wave (B, T), from the
-        selected streams."""
-        with float32_exact():
+        """Code streams (B, n, T) + timbre (B, d) -> float32 wave (B, T),
+        from the selected streams."""
+        with float32_exact(), policy(self.dec_policy):
             outs = self.quantizer.decode_streams_v2(codes_p, codes_c, codes_r, timbre,
                                                     use_p, use_c, use_r)
-            return self.decoder(outs)[:, :, 0]
+            return self.decoder(outs)[:, :, 0].float()
 
     @torch.no_grad()
     def decode_latent(self, outs: torch.Tensor) -> torch.Tensor:
-        """Decoder-ready latent (B, T', d) -> wave (B, T)."""
-        with float32_exact():
-            return self.decoder(outs)[:, :, 0]
+        """Decoder-ready latent (B, T', d) -> float32 wave (B, T)."""
+        with float32_exact(), policy(self.dec_policy):
+            return self.decoder(outs)[:, :, 0].float()
 
     # --------------------------------------------------------------- numpy
     def _prep(self, wave: np.ndarray) -> torch.Tensor:

@@ -22,10 +22,12 @@ def add_device_arg(p: argparse.ArgumentParser) -> None:
 
 
 def load_codec(config_path: Optional[str], ckpt_path: Optional[str], n_c: int,
-               device: str) -> FACodec:
+               device: str, precision: str = "float32") -> FACodec:
     if config_path:
-        return FACodec.from_config(config_path, ckpt_path, n_c=n_c, device=device)
-    return FACodec.from_fields(FLAGSHIP, n_c=n_c, device=device, ckpt_path=ckpt_path)
+        return FACodec.from_config(config_path, ckpt_path, n_c=n_c, device=device,
+                                   precision=precision)
+    return FACodec.from_fields(FLAGSHIP, n_c=n_c, device=device, ckpt_path=ckpt_path,
+                               precision=precision)
 
 
 def load_redecoder(config_path: Optional[str], ckpt_path: Optional[str],

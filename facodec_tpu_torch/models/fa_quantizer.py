@@ -72,12 +72,24 @@ class FAquantizer(nn.Module):
         gamma, beta = torch.chunk(self.timbre_linear(timbre), 2, dim=-1)
         return self.timbre_norm(outs) * gamma[:, None, :] + beta[:, None, :]
 
-    def forward_v2(self, x: torch.Tensor, wave_segments: torch.Tensor, n_c: int = 1
+    def forward_v2(self, x: torch.Tensor, wave_segments: torch.Tensor, n_c: int = 1,
+                   full_waves: Optional[torch.Tensor] = None,
+                   wave_lens: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor]:
         """x: encoder latent (B, T, in_dim); wave_segments (B, Tw).
-        Returns (outs, [codes_p, codes_c, codes_r], timbre)."""
+        Returns (outs, [codes_p, codes_c, codes_r], timbre). Given
+        `full_waves` (B, Tf) and their true lengths `wave_lens` (B,) in
+        samples, the timbre pools the mel of `full_waves` over each row's
+        first wave_lens // hop frames only: the masked timbre of a batch
+        zero-padded to a length bucket."""
         mel = self.preprocess(wave_segments, n_bins=80)
-        timbre = self.timbre_encoder(mel)
+        if full_waves is None:
+            timbre = self.timbre_encoder(mel)
+        else:
+            mel_full = mel if full_waves is wave_segments else self.preprocess(full_waves)
+            frames = torch.arange(mel_full.shape[1], device=mel_full.device)
+            mask = frames[None, :] < (wave_lens.to(mel_full.device) // self.hop_length)[:, None]
+            timbre = self.timbre_encoder(mel_full, mask[:, :, None].to(mel_full.dtype))
 
         f0_input = self._prosody_features(mel[..., :20])
         common_min_size = min(f0_input.shape[1], x.shape[1])

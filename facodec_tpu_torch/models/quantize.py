@@ -22,8 +22,10 @@ class VectorQuantize(nn.Module):
 
     def __init__(self, input_dim: int, codebook_size: int, codebook_dim: int):
         super().__init__()
-        self.in_proj = Conv1d(input_dim, codebook_dim, 1, weight_norm=True)
-        self.out_proj = Conv1d(codebook_dim, input_dim, 1, weight_norm=True)
+        # exact: the projections stay float32 under every precision policy,
+        # so the code search is a float32 island
+        self.in_proj = Conv1d(input_dim, codebook_dim, 1, weight_norm=True, exact=True)
+        self.out_proj = Conv1d(codebook_dim, input_dim, 1, weight_norm=True, exact=True)
         self.codebook = Embedding(codebook_size, codebook_dim)
 
     def forward(self, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

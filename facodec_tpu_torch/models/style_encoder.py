@@ -3,8 +3,10 @@
 Port of facodec_tpu/models/style_encoder.py. One timbre vector per utterance
 from an 80-bin mel: 1x1 spectral convs + Mish, two GLU conv blocks, one
 self-attention layer, then masked temporal average pooling. The attention is
-plain `softmax(QK^T)V`: the JAX package has no kernel for it. NTC layout;
-masks are (B, T, 1).
+plain `softmax(QK^T)V`: the JAX package has no kernel for it. Under the
+`bfloat16_act` policy its two products take bf16-rounded operands and
+accumulate in float32, as the JAX package's do. NTC layout; masks are
+(B, T, 1).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn as nn
 
 from facodec_tpu_torch.nn.activations import mish
 from facodec_tpu_torch.nn.conv import Conv1d
+from facodec_tpu_torch.ops.precision import bf16_active, bf16_values
 
 
 class Mish(nn.Module):
@@ -45,10 +48,15 @@ class MultiHeadAttention(nn.Module):
         q = self.conv_q(x).reshape(B, Tq, H, kc).transpose(1, 2)
         k = self.conv_k(c).reshape(B, Tk, H, kc).transpose(1, 2)
         v = self.conv_v(c).reshape(B, Tk, H, kc).transpose(1, 2)
-        scores = (q / math.sqrt(kc)) @ k.transpose(-1, -2)
+        q = q / math.sqrt(kc)
+        bf16 = bf16_active()
+        if bf16:
+            q, k, v = bf16_values(q), bf16_values(k), bf16_values(v)
+        scores = q @ k.transpose(-1, -2)
         if attn_mask is not None:
             scores = scores.masked_fill(attn_mask == 0, -1e4)
-        out = torch.softmax(scores, dim=-1) @ v
+        p_attn = torch.softmax(scores, dim=-1)
+        out = (bf16_values(p_attn) if bf16 else p_attn) @ v
         return self.conv_o(out.transpose(1, 2).reshape(B, Tq, self.channels))
 
 

@@ -41,9 +41,11 @@ def sin2(x: torch.Tensor) -> torch.Tensor:
 
 def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """x + (alpha + 1e-9)^-1 * sin^2(alpha * x); the reciprocal is taken on
-    the parameter, as in the JAX package. alpha broadcasts over (B, T)."""
+    the parameter, as in the JAX package. alpha (float32) broadcasts over
+    (B, T). A bf16 x (the bfloat16_act policy) is computed on in float32 and
+    only the result is rounded back to bf16."""
     recip = 1.0 / (alpha + 1e-9)
-    return x + sin2(alpha * x) * recip
+    return (x + sin2(alpha * x) * recip).to(x.dtype)
 
 
 class Snake1d(nn.Module):

@@ -8,6 +8,14 @@ weights are (O, I, K), transposed-conv weights (I, O, K); weight norm keeps
 `weight_g` / `weight_v` as parameters and computes `v * (g / ||v||)` over
 every dim but 0 on each call. Activations are NTC at every public function;
 `F.conv1d` runs on the NCT transpose.
+
+Under the `bfloat16_act` policy (ops/precision.py) a conv rounds its
+operands to bf16, accumulates in float32, rounds the result to bf16 and
+only then adds the bias in bf16, as the JAX package does. On the card that
+is cuDNN's (or cuBLAS's) bf16 convolution; on the CPU a float32 convolution
+of bf16-valued tensors, rounded after, which rounds at the same points.
+`exact=True` keeps a conv in float32 under every policy (the VQ
+projections).
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from facodec_tpu_torch.ops.padding import get_extra_padding_for_conv1d, pad1d
+from facodec_tpu_torch.ops.precision import bf16_active, bf16_values
 
 
 def apply_weight_norm(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -26,14 +35,48 @@ def apply_weight_norm(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return v * (g / norm)
 
 
+def bf16_op(fn, x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """fn(x, w) with bf16 operands and float32 accumulation, rounded to
+    bf16, then `+ bias` in bf16 (the module docstring)."""
+    if x.device.type == "cuda":
+        y = fn(x.to(torch.bfloat16), w.to(torch.bfloat16))
+    else:
+        y = fn(bf16_values(x), bf16_values(w)).to(torch.bfloat16)
+    return y if bias is None else y + bias.to(torch.bfloat16)
+
+
 def conv1d_ntc(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
-               stride: int = 1, dilation: int = 1, padding: int = 0) -> torch.Tensor:
-    """1-D conv over NTC input with a (O, I, K) weight. A pointwise conv is a
-    matmul over channels and runs as one, as in the JAX package."""
-    if weight.shape[-1] == 1 and stride == 1 and padding == 0:
+               stride: int = 1, dilation: int = 1, padding: int = 0,
+               exact: bool = False) -> torch.Tensor:
+    """1-D conv over NTC input with a (O, I, K) weight, under the precision
+    policy unless `exact`. A pointwise conv is a matmul over channels and
+    runs as one, as in the JAX package."""
+    pointwise = weight.shape[-1] == 1 and stride == 1 and padding == 0
+    if not exact and bf16_active():
+        if pointwise:
+            return bf16_op(lambda a, w: F.linear(a, w[:, :, 0]), x, weight, bias)
+        return bf16_op(lambda a, w: F.conv1d(a.transpose(1, 2), w, stride=stride,
+                                             padding=padding, dilation=dilation).transpose(1, 2),
+                       x, weight, bias)
+    if exact:
+        x = x.float()
+    if pointwise:
         return F.linear(x, weight[:, :, 0], bias)
     y = F.conv1d(x.transpose(1, 2), weight, bias, stride=stride, padding=padding,
                  dilation=dilation)
+    return y.transpose(1, 2)
+
+
+def conv_transpose1d_ntc(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                         stride: int) -> torch.Tensor:
+    """Transposed conv over NTC input with a (I, O, K) weight, untrimmed,
+    under the precision policy."""
+    def fn(a, w):
+        return F.conv_transpose1d(a.transpose(1, 2), w, stride=stride).transpose(1, 2)
+
+    if bf16_active():
+        return bf16_op(fn, x, weight, bias)
+    y = F.conv_transpose1d(x.transpose(1, 2), weight, bias, stride=stride)
     return y.transpose(1, 2)
 
 
@@ -59,13 +102,14 @@ class Conv1d(_WeightNormConv):
     """torch-style Conv1d with symmetric zero padding, NTC activations."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 padding: int = 0, weight_norm: bool = False):
+                 padding: int = 0, weight_norm: bool = False, exact: bool = False):
         super().__init__()
-        self.padding = padding
+        self.padding, self.exact = padding, exact
         self._init_weight((out_channels, in_channels, kernel_size), weight_norm, out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv1d_ntc(x, self.effective_weight(), self.bias, padding=self.padding)
+        return conv1d_ntc(x, self.effective_weight(), self.bias, padding=self.padding,
+                          exact=self.exact)
 
 
 class SConv1d(_WeightNormConv):
@@ -156,8 +200,7 @@ class SConvTranspose1d(_WeightNormConv):
     def forward(self, x: torch.Tensor, state: Optional[torch.Tensor] = None):
         if state is not None:
             return self._stream(x, state)
-        y = F.conv_transpose1d(x.transpose(1, 2), self.effective_weight(), self.bias,
-                               stride=self.stride).transpose(1, 2)
+        y = conv_transpose1d_ntc(x, self.effective_weight(), self.bias, self.stride)
         padding_total = self.kernel_size - self.stride
         pr = padding_total if self.causal else padding_total // 2
         return y[:, padding_total - pr : y.shape[1] - pr]
@@ -165,8 +208,7 @@ class SConvTranspose1d(_WeightNormConv):
     def _stream(self, x: torch.Tensor, state: torch.Tensor):
         if not self.causal:
             raise ValueError("SConvTranspose1d: streaming requires causal mode")
-        y = F.conv_transpose1d(x.transpose(1, 2), self.effective_weight(), None,
-                               stride=self.stride).transpose(1, 2)
+        y = conv_transpose1d_ntc(x, self.effective_weight(), None, self.stride)
         n = x.shape[1] * self.stride
         emit, new_state = y[:, :n], y[:, n:]
         if self.state_len:

@@ -13,6 +13,14 @@ CPU; for a CUDA tensor it launches csrc/resunit.cu (3xTF32 tensor cores,
 with a scratch buffer for the block-local snake1 and y2 rows) or raises.
 Forward only: the slice serves, and no autograd is attached.
 
+A bf16 x (the decoder under the `bfloat16_act` policy) goes to the
+kernel's bf16 entry, with its own launch count
+(`fused_residual_unit.bf16_launches`; `launches` counts the float32
+entry): bf16 operands, float32 sums, rounded where the JAX package's
+default path rounds (csrc/resunit.cu). Its plain version is
+`residual_unit_reference` under that policy; the weights, biases and
+alphas stay float32 parameters, and the policy rounds them.
+
 `fused_residual_unit_stream` runs one chunk of a causal stream through the
 kernel's halo entry (plain version `residual_unit_stream_reference`): the
 left pad is the carried halo, the last 6d rows of the previous chunk's
@@ -33,6 +41,7 @@ from facodec_tpu_torch.nn.activations import snake
 from facodec_tpu_torch.nn.conv import conv1d_ntc
 from facodec_tpu_torch.ops.kernels import build
 from facodec_tpu_torch.ops.padding import pad1d
+from facodec_tpu_torch.ops.precision import policy
 
 
 def _pads(dilation: int, causal: bool) -> Tuple[int, int]:
@@ -42,13 +51,44 @@ def _pads(dilation: int, causal: bool) -> Tuple[int, int]:
 
 def residual_unit_reference(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
                             causal: bool) -> torch.Tensor:
-    """The plain composition (the JAX package's `_reference`)."""
+    """The plain composition (the JAX package's `_reference`); a bf16 x runs
+    under the `bfloat16_act` policy, whose convs round as the kernel's bf16
+    entry does."""
     C = x.shape[-1]
-    y = snake(x, alpha1.reshape(1, 1, C))
-    y = pad1d(y, _pads(dilation, causal))
-    y = conv1d_ntc(y, w7, b7, dilation=dilation)
-    y = snake(y, alpha2.reshape(1, 1, C))
-    return x + conv1d_ntc(y, w1, b1)
+    with policy("bfloat16_act" if x.dtype == torch.bfloat16 else None):
+        y = snake(x, alpha1.reshape(1, 1, C))
+        y = pad1d(y, _pads(dilation, causal))
+        y = conv1d_ntc(y, w7, b7, dilation=dilation)
+        y = snake(y, alpha2.reshape(1, 1, C))
+        return x + conv1d_ntc(y, w1, b1)
+
+
+def bf16_error_scale(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
+                     causal: bool) -> torch.Tensor:
+    """Per element of a bf16 unit's output, the magnitude whose bf16 ulp
+    measures a difference between two evaluations of the unit: the largest
+    term of its last sums, max(|x|, |out|, |b1|, |W1| . |s2|). Two summation
+    orders can round a sum one ulp apart; such a step in s2 moves W1 . s2 by
+    up to |W1| . ulp(s2), and reaches the output unchanged where the 1x1's
+    products or x + y cancel. |W1| . |s2| bounds the 1x1's terms as a
+    rounding-error analysis of a sum does."""
+    C = x.shape[-1]
+    with policy("bfloat16_act"):
+        y = snake(x, alpha1.reshape(1, 1, C))
+        y = conv1d_ntc(pad1d(y, _pads(dilation, causal)), w7, b7, dilation=dilation)
+        s2 = snake(y, alpha2.reshape(1, 1, C))
+        terms = conv1d_ntc(s2.float().abs(), w1.to(torch.bfloat16).float().abs(), None,
+                           exact=True)
+        out = residual_unit_reference(x, w7, b7, w1, b1, alpha1, alpha2, dilation, causal)
+    parts = (x.float().abs(), out.float().abs(), terms, b1.abs().expand_as(terms))
+    return torch.stack(parts).amax(dim=0)
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """|got - want| in bf16 ulps (8 significand bits) at `scale`."""
+    tiny = torch.finfo(torch.float32).tiny
+    ulp = torch.exp2(torch.floor(torch.log2(scale.double().clamp_min(tiny))) - 7)
+    return (got.double() - want.double()).abs() / ulp
 
 
 def residual_unit_stream_reference(x, halo, w7, b7, w1, b1, alpha1, alpha2,
@@ -66,8 +106,8 @@ def residual_unit_stream_reference(x, halo, w7, b7, w1, b1, alpha1, alpha2,
 
 @functools.lru_cache(maxsize=None)
 def _entry_points():
-    """(one-shot entry, halo entry, scratch size) from csrc/resunit.cu,
-    typed once per process."""
+    """(one-shot entry, halo entry, bf16 entry, scratch size) from
+    csrc/resunit.cu, typed once per process."""
     lib = build.library("resunit")
     size = lib.facodec_resunit_scratch_floats
     size.argtypes = [ctypes.c_int] * 4
@@ -78,14 +118,18 @@ def _entry_points():
     halo_fn = lib.facodec_resunit_halo_f32
     halo_fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     halo_fn.restype = ctypes.c_int
-    return fn, halo_fn, size
+    bf16_fn = lib.facodec_resunit_bf16
+    bf16_fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    bf16_fn.restype = ctypes.c_int
+    return fn, halo_fn, bf16_fn, size
 
 
-def _check(who: str, name: str, t: Optional[torch.Tensor], shape, device) -> None:
+def _check(who: str, name: str, t: Optional[torch.Tensor], shape, device,
+           dtypes=(torch.float32,)) -> None:
     if t is None:
         raise ValueError(f"{who}: {name} is required")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{who}: {name} must be float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{who}: {name} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if t.device != device:
@@ -96,11 +140,13 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _check_unit(who: str, x, w7, b7, w1, b1, alpha1, alpha2, dilation: int) -> None:
+def _check_unit(who: str, x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
+                x_dtypes=(torch.float32,)) -> None:
     if x.ndim != 3:
         raise ValueError(f"{who}: x must be (B, T, C), got {tuple(x.shape)}")
     C = x.shape[-1]
-    for name, t, shape in (("x", x, x.shape), ("w7", w7, (C, C, 7)), ("b7", b7, (C,)),
+    _check(who, "x", x, x.shape, x.device, x_dtypes)
+    for name, t, shape in (("w7", w7, (C, C, 7)), ("b7", b7, (C,)),
                            ("w1", w1, (C, C, 1)), ("b1", b1, (C,)),
                            ("alpha1", alpha1, (1, C, 1)), ("alpha2", alpha2, (1, C, 1))):
         _check(who, name, t, shape, x.device)
@@ -128,8 +174,10 @@ def _kernel_operands(x, w7, b7, w1, b1, alpha1, alpha2):
 
 def fused_residual_unit(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
                         causal: bool) -> torch.Tensor:
-    """out = x + conv1x1(snake(conv7(snake(x)))) in one kernel on the card."""
-    _check_unit("fused_residual_unit", x, w7, b7, w1, b1, alpha1, alpha2, dilation)
+    """out = x + conv1x1(snake(conv7(snake(x)))) in one kernel on the card;
+    x float32, or bf16 for the bf16 entry."""
+    _check_unit("fused_residual_unit", x, w7, b7, w1, b1, alpha1, alpha2, dilation,
+                (torch.float32, torch.bfloat16))
     if x.device.type == "cpu":
         return residual_unit_reference(x, w7, b7, w1, b1, alpha1, alpha2, dilation, causal)
     B, T, C = x.shape
@@ -137,9 +185,11 @@ def fused_residual_unit(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
     # the kernel reflects x's rows itself, as `pad1d` pads: a short input is
     # zero-extended to one row more than the longer pad first
     ext = T if T > max(pl, pr) else max(pl, pr) + 1
+    if x.dtype == torch.bfloat16:
+        return _launch_bf16(x, w7, b7, w1, b1, alpha1, alpha2, dilation, pl, ext)
     ops = _kernel_operands(x, w7, b7, w1, b1, alpha1, alpha2)
     out = torch.empty_like(ops[0])
-    fn, _, size = _entry_points()
+    fn, _, _, size = _entry_points()
     with torch.cuda.device(x.device):
         # per block: its snake1 rows and its y2 rows (csrc/resunit.cu)
         scratch = torch.empty(size(B, T, C, dilation), dtype=torch.float32, device=x.device)
@@ -153,6 +203,33 @@ def fused_residual_unit(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
 
 
 fused_residual_unit.launches = 0
+fused_residual_unit.bf16_launches = 0
+
+
+def _launch_bf16(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int, pad_left: int,
+                 ext: int) -> torch.Tensor:
+    """The bf16 entry: the weights and biases rounded to bf16 as the policy
+    rounds them, w7 as (out, tap, in); the snake parameters float32."""
+    B, T, C = x.shape
+    bf16 = torch.bfloat16
+    x = _aligned16(x)
+    w7t = w7.permute(0, 2, 1).to(bf16).contiguous()
+    w1b = w1[:, :, 0].to(bf16).contiguous()
+    b7b, b1b = b7.to(bf16).contiguous(), b1.to(bf16).contiguous()
+    alpha1, alpha2 = alpha1.contiguous(), alpha2.contiguous()
+    recip1, recip2 = (1.0 / (a + 1e-9) for a in (alpha1, alpha2))
+    out = torch.empty_like(x)
+    _, _, fn, size = _entry_points()
+    with torch.cuda.device(x.device):
+        scratch = torch.empty(size(B, T, C, dilation), dtype=bf16, device=x.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(t.data_ptr() for t in (x, w7t, b7b, w1b, b1b, alpha1, recip1, alpha2, recip2,
+                                          out, scratch)),
+                 B, T, C, dilation, pad_left, ext, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_residual_unit: bf16 kernel launch failed, cudaError {err}")
+    fused_residual_unit.bf16_launches += 1
+    return out
 
 
 def fused_residual_unit_stream(x, halo, w7, b7, w1, b1, alpha1, alpha2, dilation: int
@@ -177,7 +254,7 @@ def fused_residual_unit_stream(x, halo, w7, b7, w1, b1, alpha1, alpha2, dilation
     halo = None if halo is None else _aligned16(halo)
     out = torch.empty_like(ops[0])
     new_halo = torch.empty(B, H, C, dtype=torch.float32, device=x.device)
-    _, fn, size = _entry_points()
+    _, fn, _, size = _entry_points()
     with torch.cuda.device(x.device):
         scratch = torch.empty(size(B, T, C, dilation), dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream().cuda_stream

@@ -153,7 +153,9 @@ def test_import_leaves_jax_out():
             "facodec_tpu_torch.models.redecoder, facodec_tpu_torch.utils.config, "
             "facodec_tpu_torch.utils.audio, facodec_tpu_torch.ops.loudness, "
             "facodec_tpu_torch.models.streaming, facodec_tpu_torch.models.latency, "
-            "facodec_tpu_torch.cli.stream; "
+            "facodec_tpu_torch.cli.stream, facodec_tpu_torch.ops.precision, "
+            "facodec_tpu_torch.models.stream_batch, facodec_tpu_torch.cli.serve, "
+            "facodec_tpu_torch.cli.stream_serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'facodec_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

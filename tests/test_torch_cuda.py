@@ -66,6 +66,61 @@ def test_resunit_kernel_rejects_odd_width():
         resunit.fused_residual_unit(*args, dilation=1, causal=True)
 
 
+# The bf16 entry (the hybrid decode's units): every flagship width and
+# dilation, causal and not, batch 1 and 4, T = 1 and 53 (below the 54-row pad
+# at d = 9: pad1d's zero-extend) and 4800 (many tiles, a ragged last one).
+BF16_CASES = [(B, C, d, T) for C in (64, 96, 128, 192, 256, 384, 512, 768) for d in (1, 3, 9)
+              for B in (1, 4) for T in (1, 53, 4800)]
+BF16_MAX_ULPS = 2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,C,dilation,T", BF16_CASES)
+def test_resunit_bf16_entry_matches_plain(B, C, dilation, T, causal):
+    """No element more than 2 bf16 ulps (at resunit.bf16_error_scale) from
+    the plain version under the bfloat16_act policy; one bf16 launch and
+    no float32 one."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(C + dilation + T)
+    x = torch.randn(B, T, C, device="cuda", generator=g).to(torch.bfloat16)
+    w7 = torch.randn(C, C, 7, device="cuda", generator=g) / (7 * C) ** 0.5
+    w1 = torch.randn(C, C, 1, device="cuda", generator=g) / C ** 0.5
+    b7, b1 = (0.1 * torch.randn(C, device="cuda", generator=g) for _ in range(2))
+    a1, a2 = (0.5 + torch.rand(1, C, 1, device="cuda", generator=g) for _ in range(2))
+    args = (x, w7, b7, w1, b1, a1, a2, dilation, causal)
+    before = (resunit.fused_residual_unit.launches, resunit.fused_residual_unit.bf16_launches)
+    with float32_exact():
+        got = resunit.fused_residual_unit(*args)
+        torch.cuda.synchronize()
+        assert (resunit.fused_residual_unit.launches,
+                resunit.fused_residual_unit.bf16_launches) == (before[0], before[1] + 1)
+        want = resunit.residual_unit_reference(*args)
+        scale = resunit.bf16_error_scale(*args)
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == x.shape
+    ulps = resunit.bf16_ulps(got, want, scale)
+    assert ulps.max().item() <= BF16_MAX_ULPS, ulps.max().item()
+
+
+@pytest.mark.parametrize("fault", ["strided", "float16", "weight_bf16"])
+def test_resunit_bf16_entry_rejects(fault):
+    _need_cuda()
+    C = 64
+    x = torch.zeros(2, 100, C, device="cuda", dtype=torch.bfloat16)
+    w7, w1 = torch.zeros(C, C, 7, device="cuda"), torch.zeros(C, C, 1, device="cuda")
+    if fault == "strided":
+        x = torch.zeros(2, 100, 2 * C, device="cuda", dtype=torch.bfloat16)[:, :, ::2]
+    elif fault == "float16":
+        x = x.half()
+    else:
+        w7 = w7.to(torch.bfloat16)
+    args = [x, w7, torch.zeros(C, device="cuda"), w1, torch.zeros(C, device="cuda"),
+            torch.ones(1, C, 1, device="cuda"), torch.ones(1, C, 1, device="cuda")]
+    before = resunit.fused_residual_unit.bf16_launches
+    with pytest.raises(ValueError if fault == "strided" else TypeError):
+        resunit.fused_residual_unit(*args, dilation=1, causal=True)
+    assert resunit.fused_residual_unit.bf16_launches == before
+
+
 def _unit_args(B, T, C, dilation, seed=0):
     g = torch.Generator(device="cuda").manual_seed(seed + C + dilation)
     x = torch.randn(B, T, C, device="cuda", generator=g)
