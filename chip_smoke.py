@@ -90,16 +90,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    the 50 ms of audio it carries; every stream's output within 1e-3 of a
    solo session; every tick launches 24 halo entries and 6 VQ searches.
 
+10. Training at full width (`FLAGSHIP_TRAIN`: the codec, its predictor
+   heads and its discriminator, seeded random weights). 10a: one training
+   forward at batch 4 x 80 frames (PseudoDataset utterances of 1-30 s,
+   cropped as the loop crops them); on the inputs of its 24 residual units
+   (forward pre-hooks) the kernel's autograd.Function against the plain
+   composition's autograd, forward within phase 2a's limit and the
+   gradients of x, both weights, both biases and both alphas within
+   1e-4 x max|g|, with forward and forward+backward times; on its 6 VQ
+   searches the codebook gradient against the plain gather's within
+   1e-6 x max|g| and a zero latent gradient. 10b: one draws-off step of
+   one seed on the CPU (plain versions) and on the card (kernels), batch
+   1 x 20 frames: every loss and gradient norm within 1e-3 relative. 10c:
+   `run_training(fields=FLAGSHIP_TRAIN, device="cuda")` with the JAX loop's
+   defaults for 6 steps (the first a warm-up), a checkpoint at step 6 and a
+   resume to step 7: the median step time, steps/s, seconds of audio per
+   second, peak memory, exactly 24 residual-unit and 6 VQ launches a step,
+   every loss finite, every module's parameters changed; then one steady
+   step's device time per part (CUDA events at the step's phase marks) and
+   one traced step by kind and kernel (`profile.train_profile`).
+
 The line before the last is the kernels' JSON summary; the last line is the
-run's JSON result.
+run's JSON result. The kernels' `train_launches` are a training step's,
+`train_ms` their device time in the traced step, `train_grad_max_rel` the
+worst gradient gap of phase 10a.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -111,13 +136,18 @@ from facodec_tpu_torch.api import FACodec, FARedecoder, convert_voice, float32_e
 from facodec_tpu_torch.cli import serve as serve_cli
 from facodec_tpu_torch.cli import stream_serve
 from facodec_tpu_torch.codec_file import FACodecFile
-from facodec_tpu_torch.config import FLAGSHIP, FLAGSHIP_REDECODER
+from facodec_tpu_torch.config import FLAGSHIP, FLAGSHIP_REDECODER, FLAGSHIP_TRAIN
 from facodec_tpu_torch.models.dac import ResidualUnit
 from facodec_tpu_torch.models.streaming import HOP, StreamingFACodec
-from facodec_tpu_torch.models.quantize import VectorQuantize
+from facodec_tpu_torch.models.quantize import ResidualVectorQuantize, VectorQuantize
 from facodec_tpu_torch.ops import vq_math
 from facodec_tpu_torch.ops.kernels import build, resunit, vq
 from facodec_tpu_torch.profile import device_ms as traced_device_ms
+from facodec_tpu_torch.profile import print_breakdown, train_profile
+from facodec_tpu_torch.train.data import PseudoDataset, collate, segment_batch, to_device
+from facodec_tpu_torch.train.loop import build_models, latest_checkpoint, run_training
+from facodec_tpu_torch.train.optimizers import build_optimizers
+from facodec_tpu_torch.train.step import gen_forward, make_codec_train_step
 from facodec_tpu_torch.utils.signals import sweep_wave
 
 SR = 24000
@@ -1171,6 +1201,231 @@ def phase_live(codec_hy: FACodec) -> dict:
         svc.close()
     return out
 
+# ------------------------------------------------------------- phase 10
+TRAIN_BATCH, TRAIN_FRAMES = 4, 80  # the JAX loop's batch and segment
+TRAIN_GRAD_TOL = 1e-4  # a kernel path's gradients against plain autograd's, of max|g|
+VQ_GRAD_TOL = 1e-6  # the codebook gradient against the plain gather's, of max|g|
+STEP_TOL = 1e-3  # a step's losses and gradient norms, card against CPU, relative
+TRAIN_STEPS = 6  # one warm-up step, five timed
+UNIT_GRADS = ("x", "w7", "b7", "w1", "b1", "alpha1", "alpha2")
+
+
+def train_batch(B: int, frames: int, seed: int, device: str, max_s: float = 30.0) -> dict:
+    """A training batch as the loop makes it: PseudoDataset utterances of
+    1..max_s s, collated into 80-frame buckets, one crop of `frames` each."""
+    ds = PseudoDataset(length=B, seed=seed, max_s=max_s)
+    seg = segment_batch(collate([ds[i] for i in range(B)], bucket_frames=80),
+                        max_frames=frames, generator=torch.Generator().manual_seed(seed))
+    return to_device(seg, device)
+
+
+def draws_off(models: dict) -> dict:
+    """Every draw of the generator forward out of play (the step's CPU and
+    card legs then see the same numbers): no quantizer dropout, the residual
+    stream always kept, every dropout rate 0."""
+    for m in models["quantizer"].modules():
+        if isinstance(m, ResidualVectorQuantize):
+            m.quantizer_dropout = 0.0
+        for attr in ("p_dropout", "dropout"):
+            if isinstance(getattr(m, attr, None), float):
+                setattr(m, attr, 0.0)
+    models["quantizer"].prob_random_mask_residual = 0.0
+    return models
+
+
+def phase_train_kernels(models: dict, batch: dict) -> dict:
+    """10a: both kernels with their gradients, on the inputs of one
+    training forward."""
+    log(f"phase 10a: kernel gradients on the card, on the inputs of one flagship training "
+        f"forward (batch {TRAIN_BATCH} x {TRAIN_FRAMES} frames): forward to phase 2a's limit, "
+        f"gradients of {', '.join(UNIT_GRADS)} within {TRAIN_GRAD_TOL} x max|g| of plain "
+        f"autograd; VQ codebook gradient within {VQ_GRAD_TOL} x max|g| of the plain gather's, "
+        f"latent gradient zero")
+    units, searches = [], []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: units.append((mod, args[0])))
+             for part in (models["encoder"], models["decoder"]) for m in part.modules()
+             if isinstance(m, ResidualUnit)]
+    hooks += [vqm.in_proj.register_forward_hook(
+        lambda mod, args, out, vqm=vqm: searches.append((vqm, out)))
+        for vqm in models["quantizer"].modules() if isinstance(vqm, VectorQuantize)]
+    with float32_exact():
+        out = gen_forward(models, batch, torch.Generator(device="cuda").manual_seed(1))
+    for h in hooks:
+        h.remove()
+    del out
+    if (len(units), len(searches)) != (24, 6):
+        raise AssertionError(f"{len(units)} units and {len(searches)} searches, expected 24, 6")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst_fwd = worst_grad = 0.0
+    tot = dict(fwd_ms=0.0, fwd_plain_ms=0.0, fwd_bwd_ms=0.0, fwd_bwd_plain_ms=0.0)
+    for unit, x in units:
+        snake1, conv7, snake2, conv1 = unit.block
+        base = [t.detach().contiguous() for t in (
+            x, conv7.effective_weight(), conv7.bias, conv1.effective_weight(), conv1.bias,
+            snake1.alpha, snake2.alpha)]
+        cot = torch.randn(x.shape, device="cuda", generator=gen)
+
+        def run(fn, backward=True):
+            leaves = [t.clone().requires_grad_(backward) for t in base]
+            y = fn(*leaves, unit.dilation, unit.causal)
+            return y, (torch.autograd.grad(y, leaves, cot) if backward else None)
+
+        with float32_exact():
+            got, g_kernel = run(resunit.fused_residual_unit)
+            want, g_plain = run(resunit.residual_unit_reference)
+            err = (got - want).abs().max().item()
+            torch.testing.assert_close(got, want, rtol=RESUNIT_TOL, atol=RESUNIT_TOL)
+            if not err <= RESUNIT_MAX_ERR:
+                raise AssertionError(f"max_abs_err {err} > {RESUNIT_MAX_ERR}")
+            rel = {}
+            for name, a, b in zip(UNIT_GRADS, g_kernel, g_plain):
+                rel[name] = ((a - b).abs().max() / b.abs().max()).item()
+                if not rel[name] <= TRAIN_GRAD_TOL:
+                    raise AssertionError(f"unit C={x.shape[-1]} d={unit.dilation}: {name} "
+                                         f"gradient {rel[name]:.3e} of max|g| off plain")
+            with torch.no_grad():
+                tk = median_ms(lambda: resunit.fused_residual_unit(*base, unit.dilation,
+                                                                   unit.causal))
+                tp = median_ms(lambda: resunit.residual_unit_reference(*base, unit.dilation,
+                                                                       unit.causal))
+            tkb = median_ms(lambda: run(resunit.fused_residual_unit))
+            tpb = median_ms(lambda: run(resunit.residual_unit_reference))
+        worst_fwd, worst_grad = max(worst_fwd, err), max(worst_grad, max(rel.values()))
+        for k, v in (("fwd_ms", tk), ("fwd_plain_ms", tp), ("fwd_bwd_ms", tkb),
+                     ("fwd_bwd_plain_ms", tpb)):
+            tot[k] += v
+        B, T, C = x.shape
+        log(f"  B={B} C={C:4d} T={T:6d} d={unit.dilation}: forward max_abs_err {err:.3e}, "
+            f"gradients (of max|g|) " + " ".join(f"{k} {v:.1e}" for k, v in rel.items())
+            + f"; forward kernel {tk:.3f} ms plain {tp:.3f} ms, forward+backward kernel "
+            f"{tkb:.3f} ms plain {tpb:.3f} ms")
+    log(f"  24 units: forward kernel {tot['fwd_ms']:.3f} ms plain {tot['fwd_plain_ms']:.3f} ms; "
+        f"forward+backward kernel {tot['fwd_bwd_ms']:.3f} ms plain "
+        f"{tot['fwd_bwd_plain_ms']:.3f} ms (the backward recomputes the plain composition)")
+    worst_vq = 0.0
+    for i, (vqm, z_e) in enumerate(searches):
+        lat = z_e.detach().reshape(-1, z_e.shape[-1]).contiguous()
+        cb = vqm.codebook.weight.detach()
+        idx, _, _ = _vq_check(lat, cb, f"training search {i}")
+        lat_k, cb_k, cb_p = (t.clone().requires_grad_(True) for t in (lat, cb, cb))
+        _, zq = vq.nearest_code(lat_k, cb_k)
+        cot = torch.randn(zq.shape, device="cuda", generator=gen)
+        g_lat, g_cb = torch.autograd.grad(zq, (lat_k, cb_k), cot)
+        (g_plain,) = torch.autograd.grad(cb_p[idx.long()], cb_p, cot)
+        rel = ((g_cb - g_plain).abs().max() / g_plain.abs().max()).item()
+        if not rel <= VQ_GRAD_TOL or g_lat.abs().max().item() != 0.0:
+            raise AssertionError(f"VQ search {i}: codebook gradient {rel:.3e} of max|g| off the "
+                                 f"gather's, latent gradient max {g_lat.abs().max().item()}")
+        worst_vq = max(worst_vq, rel)
+        log(f"  search {i}: codebook gradient {rel:.2e} of max|g| off the plain gather's, "
+            f"latent gradient 0")
+    return dict(max_abs_err=worst_fwd, grad_max_rel=worst_grad, vq_grad_max_rel=worst_vq, **tot)
+
+
+def phase_train_cpu() -> dict:
+    """10b: one draws-off step of the flagship at batch 1 x 20 frames, on the
+    CPU (plain versions) and on the card (kernels), from one seed."""
+    log(f"phase 10b: one training step, card against CPU, FLAGSHIP_TRAIN seed 7, batch 1 x 20 "
+        f"frames, draws off; losses and gradient norms within {STEP_TOL} relative")
+    out = {}
+    for device in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        models = draws_off(build_models(FLAGSHIP_TRAIN, 7, device))
+        step = make_codec_train_step(models, build_optimizers(models))
+        batch = train_batch(1, 20, 3, device, max_s=2.0)
+        t1 = time.perf_counter()
+        metrics = {k: float(v) for k, v in step(batch, None)[0].items()}
+        log(f"  {device}: built in {t1 - t0:.1f} s, step in {time.perf_counter() - t1:.1f} s")
+        out[device] = metrics
+        del models, step
+    worst = 0.0
+    for k in sorted(out["cpu"]):
+        a, b = out["cuda"][k], out["cpu"][k]
+        rel = abs(a - b) / max(abs(b), 1e-12)
+        worst = max(worst, rel)
+        log(f"  {k}: card {a:.6g} cpu {b:.6g} (rel {rel:.2e})")
+        if not (np.isfinite(a) and rel <= STEP_TOL):
+            raise AssertionError(f"{k}: card {a} against CPU {b}")
+    return dict(step_max_rel=worst)
+
+
+def phase_train(smi: str) -> dict:
+    """10c: run_training at full width; then a resume; then one traced step."""
+    log(f"phase 10c: run_training(fields=FLAGSHIP_TRAIN, device='cuda'), PseudoDataset, batch "
+        f"{TRAIN_BATCH} x {TRAIN_FRAMES} frames, {TRAIN_STEPS} steps (1 warm-up), a checkpoint "
+        f"at step {TRAIN_STEPS}, then a resume to step {TRAIN_STEPS + 1} [{smi}]")
+    log_dir = tempfile.mkdtemp(prefix="train_smoke_", dir=build.BUILD_DIR)
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = run_training(fields=FLAGSHIP_TRAIN, device="cuda", max_steps=TRAIN_STEPS,
+                             log_dir=log_dir, log_writer=False, log_interval=1,
+                             save_interval=TRAIN_STEPS)
+        wall = time.perf_counter() - t0
+        c = all_counts()
+        per_step = dict(f32=c["f32"] / TRAIN_STEPS, vq=c["vq"] / TRAIN_STEPS)
+        if (c["f32"], c["vq"], c["bf16"], c["halo"]) != (24 * TRAIN_STEPS, 6 * TRAIN_STEPS, 0, 0):
+            raise AssertionError(f"launches {c} over {TRAIN_STEPS} steps; expected 24 residual "
+                                 f"units and 6 VQ searches a step")
+        times = [1e3 * state.step_times[s] for s in range(2, TRAIN_STEPS + 1)]
+        step_ms = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated()
+        audio_s = TRAIN_BATCH * TRAIN_FRAMES * HOP / SR
+        for k, v in sorted(state.metrics.items()):
+            log(f"  {k} {v:.6g}")
+            if not np.isfinite(v):
+                raise AssertionError(f"{k} is not finite: {v}")
+        init = build_models(FLAGSHIP_TRAIN, 0, "cpu")
+        for name, m in state.models.items():
+            moved = sum(not torch.equal(p.detach().cpu(), q) for p, q in
+                        zip(m.parameters(), init[name].parameters()))
+            n = len(list(m.parameters()))
+            log(f"  {name}: {moved} of {n} parameter tensors changed")
+            if moved == 0:
+                raise AssertionError(f"{name}: no parameter changed")
+        del init
+        log(f"  step ms (host clock, a step until its metrics are read): first "
+            f"{1e3 * state.step_times[1]:.1f}, then " + ", ".join(f"{t:.1f}" for t in times)
+            + f"; median {step_ms:.1f} ms, {1e3 / step_ms:.2f} steps/s, "
+            f"{audio_s * 1e3 / step_ms:.2f} s of audio per s; peak memory "
+            f"{peak / 2**30:.2f} GiB; launches per step {per_step}; run_training {wall:.1f} s "
+            f"[{smi}]")
+        ckpt = latest_checkpoint(log_dir)
+        if not ckpt.endswith(f"_step_{TRAIN_STEPS:05d}.pth"):
+            raise AssertionError(f"latest checkpoint {ckpt}")
+        del state
+        torch.cuda.empty_cache()
+        reset_counts()
+        state = run_training(fields=FLAGSHIP_TRAIN, device="cuda", max_steps=TRAIN_STEPS + 1,
+                             log_dir=log_dir, log_writer=False, log_interval=1,
+                             save_interval=10**9)
+        c = all_counts()
+        if state.step != TRAIN_STEPS + 1 or state.optimizers["encoder"].count != TRAIN_STEPS + 1:
+            raise AssertionError(f"resume reached step {state.step}")
+        if (c["f32"], c["vq"]) != (24, 6):
+            raise AssertionError(f"resumed step launched {c}")
+        log(f"  resumed from {os.path.basename(ckpt)} to step {state.step}: launches {c}")
+
+        step_fn = make_codec_train_step(state.models, state.optimizers)
+        batch = train_batch(TRAIN_BATCH, TRAIN_FRAMES, 11, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        step_fn(batch, gen)
+        prof = train_profile(step_fn, batch, gen)
+        log("  steady step, device ms per part (CUDA events at the step's phase marks): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in prof["phases"].items()))
+        print_breakdown(prof["by_kind"], prof["by_name"], prof["count"], prof["traced_wall_ms"])
+        kernel_ms = {kind: prof["by_kind"].get(kind, 0.0)
+                     for kind in ("residual-unit kernel", "VQ kernel")}
+        del state, step_fn
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    return dict(step_ms=step_ms, steps_s=1e3 / step_ms, audio_s_per_s=audio_s * 1e3 / step_ms,
+                peak_bytes=peak, per_step=per_step, times=times, phases=prof["phases"],
+                kernel_ms=kernel_ms)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1228,26 +1483,43 @@ def main() -> None:
     bf = phase_bf16(unit_inputs((codec_hy.decoder,), lambda: codec_hy.decode(f32_codes), 12))
     sv = phase_serve(codec_hy)
     live = phase_live(codec_hy)
+    del codec, codec_hy, codec_vc, cpu, red
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    train_models = build_models(FLAGSHIP_TRAIN, 0, "cuda")
+    n_params = {k: sum(p.numel() for p in m.parameters()) for k, m in train_models.items()}
+    log(f"flagship training modules (FLAGSHIP_TRAIN, seed 0): {n_params} parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tk = phase_train_kernels(train_models, train_batch(TRAIN_BATCH, TRAIN_FRAMES, 0, "cuda"))
+    del train_models
+    torch.cuda.empty_cache()
+    ru["max_abs_err"] = max(ru["max_abs_err"], tk["max_abs_err"])
+    tc = phase_train_cpu()
+    tr = phase_train(smi)
 
     # no single PyTorch call computes either function: library_ms is null
     kernels = [
         dict(name="fused_residual_unit", route="cuda", source="facodec_tpu_torch/csrc/resunit.cu",
              replaces="facodec_tpu/ops/pallas/resunit.py:273", launches=main_path["resunit"],
              vc_launches=vc_counts[0], stream_launches=st16["halo"],
-             hybrid_launches=hy["launches"]["f32"], bound_by="operations",
+             hybrid_launches=hy["launches"]["f32"], train_launches=tr["per_step"]["f32"],
+             train_ms=tr["kernel_ms"]["residual-unit kernel"],
+             train_grad_max_rel=tk["grad_max_rel"], bound_by="operations",
              library_ms=None, **ru, **halo),
         dict(name="nearest_code", route="cuda", source="facodec_tpu_torch/csrc/vq.cu",
              replaces="facodec_tpu/ops/pallas/vq.py:76", launches=main_path["vq"],
              vc_launches=vc_counts[1], stream_launches=st16["vq"],
-             hybrid_launches=hy["launches"]["vq"], bound_by="operations",
-             library_ms=None, **vqr),
+             hybrid_launches=hy["launches"]["vq"], train_launches=tr["per_step"]["vq"],
+             train_ms=tr["kernel_ms"]["VQ kernel"], train_grad_max_rel=tk["vq_grad_max_rel"],
+             bound_by="operations", library_ms=None, **vqr),
         # the bf16 entry of csrc/resunit.cu: its main path is the hybrid
         # round trip (the serve default), whose 12 decoder units it runs
         dict(name="fused_residual_unit_bf16", route="cuda",
              source="facodec_tpu_torch/csrc/resunit.cu",
              replaces="facodec_tpu/ops/pallas/resunit.py:273", launches=hy["launches"]["bf16"],
-             hybrid_launches=hy["launches"]["bf16"], bound_by="operations", library_ms=None,
-             **bf),
+             hybrid_launches=hy["launches"]["bf16"], train_launches=0, bound_by="operations",
+             library_ms=None, **bf),
     ]
     log(f"streaming: chunk 16 batch 1 p50 {st16['p50_ms']:.2f} ms ({st16['rtf']:.1f}x realtime, "
         f"device {st16['device_ms']:.2f} ms of a traced {st16['traced_wall_ms']:.2f} ms), "
@@ -1258,6 +1530,10 @@ def main() -> None:
         f"{sv['rps_sequential']:.2f} sequential; live ticks "
         + ", ".join(f"{n} streams p50 {v['p50_ms']:.2f} p95 {v['p95_ms']:.2f} ms"
                     for n, v in live.items() if n != "group_alone"))
+    log(f"training: step {tr['step_ms']:.1f} ms median, {tr['steps_s']:.2f} steps/s, "
+        f"{tr['audio_s_per_s']:.2f} s of audio per s, peak {tr['peak_bytes'] / 2**30:.2f} GiB; "
+        f"card vs CPU step {tc['step_max_rel']:.2e}; kernel gradients {tk['grad_max_rel']:.2e} "
+        f"(resunit), {tk['vq_grad_max_rel']:.2e} (VQ) [{smi}]")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

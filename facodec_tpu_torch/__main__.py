@@ -8,6 +8,7 @@
   convert       zero-shot voice conversion (codec + redecoder)
   stream        chunked streaming round trip, with its per-chunk latency
   serve         HTTP inference server (and, with --stream-port, live streams)
+  train         codec GAN training, resuming from the latest checkpoint
 
 Each command runs on the card unless given `--device cpu`.
 """
@@ -22,6 +23,7 @@ from facodec_tpu_torch.cli import convert as convert_cli
 from facodec_tpu_torch.cli import reconstruct as reconstruct_cli
 from facodec_tpu_torch.cli import serve as serve_cli
 from facodec_tpu_torch.cli import stream as stream_cli
+from facodec_tpu_torch.cli import train as train_cli
 
 
 def main(argv=None):
@@ -33,9 +35,10 @@ def main(argv=None):
     codec_cli.add_decode_args(sub.add_parser("decode"))
     stream_cli.add_args(sub.add_parser("stream"))
     serve_cli.add_args(sub.add_parser("serve"))
+    train_cli.add_args(sub.add_parser("train"))
     commands = dict(reconstruct=reconstruct_cli.main, convert=convert_cli.main,
                     encode=codec_cli.main_encode, decode=codec_cli.main_decode,
-                    stream=stream_cli.main, serve=serve_cli.main)
+                    stream=stream_cli.main, serve=serve_cli.main, train=train_cli.main)
     args = parser.parse_args(argv)
     return commands[args.command](args)
 

@@ -18,6 +18,19 @@ repository, so each field names its source:
   trained with `decoder_causal: False` (README.md, streaming section), and
   two LSTM layers, as the repository's own analogue of that config has
   (`scripts/train_redecoder_demo.py` REDECODER_KEYS, `decoder_lstm: 2`).
+
+`FLAGSHIP_TRAIN` is `FLAGSHIP` plus the codec stage's training modules:
+- fa_predictors: the flags of the flagship config
+  (`scripts/emit_golden_flagship.py` FLAGSHIP_CFG_TEXT: use_gr_content_f0,
+  use_gr_prosody_phone and use_gr_timbre_prosody off; norm_f0, timbre_norm
+  and use_gr_content_global_f0 on) and those the JAX builder fixes
+  (`facodec_tpu/models/builder.py`, codec stage: use_gr_residual_f0,
+  use_gr_residual_phone, use_gr_timbre_content and use_gr_x_timbre on), at
+  the latent width 1024 with the reference's 1024 phone classes and 20000
+  speakers (the builder's defaults).
+- discriminator: the builder's codec-stage ensemble, no multi-scale
+  discriminator (rates ()), periods (2, 3, 5, 7, 11), FFT sizes (2048,
+  1024, 512), its five bands, at the codec's 24 kHz.
 """
 
 FLAGSHIP = dict(
@@ -35,4 +48,18 @@ FLAGSHIP_REDECODER = dict(
     encoder=dict(n_p_codebooks=1, n_c_codebooks=2, codebook_size=1024, embed_dim=512,
                  n_layers=16, causal=False, gin_channels=1024, out_dim=1024),
     decoder=dict(input_channel=1024, channels=1536, rates=(6, 5, 5, 2), causal=False, lstm=2),
+)
+
+FLAGSHIP_TRAIN = dict(
+    FLAGSHIP,
+    fa_predictors=dict(
+        in_dim=1024, use_gr_content_f0=False, use_gr_prosody_phone=False,
+        use_gr_residual_f0=True, use_gr_residual_phone=True, use_gr_timbre_content=True,
+        use_gr_timbre_prosody=False, use_gr_x_timbre=True, norm_f0=True, timbre_norm=True,
+        use_gr_content_global_f0=True, n_phone_classes=1024, n_speakers=20000,
+    ),
+    discriminator=dict(
+        rates=(), periods=(2, 3, 5, 7, 11), fft_sizes=(2048, 1024, 512), sample_rate=24000,
+        bands=((0.0, 0.1), (0.1, 0.25), (0.25, 0.5), (0.5, 0.75), (0.75, 1.0)),
+    ),
 )

@@ -7,6 +7,9 @@ optional scale-down keys the JAX builder reads (latent_dim, codebook_size,
 style_hidden_dim, prosody_hidden_dim), into the fields of each module.
 `build_from_fields` and `build_redecoder_from_fields` take those fields
 directly, as `config.FLAGSHIP` and `config.FLAGSHIP_REDECODER` hold them.
+`train_fields` adds the codec stage's training modules, `fa_predictors` and
+`discriminator` (the JAX builder's), and `build_train_from_fields` builds
+all five, as `config.FLAGSHIP_TRAIN` holds them.
 The redecoder stage's modules are named as in the JAX builder and in its
 checkpoints: `encoder` (the Redecoder) and `decoder`.
 """
@@ -18,7 +21,8 @@ from typing import Any, Dict, Mapping
 import torch.nn as nn
 
 from facodec_tpu_torch.models.dac import Decoder, Encoder
-from facodec_tpu_torch.models.fa_quantizer import FAquantizer
+from facodec_tpu_torch.models.discriminator import BANDS, Discriminator
+from facodec_tpu_torch.models.fa_quantizer import FApredictors, FAquantizer
 from facodec_tpu_torch.models.redecoder import Redecoder
 
 
@@ -55,6 +59,34 @@ def build_from_fields(fields: Mapping[str, Mapping[str, Any]]) -> Dict[str, nn.M
 
 def build_codec(model_params: Mapping[str, Any]) -> Dict[str, nn.Module]:
     return build_from_fields(codec_fields(model_params))
+
+
+def train_fields(model_params: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """`codec_fields` plus the fields of the codec stage's predictor heads
+    and discriminator, as the JAX builder sets them (the residual and
+    x-timbre adversaries on; no multi-scale discriminator)."""
+    mp = model_params
+    fields = codec_fields(mp)
+    fields["fa_predictors"] = dict(
+        in_dim=mp.get("latent_dim", 1024), use_gr_content_f0=mp["use_gr_content_f0"],
+        use_gr_prosody_phone=mp["use_gr_prosody_phone"], use_gr_residual_f0=True,
+        use_gr_residual_phone=True, use_gr_timbre_content=True,
+        use_gr_timbre_prosody=mp["use_gr_timbre_prosody"], use_gr_x_timbre=True,
+        norm_f0=mp["norm_f0"], timbre_norm=mp["timbre_norm"],
+        use_gr_content_global_f0=mp["use_gr_content_global_f0"],
+        n_phone_classes=mp.get("n_phone_classes", 1024), n_speakers=mp.get("n_speakers", 20000))
+    fields["discriminator"] = dict(rates=(), periods=(2, 3, 5, 7, 11),
+                                   fft_sizes=(2048, 1024, 512), sample_rate=mp["DAC"]["sr"],
+                                   bands=BANDS)
+    return fields
+
+
+def build_train_from_fields(fields: Mapping[str, Mapping[str, Any]]) -> Dict[str, nn.Module]:
+    """The codec modules plus `fa_predictors` and `discriminator`."""
+    models = build_from_fields(fields)
+    models["fa_predictors"] = FApredictors(**fields["fa_predictors"])
+    models["discriminator"] = Discriminator(**fields["discriminator"])
+    return models
 
 
 def redecoder_fields(model_params: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:

@@ -1,17 +1,25 @@
-"""The factorized quantizer, timbre-norm variant, eval mode.
+"""The factorized quantizer, timbre-norm variant, and its predictor heads.
 
-Port of facodec_tpu/models/fa_quantizer.py `FAquantizer` for serving:
-`preprocess`, `_prosody_features`, `forward_v2` (eval, with codes),
-`_timbre_condition`, `decode_streams_v2` (any non-empty subset of the
-streams; all three is JAX's `decode_from_codes_v2`) and the frame-synchronous
-`encode_streaming`. The legacy 4-stream
-`forward_v1`, training-mode masking and the predictor heads are not ported.
+Port of facodec_tpu/models/fa_quantizer.py:
+- `FAquantizer`: `preprocess`, `_prosody_features`, `forward_v2` (eval with
+  codes; with `train=True` the JAX module's train mode), `_timbre_condition`,
+  `decode_streams_v2` (any non-empty subset of the streams; all three is
+  JAX's `decode_from_codes_v2`) and the frame-synchronous
+  `encode_streaming`. The legacy 4-stream `forward_v1`, `encode` and
+  `decode` are not ported (ROADMAP Queue 1, item 9).
+- `ResidualUnitAF`, `CNNLSTM` and `FApredictors` (`forward_v2`, the
+  timbre-norm heads with their gradient-reversal branches).
+
+Train mode draws from the caller's torch.Generator: the dropouts of the
+prosody WN (0.2) and of the style encoder (0.1), the RVQs' quantizer
+dropout, and the residual stream's keep mask (kept with probability
+1 - prob_random_mask_residual per row).
 Layout: latents (B, T, C), waves (B, Tw), mels (B, Tf, n_mels).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
@@ -19,8 +27,10 @@ import torch.nn as nn
 from facodec_tpu_torch.models.quantize import ResidualVectorQuantize
 from facodec_tpu_torch.models.style_encoder import StyleEncoder
 from facodec_tpu_torch.models.wavenet import WN
+from facodec_tpu_torch.nn.alias_free import Activation1d
 from facodec_tpu_torch.nn.basic import LayerNorm, Linear
-from facodec_tpu_torch.nn.conv import SConv1d
+from facodec_tpu_torch.nn.conv import Conv1d, SConv1d
+from facodec_tpu_torch.ops.gradrev import GradientReversal
 from facodec_tpu_torch.ops.spectral import LogMelSpectrogram
 
 
@@ -33,18 +43,22 @@ class FAquantizer(nn.Module):
                  codebook_dim: int = 8, quantizer_dropout: float = 0.5, causal: bool = False,
                  separate_prosody_encoder: bool = False, timbre_norm: bool = False,
                  sample_rate: int = 24000, hop_length: int = 300,
-                 style_hidden_dim: int = 512, prosody_hidden_dim: int = 256):
+                 style_hidden_dim: int = 512, prosody_hidden_dim: int = 256,
+                 prob_random_mask_residual: float = 0.75):
         super().__init__()
-        # n_t_codebooks and quantizer_dropout belong to forward_v1 and to
-        # training; they are accepted so the JAX module's fields build this one
+        # n_t_codebooks belongs to forward_v1; it is accepted so the JAX
+        # module's fields build this one
         if not (timbre_norm and separate_prosody_encoder):
             raise NotImplementedError(
-                "only the timbre_norm model with a separate prosody encoder is ported")
+                "only the timbre_norm model with a separate prosody encoder is ported "
+                "(forward_v1: ROADMAP Queue 1, item 9)")
         self.in_dim, self.sample_rate, self.hop_length = in_dim, sample_rate, hop_length
         self.codebook_size = codebook_size
+        self.prob_random_mask_residual = prob_random_mask_residual
 
         def rvq(n):
-            return ResidualVectorQuantize(in_dim, n, codebook_size, codebook_dim)
+            return ResidualVectorQuantize(in_dim, n, codebook_size, codebook_dim,
+                                          quantizer_dropout)
 
         self.prosody_quantizer = rvq(n_p_codebooks)
         self.content_quantizer = rvq(n_c_codebooks)
@@ -54,7 +68,8 @@ class FAquantizer(nn.Module):
         self.timbre_norm = LayerNorm(in_dim, elementwise_affine=False)
         h = prosody_hidden_dim
         self.melspec_linear = SConv1d(20, h, 1, causal=causal, norm="none")
-        self.melspec_encoder = WN(h, kernel_size=5, dilation_rate=1, n_layers=8, causal=causal)
+        self.melspec_encoder = WN(h, kernel_size=5, dilation_rate=1, n_layers=8, causal=causal,
+                                  p_dropout=0.2)
         self.melspec_linear2 = SConv1d(h, in_dim, 1, causal=causal, norm="none")
         self.mel = LogMelSpectrogram(sample_rate=sample_rate, hop_length=hop_length)
 
@@ -64,9 +79,11 @@ class FAquantizer(nn.Module):
         n_frames = wave.shape[-1] // self.hop_length
         return self.mel(wave)[:, :n_frames, :n_bins]
 
-    def _prosody_features(self, mel20: torch.Tensor) -> torch.Tensor:
+    def _prosody_features(self, mel20: torch.Tensor, train: bool = False,
+                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """20-bin mel -> 1x1 -> WN(8) -> 1x1 -> in_dim."""
-        return self.melspec_linear2(self.melspec_encoder(self.melspec_linear(mel20)))
+        h = self.melspec_encoder(self.melspec_linear(mel20), train=train, generator=generator)
+        return self.melspec_linear2(h)
 
     def _timbre_condition(self, outs: torch.Tensor, timbre: torch.Tensor) -> torch.Tensor:
         gamma, beta = torch.chunk(self.timbre_linear(timbre), 2, dim=-1)
@@ -74,33 +91,58 @@ class FAquantizer(nn.Module):
 
     def forward_v2(self, x: torch.Tensor, wave_segments: torch.Tensor, n_c: int = 1,
                    full_waves: Optional[torch.Tensor] = None,
-                   wave_lens: Optional[torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor]:
+                   wave_lens: Optional[torch.Tensor] = None, train: bool = False,
+                   generator: Optional[torch.Generator] = None):
         """x: encoder latent (B, T, in_dim); wave_segments (B, Tw).
         Returns (outs, [codes_p, codes_c, codes_r], timbre). Given
         `full_waves` (B, Tf) and their true lengths `wave_lens` (B,) in
         samples, the timbre pools the mel of `full_waves` over each row's
         first wave_lens // hop frames only: the masked timbre of a batch
-        zero-padded to a length bucket."""
+        zero-padded to a length bucket.
+
+        With `train=True` (draws from `generator`) every stage of every RVQ
+        runs and it returns (outs, [z_p, z_c, z_r], commitment, codebook,
+        timbre) as the JAX module does: `outs` carries z_p and z_c without
+        their gradient and z_r under the residual keep mask, the residual
+        stream quantizes x less the detached z_p and z_c, and the streams
+        come back with their gradients for the predictor heads."""
         mel = self.preprocess(wave_segments, n_bins=80)
         if full_waves is None:
-            timbre = self.timbre_encoder(mel)
+            timbre = self.timbre_encoder(mel, train=train, generator=generator)
         else:
             mel_full = mel if full_waves is wave_segments else self.preprocess(full_waves)
             frames = torch.arange(mel_full.shape[1], device=mel_full.device)
             mask = frames[None, :] < (wave_lens.to(mel_full.device) // self.hop_length)[:, None]
-            timbre = self.timbre_encoder(mel_full, mask[:, :, None].to(mel_full.dtype))
+            timbre = self.timbre_encoder(mel_full, mask[:, :, None].to(mel_full.dtype),
+                                         train=train, generator=generator)
 
-        f0_input = self._prosody_features(mel[..., :20])
+        f0_input = self._prosody_features(mel[..., :20], train, generator)
         common_min_size = min(f0_input.shape[1], x.shape[1])
         f0_input = f0_input[:, :common_min_size]
         x = x[:, :common_min_size]
 
-        z_p, codes_p = self.prosody_quantizer(f0_input, 1)
-        z_c, codes_c = self.content_quantizer(x, n_c)
-        z_r, codes_r = self.residual_quantizer(x - z_p - z_c, 3)
-        outs = self._timbre_condition(z_p + z_c + z_r, timbre)
-        return outs, [codes_p, codes_c, codes_r], timbre
+        if not train:
+            z_p, codes_p = self.prosody_quantizer(f0_input, 1)
+            z_c, codes_c = self.content_quantizer(x, n_c)
+            z_r, codes_r = self.residual_quantizer(x - z_p - z_c, 3)
+            outs = self._timbre_condition(z_p + z_c + z_r, timbre)
+            return outs, [codes_p, codes_c, codes_r], timbre
+
+        z_p, _, commit_p, cb_p = self.prosody_quantizer.forward_train(f0_input, generator)
+        z_c, _, commit_c, cb_c = self.content_quantizer.forward_train(x, generator)
+        z_p_sg, z_c_sg = z_p.detach(), z_c.detach()
+        z_r, _, commit_r, cb_r = self.residual_quantizer.forward_train(x - z_p_sg - z_c_sg,
+                                                                       generator)
+        p = self.prob_random_mask_residual
+        keep = torch.ones(x.shape[0], 1, 1, device=x.device)
+        if p > 0.0:
+            if generator is None:
+                raise ValueError("the residual mask draws from a torch.Generator; pass one")
+            keep = (torch.rand(keep.shape, generator=generator, device=x.device)
+                    < 1.0 - p).to(z_r.dtype)
+        outs = self._timbre_condition(z_p_sg + z_c_sg + z_r * keep, timbre)
+        return (outs, [z_p, z_c, z_r], commit_p + commit_c + commit_r, cb_p + cb_c + cb_r,
+                timbre)
 
     def encode_streaming(self, x: torch.Tensor, mel20: torch.Tensor, timbre: torch.Tensor,
                          wn_stream, n_c: int = 1, first: bool = False):
@@ -137,3 +179,118 @@ class FAquantizer(nn.Module):
         for p in parts[1:]:
             outs = outs + p
         return self._timbre_condition(outs, timbre)
+
+
+class ResidualUnitAF(nn.Module):
+    """Alias-free residual unit of the predictor heads: Activation1d(SnakeBeta)
+    -> dilated 7-tap weight-norm conv -> Activation1d(SnakeBeta) -> 1x1
+    weight-norm conv, residual add."""
+
+    def __init__(self, dim: int = 16, dilation: int = 1):
+        super().__init__()
+        self.block = nn.ModuleList([
+            Activation1d(dim),
+            Conv1d(dim, dim, 7, padding=(6 * dilation) // 2, weight_norm=True,
+                   dilation=dilation),
+            Activation1d(dim),
+            Conv1d(dim, dim, 1, weight_norm=True),
+        ])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x
+        for layer in self.block:
+            y = layer(y)
+        return x + y
+
+
+class CNNLSTM(nn.Module):
+    """Conv head with `head` linear outputs (no LSTM despite the name: three
+    alias-free residual units and an alias-free activation). Input
+    (B, T, C); each output (B, T, outdim), or (B, outdim) if global."""
+
+    def __init__(self, indim: int, outdim: int, head: int, global_pred: bool = False):
+        super().__init__()
+        self.global_pred = global_pred
+        self.model = nn.ModuleList([
+            ResidualUnitAF(indim, dilation=1), ResidualUnitAF(indim, dilation=2),
+            ResidualUnitAF(indim, dilation=3), Activation1d(indim),
+        ])
+        self.heads = nn.ModuleList([Linear(indim, outdim) for _ in range(head)])
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        for layer in self.model:
+            x = layer(x)
+        if self.global_pred:
+            x = torch.mean(x, dim=1)
+        return [head(x) for head in self.heads]
+
+
+class FApredictors(nn.Module):
+    """Supervision heads and their gradient-reversal adversaries over the
+    quantized streams, timbre-norm variant (`forward_v2`). The adversaries
+    sit at index 1 of `nn.Sequential(GradientReversal(), head)`, as in the
+    torch reference, so their keys are `rev_*_predictor.1.*`. The flags and
+    class counts are the JAX module's fields; `use_gr_timbre_content`,
+    `use_gr_timbre_prosody` and `norm_f0` belong to forward_v1, and the
+    global-F0 heads (`global_f0_predictor`, `rev_global_f0_predictor`) are
+    declared by the JAX module but never called by forward_v2, so its
+    parameter tree has none: the flags are accepted only so that those
+    fields build this module, and the heads are left out."""
+
+    def __init__(self, in_dim: int = 1024, use_gr_content_f0: bool = False,
+                 use_gr_prosody_phone: bool = False, use_gr_residual_f0: bool = False,
+                 use_gr_residual_phone: bool = False, use_gr_timbre_content: bool = True,
+                 use_gr_timbre_prosody: bool = True, use_gr_x_timbre: bool = False,
+                 norm_f0: bool = True, timbre_norm: bool = False,
+                 use_gr_content_global_f0: bool = False, n_phone_classes: int = 1024,
+                 n_speakers: int = 20000):
+        super().__init__()
+        if not timbre_norm:
+            raise NotImplementedError("only the timbre_norm predictors are ported "
+                                      "(forward_v1: ROADMAP Queue 1, item 9)")
+        self.use_gr_content_f0, self.use_gr_prosody_phone = use_gr_content_f0, use_gr_prosody_phone
+        self.use_gr_residual_f0, self.use_gr_residual_phone = (use_gr_residual_f0,
+                                                               use_gr_residual_phone)
+        self.use_gr_x_timbre = use_gr_x_timbre
+        self.f0_predictor = CNNLSTM(in_dim, 1, 2)
+        self.phone_predictor = CNNLSTM(in_dim, n_phone_classes, 1)
+        self.timbre_predictor = Linear(in_dim, n_speakers)
+        self.rev_f0_predictor = nn.Sequential(GradientReversal(), CNNLSTM(in_dim, 1, 2))
+        self.rev_content_predictor = nn.Sequential(GradientReversal(),
+                                                   CNNLSTM(in_dim, n_phone_classes, 1))
+        self.rev_timbre_predictor = nn.Sequential(
+            GradientReversal(), CNNLSTM(in_dim, n_speakers, 1, global_pred=True))
+
+    def forward(self, quantized: List[torch.Tensor], timbre: torch.Tensor):
+        return self.forward_v2(quantized, timbre)
+
+    def forward_v2(self, quantized: List[torch.Tensor], timbre: torch.Tensor):
+        """quantized = [z_p, z_c, z_r] (B, T, C), timbre (B, C) ->
+        (preds, rev_preds): {f0, uv, content, timbre} and {rev_f0, rev_uv,
+        rev_content, x_timbre} (x_timbre None without use_gr_x_timbre)."""
+        prosody, content, residual = quantized
+        content_pred = self.phone_predictor(content)[0]
+        spk_pred = self.timbre_predictor(timbre)
+        f0_pred, uv_pred = self.f0_predictor(prosody)
+
+        prosody_rev = torch.zeros_like(prosody)
+        if self.use_gr_content_f0:
+            prosody_rev = prosody_rev + content
+        if self.use_gr_residual_f0:
+            prosody_rev = prosody_rev + residual
+        rev_f0_pred, rev_uv_pred = self.rev_f0_predictor(prosody_rev)
+
+        content_rev = torch.zeros_like(content)
+        if self.use_gr_prosody_phone:
+            content_rev = content_rev + prosody
+        if self.use_gr_residual_phone:
+            content_rev = content_rev + residual
+        rev_content_pred = self.rev_content_predictor(content_rev)[0]
+
+        x_spk_pred = None
+        if self.use_gr_x_timbre:
+            x_spk_pred = self.rev_timbre_predictor(prosody + content + residual)[0]
+        preds = {"f0": f0_pred, "uv": uv_pred, "content": content_pred, "timbre": spk_pred}
+        rev_preds = {"rev_f0": rev_f0_pred, "rev_uv": rev_uv_pred,
+                     "rev_content": rev_content_pred, "x_timbre": x_spk_pred}
+        return preds, rev_preds

@@ -1,8 +1,14 @@
-"""Factorized VQ and residual VQ, eval mode (NTC layout).
+"""Factorized VQ and residual VQ (NTC layout).
 
-Port of facodec_tpu/models/quantize.py for serving: no losses, no quantizer
-dropout. The code search goes through `ops.kernels.vq.nearest_code` (the
-CUDA kernel on the card, the plain search on the CPU).
+Port of facodec_tpu/models/quantize.py. `forward` serves: the first
+`n_quantizers` stages, codes and the summed output. `forward_train` is the
+JAX module's train mode: every stage runs, each returns its per-sample
+commitment and codebook losses, the output is straight-through, and the
+first `int(B * quantizer_dropout)` rows keep only their first 1..N stages
+(drawn from the caller's generator) while the residual is updated with each
+stage's unmasked output. The code search goes through
+`ops.kernels.vq.nearest_code` (the CUDA kernel on the card, the plain search
+on the CPU); its gradient reaches the codebook rows it selected.
 """
 
 from __future__ import annotations
@@ -37,6 +43,18 @@ class VectorQuantize(nn.Module):
         z_q = z_e + (z_q - z_e)
         return self.out_proj(z_q), indices
 
+    def forward_train(self, z: torch.Tensor):
+        """(B, T, D_in) -> (z_q (B, T, D_in), commitment (B,), codebook (B,),
+        indices (B, T)): the losses are per-sample means; z_q passes the
+        gradient to z_e straight through, and the codebook loss reaches the
+        codebook."""
+        z_e = self.in_proj(z)
+        indices, z_q = self.decode_latents(z_e)
+        commitment = torch.mean(torch.square(z_e - z_q.detach()), dim=(1, 2))
+        codebook = torch.mean(torch.square(z_q - z_e.detach()), dim=(1, 2))
+        z_q = z_e + (z_q - z_e).detach()
+        return self.out_proj(z_q), commitment, codebook, indices
+
     def decode_code(self, embed_id: torch.Tensor) -> torch.Tensor:
         """(B, T) codes -> (B, T, codebook_dim) codebook rows."""
         return self.codebook(embed_id.long())
@@ -49,9 +67,10 @@ class ResidualVectorQuantize(nn.Module):
     """Residual VQ; the residual is updated with each stage's output."""
 
     def __init__(self, input_dim: int = 512, n_codebooks: int = 9,
-                 codebook_size: int = 1024, codebook_dim: int = 8):
+                 codebook_size: int = 1024, codebook_dim: int = 8,
+                 quantizer_dropout: float = 0.0):
         super().__init__()
-        self.n_codebooks = n_codebooks
+        self.n_codebooks, self.quantizer_dropout = n_codebooks, quantizer_dropout
         self.quantizers = nn.ModuleList([
             VectorQuantize(input_dim, codebook_size, codebook_dim) for _ in range(n_codebooks)
         ])
@@ -69,6 +88,34 @@ class ResidualVectorQuantize(nn.Module):
             residual = residual - z_q_i
             codes.append(indices)
         return z_q, torch.stack(codes, dim=1)
+
+    def forward_train(self, z: torch.Tensor, generator: Optional[torch.Generator] = None):
+        """(B, T, D) -> (z_q, codes (B, N, T), commitment, codebook): all N
+        stages; row b sums the stages i < nq[b], where nq is N + 1 except for
+        the first int(B * quantizer_dropout) rows, which draw it from 1..N.
+        The losses are the batch means of each stage's masked per-sample
+        losses, summed over the stages."""
+        B, N = z.shape[0], self.n_codebooks
+        nq = torch.full((B,), float(N + 1), device=z.device)
+        n_dropout = int(B * self.quantizer_dropout)
+        if n_dropout > 0:
+            if generator is None:
+                raise ValueError("quantizer dropout draws from a torch.Generator; pass one")
+            nq[:n_dropout] = torch.randint(1, N + 1, (n_dropout,), generator=generator,
+                                           device=z.device).float()
+        z_q = torch.zeros_like(z)
+        residual = z
+        commitment = codebook = 0.0
+        codes: List[torch.Tensor] = []
+        for i, quantizer in enumerate(self.quantizers):
+            z_q_i, commit_i, cb_i, indices = quantizer.forward_train(residual)
+            mask = (i < nq).to(z.dtype)
+            z_q = z_q + z_q_i * mask[:, None, None]
+            residual = residual - z_q_i
+            commitment = commitment + torch.mean(commit_i * mask)
+            codebook = codebook + torch.mean(cb_i * mask)
+            codes.append(indices)
+        return z_q, torch.stack(codes, dim=1), commitment, codebook
 
     def from_codes(self, codes: torch.Tensor) -> torch.Tensor:
         """(B, n, T) codes -> z_q (B, T, D)."""

@@ -1,7 +1,9 @@
 """WaveNet stack with the gated tanh/sigmoid unit and optional global
-conditioning, eval mode (port of facodec_tpu/models/wavenet.py `WN` and
+conditioning (port of facodec_tpu/models/wavenet.py `WN` and
 `wn_stream_state`). NTC layout. Every caller passes an all-ones mask, a
-no-op that is left out here.
+no-op that is left out here. With `train=True` the gated activations go
+through dropout at `p_dropout`, drawn from the caller's generator; in eval
+there is no draw.
 
 Streaming (causal only): `stream` carries each in_layer's conv left context
 under the JAX names (`in_layers_{i}`); the call then returns
@@ -14,6 +16,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from facodec_tpu_torch.nn.basic import dropout
 from facodec_tpu_torch.nn.conv import SConv1d
 
 
@@ -24,9 +27,11 @@ class WN(nn.Module):
     layer, added before each layer's gate."""
 
     def __init__(self, hidden_channels: int, kernel_size: int, dilation_rate: int,
-                 n_layers: int, gin_channels: int = 0, causal: bool = False):
+                 n_layers: int, gin_channels: int = 0, causal: bool = False,
+                 p_dropout: float = 0.0):
         super().__init__()
         H = self.hidden_channels = hidden_channels
+        self.p_dropout = p_dropout
         self.kernel_size, self.dilation_rate, self.n_layers = kernel_size, dilation_rate, n_layers
         if gin_channels:
             self.cond_layer = SConv1d(gin_channels, 2 * H * n_layers, 1)
@@ -40,7 +45,8 @@ class WN(nn.Module):
         ])
 
     def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None, stream=None,
-                first: bool = False):
+                first: bool = False, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """x (B, T, H); g (B, 1, gin) or None."""
         H = self.hidden_channels
         output = torch.zeros_like(x)
@@ -56,6 +62,7 @@ class WN(nn.Module):
             if g is not None:
                 x_in = x_in + g[..., 2 * H * i : 2 * H * (i + 1)]
             acts = torch.tanh(x_in[..., :H]) * torch.sigmoid(x_in[..., H:])
+            acts = dropout(acts, self.p_dropout, train, generator)
             res_skip = self.res_skip_layers[i](acts)
             if i < self.n_layers - 1:
                 x = x + res_skip[..., :H]

@@ -1,6 +1,7 @@
-"""Snake activation and Mish (NTC layout).
+"""Snake activations and Mish (NTC layout).
 
-Port of facodec_tpu/nn/activations.py. `sin2` is not `torch.sin(x) ** 2`:
+Port of facodec_tpu/nn/activations.py: `Snake1d` (the codec's) and
+`SnakeBeta` (the predictor heads', inside the alias-free activations). `sin2` is not `torch.sin(x) ** 2`:
 it clamps at +-3e4, reduces modulo pi with a 3-constant Cody-Waite split
 (`torch.round` rounds half to even, as `jnp.round` does) and evaluates the
 degree-13 fdlibm polynomial, so that the port computes the same numbers as
@@ -58,6 +59,25 @@ class Snake1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return snake(x, self.alpha.reshape(1, 1, self.channels))
+
+
+class SnakeBeta(nn.Module):
+    """x + 1 / (beta + 1e-9) * sin^2(alpha * x) with per-channel alpha and
+    beta of shape (C,); with `alpha_logscale` both are stored as logs
+    (initialised to 0) and exponentiated on each call."""
+
+    def __init__(self, in_features: int, alpha_logscale: bool = False):
+        super().__init__()
+        self.alpha_logscale = alpha_logscale
+        init = torch.zeros if alpha_logscale else torch.ones
+        self.alpha = nn.Parameter(init(in_features))
+        self.beta = nn.Parameter(init(in_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, b = self.alpha[None, None, :], self.beta[None, None, :]
+        if self.alpha_logscale:
+            a, b = torch.exp(a), torch.exp(b)
+        return (x + sin2(x * a) * (1.0 / (b + 1e-9))).to(x.dtype)
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:

@@ -7,6 +7,9 @@ the JAX tree mirrors (`weight` (out, in), `bias`; LayerNorm eps 1e-5, and
 precision policy (ops/precision.py) as the JAX one does: under
 `bfloat16_act` its operands are rounded to bf16 and it accumulates and
 returns float32, with the bias added in float32.
+
+`dropout` is flax's `nn.Dropout` in train mode, drawn from an explicit
+torch.Generator on the tensor's device.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from facodec_tpu_torch.ops.precision import bf16_active, bf16_values
+
+from typing import Optional
 
 Embedding = nn.Embedding
 LayerNorm = nn.LayerNorm
@@ -27,3 +32,15 @@ class Linear(nn.Linear):
             return super().forward(x)
         y = F.linear(bf16_values(x), bf16_values(self.weight))
         return y if self.bias is None else y + self.bias
+
+
+def dropout(x: torch.Tensor, p: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """x in eval or at p = 0; in train mode each element is kept with
+    probability 1 - p and scaled by 1 / (1 - p), else zeroed."""
+    if not train or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode draws from a torch.Generator; pass one")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))

@@ -1,13 +1,15 @@
 """Convolution layers in NTC layout with torch parameter layout.
 
-Port of facodec_tpu/nn/conv.py with the options the codec uses: every conv
-has a bias and one group. The causal `SConv1d` and `SConvTranspose1d` also
+Port of facodec_tpu/nn/conv.py with the options the codec and its
+discriminators use: every conv has a bias and one group. The causal `SConv1d` and `SConvTranspose1d` also
 stream: given a carried `state` they return `(y, new_state)`, and chunked
 output equals the one-shot output (see each class). Conv
-weights are (O, I, K), transposed-conv weights (I, O, K); weight norm keeps
+weights are (O, I, K), transposed-conv weights (I, O, K), `Conv2d`
+weights (O, I, Kh, Kw); weight norm keeps
 `weight_g` / `weight_v` as parameters and computes `v * (g / ||v||)` over
 every dim but 0 on each call. Activations are NTC at every public function;
-`F.conv1d` runs on the NCT transpose.
+`F.conv1d` runs on the NCT transpose. `Conv2d` (the discriminators', float32
+only) takes and returns NCHW.
 
 Under the `bfloat16_act` policy (ops/precision.py) a conv rounds its
 operands to bf16, accumulates in float32, rounds the result to bf16 and
@@ -83,10 +85,10 @@ def conv_transpose1d_ntc(x: torch.Tensor, weight: torch.Tensor, bias: Optional[t
 class _WeightNormConv(nn.Module):
     """Holds `weight_g`/`weight_v` (or a plain `weight`) and `bias`."""
 
-    def _init_weight(self, shape: Tuple[int, int, int], weight_norm: bool, out_channels: int):
+    def _init_weight(self, shape: Tuple[int, ...], weight_norm: bool, out_channels: int):
         if weight_norm:
             self.weight_v = nn.Parameter(torch.empty(shape))
-            self.weight_g = nn.Parameter(torch.empty(shape[0], 1, 1))
+            self.weight_g = nn.Parameter(torch.empty(shape[0], *(1,) * (len(shape) - 1)))
         else:
             self.weight = nn.Parameter(torch.empty(shape))
         self.bias = nn.Parameter(torch.empty(out_channels))
@@ -102,14 +104,30 @@ class Conv1d(_WeightNormConv):
     """torch-style Conv1d with symmetric zero padding, NTC activations."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 padding: int = 0, weight_norm: bool = False, exact: bool = False):
+                 padding: int = 0, weight_norm: bool = False, exact: bool = False,
+                 dilation: int = 1):
         super().__init__()
-        self.padding, self.exact = padding, exact
+        self.padding, self.exact, self.dilation = padding, exact, dilation
         self._init_weight((out_channels, in_channels, kernel_size), weight_norm, out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv1d_ntc(x, self.effective_weight(), self.bias, padding=self.padding,
-                          exact=self.exact)
+                          dilation=self.dilation, exact=self.exact)
+
+
+class Conv2d(_WeightNormConv):
+    """torch-style Conv2d with symmetric zero padding, NCHW activations."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: Tuple[int, int],
+                 stride: Tuple[int, int] = (1, 1), padding: Tuple[int, int] = (0, 0),
+                 weight_norm: bool = False):
+        super().__init__()
+        self.stride, self.padding = tuple(stride), tuple(padding)
+        self._init_weight((out_channels, in_channels, *kernel_size), weight_norm, out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.effective_weight(), self.bias, stride=self.stride,
+                        padding=self.padding)
 
 
 class SConv1d(_WeightNormConv):

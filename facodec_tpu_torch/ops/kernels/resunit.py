@@ -11,7 +11,11 @@ is SConv1d's: reflect, (6d, 0) when causal, split otherwise.
 `fused_residual_unit` runs `residual_unit_reference` for a tensor on the
 CPU; for a CUDA tensor it launches csrc/resunit.cu (3xTF32 tensor cores,
 with a scratch buffer for the block-local snake1 and y2 rows) or raises.
-Forward only: the slice serves, and no autograd is attached.
+On the card the float32 entry is a `torch.autograd.Function`: its forward
+is the kernel, and its backward is the JAX package's `_bwd`, the gradient
+of the plain composition recomputed from the saved inputs, for x, w7, b7,
+w1, b1 and both alphas (the weights are the effective weight-norm weights,
+so the gradient flows on through the weight norm in autograd).
 
 A bf16 x (the decoder under the `bfloat16_act` policy) goes to the
 kernel's bf16 entry, with its own launch count
@@ -19,7 +23,9 @@ kernel's bf16 entry, with its own launch count
 entry): bf16 operands, float32 sums, rounded where the JAX package's
 default path rounds (csrc/resunit.cu). Its plain version is
 `residual_unit_reference` under that policy; the weights, biases and
-alphas stay float32 parameters, and the policy rounds them.
+alphas stay float32 parameters, and the policy rounds them. The bf16 entry
+and the halo entry below are forward only (the hybrid decode and streams
+serve): asked for a gradient, they raise.
 
 `fused_residual_unit_stream` runs one chunk of a causal stream through the
 kernel's halo entry (plain version `residual_unit_stream_reference`): the
@@ -172,21 +178,60 @@ def _kernel_operands(x, w7, b7, w1, b1, alpha1, alpha2):
     return x, w7, b7, w1, b1, alpha1, recip1, alpha2, recip2
 
 
+def _wants_grad(who: str, *tensors) -> None:
+    """Raise where autograd would need a gradient of a forward-only entry."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{who}: this entry is forward only; run it under torch.no_grad() "
+                           "(the float32 one-shot entry carries gradients)")
+
+
 def fused_residual_unit(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
                         causal: bool) -> torch.Tensor:
     """out = x + conv1x1(snake(conv7(snake(x)))) in one kernel on the card;
-    x float32, or bf16 for the bf16 entry."""
+    x float32 (with gradients), or bf16 for the bf16 entry (forward only)."""
     _check_unit("fused_residual_unit", x, w7, b7, w1, b1, alpha1, alpha2, dilation,
                 (torch.float32, torch.bfloat16))
     if x.device.type == "cpu":
         return residual_unit_reference(x, w7, b7, w1, b1, alpha1, alpha2, dilation, causal)
-    B, T, C = x.shape
-    pl, pr = _pads(dilation, causal)
-    # the kernel reflects x's rows itself, as `pad1d` pads: a short input is
-    # zero-extended to one row more than the longer pad first
-    ext = T if T > max(pl, pr) else max(pl, pr) + 1
     if x.dtype == torch.bfloat16:
+        _wants_grad("fused_residual_unit (bf16 entry)", x, w7, b7, w1, b1, alpha1, alpha2)
+        pl, ext = _reflect_extent(x.shape[1], dilation, causal)
         return _launch_bf16(x, w7, b7, w1, b1, alpha1, alpha2, dilation, pl, ext)
+    return _ResidualUnitFn.apply(x, w7, b7, w1, b1, alpha1, alpha2, dilation, causal)
+
+
+def _reflect_extent(T: int, dilation: int, causal: bool) -> Tuple[int, int]:
+    """(left pad, rows the kernel reflects over): the kernel reflects x's
+    rows itself, as `pad1d` pads, and a short input is zero-extended to one
+    row more than the longer pad first."""
+    pl, pr = _pads(dilation, causal)
+    return pl, (T if T > max(pl, pr) else max(pl, pr) + 1)
+
+
+class _ResidualUnitFn(torch.autograd.Function):
+    """The float32 entry on the card: the kernel forward, the recomputed
+    plain composition's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, w7, b7, w1, b1, alpha1, alpha2, dilation: int, causal: bool):
+        ctx.save_for_backward(x, w7, b7, w1, b1, alpha1, alpha2)
+        ctx.dilation, ctx.causal = dilation, causal
+        return _launch_f32(x, w7, b7, w1, b1, alpha1, alpha2, dilation, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        needs = ctx.needs_input_grad[:7]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+            out = residual_unit_reference(*leaves, ctx.dilation, ctx.causal)
+            wanted = [t for t, n in zip(leaves, needs) if n]
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        return (*(next(grads) if n else None for n in needs), None, None)
+
+
+def _launch_f32(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int, causal: bool) -> torch.Tensor:
+    B, T, C = x.shape
+    pl, ext = _reflect_extent(T, dilation, causal)
     ops = _kernel_operands(x, w7, b7, w1, b1, alpha1, alpha2)
     out = torch.empty_like(ops[0])
     fn, _, _, size = _entry_points()
@@ -239,6 +284,8 @@ def fused_residual_unit_stream(x, halo, w7, b7, w1, b1, alpha1, alpha2, dilation
     than 6d rows (the one-shot reflect, without its short-input extension)."""
     who = "fused_residual_unit_stream"
     _check_unit(who, x, w7, b7, w1, b1, alpha1, alpha2, dilation)
+    if x.device.type == "cuda":
+        _wants_grad(who, x, halo, w7, b7, w1, b1, alpha1, alpha2)
     B, T, C = x.shape
     H = 6 * dilation
     if halo is None:

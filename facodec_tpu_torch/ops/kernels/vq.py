@@ -3,7 +3,12 @@
 Port of facodec_tpu/ops/pallas/vq.py `nearest_code_pallas`. `nearest_code`
 runs `ops.vq_math.nearest_code` for tensors on the CPU; for CUDA tensors it
 launches csrc/vq.cu or raises. Returns (indices int32, the gathered
-un-normalised codebook rows). Forward only: the slice serves.
+un-normalised codebook rows). On the card it is a `torch.autograd.Function`
+with the JAX package's VJP (`vq.py` `_bwd`): no gradient reaches the
+latents through the search (their gradient is zero), and the rows'
+cotangent is scatter-added into the codebook rows that were selected
+(`index_add_`, the counterpart of `segment_sum`), as the plain gather's
+gradient is on the CPU.
 
 One call launches two kernels on the current stream. The first normalises
 the codebook once into a scratch that this wrapper allocates: two float4
@@ -64,7 +69,33 @@ def nearest_code(
         raise ValueError(f"nearest_code: the kernel takes D={CODE_DIM}, got {codebook.shape[1]}")
     if not (encodings.is_contiguous() and codebook.is_contiguous()):
         raise ValueError("nearest_code: encodings and codebook must be contiguous")
+    return _NearestCodeFn.apply(encodings, codebook)
 
+
+class _NearestCodeFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, encodings: torch.Tensor, codebook: torch.Tensor):
+        idx, zq = _launch(encodings, codebook)
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(idx)
+        ctx.shapes = encodings.shape, codebook.shape
+        return idx, zq
+
+    @staticmethod
+    def backward(ctx, _g_idx, g_zq):
+        (idx,) = ctx.saved_tensors
+        enc_shape, cb_shape = ctx.shapes
+        g_enc = g_cb = None
+        if ctx.needs_input_grad[0]:
+            g_enc = g_zq.new_zeros(enc_shape)
+        if ctx.needs_input_grad[1]:
+            g_cb = g_zq.new_zeros(cb_shape).index_add_(
+                0, idx.reshape(-1).long(), g_zq.reshape(-1, cb_shape[1]))
+        return g_enc, g_cb
+
+
+def _launch(encodings: torch.Tensor, codebook: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     lead = encodings.shape[:-1]
     M, N = encodings.numel() // CODE_DIM, codebook.shape[0]
     idx = torch.empty(lead, dtype=torch.int32, device=encodings.device)

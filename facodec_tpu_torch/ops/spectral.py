@@ -22,10 +22,17 @@ import torch
 import torch.nn as nn
 
 
-def hann_window_np(win_length: int) -> np.ndarray:
-    """Periodic Hann window, as `torch.hann_window(N, periodic=True)`."""
+def hann_window_np(win_length: int, dtype=np.float32) -> np.ndarray:
+    """Periodic Hann window, as `torch.hann_window(N, periodic=True)`,
+    computed in float64 and rounded to `dtype`."""
     n = np.arange(win_length)
-    return (0.5 - 0.5 * np.cos(2.0 * math.pi * n / win_length)).astype(np.float32)
+    return (0.5 - 0.5 * np.cos(2.0 * math.pi * n / win_length)).astype(dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def hann_window(win_length: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """`hann_window_np` as a tensor of `dtype` on `device`, made once."""
+    return torch.from_numpy(hann_window_np(win_length, np.float64)).to(device, dtype)
 
 
 def _hz_to_mel_htk(f: np.ndarray) -> np.ndarray:

@@ -1,13 +1,19 @@
-"""Where the card's time goes in one flagship codec round trip.
+"""Where the card's time goes in one flagship codec round trip, or in one
+flagship training step.
 
     python -m facodec_tpu_torch.profile [batch] [seconds]
+    python -m facodec_tpu_torch.profile train
 
 Builds the flagship codec (seeded random weights) on the card, runs
 encode -> decode untraced five times (host clock around a synchronise),
 then once under `torch.profiler`, and prints the device-kernel time of the
 traced run by kind and its top kernels. Kernel times are summed from the
 trace's device events; the `aten::` rows of `key_averages()` repeat the same
-time and are left out. Needs a CUDA card.
+time and are left out. `train` does the same for the training step of
+`config.FLAGSHIP_TRAIN` at the loop's batch (4 x 80 frames of
+`PseudoDataset`): `train_profile` times a steady step's parts between CUDA
+events recorded at the step's phase marks, then traces one more step. Needs
+a CUDA card.
 """
 
 from __future__ import annotations
@@ -58,12 +64,86 @@ def device_ms(prof) -> tuple:
     return by_kind, by_name, count
 
 
-def main(batch: int = 4, seconds: float = 10.0) -> None:
+PHASES = ("forward", "disc", "gen_loss", "backward", "update")
+
+
+def train_profile(step_fn, batch, generator) -> dict:
+    """One steady step with a CUDA event at each phase mark (device ms per
+    phase: the stream's time between the marks, idle gaps included), then
+    one step under torch.profiler: its device-kernel ms by kind, by kernel
+    and launches, and the traced wall ms."""
+    events = [torch.cuda.Event(enable_timing=True)]
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    torch.cuda.synchronize()
+    events[0].record()
+    step_fn(batch, generator, mark=mark)
+    torch.cuda.synchronize()
+    phases = {name: a.elapsed_time(b) for name, a, b in zip(PHASES, events, events[1:])}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step_fn(batch, generator)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kind, by_name, count = device_ms(prof)
+    return dict(phases=phases, by_kind=by_kind, by_name=by_name, count=count,
+                traced_wall_ms=wall * 1e3)
+
+
+def print_breakdown(by_kind, by_name, count, wall_ms: float, top: int = 15) -> None:
+    total = sum(by_kind.values())
+    print(f"device kernels {total:.1f} ms of a traced wall {wall_ms:.1f} ms "
+          f"({total / wall_ms:.1%})")
+    for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        print(f"  {kind:28s} {ms:9.2f} ms {ms / total:6.1%}")
+    print("top kernels:")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {ms:9.2f} ms {count[name]:5d} x  {name[:110]}")
+    other = sorted(((ms, n) for n, ms in by_name.items() if kind_of(n) == "other"), reverse=True)
+    if other:
+        print("top kernels of kind 'other':")
+        for ms, name in other[:8]:
+            print(f"  {ms:9.2f} ms {count[name]:5d} x  {name[:110]}")
+
+
+def main_train() -> None:
+    from facodec_tpu_torch.config import FLAGSHIP_TRAIN
+    from facodec_tpu_torch.train.data import PseudoDataset, collate, segment_batch, to_device
+    from facodec_tpu_torch.train.loop import build_models
+    from facodec_tpu_torch.train.optimizers import build_optimizers
+    from facodec_tpu_torch.train.step import make_codec_train_step
+
+    _device()
+    models = build_models(FLAGSHIP_TRAIN, 0, "cuda")
+    step_fn = make_codec_train_step(models, build_optimizers(models))
+    ds = PseudoDataset(length=4, seed=0)
+    batch = to_device(segment_batch(collate([ds[i] for i in range(4)], 80), 80,
+                                    generator=torch.Generator().manual_seed(0)), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for _ in range(3):
+        step_fn(batch, gen)
+    torch.cuda.synchronize()
+    out = train_profile(step_fn, batch, gen)
+    print("steady step, device ms per phase (CUDA events at the phase marks): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in out["phases"].items()))
+    print_breakdown(out["by_kind"], out["by_name"], out["count"], out["traced_wall_ms"])
+
+
+def _device() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile: torch sees no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"device: {smi}")
+
+
+def main(batch: int = 4, seconds: float = 10.0) -> None:
+    _device()
     codec = FACodec.from_fields(FLAGSHIP, seed=0)
     w = sweep_wave(batch, seconds)
     codec.decode(codec.encode(w))  # builds the kernels, warms cuDNN up
@@ -84,16 +164,12 @@ def main(batch: int = 4, seconds: float = 10.0) -> None:
         codec.decode(codec.encode(w))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_kind, by_name, count = device_ms(prof)
-    total = sum(by_kind.values())
-    print(f"traced encode -> decode: wall {wall * 1e3:.1f} ms, device kernels {total:.1f} ms "
-          f"({total / (wall * 1e3):.1%} of the wall)")
-    for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
-        print(f"  {kind:28s} {ms:9.2f} ms {ms / total:6.1%}")
-    print("top kernels:")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
-        print(f"  {ms:9.2f} ms {count[name]:5d} x  {name[:110]}")
+    print("traced encode -> decode:")
+    print_breakdown(*device_ms(prof), wall * 1e3)
 
 
 if __name__ == "__main__":
-    main(*(f(a) for f, a in zip((int, float), sys.argv[1:])))
+    if sys.argv[1:2] == ["train"]:
+        main_train()
+    else:
+        main(*(f(a) for f, a in zip((int, float), sys.argv[1:])))

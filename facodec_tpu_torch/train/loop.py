@@ -1,0 +1,202 @@
+"""Codec training loop (port of facodec_tpu/train/loop.py `run_training`).
+
+    run_training(config_path=None, fields=None, dataset=None, max_steps=None,
+                 device="cuda", ...)
+
+Builds the five codec-stage modules from a reference-schema config.yml
+(needs pyyaml), from module fields, or from `config.FLAGSHIP_TRAIN`, with
+seeded random weights drawn on the CPU (as the API builds them), one AdamW
+per module (train/optimizers.py), and runs the fused GAN step
+(train/step.py) over `PseudoDataset` or the dataset given, with the JAX
+loop's defaults: batch 4, 80-frame segments, length buckets of 80 frames,
+a log every 10 steps, a checkpoint every 1000 steps and at each epoch's
+end, the seed from the config. Keys of the config's top level (batch_size,
+max_len, log_interval, save_interval, epochs, seed, ...) can be given as
+keyword arguments, which win.
+
+Checkpoints are torch files `FAcodec_epoch_<e>_step_<s>.pth` in `log_dir`:
+`net` (one state dict per module, which `utils.weights.load_torch_checkpoint`
+reads), `optimizer` (each AdamW's moments and step count, which is the
+learning-rate schedule's step), the states of the step's and the data's
+generators, `step` and `epoch`. The newest 5 are kept, and a run resumes
+from the latest. The TensorBoard writer is optional, as in the JAX loop.
+
+Draws: the step's (dropout, quantizer dropout, residual mask) from a
+generator on the device seeded with seed + 1; the data order from seed
+114514 + epoch; the segment crops from a CPU generator seeded with seed.
+The dataset's own draws are its own (PseudoDataset: numpy, its seed).
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+import re
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, Mapping, Optional
+
+import torch
+import torch.nn as nn
+
+from facodec_tpu_torch.config import FLAGSHIP_TRAIN
+from facodec_tpu_torch.models.builder import build_train_from_fields, train_fields
+from facodec_tpu_torch.train.data import (PseudoDataset, prefetch, segment_batch,
+                                          shard_iterator, to_device)
+from facodec_tpu_torch.train.optimizers import AdamW, build_optimizers
+from facodec_tpu_torch.train.step import make_codec_train_step
+from facodec_tpu_torch.utils.config import load_config
+from facodec_tpu_torch.utils.weights import init_random_
+
+CKPT_GLOB = "FAcodec_epoch_*_step_*.pth"
+MODULES = ("encoder", "quantizer", "decoder", "fa_predictors", "discriminator")
+
+
+@dataclass
+class TrainState:
+    """What a run leaves: the modules, their optimizers, the step reached,
+    the epoch, the last step's metrics (floats), and per logged step its
+    host time in seconds (a step's dispatch until its metrics are read)."""
+
+    models: Dict[str, nn.Module]
+    optimizers: Dict[str, AdamW]
+    step: int
+    epoch: int
+    metrics: Dict[str, float] = field(default_factory=dict)
+    step_times: Dict[int, float] = field(default_factory=dict)
+
+
+def _step_of(path: str):
+    m = re.search(r"epoch_(\d+)_step_(\d+)", os.path.basename(path))
+    return (int(m.group(2)), int(m.group(1)), os.path.getmtime(path))
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    ckpts = sorted(glob.glob(os.path.join(ckpt_dir, CKPT_GLOB)), key=_step_of)
+    return os.path.abspath(ckpts[-1]) if ckpts else None
+
+
+def save_checkpoint(ckpt_dir: str, state: TrainState, generators: Mapping[str, torch.Generator],
+                    keep: int = 5) -> str:
+    path = os.path.abspath(os.path.join(
+        ckpt_dir, f"FAcodec_epoch_{state.epoch:05d}_step_{state.step:05d}.pth"))
+    torch.save(dict(net={k: m.state_dict() for k, m in state.models.items()},
+                    optimizer={k: o.state_dict() for k, o in state.optimizers.items()},
+                    generators={k: g.get_state() for k, g in generators.items()},
+                    step=state.step, epoch=state.epoch), path)
+    for old in sorted(glob.glob(os.path.join(ckpt_dir, CKPT_GLOB)), key=_step_of)[:-keep]:
+        os.remove(old)
+    return path
+
+
+def load_checkpoint(path: str, state: TrainState,
+                    generators: Mapping[str, torch.Generator]) -> None:
+    """Restore modules, optimizers, generators, step and epoch in place."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    for k, m in state.models.items():
+        m.load_state_dict(ckpt["net"][k])
+    for k, o in state.optimizers.items():
+        o.load_state_dict(ckpt["optimizer"][k])
+    for k, g in generators.items():
+        g.set_state(ckpt["generators"][k])
+    state.step, state.epoch = int(ckpt["step"]), int(ckpt["epoch"])
+
+
+def build_models(fields: Mapping[str, Mapping[str, Any]], seed: int, device: str
+                 ) -> Dict[str, nn.Module]:
+    """The five modules with seeded random weights drawn on the CPU, on `device`."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"run_training: device {device!r} asked for, but torch sees no CUDA "
+                           f"device; pass device='cpu' (--device cpu) to train on the CPU")
+    models = build_train_from_fields(fields)
+    gen = torch.Generator().manual_seed(seed)
+    for name in MODULES:
+        init_random_(models[name], gen)
+    return {name: models[name].to(device) for name in MODULES}
+
+
+def _default_writer(log_dir: str):
+    """tensorboardX's writer where it is installed, as the JAX loop makes it."""
+    try:
+        from tensorboardX import SummaryWriter
+
+        return SummaryWriter(os.path.join(log_dir, "tensorboard"))
+    except Exception:
+        return None
+
+
+def run_training(config_path: Optional[str] = None,
+                 fields: Optional[Mapping[str, Mapping[str, Any]]] = None, dataset=None,
+                 max_steps: Optional[int] = None, device: str = "cuda", log_writer=None,
+                 log_dir: Optional[str] = None, **options) -> TrainState:
+    """Train the codec; see the module docstring. `log_writer=False` turns
+    the TensorBoard writer off; None makes one where TensorBoard imports."""
+    cfg: Dict[str, Any] = {}
+    if config_path is not None:
+        cfg = dict(load_config(config_path))
+        if fields is None:
+            fields = train_fields(cfg["model_params"])
+    cfg.update(options)
+    fields = FLAGSHIP_TRAIN if fields is None else fields
+    log_dir = log_dir or cfg.get("log_dir", "runs/facodec_tpu_torch")
+    os.makedirs(log_dir, exist_ok=True)
+    seed = int(cfg.get("seed", 0))
+    base_lr = float(cfg.get("base_lr", (cfg.get("loss_params") or {}).get("base_lr", 1e-4)))
+
+    models = build_models(fields, seed, device)
+    optimizers = build_optimizers(models, base_lr=base_lr)
+    state = TrainState(models, optimizers, step=0, epoch=0)
+    generators = dict(step=torch.Generator(device=device).manual_seed(seed + 1),
+                      data=torch.Generator().manual_seed(seed))
+    resume = latest_checkpoint(log_dir)
+    if resume:
+        load_checkpoint(resume, state, generators)
+        print(f"resumed from {resume} (epoch {state.epoch}, step {state.step})")
+    step_fn = make_codec_train_step(models, optimizers)
+
+    if dataset is None:
+        # labels within the heads' classes (the flagship's are the defaults)
+        heads = fields["fa_predictors"]
+        dataset = PseudoDataset(length=cfg.get("pseudo_dataset_len", 100), seed=seed,
+                                n_phones=heads.get("n_phone_classes", 1024),
+                                n_speakers=heads.get("n_speakers", 20000))
+    if log_writer is None:
+        log_writer = _default_writer(log_dir)
+    max_frames = int(cfg.get("max_len", 80))
+    log_interval = int(cfg.get("log_interval", 10))
+    save_interval = int(cfg.get("save_interval", 1000))
+    bucket_frames = int(cfg.get("bucket_frames", 80))
+
+    def prepare(batch):
+        seg = segment_batch(batch, max_frames=max_frames, generator=generators["data"])
+        return to_device(seg, device)
+
+    metrics: Dict[str, torch.Tensor] = {}
+    for epoch in range(state.epoch, int(cfg.get("epochs", 1000))):
+        state.epoch = epoch
+        batches = shard_iterator(dataset, int(cfg.get("batch_size", 4)), epoch=epoch,
+                                 bucket_frames=bucket_frames)
+        for seg in prefetch(batches, prepare, depth=int(cfg.get("prefetch", 2))):
+            t0 = time.perf_counter()
+            metrics, _ = step_fn(seg, generators["step"])
+            state.step += 1
+            if state.step % log_interval == 0:
+                values = {k: float(v) for k, v in metrics.items()}
+                state.step_times[state.step] = time.perf_counter() - t0
+                if log_writer:
+                    for k, v in values.items():
+                        log_writer.add_scalar(f"train/{k}", v, state.step)
+                    log_writer.add_scalar("train/time", state.step_times[state.step],
+                                          state.step)
+            if state.step % save_interval == 0:
+                save_checkpoint(log_dir, state, generators)
+            if max_steps is not None and state.step >= max_steps:
+                break
+        else:
+            if (epoch + 1) % int(cfg.get("save_freq", 1)) == 0:
+                state.epoch = epoch + 1
+                save_checkpoint(log_dir, state, generators)
+            continue
+        break
+    state.metrics = {k: float(v) for k, v in metrics.items()}
+    return state

@@ -1,0 +1,173 @@
+"""The codec GAN training step (port of facodec_tpu/train/step.py,
+`make_codec_train_step`, the fused two-phase step).
+
+One generator forward keeps its autograd graph for the whole step:
+
+  phase D: the discriminator loss on one pass over concat(fake without its
+           gradient, real), then the discriminator's update;
+  phase G: spectral losses, and the adversarial and feature-matching
+           losses against the *updated* discriminator (a call on the fake
+           and one on the real wave, as the fused JAX step makes them), the
+           predictor losses with their gradient-reversal branches, the VQ
+           losses; one backward into the four generator modules only (the
+           discriminator's gradients from phase G are not taken), then
+           their updates.
+
+The loss weights are the reference's. The step runs in float32 with TF32
+off (`api.float32_exact`), as the codec's calls do. Teacher targets (F0,
+phones, speaker) come in the batch; the inline JDC F0 teacher, the split
+step, `remat` and bfloat16 training are not ported and raise (ROADMAP
+Queue 1, items 9-10).
+
+batch (tensors on the models' device, fixed shapes):
+  wave_seg (B, Tw), mel_seg (B, F, 80), f0 (B, F), phone_ids (B, F),
+  spk_labels (B,), full_waves (B, Tmax), wave_lens (B,).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Mapping, Optional
+
+import torch
+import torch.nn as nn
+
+from facodec_tpu_torch.api import float32_exact
+from facodec_tpu_torch.losses import (
+    cross_entropy, discriminator_loss, focal_loss, generator_adv_losses, l1_loss, log_norm,
+    mel_spectrogram_loss, multi_scale_stft_loss, smooth_l1_loss,
+)
+from facodec_tpu_torch.train.optimizers import GEN_KEYS, AdamW
+from facodec_tpu_torch.train.targets import normalize_f0
+
+# loss weights hard-coded by the reference
+LAMBDA_MEL = 15.0
+LAMBDA_FEAT = 1.0
+LAMBDA_ADV = 1.0
+LAMBDA_COMMIT = 0.25
+LAMBDA_CODEBOOK = 1.0
+LAMBDA_F0 = 1.0
+LAMBDA_UV = 1.0
+LAMBDA_CONTENT = 5.0
+LAMBDA_SPK = 1.0
+
+
+def gen_forward(models: Mapping[str, nn.Module], batch: Mapping[str, torch.Tensor],
+                generator: Optional[torch.Generator]):
+    """(pred_wave (B, Tw, 1), commitment, codebook, preds, rev_preds)."""
+    wave = batch["wave_seg"][:, :, None]
+    z = models["encoder"](wave)
+    outs, quantized, commit, cb, timbre = models["quantizer"].forward_v2(
+        z, batch["wave_seg"], n_c=2, full_waves=batch["full_waves"],
+        wave_lens=batch["wave_lens"], train=True, generator=generator)
+    preds, rev_preds = models["fa_predictors"](quantized, timbre)
+    return models["decoder"](outs), commit, cb, preds, rev_preds
+
+
+def disc_pair(disc: nn.Module, fake: torch.Tensor, real: torch.Tensor):
+    """One discriminator pass over concat(fake, real), split back per input
+    (no discriminator op mixes batch rows)."""
+    both = disc(torch.cat([fake, real], dim=0))
+    B = fake.shape[0]
+    return [[f[:B] for f in fm] for fm in both], [[f[B:] for f in fm] for fm in both]
+
+
+def gen_loss(gen_outs, disc: nn.Module, batch: Mapping[str, torch.Tensor]):
+    """(total generator loss, {loss/*: value}) against `disc`."""
+    pred_wave, commit, cb, preds, rev_preds = gen_outs
+    pw, rw = pred_wave[:, :, 0], batch["wave_seg"]
+    mel_l = mel_spectrogram_loss(pw, rw)
+    stft_l = multi_scale_stft_loss(pw, rw)
+    wav_l = l1_loss(pw, rw)
+
+    d_fake = disc(pred_wave)
+    with torch.no_grad():  # the real wave's maps carry no generator gradient
+        d_real = disc(rw[:, :, None])
+    adv_l, feat_l = generator_adv_losses(d_fake, d_real)
+
+    f0_targets = normalize_f0(batch["f0"])
+    real_norm = log_norm(batch["mel_seg"])
+    T = min(preds["f0"].shape[1], f0_targets.shape[-1])
+    f0_t, uv_t = f0_targets[:, :T], real_norm[:, :T]
+    f0_l = smooth_l1_loss(preds["f0"][:, :T, 0], f0_t)
+    uv_l = smooth_l1_loss(preds["uv"][:, :T, 0], uv_t)
+    rev_f0_l = smooth_l1_loss(rev_preds["rev_f0"][:, :T, 0], f0_t)
+    rev_uv_l = smooth_l1_loss(rev_preds["rev_uv"][:, :T, 0], uv_t)
+    phone_t = batch["phone_ids"][:, :T]
+    content_l = focal_loss(preds["content"][:, :T], phone_t)
+    rev_content_l = focal_loss(rev_preds["rev_content"][:, :T], phone_t)
+    spk_l = cross_entropy(preds["timbre"], batch["spk_labels"])
+    x_spk_l = (cross_entropy(rev_preds["x_timbre"], batch["spk_labels"])
+               if rev_preds["x_timbre"] is not None else torch.zeros_like(spk_l))
+
+    loss = (mel_l * LAMBDA_MEL + feat_l * LAMBDA_FEAT + adv_l * LAMBDA_ADV
+            + commit * LAMBDA_COMMIT + cb * LAMBDA_CODEBOOK
+            + (f0_l + rev_f0_l) * LAMBDA_F0 + (uv_l + rev_uv_l) * LAMBDA_UV
+            + (content_l + rev_content_l) * LAMBDA_CONTENT + (spk_l + x_spk_l) * LAMBDA_SPK)
+    metrics = {
+        "loss/gen_all": loss, "loss/mel": mel_l, "loss/stft": stft_l, "loss/wav_l1": wav_l,
+        "loss/adv_g": adv_l, "loss/feature": feat_l, "loss/commitment": commit,
+        "loss/codebook": cb, "loss/f0": f0_l, "loss/uv": uv_l, "loss/rev_f0": rev_f0_l,
+        "loss/rev_uv": rev_uv_l, "loss/content": content_l, "loss/rev_content": rev_content_l,
+        "loss/spk": spk_l, "loss/rev_spk": x_spk_l,
+    }
+    return loss, metrics
+
+
+def make_codec_train_step(models: Mapping[str, nn.Module], optimizers: Mapping[str, AdamW],
+                          remat: bool = False, precision: str = "float32",
+                          f0_teacher: Any = None):
+    """Returns `train_step(batch, generator, mark=None) -> (metrics, grads)`.
+    `generator` (on the models' device) feeds every draw of the generator
+    forward. Metrics are 0-d tensors on the device: every `loss/*` of the JAX
+    step, `loss/disc` and `grad_norm/<module>` before the clip. `grads` are
+    the gradients the updates took: {module: [tensor, or None where a
+    parameter got none, in the optimizer's order]}. `mark`, if given, is
+    called with each part's name as the host finishes issuing it:
+    "forward", "disc" (phase D with its update), "gen_loss", "backward",
+    "update" (a profiler's phase boundaries)."""
+    if remat:
+        raise NotImplementedError("remat training is not ported (ROADMAP Queue 1, item 10)")
+    if precision != "float32":
+        raise NotImplementedError(f"precision={precision!r} training is not ported; the step "
+                                  "trains in float32 (ROADMAP Queue 1, item 10)")
+    if f0_teacher is not None:
+        raise NotImplementedError("the inline JDC F0 teacher is not ported; targets come in "
+                                  "batch['f0'] (ROADMAP Queue 1, item 9)")
+    disc = models["discriminator"]
+
+    def train_step(batch: Mapping[str, torch.Tensor], generator: Optional[torch.Generator],
+                   mark: Optional[Callable[[str], None]] = None):
+        mark = mark or (lambda name: None)
+        with float32_exact():
+            gen_outs = gen_forward(models, batch, generator)
+            real = batch["wave_seg"][:, :, None]
+            mark("forward")
+
+            # phase D
+            d_opt = optimizers["discriminator"]
+            d_fake, d_real = disc_pair(disc, gen_outs[0].detach(), real)
+            d_loss = discriminator_loss(d_fake, d_real)
+            d_grads = torch.autograd.grad(d_loss, d_opt.params, allow_unused=True)
+            d_norm = d_opt.step(d_grads)
+            mark("disc")
+
+            # phase G, against the updated discriminator
+            loss, metrics = gen_loss(gen_outs, disc, batch)
+            mark("gen_loss")
+            params = [p for key in GEN_KEYS for p in optimizers[key].params]
+            flat = list(torch.autograd.grad(loss, params, allow_unused=True))
+            mark("backward")
+            grads: Dict[str, list] = {}
+            for key in GEN_KEYS:
+                n = len(optimizers[key].params)
+                grads[key], flat = flat[:n], flat[n:]
+                metrics[f"grad_norm/{key}"] = optimizers[key].step(grads[key])
+            mark("update")
+            metrics["loss/disc"] = d_loss
+            metrics["grad_norm/discriminator"] = d_norm
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        grads["discriminator"] = list(d_grads)
+        return metrics, grads
+
+    return train_step
+

@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from facodec_tpu_torch.nn.activations import SnakeBeta
+
 _DROP_TOKENS = ("conv", "convtr")
 
 
@@ -130,18 +132,23 @@ def _uniform(shape, bound: float, gen: torch.Generator) -> torch.Tensor:
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights, in `named_parameters` order.
 
-    Conv / linear weights (and weight-norm `weight_v`) and their biases:
-    U(-1/sqrt(fan_in), +), fan_in = prod(shape[1:]) of the weight; weight-norm
-    `weight_g` = ||v|| (so the effective weight is v); LSTM tensors:
-    U(-1/sqrt(H), +); embedding tables (codebooks, code embeddings): N(0, 1);
-    snake alphas: 1; the timbre linear bias: gamma half 1, beta half 0."""
+    Conv (1-D and 2-D) / linear weights (and weight-norm `weight_v`) and
+    their biases: U(-1/sqrt(fan_in), +), fan_in = prod(shape[1:]) of the
+    weight; weight-norm `weight_g` = ||v|| (so the effective weight is v);
+    LSTM tensors: U(-1/sqrt(H), +); embedding tables (codebooks, code
+    embeddings): N(0, 1); snake alphas: 1; SnakeBeta alpha and beta: 0 when
+    stored as logs, else 1; the timbre linear bias: gamma half 1, beta half
+    0."""
     params = dict(module.named_parameters())
     for name, p in params.items():
         leaf = name.rsplit(".", 1)[-1]
         owner = name[: -len(leaf) - 1]
-        if leaf == "alpha":
+        sub = module.get_submodule(owner)
+        if isinstance(sub, SnakeBeta):
+            p.fill_(0.0 if sub.alpha_logscale else 1.0)
+        elif leaf == "alpha":
             p.fill_(1.0)
-        elif isinstance(module.get_submodule(owner), nn.Embedding):
+        elif isinstance(sub, nn.Embedding):
             p.copy_(torch.randn(p.shape, generator=generator))
         elif leaf.startswith(("weight_ih_l", "weight_hh_l", "bias_ih_l", "bias_hh_l")):
             hidden = params[f"{owner}.weight_hh_l0"].shape[1]

@@ -363,3 +363,159 @@ def test_convert_voice_card_matches_cpu():
         assert launched == ((0, 0) if device == "cpu" else (36, 10)), launched
     assert out["cuda"].shape == src.shape and np.isfinite(out["cuda"]).all()
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------------ training
+UNIT_GRADS = ("x", "w7", "b7", "w1", "b1", "alpha1", "alpha2")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,C,dilation,T", [(4, 64, 1, 24000), (4, 512, 9, 480), (4, 768, 9, 480),
+                                            (4, 96, 3, 1000), (2, 192, 9, 50)])
+def test_resunit_gradients_match_plain(B, C, dilation, T, causal):
+    """The float32 entry's autograd.Function: one kernel launch forward, and
+    its gradients for x, both weights, both biases and both alphas within
+    1e-4 of max|g| of the plain composition's autograd."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(C + dilation + T)
+    base = [torch.randn(B, T, C, device="cuda", generator=g),
+            torch.randn(C, C, 7, device="cuda", generator=g) / (7 * C) ** 0.5,
+            0.1 * torch.randn(C, device="cuda", generator=g),
+            torch.randn(C, C, 1, device="cuda", generator=g) / C ** 0.5,
+            0.1 * torch.randn(C, device="cuda", generator=g),
+            0.5 + torch.rand(1, C, 1, device="cuda", generator=g),
+            0.5 + torch.rand(1, C, 1, device="cuda", generator=g)]
+    cot = torch.randn(B, T, C, device="cuda", generator=g)
+    out = {}
+    with float32_exact():
+        for name, fn in (("kernel", resunit.fused_residual_unit),
+                         ("plain", resunit.residual_unit_reference)):
+            leaves = [t.clone().requires_grad_(True) for t in base]
+            before = resunit.fused_residual_unit.launches
+            y = fn(*leaves, dilation, causal)
+            grads = torch.autograd.grad(y, leaves, cot)
+            launched = resunit.fused_residual_unit.launches - before
+            assert launched == (1 if name == "kernel" else 0)
+            out[name] = y, grads
+    torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=1e-4, atol=1e-4)
+    for n, a, b in zip(UNIT_GRADS, out["kernel"][1], out["plain"][1]):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item(), n
+
+
+def test_forward_only_entries_refuse_gradients():
+    """The bf16 entry and the halo entry serve only: asked for a gradient
+    they raise; under no_grad they run."""
+    _need_cuda()
+    C = 64
+    w = [torch.randn(C, C, 7, device="cuda") / 21, torch.zeros(C, device="cuda"),
+         torch.randn(C, C, 1, device="cuda") / 8, torch.zeros(C, device="cuda"),
+         torch.ones(1, C, 1, device="cuda"), torch.ones(1, C, 1, device="cuda")]
+    w[0].requires_grad_(True)
+    x = torch.randn(1, 100, C, device="cuda")
+    with pytest.raises(RuntimeError, match="forward only"):
+        resunit.fused_residual_unit(x.bfloat16(), *w, 1, True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        resunit.fused_residual_unit_stream(x, None, *w, 1)
+    with torch.no_grad():
+        resunit.fused_residual_unit(x.bfloat16(), *w, 1, True)
+        resunit.fused_residual_unit_stream(x, None, *w, 1)
+
+
+@pytest.mark.parametrize("M", [37, 3200])
+def test_vq_gradients_match_plain_gather(M):
+    """nearest_code's autograd.Function: one launch; the codebook gradient is
+    the plain gather's (rows scatter-added into the selected codes), and the
+    latents' gradient is zero."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(M)
+    lat = torch.randn(M, 8, device="cuda", generator=g).requires_grad_(True)
+    cb = torch.randn(1024, 8, device="cuda", generator=g).requires_grad_(True)
+    cot = torch.randn(M, 8, device="cuda", generator=g)
+    before = vq.nearest_code.launches
+    idx, zq = vq.nearest_code(lat, cb)
+    assert vq.nearest_code.launches == before + 1
+    g_lat, g_cb = torch.autograd.grad(zq, (lat, cb), cot)
+    cb_p = cb.detach().clone().requires_grad_(True)
+    (g_plain,) = torch.autograd.grad(cb_p[idx.long()], cb_p, cot)
+    assert torch.count_nonzero(g_lat) == 0
+    assert (g_cb - g_plain).abs().max().item() <= 1e-6 * g_plain.abs().max().item()
+
+
+# The training step at widths the kernels take (every residual unit C % 32
+# == 0, codebook_dim 8), small enough for the CPU leg.
+TRAIN_FIELDS = dict(
+    SMALL_CODEC,
+    encoder=dict(d_model=32, strides=(15, 20), d_latent=64, causal=True, lstm=1),
+    quantizer=dict(SMALL_CODEC["quantizer"], quantizer_dropout=0.0, prob_random_mask_residual=0.0),
+    decoder=dict(input_channel=64, channels=128, rates=(20, 15), causal=True, lstm=1),
+    discriminator=dict(rates=(), periods=(2, 3), fft_sizes=(512,), sample_rate=24000),
+    fa_predictors=dict(in_dim=64, use_gr_content_f0=False, use_gr_prosody_phone=False,
+                       use_gr_residual_f0=True, use_gr_residual_phone=True,
+                       use_gr_timbre_content=True, use_gr_timbre_prosody=False,
+                       use_gr_x_timbre=True, norm_f0=True, timbre_norm=True,
+                       use_gr_content_global_f0=True, n_phone_classes=32, n_speakers=16),
+)
+
+
+def _no_dropout(models):
+    for m in models.values():
+        for sub in m.modules():
+            for attr in ("p_dropout", "dropout"):
+                if isinstance(getattr(sub, attr, None), float):
+                    setattr(sub, attr, 0.0)
+    return models
+
+
+def test_train_step_card_matches_cpu():
+    """One seed on both devices, every draw off: the card's step (kernels,
+    12 residual units and 6 VQ searches in its one generator forward) against
+    the CPU's (plain versions): every loss and gradient norm within 1e-3
+    relative, and every module's parameters moved alike."""
+    _need_cuda()
+    from facodec_tpu_torch.train.data import PseudoDataset, collate, segment_batch, to_device
+    from facodec_tpu_torch.train.loop import build_models
+    from facodec_tpu_torch.train.optimizers import build_optimizers
+    from facodec_tpu_torch.train.step import make_codec_train_step
+
+    ds = PseudoDataset(length=2, seed=0, min_s=1.0, max_s=2.0, n_phones=32, n_speakers=16)
+    seg = segment_batch(collate([ds[0], ds[1]], 80), 8, generator=torch.Generator().manual_seed(0))
+    out = {}
+    for device in ("cpu", "cuda"):
+        models = _no_dropout(build_models(TRAIN_FIELDS, 3, device))
+        step = make_codec_train_step(models, build_optimizers(models))
+        before = resunit.fused_residual_unit.launches, vq.nearest_code.launches
+        metrics, _ = step(to_device(seg, device), None)
+        launched = (resunit.fused_residual_unit.launches - before[0],
+                    vq.nearest_code.launches - before[1])
+        assert launched == ((0, 0) if device == "cpu" else (12, 6)), launched
+        out[device] = {k: float(v) for k, v in metrics.items()}, {
+            k: [p.detach().cpu() for p in m.parameters()] for k, m in models.items()}
+    (m_cpu, p_cpu), (m_gpu, p_gpu) = out["cpu"], out["cuda"]
+    for k in m_cpu:
+        assert np.isfinite(m_gpu[k]) and abs(m_gpu[k] - m_cpu[k]) <= 1e-3 * abs(m_cpu[k]), k
+    for k in p_cpu:
+        for a, b in zip(p_gpu[k], p_cpu[k]):
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+
+
+def test_run_training_on_card(tmp_path):
+    """run_training on the card: 2 steps of 12 residual-unit launches and 6
+    VQ searches each, a checkpoint, a resume to step 3."""
+    _need_cuda()
+    from facodec_tpu_torch.train.data import PseudoDataset
+    from facodec_tpu_torch.train.loop import latest_checkpoint, run_training
+
+    def ds():
+        return PseudoDataset(length=4, seed=0, min_s=1.0, max_s=3.0, n_phones=32, n_speakers=16)
+
+    before = resunit.fused_residual_unit.launches, vq.nearest_code.launches
+    state = run_training(fields=TRAIN_FIELDS, dataset=ds(), max_steps=2, device="cuda",
+                         log_dir=str(tmp_path), log_writer=False, batch_size=2, max_len=8,
+                         save_interval=2)
+    assert (resunit.fused_residual_unit.launches - before[0],
+            vq.nearest_code.launches - before[1]) == (24, 12)
+    assert state.step == 2 and all(np.isfinite(v) for v in state.metrics.values())
+    assert latest_checkpoint(str(tmp_path)).endswith("_step_00002.pth")
+    state = run_training(fields=TRAIN_FIELDS, dataset=ds(), max_steps=3, device="cuda",
+                         log_dir=str(tmp_path), log_writer=False, batch_size=2, max_len=8)
+    assert state.step == 3
