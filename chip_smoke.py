@@ -109,11 +109,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    every loss finite, every module's parameters changed; then one steady
    step's device time per part (CUDA events at the step's phase marks) and
    one traced step by kind and kernel (`profile.train_profile`).
+11. Redecoder training at full width (`FLAGSHIP_REDECODER_TRAIN`: the
+   frozen flagship codec encoder and quantizer, seed 1; the published
+   redecoder with dropout 0.2, its non-causal decoder and the
+   discriminator, seed 0). 11a: one redecoder-training forward at batch
+   4 x 80 frames; on the inputs of its 12 non-causal decoder units the
+   kernel's autograd.Function against the plain composition's autograd, as
+   10a. 11b: one draws-off step, CPU against card, batch 1 x 20 frames,
+   within 1e-3 relative. 11c: `run_redecoder_training(fields=
+   FLAGSHIP_REDECODER_TRAIN, device="cuda")` for 6 steps (the first a
+   warm-up), a checkpoint at step 6 and a resume to step 7: median step
+   time, steps/s, audio seconds per second, peak memory, exactly 24
+   residual-unit launches (12 frozen encoder units without a graph, 12
+   decoder units through the Function) and 6 VQ searches a step, every loss
+   finite, the three trained modules moved, the frozen codec bit-equal to
+   its seeded weights; one steady step's parts and one traced step by
+   kind. 11d: from one state and one generator seed, one step each of the
+   fused, split and remat variants of the redecoder step and of the codec
+   step (`FLAGSHIP_TRAIN`), dropout on: metrics within 1e-4 relative of the
+   fused step, the peak memory of each, and the launches each variant
+   adds (the split step's second generator forward, remat's recompute).
 
 The line before the last is the kernels' JSON summary; the last line is the
 run's JSON result. The kernels' `train_launches` are a training step's,
 `train_ms` their device time in the traced step, `train_grad_max_rel` the
-worst gradient gap of phase 10a.
+worst gradient gap of phase 10a; `redecoder_train_launches`,
+`redecoder_train_ms` and `redecoder_grad_max_rel` are the same for the
+redecoder step (11c, 11a).
 """
 
 from __future__ import annotations
@@ -136,7 +158,8 @@ from facodec_tpu_torch.api import FACodec, FARedecoder, convert_voice, float32_e
 from facodec_tpu_torch.cli import serve as serve_cli
 from facodec_tpu_torch.cli import stream_serve
 from facodec_tpu_torch.codec_file import FACodecFile
-from facodec_tpu_torch.config import FLAGSHIP, FLAGSHIP_REDECODER, FLAGSHIP_TRAIN
+from facodec_tpu_torch.config import (FLAGSHIP, FLAGSHIP_REDECODER, FLAGSHIP_REDECODER_TRAIN,
+                                      FLAGSHIP_TRAIN)
 from facodec_tpu_torch.models.dac import ResidualUnit
 from facodec_tpu_torch.models.streaming import HOP, StreamingFACodec
 from facodec_tpu_torch.models.quantize import ResidualVectorQuantize, VectorQuantize
@@ -147,7 +170,13 @@ from facodec_tpu_torch.profile import print_breakdown, train_profile
 from facodec_tpu_torch.train.data import PseudoDataset, collate, segment_batch, to_device
 from facodec_tpu_torch.train.loop import build_models, latest_checkpoint, run_training
 from facodec_tpu_torch.train.optimizers import build_optimizers
-from facodec_tpu_torch.train.step import gen_forward, make_codec_train_step
+from facodec_tpu_torch.train.redecoder_loop import (build_frozen_codec, build_redecoder_models,
+                                                    run_redecoder_training)
+from facodec_tpu_torch.train.redecoder_step import (frozen_encode, make_redecoder_train_step,
+                                                    make_redecoder_train_step_split,
+                                                    redecoder_forward)
+from facodec_tpu_torch.train.step import (gen_forward, make_codec_train_step,
+                                          make_codec_train_step_split)
 from facodec_tpu_torch.utils.signals import sweep_wave
 
 SR = 24000
@@ -1233,29 +1262,12 @@ def draws_off(models: dict) -> dict:
     return models
 
 
-def phase_train_kernels(models: dict, batch: dict) -> dict:
-    """10a: both kernels with their gradients, on the inputs of one
-    training forward."""
-    log(f"phase 10a: kernel gradients on the card, on the inputs of one flagship training "
-        f"forward (batch {TRAIN_BATCH} x {TRAIN_FRAMES} frames): forward to phase 2a's limit, "
-        f"gradients of {', '.join(UNIT_GRADS)} within {TRAIN_GRAD_TOL} x max|g| of plain "
-        f"autograd; VQ codebook gradient within {VQ_GRAD_TOL} x max|g| of the plain gather's, "
-        f"latent gradient zero")
-    units, searches = [], []
-    hooks = [m.register_forward_pre_hook(lambda mod, args: units.append((mod, args[0])))
-             for part in (models["encoder"], models["decoder"]) for m in part.modules()
-             if isinstance(m, ResidualUnit)]
-    hooks += [vqm.in_proj.register_forward_hook(
-        lambda mod, args, out, vqm=vqm: searches.append((vqm, out)))
-        for vqm in models["quantizer"].modules() if isinstance(vqm, VectorQuantize)]
-    with float32_exact():
-        out = gen_forward(models, batch, torch.Generator(device="cuda").manual_seed(1))
-    for h in hooks:
-        h.remove()
-    del out
-    if (len(units), len(searches)) != (24, 6):
-        raise AssertionError(f"{len(units)} units and {len(searches)} searches, expected 24, 6")
-    gen = torch.Generator(device="cuda").manual_seed(2)
+def unit_grad_checks(units: list, gen: torch.Generator) -> tuple:
+    """Each captured unit input through the kernel's autograd.Function and
+    the plain composition's autograd: forward within phase 2a's limit, the
+    gradients of x, both weights, both biases and both alphas within
+    TRAIN_GRAD_TOL x max|g|; forward and forward+backward times.
+    Returns (worst forward error, worst gradient gap, summed times)."""
     worst_fwd = worst_grad = 0.0
     tot = dict(fwd_ms=0.0, fwd_plain_ms=0.0, fwd_bwd_ms=0.0, fwd_bwd_plain_ms=0.0)
     for unit, x in units:
@@ -1299,9 +1311,36 @@ def phase_train_kernels(models: dict, batch: dict) -> dict:
             f"gradients (of max|g|) " + " ".join(f"{k} {v:.1e}" for k, v in rel.items())
             + f"; forward kernel {tk:.3f} ms plain {tp:.3f} ms, forward+backward kernel "
             f"{tkb:.3f} ms plain {tpb:.3f} ms")
-    log(f"  24 units: forward kernel {tot['fwd_ms']:.3f} ms plain {tot['fwd_plain_ms']:.3f} ms; "
-        f"forward+backward kernel {tot['fwd_bwd_ms']:.3f} ms plain "
+    log(f"  {len(units)} units: forward kernel {tot['fwd_ms']:.3f} ms plain "
+        f"{tot['fwd_plain_ms']:.3f} ms; forward+backward kernel {tot['fwd_bwd_ms']:.3f} ms plain "
         f"{tot['fwd_bwd_plain_ms']:.3f} ms (the backward recomputes the plain composition)")
+    return worst_fwd, worst_grad, tot
+
+
+def phase_train_kernels(models: dict, batch: dict) -> dict:
+    """10a: both kernels with their gradients, on the inputs of one
+    training forward."""
+    log(f"phase 10a: kernel gradients on the card, on the inputs of one flagship training "
+        f"forward (batch {TRAIN_BATCH} x {TRAIN_FRAMES} frames): forward to phase 2a's limit, "
+        f"gradients of {', '.join(UNIT_GRADS)} within {TRAIN_GRAD_TOL} x max|g| of plain "
+        f"autograd; VQ codebook gradient within {VQ_GRAD_TOL} x max|g| of the plain gather's, "
+        f"latent gradient zero")
+    units, searches = [], []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: units.append((mod, args[0])))
+             for part in (models["encoder"], models["decoder"]) for m in part.modules()
+             if isinstance(m, ResidualUnit)]
+    hooks += [vqm.in_proj.register_forward_hook(
+        lambda mod, args, out, vqm=vqm: searches.append((vqm, out)))
+        for vqm in models["quantizer"].modules() if isinstance(vqm, VectorQuantize)]
+    with float32_exact():
+        out = gen_forward(models, batch, torch.Generator(device="cuda").manual_seed(1))
+    for h in hooks:
+        h.remove()
+    del out
+    if (len(units), len(searches)) != (24, 6):
+        raise AssertionError(f"{len(units)} units and {len(searches)} searches, expected 24, 6")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst_fwd, worst_grad, tot = unit_grad_checks(units, gen)
     worst_vq = 0.0
     for i, (vqm, z_e) in enumerate(searches):
         lat = z_e.detach().reshape(-1, z_e.shape[-1]).contiguous()
@@ -1426,6 +1465,238 @@ def phase_train(smi: str) -> dict:
                 kernel_ms=kernel_ms)
 
 
+# ------------------------------------------------------------- phase 11
+RED_STEPS = 6  # one warm-up step, five timed
+VARIANT_TOL = 1e-4  # a split or remat step's metrics against the fused step's, relative
+VARIANT_STEPS = 3  # timed steps of each variant after its warm-up
+
+
+def red_setup(device: str, seed: int = 0) -> tuple:
+    """(frozen codec, the three trained modules) of FLAGSHIP_REDECODER_TRAIN."""
+    codec = build_frozen_codec(FLAGSHIP_REDECODER_TRAIN["codec"], device)
+    return codec, build_redecoder_models(FLAGSHIP_REDECODER_TRAIN, seed, device)
+
+
+def red_batch(B: int, frames: int, seed: int, device: str, max_s: float = 30.0) -> dict:
+    """A redecoder batch as its loop makes it: the crop, the full waves and
+    their lengths of `train_batch`."""
+    batch = train_batch(B, frames, seed, device, max_s)
+    return {k: batch[k] for k in ("wave_seg", "full_waves", "wave_lens")}
+
+
+def phase_red_kernels(codec: dict, models: dict, batch: dict) -> dict:
+    """11a: the residual unit's Function on the 12 non-causal decoder units
+    of one redecoder-training forward."""
+    log(f"phase 11a: kernel gradients on the card, on the 12 non-causal decoder units of one "
+        f"redecoder-training forward (FLAGSHIP_REDECODER_TRAIN, batch {TRAIN_BATCH} x "
+        f"{TRAIN_FRAMES} frames): forward to phase 2a's limit, gradients of "
+        f"{', '.join(UNIT_GRADS)} within {TRAIN_GRAD_TOL} x max|g| of plain autograd")
+    with float32_exact():
+        codes, timbre = frozen_encode(codec, batch)
+        units = unit_inputs((models["decoder"],), lambda: redecoder_forward(
+            models, codes, timbre, torch.Generator(device="cuda").manual_seed(1)), 12)
+    if any(unit.causal for unit, _ in units):
+        raise AssertionError("the redecoder's decoder units should be non-causal")
+    worst_fwd, worst_grad, tot = unit_grad_checks(units, torch.Generator(device="cuda")
+                                                  .manual_seed(2))
+    return dict(max_abs_err=worst_fwd, grad_max_rel=worst_grad, **tot)
+
+
+def phase_red_cpu() -> dict:
+    """11b: one draws-off redecoder step at batch 1 x 20 frames, on the CPU
+    (plain versions) and on the card (kernels), from one seed."""
+    log(f"phase 11b: one redecoder step, card against CPU, FLAGSHIP_REDECODER_TRAIN seed 7, "
+        f"batch 1 x 20 frames, draws off; losses and gradient norms within {STEP_TOL} relative")
+    out = {}
+    for device in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        codec, models = red_setup(device, seed=7)
+        models["encoder"].encoder.p_dropout = 0.0
+        step = make_redecoder_train_step(codec, models, build_optimizers(models))
+        batch = red_batch(1, 20, 3, device, max_s=2.0)
+        t1 = time.perf_counter()
+        out[device] = {k: float(v) for k, v in step(batch, None)[0].items()}
+        log(f"  {device}: built in {t1 - t0:.1f} s, step in {time.perf_counter() - t1:.1f} s")
+        del codec, models, step
+    worst = 0.0
+    for k in sorted(out["cpu"]):
+        a, b = out["cuda"][k], out["cpu"][k]
+        rel = abs(a - b) / max(abs(b), 1e-12)
+        worst = max(worst, rel)
+        log(f"  {k}: card {a:.6g} cpu {b:.6g} (rel {rel:.2e})")
+        if not (np.isfinite(a) and rel <= STEP_TOL):
+            raise AssertionError(f"{k}: card {a} against CPU {b}")
+    return dict(step_max_rel=worst)
+
+
+def phase_red_train(smi: str) -> dict:
+    """11c: run_redecoder_training at full width; a resume; one traced step."""
+    log(f"phase 11c: run_redecoder_training(fields=FLAGSHIP_REDECODER_TRAIN, device='cuda'), "
+        f"PseudoDataset, batch {TRAIN_BATCH} x {TRAIN_FRAMES} frames, {RED_STEPS} steps "
+        f"(1 warm-up), a checkpoint at step {RED_STEPS}, then a resume to step "
+        f"{RED_STEPS + 1} [{smi}]")
+    log_dir = tempfile.mkdtemp(prefix="red_smoke_", dir=build.BUILD_DIR)
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = run_redecoder_training(fields=FLAGSHIP_REDECODER_TRAIN, device="cuda",
+                                       max_steps=RED_STEPS, log_dir=log_dir, log_writer=False,
+                                       log_interval=1, save_interval=RED_STEPS)
+        wall = time.perf_counter() - t0
+        c = all_counts()
+        per_step = dict(f32=c["f32"] / RED_STEPS, vq=c["vq"] / RED_STEPS)
+        if (c["f32"], c["vq"], c["bf16"], c["halo"]) != (24 * RED_STEPS, 6 * RED_STEPS, 0, 0):
+            raise AssertionError(f"launches {c} over {RED_STEPS} steps; expected 24 residual "
+                                 f"units (12 frozen encoder, 12 decoder) and 6 VQ searches a step")
+        times = [1e3 * state.step_times[s] for s in range(2, RED_STEPS + 1)]
+        step_ms = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated()
+        audio_s = TRAIN_BATCH * TRAIN_FRAMES * HOP / SR
+        for k, v in sorted(state.metrics.items()):
+            log(f"  {k} {v:.6g}")
+            if not np.isfinite(v):
+                raise AssertionError(f"{k} is not finite: {v}")
+        init_codec, init = red_setup("cpu")
+        for name, m in state.models.items():
+            moved = sum(not torch.equal(p.detach().cpu(), q) for p, q in
+                        zip(m.parameters(), init[name].parameters()))
+            log(f"  {name}: {moved} of {len(list(m.parameters()))} parameter tensors changed")
+            if moved == 0:
+                raise AssertionError(f"{name}: no parameter changed")
+        for name, m in state.frozen.items():
+            want = init_codec[name].state_dict()
+            for key, t in m.state_dict().items():
+                if not torch.equal(t.cpu(), want[key]):
+                    raise AssertionError(f"frozen {name}.{key} changed")
+        log("  frozen encoder and quantizer: every tensor bit-equal to the seeded codec")
+        del init, init_codec
+        log(f"  step ms (host clock, a step until its metrics are read): first "
+            f"{1e3 * state.step_times[1]:.1f}, then " + ", ".join(f"{t:.1f}" for t in times)
+            + f"; median {step_ms:.1f} ms, {1e3 / step_ms:.2f} steps/s, "
+            f"{audio_s * 1e3 / step_ms:.2f} s of audio per s; peak memory "
+            f"{peak / 2**30:.2f} GiB; launches per step {per_step}; run {wall:.1f} s [{smi}]")
+        ckpt = latest_checkpoint(log_dir)
+        if not ckpt.endswith(f"_step_{RED_STEPS:05d}.pth"):
+            raise AssertionError(f"latest checkpoint {ckpt}")
+        del state
+        torch.cuda.empty_cache()
+        reset_counts()
+        state = run_redecoder_training(fields=FLAGSHIP_REDECODER_TRAIN, device="cuda",
+                                       max_steps=RED_STEPS + 1, log_dir=log_dir,
+                                       log_writer=False, log_interval=1, save_interval=10**9)
+        c = all_counts()
+        if state.step != RED_STEPS + 1 or state.optimizers["decoder"].count != RED_STEPS + 1:
+            raise AssertionError(f"resume reached step {state.step}")
+        if (c["f32"], c["vq"]) != (24, 6):
+            raise AssertionError(f"resumed step launched {c}")
+        log(f"  resumed from {os.path.basename(ckpt)} to step {state.step}: launches {c}")
+
+        step_fn = make_redecoder_train_step(state.frozen, state.models, state.optimizers)
+        batch = red_batch(TRAIN_BATCH, TRAIN_FRAMES, 11, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        step_fn(batch, gen)
+        prof = train_profile(step_fn, batch, gen)
+        log("  steady step, device ms per part (CUDA events at the step's phase marks): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in prof["phases"].items()))
+        print_breakdown(prof["by_kind"], prof["by_name"], prof["count"], prof["traced_wall_ms"])
+        kernel_ms = {kind: prof["by_kind"].get(kind, 0.0)
+                     for kind in ("residual-unit kernel", "VQ kernel")}
+        del state, step_fn
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    return dict(step_ms=step_ms, steps_s=1e3 / step_ms, audio_s_per_s=audio_s * 1e3 / step_ms,
+                peak_bytes=peak, per_step=per_step, times=times, phases=prof["phases"],
+                kernel_ms=kernel_ms, device_ms=sum(prof["by_kind"].values()),
+                traced_wall_ms=prof["traced_wall_ms"])
+
+
+def variant_runs(label: str, states: dict, make, expected: dict) -> dict:
+    """One step of each variant from the same module states (`make(states)`
+    restores them and gives the step factory's arguments) and generator
+    seed, after a warm-up step from the same: metrics against the fused
+    step's, peak memory above the states, launches (residual units, VQ
+    searches) against `expected`; then the median host time, until the
+    metrics are read, of that step and the next VARIANT_STEPS - 1."""
+    out = {}
+    for variant, (factory, remat, want) in expected.items():
+        for _ in range(2):  # a warm-up step, then the measured one
+            step = factory(*make(states), remat=remat)
+            gen = torch.Generator(device="cuda").manual_seed(9)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics = {k: float(v) for k, v in step(states["batch"], gen)[0].items()}
+            times = [1e3 * (time.perf_counter() - t0)]
+        c = all_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        if (c["f32"], c["vq"]) != want:
+            raise AssertionError(f"{label} {variant}: launches {c}, expected {want}")
+        for _ in range(VARIANT_STEPS - 1):  # steps on from there, for the time
+            t0 = time.perf_counter()
+            float(step(states["batch"], gen)[0]["loss/gen_all"])
+            times.append(1e3 * (time.perf_counter() - t0))
+        del step
+        out[variant] = dict(metrics=metrics, peak_bytes=peak, launches=(c["f32"], c["vq"]),
+                            ms=statistics.median(times), times=times)
+    fused = out["fused"]["metrics"]
+    for variant, r in out.items():
+        worst = max(abs(r["metrics"][k] - v) / max(abs(v), 1e-12) for k, v in fused.items())
+        r["max_rel"] = worst
+        log(f"  {label} {variant}: peak {r['peak_bytes'] / 2**30:.2f} GiB above the states, "
+            f"launches {r['launches']}, step ms " + ", ".join(f"{t:.1f}" for t in r["times"])
+            + f" (median {r['ms']:.1f}), metrics within {worst:.2e} of fused "
+            f"(limit {VARIANT_TOL})")
+        if not worst <= VARIANT_TOL:
+            raise AssertionError(f"{label} {variant}: metrics {worst} off the fused step")
+    return out
+
+
+def phase_variants() -> dict:
+    """11d: fused, split and remat steps of the redecoder and the codec."""
+    log(f"phase 11d: one step each of fused, split and remat from one state and one generator "
+        f"seed, dropout on, batch {TRAIN_BATCH} x {TRAIN_FRAMES} frames: metrics within "
+        f"{VARIANT_TOL} relative of fused, peak memory, launches")
+    codec, models = red_setup("cuda")
+    red_states = dict(codec=codec, init={k: {n: t.clone() for n, t in m.state_dict().items()}
+                                         for k, m in models.items()},
+                      models=models, batch=red_batch(TRAIN_BATCH, TRAIN_FRAMES, 13, "cuda"))
+
+    def make_red(st):
+        for k, m in st["models"].items():
+            m.load_state_dict(st["init"][k])
+        return st["codec"], st["models"], build_optimizers(st["models"])
+
+    red = variant_runs("redecoder", red_states, make_red, {
+        "fused": (make_redecoder_train_step, False, (24, 6)),
+        "split": (make_redecoder_train_step_split, False, (36, 6)),
+        "remat": (make_redecoder_train_step, True, (36, 6))})
+    del red_states, codec, models
+    torch.cuda.empty_cache()
+
+    models = build_models(FLAGSHIP_TRAIN, 0, "cuda")
+    codec_states = dict(init={k: {n: t.clone() for n, t in m.state_dict().items()}
+                              for k, m in models.items()},
+                        models=models, batch=train_batch(TRAIN_BATCH, TRAIN_FRAMES, 13, "cuda"))
+
+    def make_codec(st):
+        for k, m in st["models"].items():
+            m.load_state_dict(st["init"][k])
+        return st["models"], build_optimizers(st["models"])
+
+    cod = variant_runs("codec", codec_states, make_codec, {
+        "fused": (make_codec_train_step, False, (24, 6)),
+        "split": (make_codec_train_step_split, False, (48, 12)),
+        "remat": (make_codec_train_step, True, (48, 12))})
+    del codec_states, models
+    torch.cuda.empty_cache()
+    return dict(redecoder=red, codec=cod)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1498,6 +1769,20 @@ def main() -> None:
     tc = phase_train_cpu()
     tr = phase_train(smi)
 
+    t0 = time.perf_counter()
+    red_codec, red_models = red_setup("cuda")
+    n_params = {k: sum(p.numel() for p in m.parameters())
+                for k, m in (*red_codec.items(), *red_models.items())}
+    log(f"redecoder training modules (FLAGSHIP_REDECODER_TRAIN: frozen codec seed 1, trained "
+        f"modules seed 0): {n_params} parameters, built in {time.perf_counter() - t0:.1f} s")
+    rk = phase_red_kernels(red_codec, red_models, red_batch(TRAIN_BATCH, TRAIN_FRAMES, 0, "cuda"))
+    del red_codec, red_models
+    torch.cuda.empty_cache()
+    ru["max_abs_err"] = max(ru["max_abs_err"], rk["max_abs_err"])
+    rc = phase_red_cpu()
+    rt = phase_red_train(smi)
+    va = phase_variants()
+
     # no single PyTorch call computes either function: library_ms is null
     kernels = [
         dict(name="fused_residual_unit", route="cuda", source="facodec_tpu_torch/csrc/resunit.cu",
@@ -1505,21 +1790,26 @@ def main() -> None:
              vc_launches=vc_counts[0], stream_launches=st16["halo"],
              hybrid_launches=hy["launches"]["f32"], train_launches=tr["per_step"]["f32"],
              train_ms=tr["kernel_ms"]["residual-unit kernel"],
-             train_grad_max_rel=tk["grad_max_rel"], bound_by="operations",
+             train_grad_max_rel=tk["grad_max_rel"],
+             redecoder_train_launches=rt["per_step"]["f32"],
+             redecoder_train_ms=rt["kernel_ms"]["residual-unit kernel"],
+             redecoder_grad_max_rel=rk["grad_max_rel"], bound_by="operations",
              library_ms=None, **ru, **halo),
         dict(name="nearest_code", route="cuda", source="facodec_tpu_torch/csrc/vq.cu",
              replaces="facodec_tpu/ops/pallas/vq.py:76", launches=main_path["vq"],
              vc_launches=vc_counts[1], stream_launches=st16["vq"],
              hybrid_launches=hy["launches"]["vq"], train_launches=tr["per_step"]["vq"],
              train_ms=tr["kernel_ms"]["VQ kernel"], train_grad_max_rel=tk["vq_grad_max_rel"],
+             redecoder_train_launches=rt["per_step"]["vq"],
+             redecoder_train_ms=rt["kernel_ms"]["VQ kernel"],
              bound_by="operations", library_ms=None, **vqr),
         # the bf16 entry of csrc/resunit.cu: its main path is the hybrid
         # round trip (the serve default), whose 12 decoder units it runs
         dict(name="fused_residual_unit_bf16", route="cuda",
              source="facodec_tpu_torch/csrc/resunit.cu",
              replaces="facodec_tpu/ops/pallas/resunit.py:273", launches=hy["launches"]["bf16"],
-             hybrid_launches=hy["launches"]["bf16"], train_launches=0, bound_by="operations",
-             library_ms=None, **bf),
+             hybrid_launches=hy["launches"]["bf16"], train_launches=0,
+             redecoder_train_launches=0, bound_by="operations", library_ms=None, **bf),
     ]
     log(f"streaming: chunk 16 batch 1 p50 {st16['p50_ms']:.2f} ms ({st16['rtf']:.1f}x realtime, "
         f"device {st16['device_ms']:.2f} ms of a traced {st16['traced_wall_ms']:.2f} ms), "
@@ -1534,6 +1824,18 @@ def main() -> None:
         f"{tr['audio_s_per_s']:.2f} s of audio per s, peak {tr['peak_bytes'] / 2**30:.2f} GiB; "
         f"card vs CPU step {tc['step_max_rel']:.2e}; kernel gradients {tk['grad_max_rel']:.2e} "
         f"(resunit), {tk['vq_grad_max_rel']:.2e} (VQ) [{smi}]")
+    log(f"redecoder training: step {rt['step_ms']:.1f} ms median, {rt['steps_s']:.2f} steps/s, "
+        f"{rt['audio_s_per_s']:.2f} s of audio per s, peak {rt['peak_bytes'] / 2**30:.2f} GiB, "
+        f"device kernels {rt['device_ms']:.1f} ms of a traced {rt['traced_wall_ms']:.1f} ms; "
+        f"card vs CPU step {rc['step_max_rel']:.2e}; non-causal unit gradients "
+        f"{rk['grad_max_rel']:.2e}; 12 units forward kernel {rk['fwd_ms']:.2f} ms plain "
+        f"{rk['fwd_plain_ms']:.2f} ms, forward+backward kernel {rk['fwd_bwd_ms']:.2f} ms plain "
+        f"{rk['fwd_bwd_plain_ms']:.2f} ms [{smi}]")
+    for label, runs in va.items():
+        log(f"{label} step variants: " + "; ".join(
+            f"{v} peak {r['peak_bytes'] / 2**30:.2f} GiB, launches {r['launches']}, "
+            f"step {r['ms']:.1f} ms"
+            for v, r in runs.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -9,6 +9,9 @@
   stream        chunked streaming round trip, with its per-chunk latency
   serve         HTTP inference server (and, with --stream-port, live streams)
   train         codec GAN training, resuming from the latest checkpoint
+  train-redecoder
+                redecoder GAN training against a frozen codec (stage 2),
+                resuming from the latest checkpoint
 
 Each command runs on the card unless given `--device cpu`.
 """
@@ -36,9 +39,11 @@ def main(argv=None):
     stream_cli.add_args(sub.add_parser("stream"))
     serve_cli.add_args(sub.add_parser("serve"))
     train_cli.add_args(sub.add_parser("train"))
-    commands = dict(reconstruct=reconstruct_cli.main, convert=convert_cli.main,
-                    encode=codec_cli.main_encode, decode=codec_cli.main_decode,
-                    stream=stream_cli.main, serve=serve_cli.main, train=train_cli.main)
+    train_cli.add_redecoder_args(sub.add_parser("train-redecoder"))
+    commands = {"reconstruct": reconstruct_cli.main, "convert": convert_cli.main,
+                "encode": codec_cli.main_encode, "decode": codec_cli.main_decode,
+                "stream": stream_cli.main, "serve": serve_cli.main, "train": train_cli.main,
+                "train-redecoder": train_cli.main_redecoder}
     args = parser.parse_args(argv)
     return commands[args.command](args)
 

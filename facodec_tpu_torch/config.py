@@ -31,6 +31,17 @@ repository, so each field names its source:
 - discriminator: the builder's codec-stage ensemble, no multi-scale
   discriminator (rates ()), periods (2, 3, 5, 7, 11), FFT sizes (2048,
   1024, 512), its five bands, at the codec's 24 kHz.
+
+`FLAGSHIP_REDECODER_TRAIN` is what redecoder training builds
+(`train/redecoder_loop.py`); the reference's `config_redecoder.yml` is not
+in this repository:
+- codec: the frozen encoder and quantizer, `FLAGSHIP`'s (the JAX builder's
+  `stage="encoder"` reads the same `DAC` block and quantizer keys; the
+  released codec they come from is `FLAGSHIP`).
+- encoder, decoder: `FLAGSHIP_REDECODER`, with the WN's train-mode dropout
+  0.2 (`facodec_tpu/models/builder.py`, redecoder stage, `p_dropout=0.2`).
+- discriminator: the redecoder stage's ensemble in the JAX builder, the
+  same as the codec stage's (`FLAGSHIP_TRAIN`).
 """
 
 FLAGSHIP = dict(
@@ -62,4 +73,11 @@ FLAGSHIP_TRAIN = dict(
         rates=(), periods=(2, 3, 5, 7, 11), fft_sizes=(2048, 1024, 512), sample_rate=24000,
         bands=((0.0, 0.1), (0.1, 0.25), (0.25, 0.5), (0.5, 0.75), (0.75, 1.0)),
     ),
+)
+
+FLAGSHIP_REDECODER_TRAIN = dict(
+    codec=dict(encoder=FLAGSHIP["encoder"], quantizer=FLAGSHIP["quantizer"]),
+    encoder=dict(FLAGSHIP_REDECODER["encoder"], p_dropout=0.2),
+    decoder=FLAGSHIP_REDECODER["decoder"],
+    discriminator=FLAGSHIP_TRAIN["discriminator"],
 )

@@ -1,14 +1,14 @@
-"""GAN discriminator ensemble: multi-period (MPD) and multi-resolution
-complex-spectrogram (MRD) discriminators.
+"""GAN discriminator ensemble: multi-period (MPD), multi-scale waveform
+(MSD) and multi-resolution complex-spectrogram (MRD) discriminators.
 
-Port of facodec_tpu/models/discriminator.py as the codec stage builds it
-(`rates=()`): the multi-scale `MSD` and its resampler are not ported
-(ROADMAP Queue 1, item 9). Input waves (B, T, 1), as in the JAX package;
-the 2-D activations, and so every feature map returned, are NCHW (the JAX
-package's are NHWC): MPD folds the wave to (B, 1, T / p, p), MRD stacks the
-real and imaginary STFT as (B, 2, frames, bins). Keys follow the JAX names
-(`discriminators.0.convs.0.0.weight_v` is ('discriminators_0', 'convs_0_0',
-'weight_v')).
+Port of facodec_tpu/models/discriminator.py. Input waves (B, T, 1), as in
+the JAX package; the 2-D activations, and so the MPD and MRD feature maps
+returned, are NCHW (the JAX package's are NHWC): MPD folds the wave to
+(B, 1, T / p, p), MRD stacks the real and imaginary STFT as (B, 2, frames,
+bins). The MSD's maps are NTC, as the JAX package's are. Keys follow the
+JAX names (`discriminators.0.convs.0.0.weight_v` is ('discriminators_0',
+'convs_0_0', 'weight_v')); the ensemble indexes the MPDs, then the MSDs,
+then the MRDs, so an MSD shifts every MRD's key, as in the JAX package.
 
 The MRD front end reproduces audiotools' `match_stride` STFT: reflect-pad
 by ((w - hop) / 2, (w - hop) / 2 + right_pad), a centred STFT, and two
@@ -24,7 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from facodec_tpu_torch.nn.conv import Conv2d
+from facodec_tpu_torch.nn.conv import Conv1d, Conv2d
+from facodec_tpu_torch.ops.resample import resample_frac
 from facodec_tpu_torch.ops.spectral import hann_window
 
 BANDS = ((0.0, 0.1), (0.1, 0.25), (0.25, 0.5), (0.5, 0.75), (0.75, 1.0))
@@ -110,19 +111,46 @@ class MRD(nn.Module):
         return fmap
 
 
+class MSD(nn.Module):
+    """Multi-scale waveform discriminator: six grouped, strided weight-norm
+    convs and `conv_post` on the wave, downsampled by `rate` first through
+    the julius resampler (ops/resample.py) where rate > 1."""
+
+    SPECS = ((1, 16, 15, 1, 1, 7), (16, 64, 41, 4, 4, 20), (64, 256, 41, 4, 16, 20),
+             (256, 1024, 41, 4, 64, 20), (1024, 1024, 41, 4, 256, 20), (1024, 1024, 5, 1, 1, 2))
+
+    def __init__(self, rate: int = 1, sample_rate: int = 44100):
+        super().__init__()
+        self.rate, self.sample_rate = rate, sample_rate
+        self.convs = nn.ModuleList([
+            nn.ModuleList([Conv1d(ci, co, k, stride=s, groups=g, padding=p, weight_norm=True)])
+            for ci, co, k, s, g, p in self.SPECS])
+        self.conv_post = Conv1d(1024, 1, 3, padding=1, weight_norm=True)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        if self.rate > 1:
+            x = resample_frac(x[:, :, 0], self.sample_rate,
+                              self.sample_rate // self.rate)[:, :, None]
+        fmap = []
+        for conv in self.convs:
+            x = _leaky(conv[0](x))
+            fmap.append(x)
+        fmap.append(self.conv_post(x))
+        return fmap
+
+
 class Discriminator(nn.Module):
-    """The ensemble: MPDs then MRDs on the preprocessed wave (B, T, 1);
-    returns one list of feature maps per discriminator, the score last."""
+    """The ensemble: MPDs, then MSDs, then MRDs on the preprocessed wave
+    (B, T, 1); returns one list of feature maps per discriminator, the score
+    last."""
 
     def __init__(self, rates: Sequence[int] = (), periods: Sequence[int] = (2, 3, 5, 7, 11),
                  fft_sizes: Sequence[int] = (2048, 1024, 512), sample_rate: int = 44100,
                  bands: Sequence[Tuple[float, float]] = BANDS):
         super().__init__()
-        if tuple(rates):
-            raise NotImplementedError("the multi-scale discriminator (rates) is not ported "
-                                      "(ROADMAP Queue 1, item 9)")
         self.discriminators = nn.ModuleList(
             [MPD(p) for p in periods]
+            + [MSD(r, sample_rate=sample_rate) for r in rates]
             + [MRD(f, sample_rate=sample_rate, bands=bands) for f in fft_sizes])
 
     @staticmethod

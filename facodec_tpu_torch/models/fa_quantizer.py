@@ -92,9 +92,11 @@ class FAquantizer(nn.Module):
     def forward_v2(self, x: torch.Tensor, wave_segments: torch.Tensor, n_c: int = 1,
                    full_waves: Optional[torch.Tensor] = None,
                    wave_lens: Optional[torch.Tensor] = None, train: bool = False,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   return_quantized: bool = False):
         """x: encoder latent (B, T, in_dim); wave_segments (B, Tw).
-        Returns (outs, [codes_p, codes_c, codes_r], timbre). Given
+        Returns (outs, [codes_p, codes_c, codes_r], timbre), and in eval
+        with `return_quantized` the streams [z_p, z_c, z_r] fourth. Given
         `full_waves` (B, Tf) and their true lengths `wave_lens` (B,) in
         samples, the timbre pools the mel of `full_waves` over each row's
         first wave_lens // hop frames only: the masked timbre of a batch
@@ -126,6 +128,8 @@ class FAquantizer(nn.Module):
             z_c, codes_c = self.content_quantizer(x, n_c)
             z_r, codes_r = self.residual_quantizer(x - z_p - z_c, 3)
             outs = self._timbre_condition(z_p + z_c + z_r, timbre)
+            if return_quantized:
+                return outs, [codes_p, codes_c, codes_r], timbre, [z_p, z_c, z_r]
             return outs, [codes_p, codes_c, codes_r], timbre
 
         z_p, _, commit_p, cb_p = self.prosody_quantizer.forward_train(f0_input, generator)

@@ -2,8 +2,10 @@
 vector; swapping the timbre vector converts the voice (zero-shot).
 
 Port of facodec_tpu/models/redecoder.py `Redecoder` and
-`redecoder_stream_state`, eval mode (the 'wavenet' encoder of the
-reference). NTC layout. Its output latent feeds a DAC `Decoder`
+`redecoder_stream_state` (the 'wavenet' encoder of the reference). NTC
+layout. With `train=True` the WN's gated activations go through dropout at
+`p_dropout` (0.2, the JAX default), drawn from the caller's generator;
+in eval, as `convert_voice` and streaming run it, there is no draw. Its output latent feeds a DAC `Decoder`
 (models/dac.py), whose residual units run the fused residual-unit kernel on
 the card.
 
@@ -13,6 +15,8 @@ returns `(latent, new_stream)`.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -28,11 +32,12 @@ class Redecoder(nn.Module):
 
     def __init__(self, n_p_codebooks: int = 1, n_c_codebooks: int = 2,
                  codebook_size: int = 1024, embed_dim: int = 512, n_layers: int = 16,
-                 causal: bool = False, gin_channels: int = 1024, out_dim: int = 1024):
+                 causal: bool = False, gin_channels: int = 1024, out_dim: int = 1024,
+                 p_dropout: float = 0.2):
         super().__init__()
         self.embed_dim, self.codebook_size, self.causal = embed_dim, codebook_size, causal
         self.encoder = WN(embed_dim, kernel_size=5, dilation_rate=1, n_layers=n_layers,
-                          gin_channels=gin_channels, causal=causal)
+                          gin_channels=gin_channels, causal=causal, p_dropout=p_dropout)
         self.conv_out = Conv1d(embed_dim, out_dim, 1)
         self.prosody_embed = nn.ModuleList([
             Embedding(codebook_size, embed_dim) for _ in range(n_p_codebooks)])
@@ -41,7 +46,8 @@ class Redecoder(nn.Module):
 
     def forward(self, p_code: torch.Tensor, c_code: torch.Tensor, timbre: torch.Tensor,
                 use_p_code: bool = True, use_c_code: bool = True, n_c: int = 2,
-                stream=None, first: bool = False):
+                stream=None, first: bool = False, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """p_code (B, n_p, T), c_code (B, n_c, T) integer codes; timbre (B, gin).
         Returns the latent (B, T, out_dim)."""
         B, _, T = p_code.shape
@@ -55,7 +61,7 @@ class Redecoder(nn.Module):
         if stream is not None:
             x, new_stream = self.encoder(x, g=timbre[:, None, :], stream=stream, first=first)
             return self.conv_out(x), new_stream
-        x = self.encoder(x, g=timbre[:, None, :])
+        x = self.encoder(x, g=timbre[:, None, :], train=train, generator=generator)
         return self.conv_out(x)
 
 

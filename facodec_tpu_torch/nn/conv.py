@@ -1,10 +1,11 @@
 """Convolution layers in NTC layout with torch parameter layout.
 
 Port of facodec_tpu/nn/conv.py with the options the codec and its
-discriminators use: every conv has a bias and one group. The causal `SConv1d` and `SConvTranspose1d` also
-stream: given a carried `state` they return `(y, new_state)`, and chunked
-output equals the one-shot output (see each class). Conv
-weights are (O, I, K), transposed-conv weights (I, O, K), `Conv2d`
+discriminators use: every conv has a bias; only `Conv1d` takes a stride
+and groups (the multi-scale discriminator's). The causal `SConv1d` and
+`SConvTranspose1d` also stream: given a carried `state` they return
+`(y, new_state)`, and chunked output equals the one-shot output (see each
+class). Conv weights are (O, I / groups, K), transposed-conv weights (I, O, K), `Conv2d`
 weights (O, I, Kh, Kw); weight norm keeps
 `weight_g` / `weight_v` as parameters and computes `v * (g / ||v||)` over
 every dim but 0 on each call. Activations are NTC at every public function;
@@ -49,23 +50,24 @@ def bf16_op(fn, x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]) 
 
 def conv1d_ntc(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
                stride: int = 1, dilation: int = 1, padding: int = 0,
-               exact: bool = False) -> torch.Tensor:
-    """1-D conv over NTC input with a (O, I, K) weight, under the precision
-    policy unless `exact`. A pointwise conv is a matmul over channels and
-    runs as one, as in the JAX package."""
-    pointwise = weight.shape[-1] == 1 and stride == 1 and padding == 0
+               exact: bool = False, groups: int = 1) -> torch.Tensor:
+    """1-D conv over NTC input with a (O, I / groups, K) weight, under the
+    precision policy unless `exact`. A pointwise conv is a matmul over
+    channels and runs as one, as in the JAX package."""
+    pointwise = weight.shape[-1] == 1 and stride == 1 and padding == 0 and groups == 1
     if not exact and bf16_active():
         if pointwise:
             return bf16_op(lambda a, w: F.linear(a, w[:, :, 0]), x, weight, bias)
         return bf16_op(lambda a, w: F.conv1d(a.transpose(1, 2), w, stride=stride,
-                                             padding=padding, dilation=dilation).transpose(1, 2),
+                                             padding=padding, dilation=dilation,
+                                             groups=groups).transpose(1, 2),
                        x, weight, bias)
     if exact:
         x = x.float()
     if pointwise:
         return F.linear(x, weight[:, :, 0], bias)
     y = F.conv1d(x.transpose(1, 2), weight, bias, stride=stride, padding=padding,
-                 dilation=dilation)
+                 dilation=dilation, groups=groups)
     return y.transpose(1, 2)
 
 
@@ -105,14 +107,17 @@ class Conv1d(_WeightNormConv):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  padding: int = 0, weight_norm: bool = False, exact: bool = False,
-                 dilation: int = 1):
+                 dilation: int = 1, stride: int = 1, groups: int = 1):
         super().__init__()
         self.padding, self.exact, self.dilation = padding, exact, dilation
-        self._init_weight((out_channels, in_channels, kernel_size), weight_norm, out_channels)
+        self.stride, self.groups = stride, groups
+        self._init_weight((out_channels, in_channels // groups, kernel_size), weight_norm,
+                          out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv1d_ntc(x, self.effective_weight(), self.bias, padding=self.padding,
-                          dilation=self.dilation, exact=self.exact)
+        return conv1d_ntc(x, self.effective_weight(), self.bias, stride=self.stride,
+                          padding=self.padding, dilation=self.dilation, exact=self.exact,
+                          groups=self.groups)
 
 
 class Conv2d(_WeightNormConv):

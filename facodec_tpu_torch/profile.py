@@ -3,6 +3,7 @@ flagship training step.
 
     python -m facodec_tpu_torch.profile [batch] [seconds]
     python -m facodec_tpu_torch.profile train
+    python -m facodec_tpu_torch.profile train-redecoder
 
 Builds the flagship codec (seeded random weights) on the card, runs
 encode -> decode untraced five times (host clock around a synchronise),
@@ -12,8 +13,10 @@ trace's device events; the `aten::` rows of `key_averages()` repeat the same
 time and are left out. `train` does the same for the training step of
 `config.FLAGSHIP_TRAIN` at the loop's batch (4 x 80 frames of
 `PseudoDataset`): `train_profile` times a steady step's parts between CUDA
-events recorded at the step's phase marks, then traces one more step. Needs
-a CUDA card.
+events recorded at the step's phase marks, then traces one more step.
+`train-redecoder` does the same for the redecoder step of
+`config.FLAGSHIP_REDECODER_TRAIN` (frozen codec encode, Redecoder and
+decoder, discriminator). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -64,26 +67,23 @@ def device_ms(prof) -> tuple:
     return by_kind, by_name, count
 
 
-PHASES = ("forward", "disc", "gen_loss", "backward", "update")
-
-
 def train_profile(step_fn, batch, generator) -> dict:
     """One steady step with a CUDA event at each phase mark (device ms per
-    phase: the stream's time between the marks, idle gaps included), then
-    one step under torch.profiler: its device-kernel ms by kind, by kernel
-    and launches, and the traced wall ms."""
-    events = [torch.cuda.Event(enable_timing=True)]
+    phase, in the step's order: the stream's time between the marks, idle
+    gaps included), then one step under torch.profiler: its device-kernel
+    ms by kind, by kernel and launches, and the traced wall ms."""
+    events = [("start", torch.cuda.Event(enable_timing=True))]
 
     def mark(name):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
-        events.append(ev)
+        events.append((name, ev))
 
     torch.cuda.synchronize()
-    events[0].record()
+    events[0][1].record()
     step_fn(batch, generator, mark=mark)
     torch.cuda.synchronize()
-    phases = {name: a.elapsed_time(b) for name, a, b in zip(PHASES, events, events[1:])}
+    phases = {name: a.elapsed_time(b) for (_, a), (name, b) in zip(events, events[1:])}
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -111,7 +111,20 @@ def print_breakdown(by_kind, by_name, count, wall_ms: float, top: int = 15) -> N
             print(f"  {ms:9.2f} ms {count[name]:5d} x  {name[:110]}")
 
 
-def main_train() -> None:
+def redecoder_step_fn(seed: int = 0):
+    """The redecoder step at `FLAGSHIP_REDECODER_TRAIN` on the card, over
+    seeded modules."""
+    from facodec_tpu_torch.config import FLAGSHIP_REDECODER_TRAIN
+    from facodec_tpu_torch.train.optimizers import build_optimizers
+    from facodec_tpu_torch.train.redecoder_loop import build_frozen_codec, build_redecoder_models
+    from facodec_tpu_torch.train.redecoder_step import make_redecoder_train_step
+
+    codec = build_frozen_codec(FLAGSHIP_REDECODER_TRAIN["codec"], "cuda")
+    models = build_redecoder_models(FLAGSHIP_REDECODER_TRAIN, seed, "cuda")
+    return make_redecoder_train_step(codec, models, build_optimizers(models))
+
+
+def main_train(redecoder: bool = False) -> None:
     from facodec_tpu_torch.config import FLAGSHIP_TRAIN
     from facodec_tpu_torch.train.data import PseudoDataset, collate, segment_batch, to_device
     from facodec_tpu_torch.train.loop import build_models
@@ -119,8 +132,11 @@ def main_train() -> None:
     from facodec_tpu_torch.train.step import make_codec_train_step
 
     _device()
-    models = build_models(FLAGSHIP_TRAIN, 0, "cuda")
-    step_fn = make_codec_train_step(models, build_optimizers(models))
+    if redecoder:
+        step_fn = redecoder_step_fn()
+    else:
+        models = build_models(FLAGSHIP_TRAIN, 0, "cuda")
+        step_fn = make_codec_train_step(models, build_optimizers(models))
     ds = PseudoDataset(length=4, seed=0)
     batch = to_device(segment_batch(collate([ds[i] for i in range(4)], 80), 80,
                                     generator=torch.Generator().manual_seed(0)), "cuda")
@@ -169,7 +185,7 @@ def main(batch: int = 4, seconds: float = 10.0) -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["train"]:
-        main_train()
+    if sys.argv[1:2] in (["train"], ["train-redecoder"]):
+        main_train(redecoder=sys.argv[1] == "train-redecoder")
     else:
         main(*(f(a) for f, a in zip((int, float), sys.argv[1:])))

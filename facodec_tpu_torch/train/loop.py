@@ -21,6 +21,18 @@ learning-rate schedule's step), the states of the step's and the data's
 generators, `step` and `epoch`. The newest 5 are kept, and a run resumes
 from the latest. The TensorBoard writer is optional, as in the JAX loop.
 
+The config keys of the JAX loop's step are read as it reads them:
+`split_step: true` runs the split step (train/step.py
+`make_codec_train_step_split`), `remat: true` recomputes the forward in the
+backward, and, with a log writer, the factorization probes
+(train/probes.py) are logged every `probe_interval` steps (default
+1000 * log_interval). `donate_params` is accepted and changes nothing: it
+is an XLA buffer-aliasing switch of the JAX loop, with no effect on any
+number. Two keys raise `NotImplementedError`, as what they ask for is not
+ported: an `F0_path` that exists, with `inline_f0` not false (the inline
+JDC F0 teacher, ROADMAP Queue 1, item 9), and `tensor_parallel` over 1 (the
+heads sharded over a model axis, item 11).
+
 Draws: the step's (dropout, quantizer dropout, residual mask) from a
 generator on the device seeded with seed + 1; the data order from seed
 114514 + epoch; the segment crops from a CPU generator seeded with seed.
@@ -44,7 +56,8 @@ from facodec_tpu_torch.models.builder import build_train_from_fields, train_fiel
 from facodec_tpu_torch.train.data import (PseudoDataset, prefetch, segment_batch,
                                           shard_iterator, to_device)
 from facodec_tpu_torch.train.optimizers import AdamW, build_optimizers
-from facodec_tpu_torch.train.step import make_codec_train_step
+from facodec_tpu_torch.train.probes import log_probe_audio, make_probe_fn
+from facodec_tpu_torch.train.step import make_codec_train_step, make_codec_train_step_split
 from facodec_tpu_torch.utils.config import load_config
 from facodec_tpu_torch.utils.weights import init_random_
 
@@ -55,8 +68,9 @@ MODULES = ("encoder", "quantizer", "decoder", "fa_predictors", "discriminator")
 @dataclass
 class TrainState:
     """What a run leaves: the modules, their optimizers, the step reached,
-    the epoch, the last step's metrics (floats), and per logged step its
-    host time in seconds (a step's dispatch until its metrics are read)."""
+    the epoch, the last step's metrics (floats), per logged step its host
+    time in seconds (a step's dispatch until its metrics are read), and the
+    frozen modules a run trains against (redecoder training's codec)."""
 
     models: Dict[str, nn.Module]
     optimizers: Dict[str, AdamW]
@@ -64,6 +78,7 @@ class TrainState:
     epoch: int
     metrics: Dict[str, float] = field(default_factory=dict)
     step_times: Dict[int, float] = field(default_factory=dict)
+    frozen: Dict[str, nn.Module] = field(default_factory=dict)
 
 
 def _step_of(path: str):
@@ -102,17 +117,41 @@ def load_checkpoint(path: str, state: TrainState,
     state.step, state.epoch = int(ckpt["step"]), int(ckpt["epoch"])
 
 
+def check_device(who: str, device: str) -> None:
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: device {device!r} asked for, but torch sees no CUDA "
+                           f"device; pass device='cpu' (--device cpu) to train on the CPU")
+
+
+def seeded(models: Mapping[str, nn.Module], names, seed: int, device: str
+           ) -> Dict[str, nn.Module]:
+    """The modules `names`, seeded random weights drawn on the CPU in that
+    order from one generator, on `device`."""
+    gen = torch.Generator().manual_seed(seed)
+    for name in names:
+        init_random_(models[name], gen)
+    return {name: models[name].to(device) for name in names}
+
+
 def build_models(fields: Mapping[str, Mapping[str, Any]], seed: int, device: str
                  ) -> Dict[str, nn.Module]:
     """The five modules with seeded random weights drawn on the CPU, on `device`."""
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"run_training: device {device!r} asked for, but torch sees no CUDA "
-                           f"device; pass device='cpu' (--device cpu) to train on the CPU")
-    models = build_train_from_fields(fields)
-    gen = torch.Generator().manual_seed(seed)
-    for name in MODULES:
-        init_random_(models[name], gen)
-    return {name: models[name].to(device) for name in MODULES}
+    check_device("run_training", device)
+    return seeded(build_train_from_fields(fields), MODULES, seed, device)
+
+
+def check_unported(cfg: Mapping[str, Any]) -> None:
+    """Raise on a config key whose JAX behaviour is not ported."""
+    f0_path = cfg.get("F0_path", "")
+    if cfg.get("inline_f0", True) and f0_path and os.path.exists(f0_path):
+        raise NotImplementedError(f"F0_path {f0_path!r} exists: the JAX loop would run the JDC "
+                                  "F0 teacher inside the step, which is not ported (ROADMAP "
+                                  "Queue 1, item 9); set inline_f0: false to train on "
+                                  "batch['f0']")
+    if int(cfg.get("tensor_parallel", 1)) > 1:
+        raise NotImplementedError(f"tensor_parallel {cfg['tensor_parallel']}: sharding the "
+                                  "heads over a model axis is not ported (ROADMAP Queue 1, "
+                                  "item 11)")
 
 
 def _default_writer(log_dir: str):
@@ -143,6 +182,7 @@ def run_training(config_path: Optional[str] = None,
     seed = int(cfg.get("seed", 0))
     base_lr = float(cfg.get("base_lr", (cfg.get("loss_params") or {}).get("base_lr", 1e-4)))
 
+    check_unported(cfg)
     models = build_models(fields, seed, device)
     optimizers = build_optimizers(models, base_lr=base_lr)
     state = TrainState(models, optimizers, step=0, epoch=0)
@@ -152,7 +192,9 @@ def run_training(config_path: Optional[str] = None,
     if resume:
         load_checkpoint(resume, state, generators)
         print(f"resumed from {resume} (epoch {state.epoch}, step {state.step})")
-    step_fn = make_codec_train_step(models, optimizers)
+    make_step = (make_codec_train_step_split if cfg.get("split_step", False)
+                 else make_codec_train_step)
+    step_fn = make_step(models, optimizers, remat=bool(cfg.get("remat", False)))
 
     if dataset is None:
         # labels within the heads' classes (the flagship's are the defaults)
@@ -160,17 +202,31 @@ def run_training(config_path: Optional[str] = None,
         dataset = PseudoDataset(length=cfg.get("pseudo_dataset_len", 100), seed=seed,
                                 n_phones=heads.get("n_phone_classes", 1024),
                                 n_speakers=heads.get("n_speakers", 20000))
-    if log_writer is None:
-        log_writer = _default_writer(log_dir)
     max_frames = int(cfg.get("max_len", 80))
-    log_interval = int(cfg.get("log_interval", 10))
-    save_interval = int(cfg.get("save_interval", 1000))
-    bucket_frames = int(cfg.get("bucket_frames", 80))
 
     def prepare(batch):
         seg = segment_batch(batch, max_frames=max_frames, generator=generators["data"])
         return to_device(seg, device)
 
+    return train_loop(state, step_fn, generators, dataset, cfg, prepare, log_dir, log_writer,
+                      max_steps, int(cfg.get("bucket_frames", 80)), make_probe_fn(models))
+
+
+def train_loop(state: TrainState, step_fn, generators: Mapping[str, torch.Generator], dataset,
+               cfg: Mapping[str, Any], prepare, log_dir: str, log_writer, max_steps: Optional[int],
+               bucket_frames: Optional[int], probe=None) -> TrainState:
+    """The epochs of a run, from `state`: batches of `dataset` in the seeded
+    order, `prepare`d a few ahead, one `step_fn` each; the metrics logged
+    every `log_interval` steps, `probe`'s audio every `probe_interval`
+    steps (where both a probe and a writer are given), a checkpoint every
+    `save_interval` steps and at each epoch's end, until `max_steps`.
+    `log_writer=False` logs nothing; None makes a TensorBoard writer where
+    TensorBoard imports."""
+    if log_writer is None:
+        log_writer = _default_writer(log_dir)
+    log_interval = int(cfg.get("log_interval", 10))
+    save_interval = int(cfg.get("save_interval", 1000))
+    probe_interval = int(cfg.get("probe_interval", 1000 * log_interval))
     metrics: Dict[str, torch.Tensor] = {}
     for epoch in range(state.epoch, int(cfg.get("epochs", 1000))):
         state.epoch = epoch
@@ -188,6 +244,8 @@ def run_training(config_path: Optional[str] = None,
                         log_writer.add_scalar(f"train/{k}", v, state.step)
                     log_writer.add_scalar("train/time", state.step_times[state.step],
                                           state.step)
+            if probe is not None and log_writer and state.step % probe_interval == 0:
+                log_probe_audio(log_writer, probe(seg), state.step)
             if state.step % save_interval == 0:
                 save_checkpoint(log_dir, state, generators)
             if max_steps is not None and state.step >= max_steps:

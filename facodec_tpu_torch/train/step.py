@@ -1,7 +1,8 @@
 """The codec GAN training step (port of facodec_tpu/train/step.py,
-`make_codec_train_step`, the fused two-phase step).
+`make_codec_train_step` and `make_codec_train_step_split`).
 
-One generator forward keeps its autograd graph for the whole step:
+The fused step runs one generator forward and keeps its autograd graph for
+the whole step:
 
   phase D: the discriminator loss on one pass over concat(fake without its
            gradient, real), then the discriminator's update;
@@ -13,11 +14,27 @@ One generator forward keeps its autograd graph for the whole step:
            discriminator's gradients from phase G are not taken), then
            their updates.
 
+The split step has the same phases, but phase D runs its own generator
+forward without a graph, and phase G runs the generator forward again, with
+its graph, against the updated discriminator, with one discriminator pass
+over concat(fake, real) (JAX's `paired_g`). Both forwards draw the same
+dropout masks, as the JAX split step's two phases take the same key: the
+step saves its generator's state before phase D and restores it before
+phase G.
+
+`remat=True` recomputes in the backward what the forward would store, as
+`jax.checkpoint` does: the generator forward, the discriminator loss and
+phase G's loss run under `torch.utils.checkpoint` (non-reentrant).
+`checkpoint` replays only torch's global RNG, and every draw here comes
+from an explicit generator, so `replay_checkpoint` sets the generator back
+to the state the first run started from for the recompute (and restores it
+after): the recompute draws the very masks the forward drew. The kernels'
+`autograd.Function`s run again inside the recompute.
+
 The loss weights are the reference's. The step runs in float32 with TF32
 off (`api.float32_exact`), as the codec's calls do. Teacher targets (F0,
-phones, speaker) come in the batch; the inline JDC F0 teacher, the split
-step, `remat` and bfloat16 training are not ported and raise (ROADMAP
-Queue 1, items 9-10).
+phones, speaker) come in the batch; the inline JDC F0 teacher and bfloat16
+training are not ported and raise (ROADMAP Queue 1, items 9-10).
 
 batch (tensors on the models' device, fixed shapes):
   wave_seg (B, Tw), mel_seg (B, F, 80), f0 (B, F), phone_ids (B, F),
@@ -26,10 +43,11 @@ batch (tensors on the models' device, fixed shapes):
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from facodec_tpu_torch.api import float32_exact
 from facodec_tpu_torch.losses import (
@@ -49,6 +67,34 @@ LAMBDA_F0 = 1.0
 LAMBDA_UV = 1.0
 LAMBDA_CONTENT = 5.0
 LAMBDA_SPK = 1.0
+
+
+def replay_checkpoint(fn: Callable, generator: Optional[torch.Generator]):
+    """fn() under non-reentrant `checkpoint`, whose recompute draws from
+    `generator` what the first run drew: it starts from the state the first
+    run started from and leaves the generator as it found it."""
+    if generator is None:
+        return checkpoint(fn, use_reentrant=False, preserve_rng_state=False)
+    start = generator.get_state()
+    runs = []
+
+    def body():
+        found = generator.get_state()
+        generator.set_state(start)
+        out = fn()
+        if runs:  # a recompute
+            generator.set_state(found)
+        runs.append(1)
+        return out
+
+    return checkpoint(body, use_reentrant=False, preserve_rng_state=False)
+
+
+def maybe_checkpoint(remat: bool, fn: Callable, *args):
+    """fn(*args), recomputed in the backward where `remat` (no draws inside)."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def gen_forward(models: Mapping[str, nn.Module], batch: Mapping[str, torch.Tensor],
@@ -71,17 +117,22 @@ def disc_pair(disc: nn.Module, fake: torch.Tensor, real: torch.Tensor):
     return [[f[:B] for f in fm] for fm in both], [[f[B:] for f in fm] for fm in both]
 
 
-def gen_loss(gen_outs, disc: nn.Module, batch: Mapping[str, torch.Tensor]):
-    """(total generator loss, {loss/*: value}) against `disc`."""
+def gen_loss(gen_outs, disc: nn.Module, batch: Mapping[str, torch.Tensor],
+             paired: bool = False):
+    """(total generator loss, {loss/*: value}) against `disc`; `paired`
+    runs the fake and the real wave through it in one pass."""
     pred_wave, commit, cb, preds, rev_preds = gen_outs
     pw, rw = pred_wave[:, :, 0], batch["wave_seg"]
     mel_l = mel_spectrogram_loss(pw, rw)
     stft_l = multi_scale_stft_loss(pw, rw)
     wav_l = l1_loss(pw, rw)
 
-    d_fake = disc(pred_wave)
-    with torch.no_grad():  # the real wave's maps carry no generator gradient
-        d_real = disc(rw[:, :, None])
+    if paired:
+        d_fake, d_real = disc_pair(disc, pred_wave, rw[:, :, None])
+    else:
+        d_fake = disc(pred_wave)
+        with torch.no_grad():  # the real wave's maps carry no generator gradient
+            d_real = disc(rw[:, :, None])
     adv_l, feat_l = generator_adv_losses(d_fake, d_real)
 
     f0_targets = normalize_f0(batch["f0"])
@@ -113,6 +164,94 @@ def gen_loss(gen_outs, disc: nn.Module, batch: Mapping[str, torch.Tensor]):
     return loss, metrics
 
 
+def disc_update(d_opt: AdamW, loss_fn: Callable, fake: torch.Tensor, real: torch.Tensor,
+                remat: bool):
+    """Phase D's loss, its gradients and the discriminator's update:
+    (loss, gradients, their norm before the clip)."""
+    d_loss = maybe_checkpoint(remat, loss_fn, fake, real)
+    d_grads = list(torch.autograd.grad(d_loss, d_opt.params, allow_unused=True))
+    return d_loss, d_grads, d_opt.step(d_grads)
+
+
+def gen_update(loss: torch.Tensor, optimizers: Mapping[str, AdamW], keys: Sequence[str],
+               metrics: Dict[str, torch.Tensor], mark: Callable[[str], None]) -> Dict[str, list]:
+    """One backward of phase G's loss into the modules `keys` only, then
+    their updates; adds `grad_norm/<module>` to `metrics`."""
+    params = [p for key in keys for p in optimizers[key].params]
+    flat = list(torch.autograd.grad(loss, params, allow_unused=True))
+    mark("backward")
+    grads: Dict[str, list] = {}
+    for key in keys:
+        n = len(optimizers[key].params)
+        grads[key], flat = flat[:n], flat[n:]
+        metrics[f"grad_norm/{key}"] = optimizers[key].step(grads[key])
+    mark("update")
+    return grads
+
+
+def _no_mark(name: str) -> None:
+    pass
+
+
+def _check_options(precision: str, f0_teacher: Any) -> None:
+    if precision != "float32":
+        raise NotImplementedError(f"precision={precision!r} training is not ported; the step "
+                                  "trains in float32 (ROADMAP Queue 1, item 10)")
+    if f0_teacher is not None:
+        raise NotImplementedError("the inline JDC F0 teacher is not ported; targets come in "
+                                  "batch['f0'] (ROADMAP Queue 1, item 9)")
+
+
+def _make_step(models: Mapping[str, nn.Module], optimizers: Mapping[str, AdamW], remat: bool,
+               split: bool):
+    disc = models["discriminator"]
+
+    def disc_loss_fn(fake, real):
+        return discriminator_loss(*disc_pair(disc, fake, real))
+
+    def forward(batch, generator):
+        if remat:
+            return replay_checkpoint(lambda: gen_forward(models, batch, generator), generator)
+        return gen_forward(models, batch, generator)
+
+    def train_step(batch: Mapping[str, torch.Tensor], generator: Optional[torch.Generator],
+                   mark: Optional[Callable[[str], None]] = None):
+        mark = mark or _no_mark
+        with float32_exact():
+            real = batch["wave_seg"][:, :, None]
+            if split:
+                start = None if generator is None else generator.get_state()
+                with torch.no_grad():
+                    fake = gen_forward(models, batch, generator)[0]
+            else:
+                gen_outs = forward(batch, generator)
+                fake = gen_outs[0].detach()
+                mark("forward")
+
+            # phase D
+            d_loss, d_grads, d_norm = disc_update(optimizers["discriminator"], disc_loss_fn,
+                                                  fake, real, remat)
+            del fake
+            mark("disc")
+
+            # phase G, against the updated discriminator
+            if split:
+                if generator is not None:
+                    generator.set_state(start)  # phase G draws phase D's masks
+                gen_outs = forward(batch, generator)
+                mark("forward")
+            loss, metrics = maybe_checkpoint(remat, gen_loss, gen_outs, disc, batch, split)
+            mark("gen_loss")
+            grads = gen_update(loss, optimizers, GEN_KEYS, metrics, mark)
+            metrics["loss/disc"] = d_loss
+            metrics["grad_norm/discriminator"] = d_norm
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        grads["discriminator"] = d_grads
+        return metrics, grads
+
+    return train_step
+
+
 def make_codec_train_step(models: Mapping[str, nn.Module], optimizers: Mapping[str, AdamW],
                           remat: bool = False, precision: str = "float32",
                           f0_teacher: Any = None):
@@ -125,49 +264,17 @@ def make_codec_train_step(models: Mapping[str, nn.Module], optimizers: Mapping[s
     called with each part's name as the host finishes issuing it:
     "forward", "disc" (phase D with its update), "gen_loss", "backward",
     "update" (a profiler's phase boundaries)."""
-    if remat:
-        raise NotImplementedError("remat training is not ported (ROADMAP Queue 1, item 10)")
-    if precision != "float32":
-        raise NotImplementedError(f"precision={precision!r} training is not ported; the step "
-                                  "trains in float32 (ROADMAP Queue 1, item 10)")
-    if f0_teacher is not None:
-        raise NotImplementedError("the inline JDC F0 teacher is not ported; targets come in "
-                                  "batch['f0'] (ROADMAP Queue 1, item 9)")
-    disc = models["discriminator"]
+    _check_options(precision, f0_teacher)
+    return _make_step(models, optimizers, remat, split=False)
 
-    def train_step(batch: Mapping[str, torch.Tensor], generator: Optional[torch.Generator],
-                   mark: Optional[Callable[[str], None]] = None):
-        mark = mark or (lambda name: None)
-        with float32_exact():
-            gen_outs = gen_forward(models, batch, generator)
-            real = batch["wave_seg"][:, :, None]
-            mark("forward")
 
-            # phase D
-            d_opt = optimizers["discriminator"]
-            d_fake, d_real = disc_pair(disc, gen_outs[0].detach(), real)
-            d_loss = discriminator_loss(d_fake, d_real)
-            d_grads = torch.autograd.grad(d_loss, d_opt.params, allow_unused=True)
-            d_norm = d_opt.step(d_grads)
-            mark("disc")
-
-            # phase G, against the updated discriminator
-            loss, metrics = gen_loss(gen_outs, disc, batch)
-            mark("gen_loss")
-            params = [p for key in GEN_KEYS for p in optimizers[key].params]
-            flat = list(torch.autograd.grad(loss, params, allow_unused=True))
-            mark("backward")
-            grads: Dict[str, list] = {}
-            for key in GEN_KEYS:
-                n = len(optimizers[key].params)
-                grads[key], flat = flat[:n], flat[n:]
-                metrics[f"grad_norm/{key}"] = optimizers[key].step(grads[key])
-            mark("update")
-            metrics["loss/disc"] = d_loss
-            metrics["grad_norm/discriminator"] = d_norm
-            metrics = {k: v.detach() for k, v in metrics.items()}
-        grads["discriminator"] = list(d_grads)
-        return metrics, grads
-
-    return train_step
-
+def make_codec_train_step_split(models: Mapping[str, nn.Module],
+                                optimizers: Mapping[str, AdamW], remat: bool = False,
+                                precision: str = "float32", f0_teacher: Any = None):
+    """The split step (module docstring), with `make_codec_train_step`'s
+    signature and returns; its phase G makes one discriminator pass over
+    concat(fake, real), as the JAX split step's default `paired_g` does.
+    Marks: "disc" (phase D: its forward, loss and update), "forward" (phase
+    G's forward), "gen_loss", "backward", "update"."""
+    _check_options(precision, f0_teacher)
+    return _make_step(models, optimizers, remat, split=True)

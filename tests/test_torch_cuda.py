@@ -519,3 +519,133 @@ def test_run_training_on_card(tmp_path):
     state = run_training(fields=TRAIN_FIELDS, dataset=ds(), max_steps=3, device="cuda",
                          log_dir=str(tmp_path), log_writer=False, batch_size=2, max_len=8)
     assert state.step == 3
+
+
+# Redecoder training at kernel widths: the frozen codec of TRAIN_FIELDS (6
+# causal units, 6 searches) and a non-causal decoder of 6 units.
+RED_TRAIN_FIELDS = dict(
+    codec=dict(encoder=TRAIN_FIELDS["encoder"], quantizer=TRAIN_FIELDS["quantizer"]),
+    encoder=dict(SMALL_REDECODER["encoder"], n_layers=4, p_dropout=0.2),
+    decoder=dict(input_channel=64, channels=128, rates=(20, 15), causal=False, lstm=1),
+    discriminator=TRAIN_FIELDS["discriminator"],
+)
+
+
+def _launches():
+    return resunit.fused_residual_unit.launches, vq.nearest_code.launches
+
+
+def _red_setup(device, seed=3):
+    from facodec_tpu_torch.train.optimizers import build_optimizers
+    from facodec_tpu_torch.train.redecoder_loop import build_frozen_codec, build_redecoder_models
+
+    codec = build_frozen_codec(RED_TRAIN_FIELDS["codec"], device)
+    models = build_redecoder_models(RED_TRAIN_FIELDS, seed, device)
+    return codec, models, build_optimizers(models)
+
+
+def _red_batch(device):
+    from facodec_tpu_torch.train.data import PseudoDataset, collate, segment_batch, to_device
+
+    ds = PseudoDataset(length=2, seed=0, min_s=1.0, max_s=2.0)
+    seg = segment_batch(collate([ds[0], ds[1]], 80), 8, generator=torch.Generator().manual_seed(0))
+    return to_device({k: seg[k] for k in ("wave_seg", "full_waves", "wave_lens")}, device)
+
+
+def test_redecoder_step_card_matches_cpu():
+    """One seed on both devices, the dropout off: the card's redecoder step
+    (6 frozen units without a graph, 6 non-causal units through the
+    Function, 6 searches) against the CPU's, within 1e-3 relative."""
+    _need_cuda()
+    from facodec_tpu_torch.train.redecoder_step import make_redecoder_train_step
+
+    out = {}
+    for device in ("cpu", "cuda"):
+        codec, models, optimizers = _red_setup(device)
+        models["encoder"].encoder.p_dropout = 0.0
+        before = _launches()
+        metrics, _ = make_redecoder_train_step(codec, models, optimizers)(_red_batch(device), None)
+        launched = tuple(a - b for a, b in zip(_launches(), before))
+        assert launched == ((0, 0) if device == "cpu" else (12, 6)), launched
+        out[device] = {k: float(v) for k, v in metrics.items()}
+    for k, v in out["cpu"].items():
+        assert np.isfinite(out["cuda"][k]) and abs(out["cuda"][k] - v) <= 1e-3 * abs(v), k
+
+
+@pytest.mark.parametrize("stage", ["codec", "redecoder"])
+def test_split_and_remat_steps_on_card(stage):
+    """Dropout on, one generator seed: the split and remat steps' metrics
+    within 1e-4 relative of the fused step's on the card, and the launches
+    each adds (the split step's second forward, remat's recompute)."""
+    _need_cuda()
+    from facodec_tpu_torch.train import redecoder_step, step
+    from facodec_tpu_torch.train.loop import build_models
+    from facodec_tpu_torch.train.optimizers import build_optimizers
+
+    if stage == "codec":
+        fields = dict(TRAIN_FIELDS, quantizer=SMALL_CODEC["quantizer"])
+        fused, split = step.make_codec_train_step, step.make_codec_train_step_split
+        extra = (12, 6)
+
+        def setup():
+            models = build_models(fields, 3, "cuda")
+            return (models, build_optimizers(models)), _batch_codec()
+    else:
+        fused = redecoder_step.make_redecoder_train_step
+        split = redecoder_step.make_redecoder_train_step_split
+        extra = (6, 0)
+
+        def setup():
+            return _red_setup("cuda"), _red_batch("cuda")
+
+    runs = {}
+    for name, make, remat in (("fused", fused, False), ("split", split, False),
+                              ("remat", fused, True)):
+        args, batch = setup()
+        before = _launches()
+        metrics, _ = make(*args, remat=remat)(batch, torch.Generator(device="cuda").manual_seed(4))
+        runs[name] = ({k: float(v) for k, v in metrics.items()},
+                      tuple(a - b for a, b in zip(_launches(), before)))
+    base, base_launches = runs["fused"]
+    assert base_launches == (12, 6)
+    for name in ("split", "remat"):
+        metrics, launched = runs[name]
+        assert launched == (12 + extra[0], 6 + extra[1]), (name, launched)
+        for k, v in base.items():
+            assert abs(metrics[k] - v) <= 1e-4 * abs(v), (name, k, metrics[k], v)
+
+
+def _batch_codec():
+    from facodec_tpu_torch.train.data import PseudoDataset, collate, segment_batch, to_device
+
+    ds = PseudoDataset(length=2, seed=0, min_s=1.0, max_s=2.0, n_phones=32, n_speakers=16)
+    return to_device(segment_batch(collate([ds[0], ds[1]], 80), 8,
+                                   generator=torch.Generator().manual_seed(0)), "cuda")
+
+
+def test_run_redecoder_training_on_card(tmp_path):
+    """run_redecoder_training on the card: 2 steps of 12 residual-unit
+    launches and 6 VQ searches each, the frozen codec unchanged, a
+    checkpoint, a resume to step 3."""
+    _need_cuda()
+    from facodec_tpu_torch.train.data import PseudoDataset
+    from facodec_tpu_torch.train.loop import latest_checkpoint
+    from facodec_tpu_torch.train.redecoder_loop import build_frozen_codec, run_redecoder_training
+
+    def run(max_steps, **kw):
+        return run_redecoder_training(fields=RED_TRAIN_FIELDS, max_steps=max_steps,
+                                      dataset=PseudoDataset(length=4, seed=0, min_s=1.0,
+                                                            max_s=3.0),
+                                      log_dir=str(tmp_path), log_writer=False, batch_size=2,
+                                      max_len=8, **kw)
+
+    before = _launches()
+    state = run(2, save_interval=2)
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (24, 12)
+    assert state.step == 2 and all(np.isfinite(v) for v in state.metrics.values())
+    seeded = build_frozen_codec(RED_TRAIN_FIELDS["codec"], "cpu")
+    for k, m in state.frozen.items():
+        for n, t in m.state_dict().items():
+            assert torch.equal(t.cpu(), seeded[k].state_dict()[n]), f"{k}.{n}"
+    assert latest_checkpoint(str(tmp_path)).endswith("_step_00002.pth")
+    assert run(3).step == 3
