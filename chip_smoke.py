@@ -68,11 +68,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    float32 decode and within 2e-2 of a hybrid decode on the CPU (batch 1 x
    2 s, equal codes), both at the worst sample. One round trip launches 12 float32
    units (the encoder's), 12 bf16 units (the decoder's) and 6 VQ searches.
-   Round-trip times against float32, in turns. 8a holds the bf16 entry to
-   its plain version on the inputs of the 12 decoder units of one hybrid
-   decode (forward pre-hooks): no element more than 2 bf16 ulps off at
-   `resunit.bf16_error_scale`, with the bit-equal share, kernel and plain
-   times, FLOP and the bf16 bound (989 TFLOP/s, or the bytes at 3.35 TB/s).
+   Round-trip times against float32, in turns; the CUDA kernels one hybrid
+   decode launches (a traced decode), with the units' kept packs of bf16
+   operands and with each unit packing on every call. 8a holds the bf16
+   entry (csrc/resunit_bf16.cu) to its plain version on the inputs of the
+   12 decoder units of one hybrid decode (forward pre-hooks): no element
+   more than 2 bf16 ulps off at `resunit.bf16_error_scale`, the kept pack
+   giving the per-call pack's bits; per shape the kernel alone (one raw
+   launch on the kept pack: device time of 200 launches in one CUDA graph,
+   and one launch between two events), the wrapper call, the unit's call
+   and the plain version, FLOP, the bf16 bound (989 TFLOP/s, or the bytes
+   at 3.35 TB/s), what bounds it and the share reached, the tiling the
+   kernel chose (N tile, rows, weight slice, ring stages, shared memory)
+   and ptxas's registers and spills for that instantiation. In the kernels
+   line, `ms` of `fused_residual_unit_bf16` is the 12 wrapper calls (as it
+   was before the kernel kept its operands packed) and `kernel_ms` the 12
+   kernels alone (the CUDA-graph device times).
 9. `serve` in process: a `CodecService` over the hybrid codec (the serve
    default) behind `make_server` on 127.0.0.1:0. 8 concurrent 10 s
    /reconstruct requests inside a 200 ms batch window run as one device call
@@ -142,6 +153,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -892,6 +904,19 @@ def phase_hybrid(codec: FACodec, codec_hy: FACodec, cpu: FACodec, w: np.ndarray)
     if not worst32 < HYBRID_VS_F32:
         raise AssertionError(f"hybrid vs float32 err/scale {worst32} >= {HYBRID_VS_F32}")
 
+    # CUDA kernels one hybrid decode launches: with the units' kept packs (the
+    # decode as it runs), and with each unit packing its bf16 operands on
+    # every call (its pack switched off for this count only)
+    kept = decode_launches(codec_hy, fhy)
+    bf16_pack = ResidualUnit.bf16_pack
+    ResidualUnit.bf16_pack = lambda self, x: None
+    try:
+        per_call = decode_launches(codec_hy, fhy)
+    finally:
+        ResidualUnit.bf16_pack = bf16_pack
+    log(f"  CUDA kernel launches of one hybrid decode (traced): {kept} with the units' kept "
+        f"packs, {per_call} packing on every call ({(per_call - kept) / 12:.1f} a unit)")
+
     # times in turns: float32, hybrid, hybrid, float32
     times = {"float32": [], "hybrid": []}
     for name in ("float32", "hybrid", "hybrid", "float32"):
@@ -918,7 +943,17 @@ def phase_hybrid(codec: FACodec, codec_hy: FACodec, cpu: FACodec, w: np.ndarray)
     worst_cpu, rms_cpu = check_hybrid_gap("hybrid decode card vs CPU", y_gpu, y_cpu)
     return dict(hybrid_s=rt, f32_times=times["float32"], hybrid_times=times["hybrid"],
                 worst32=worst32, rms32=rms32, worst_cpu=worst_cpu, rms_cpu=rms_cpu,
-                launches=n, f=f32)
+                launches=n, decode_kernels=kept, decode_kernels_per_call_pack=per_call, f=f32)
+
+
+def decode_launches(codec_hy: FACodec, f) -> int:
+    """CUDA kernels launched by one decode of f, from a traced run."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        codec_hy.decode(f)
+        torch.cuda.synchronize()
+    return sum(traced_device_ms(prof)[2].values())
 
 
 def bf16_unit_cost(B: int, T: int, C: int) -> tuple:
@@ -927,48 +962,101 @@ def bf16_unit_cost(B: int, T: int, C: int) -> tuple:
     return 16 * B * T * C * C, 2 * 2 * B * T * C + 4 * (8 * C * C + 4 * C)
 
 
+def bf16_ptxas() -> dict:
+    """(NW, MT, KC, SPILL) -> ptxas's spill and register lines for that
+    instantiation of the bf16 kernel, from the build's log."""
+    out, key = {}, None
+    for line in build.build_log("resunit_bf16").splitlines():
+        m = re.search(r"resunit_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E", line)
+        if m:
+            key = tuple(int(v) for v in m.groups())
+        elif key is not None and ("spill" in line or "registers" in line):
+            out.setdefault(key, []).append(line.replace("ptxas info    :", "").strip())
+    return out
+
+
 def phase_bf16(calls: list) -> dict:
-    log(f"phase 8a: the bf16 entry vs its plain version (bfloat16_act) on the 12 decoder units' "
-        f"inputs of one hybrid decode; <= {BF16_MAX_ULPS} bf16 ulps at bf16_error_scale; bound "
-        f"= max(FLOP at {BF16_FLOPS / 1e12:.0f} TFLOP/s, bytes at {HBM_BYTES_S / 1e12:.2f} TB/s)")
-    tot = dict(ms=0.0, plain_ms=0.0, flops=0, bound_ms=0.0)
-    worst_abs, worst_ulps = 0.0, 0.0
-    rows = []
+    log(f"phase 8a: the bf16 entry (csrc/resunit_bf16.cu) vs its plain version (bfloat16_act) on "
+        f"the 12 decoder units' inputs of one hybrid decode; <= {BF16_MAX_ULPS} bf16 ulps at "
+        f"bf16_error_scale; kernel = one raw launch on the unit's kept pack, device time of "
+        f"{GRAPH_LAUNCHES} launches in one CUDA graph / {GRAPH_LAUNCHES} (and one launch between "
+        f"two events); wrapper = one fused_residual_unit call (per-call pack); unit = the "
+        f"ResidualUnit call (kept pack); bound = max(FLOP at {BF16_FLOPS / 1e12:.0f} TFLOP/s, "
+        f"bytes at {HBM_BYTES_S / 1e12:.2f} TB/s)")
+    ptx = bf16_ptxas()
+    # ms: the wrapper call (the entry's `ms` before it kept packs); kernel_ms: the kernel alone
+    tot = dict(kernel_ms=0.0, events_ms=0.0, ms=0.0, unit_ms=0.0, plain_ms=0.0, flops=0,
+               bound_ms=0.0)
+    bound_of = {"operations": 0.0, "bytes": 0.0}
+    worst_abs, worst_ulps, min_equal = 0.0, 0.0, 1.0
+    seen = set()
     for unit, x in calls:
         snake1, conv7, snake2, conv1 = unit.block
+        d, causal = unit.dilation, unit.causal
         with torch.no_grad(), float32_exact():
-            args = (x.contiguous(), conv7.effective_weight(), conv7.bias,
-                    conv1.effective_weight(), conv1.bias, snake1.alpha, snake2.alpha,
-                    unit.dilation, unit.causal)
+            x = x.contiguous()
             if x.dtype != torch.bfloat16:
                 raise AssertionError(f"decoder unit input is {x.dtype}, expected bfloat16")
+            args = (x, conv7.effective_weight(), conv7.bias, conv1.effective_weight(), conv1.bias,
+                    snake1.alpha, snake2.alpha, d, causal)
+            pack = unit.bf16_pack(x)  # kept by the decode that gave x
+            if pack is None or pack.maps is None:
+                raise AssertionError("the decoder unit keeps no packed operands")
             got = resunit.fused_residual_unit(*args)
+            packed = resunit.fused_residual_unit_packed(x, pack, d, causal)
             want = resunit.residual_unit_reference(*args)
             scale = resunit.bf16_error_scale(*args)
             torch.cuda.synchronize()
+            if not torch.equal(got, packed):
+                raise AssertionError("the kept pack and a per-call pack give different outputs")
             ulps = resunit.bf16_ulps(got, want, scale).max().item()
             err = (got.float() - want.float()).abs().max().item()
             equal = (got == want).float().mean().item()
             if not ulps <= BF16_MAX_ULPS:
-                raise AssertionError(f"bf16 entry {tuple(x.shape)} d={unit.dilation}: "
-                                     f"{ulps} ulps > {BF16_MAX_ULPS}")
-            tk = median_ms(lambda: resunit.fused_residual_unit(*args))
+                raise AssertionError(f"bf16 entry {tuple(x.shape)} d={d}: {ulps} ulps > "
+                                     f"{BF16_MAX_ULPS}")
+            B, T, C = x.shape
+            pad_left, ext = resunit._reflect_extent(T, d, causal)
+            out = torch.empty_like(x)
+
+            def launch():
+                resunit.launch_bf16(x, pack, d, pad_left, ext, out)
+            tk = device_ms(launch)
+            te = median_ms(launch)
+            tw = median_ms(lambda: resunit.fused_residual_unit(*args))
+            tu = median_ms(lambda: unit(x))
             tp = median_ms(lambda: resunit.residual_unit_reference(*args))
-        B, T, C = x.shape
         flop, nbytes = bf16_unit_cost(B, T, C)
         b = bound_ms(flop, nbytes, BF16_FLOPS)
         by = "operations" if flop / BF16_FLOPS > nbytes / HBM_BYTES_S else "bytes"
+        bound_of[by] += b
         worst_abs, worst_ulps = max(worst_abs, err), max(worst_ulps, ulps)
-        for k, v in (("ms", tk), ("plain_ms", tp), ("flops", flop), ("bound_ms", b)):
+        min_equal = min(min_equal, equal)
+        for k, v in (("kernel_ms", tk), ("events_ms", te), ("ms", tw), ("unit_ms", tu),
+                     ("plain_ms", tp), ("flops", flop), ("bound_ms", b)):
             tot[k] += v
-        rows.append((C, T, unit.dilation, tk, tp, b, by, equal))
-        log(f"  B={B} C={C:4d} T={T:6d} d={unit.dilation}: FLOP {flop:.4e} bound {b:.3f} ms "
-            f"({by}); kernel {tk:.3f} ms ({flop / tk / 1e9:.1f} TFLOP/s, {b / tk:.1%} of the "
-            f"bound) plain {tp:.3f} ms; {equal:.4%} bit-equal, worst {ulps:.2f} ulps, max abs "
+        plan = resunit.bf16_plan(B, T, C, d)
+        cfg = (plan["bn"] // 2, plan["bm"] // 64, plan["kc"], plan["spill"])
+        if cfg not in seen:
+            seen.add(cfg)
+            log(f"  kernel <NW={cfg[0]}, MT={cfg[1]}, KC={cfg[2]}, SPILL={cfg[3]}> (ptxas): "
+                + "; ".join(ptx.get(cfg, ["not in the build log"])))
+        log(f"  B={B} C={C:4d} T={T:6d} d={d}: FLOP {flop:.4e} bytes {nbytes} bound {b:.4f} ms "
+            f"({by}); kernel {tk:.4f} ms ({b / tk:.1%} of the bound, {flop / tk / 1e9:.1f} "
+            f"TFLOP/s; one launch {te:.4f} ms), wrapper {tw:.4f} ms, unit {tu:.4f} ms, plain "
+            f"{tp:.4f} ms; BN {plan['bn']} x BM {plan['bm']}, KC {plan['kc']}, "
+            f"{plan['stages']} stages{' (resident)' if plan['resident'] else ''}"
+            f"{', s2 in the device scratch' if plan['spill'] else ''}, "
+            f"{plan['smem']} B shared memory, grid {plan['grid']} "
+            f"for {plan['tiles']} tiles; {equal:.4%} bit-equal, worst {ulps:.2f} ulps, max abs "
             f"{err:.3e}")
-    log(f"  12 units: kernel {tot['ms']:.3f} ms plain {tot['plain_ms']:.3f} ms; bound "
-        f"{tot['bound_ms']:.3f} ms ({tot['bound_ms'] / tot['ms']:.1%} of it reached)")
-    return dict(max_abs_err=worst_abs, max_ulps=worst_ulps, **tot)
+    by_all = max(bound_of, key=bound_of.get)
+    log(f"  12 units: kernel {tot['kernel_ms']:.3f} ms ({tot['bound_ms'] / tot['kernel_ms']:.1%} "
+        f"of the {tot['bound_ms']:.3f} ms bound, {by_all}; one launch each "
+        f"{tot['events_ms']:.3f} ms), wrapper {tot['ms']:.3f} ms, unit {tot['unit_ms']:.3f} ms, "
+        f"plain {tot['plain_ms']:.3f} ms; bit-equal >= {min_equal:.4%}")
+    return dict(max_abs_err=worst_abs, max_ulps=worst_ulps, min_bit_equal=min_equal,
+                bound_by=by_all, **tot)
 
 
 def _http(method: str, url: str, data: bytes = None) -> bytes:
@@ -1803,13 +1891,15 @@ def main() -> None:
              redecoder_train_launches=rt["per_step"]["vq"],
              redecoder_train_ms=rt["kernel_ms"]["VQ kernel"],
              bound_by="operations", library_ms=None, **vqr),
-        # the bf16 entry of csrc/resunit.cu: its main path is the hybrid
+        # the bf16 entry (csrc/resunit_bf16.cu): its main path is the hybrid
         # round trip (the serve default), whose 12 decoder units it runs
         dict(name="fused_residual_unit_bf16", route="cuda",
-             source="facodec_tpu_torch/csrc/resunit.cu",
+             source="facodec_tpu_torch/csrc/resunit_bf16.cu",
              replaces="facodec_tpu/ops/pallas/resunit.py:273", launches=hy["launches"]["bf16"],
              hybrid_launches=hy["launches"]["bf16"], train_launches=0,
-             redecoder_train_launches=0, bound_by="operations", library_ms=None, **bf),
+             redecoder_train_launches=0, decode_kernels=hy["decode_kernels"],
+             decode_kernels_per_call_pack=hy["decode_kernels_per_call_pack"], library_ms=None,
+             **bf),
     ]
     log(f"streaming: chunk 16 batch 1 p50 {st16['p50_ms']:.2f} ms ({st16['rtf']:.1f}x realtime, "
         f"device {st16['device_ms']:.2f} ms of a traced {st16['traced_wall_ms']:.2f} ms), "

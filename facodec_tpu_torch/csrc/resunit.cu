@@ -74,37 +74,18 @@
 // are the staged values bit for bit. A chunk shorter than 6d rows (T = 24 at
 // the flagship's 4-frame chunks, d = 9) leaves old halo rows in new_halo.
 //
-// Rounding: the snake (sin^2 with its Cody-Waite reduction) is written with
-// __fmul_rn / __fadd_rn / __fsub_rn, so nvcc contracts none of it into FMAs
-// and it gives the same bits as the plain PyTorch version; only the conv sums
-// differ from it, in summation order and by the 3xTF32 split.
+// Rounding: the snake (sin^2 with its Cody-Waite reduction, in
+// resunit_common.cuh) is written with __fmul_rn / __fadd_rn / __fsub_rn, so
+// nvcc contracts none of it into FMAs and it gives the same bits as the plain
+// PyTorch version; only the conv sums differ from it, in summation order and
+// by the 3xTF32 split.
 //
-// bf16 entry. facodec_resunit_bf16 runs the unit on bf16 activations, the
-// decoder's form under the bfloat16_act precision policy (the `hybrid`
-// codec's decode). It rounds where the JAX package's default (unfused) XLA
-// path rounds under that policy, which is what the port's CPU tests hold
-// the plain version to:
-//   s1 = bf16(snake1(x))                      (snake in float32)
-//   c7 = bf16(bf16(W7 (*)_d s1) + bf16(b7))   (bf16 operands, float32 sums)
-//   s2 = bf16(snake2(c7))
-//   y  = bf16(bf16(W1 . s2) + bf16(b1))
-//   out = bf16(x + y)
-// The Pallas kernel body rounds at fewer points (resunit.py:186-198 adds b7
-// and applies snake2 in float32); the port follows the default path. Both
-// products run as mma.sync m16n8k16 bf16 with float32 accumulation, one
-// product per step where the float32 entry takes three. The tiling and
-// staging are the float32 entry's: the conv7 chunk is 16 input channels (a
-// k-step takes one tap and the chunk's 16 channels), the 1x1 chunk 32. The
-// wrapper hands w7 over as (out, tap, in), so that a lane's two k-values of a
-// B fragment are one 32-bit word; a staged row is padded by 8 bf16 (16 B), so
-// that the rows g = 0..7 of a fragment load fall on distinct banks. Per row
-// the unit does 16 C^2 FLOP on 4 C bytes, so it is bound by operations at
-// every width: 989 TFLOP/s of bf16 tensor cores. It has no halo entry:
-// streams stay float32, as the JAX package's StreamingFACodec sets no policy.
+// The bf16 entry (the hybrid decode's units) is csrc/resunit_bf16.cu.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "resunit_common.cuh"
 
 namespace {
 
@@ -113,27 +94,6 @@ constexpr int STAGES = 2;     // cp.async buffers
 constexpr int KC7 = 8;        // input channels per conv7 chunk: K = 56
 constexpr int KC1 = 32;       // input channels per 1x1 chunk: K = 32
 constexpr int PAD = 4;        // floats added to each staged row (banks, 16 B rows)
-
-__device__ __forceinline__ float sin2f(float x) {
-  x = fminf(fmaxf(x, -3.0e4f), 3.0e4f);
-  const float k = rintf(__fmul_rn(x, 0.318309886183790672f));  // round half even
-  float t = __fsub_rn(x, __fmul_rn(k, 3.140625f));
-  t = __fsub_rn(t, __fmul_rn(k, 9.6750259399414062e-4f));
-  t = __fsub_rn(t, __fmul_rn(k, 1.5099580252808664e-07f));
-  const float t2 = __fmul_rn(t, t);
-  float p = 1.5896910177e-10f;
-  p = __fadd_rn(__fmul_rn(p, t2), -2.5050759689e-08f);
-  p = __fadd_rn(__fmul_rn(p, t2), 2.7557314297e-06f);
-  p = __fadd_rn(__fmul_rn(p, t2), -1.9841270114e-04f);
-  p = __fadd_rn(__fmul_rn(p, t2), 8.3333337680e-03f);
-  p = __fadd_rn(__fmul_rn(p, t2), -1.6666667163e-01f);
-  const float s = __fadd_rn(t, __fmul_rn(__fmul_rn(t, t2), p));
-  return __fmul_rn(s, s);
-}
-
-__device__ __forceinline__ float snakef(float x, float alpha, float recip) {
-  return __fadd_rn(x, __fmul_rn(sin2f(__fmul_rn(alpha, x)), recip));
-}
 
 // a = hi + lo exactly, hi = tf32_rna(a). lo goes to the mma as it is: the
 // tensor core reads its top 10 mantissa bits, which drops at most
@@ -251,16 +211,6 @@ __device__ __forceinline__ void zero(float (&acc)[2][NT][4]) {
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 }
 
-// Row p of the padded input, as ops/padding.py `pad1d` pads: x zero-extended
-// to ext rows (ext = T unless T <= the longer pad), reflected about its ends,
-// pad_left rows in front. -1 stands for a zero row.
-__device__ __forceinline__ int padded_row(int p, int T, int ext, int pad_left) {
-  int q = p - pad_left;
-  q = q < 0 ? -q : q;
-  q = q >= ext ? 2 * (ext - 1) - q : q;
-  return q < T ? q : -1;
-}
-
 // x (B, T, C); w7 (C, C, 7) and w1 (C, C, 1) in torch's [out][in][tap]
 // layout; alpha1, alpha2 (C) and their snake reciprocals recip1, recip2 =
 // 1 / (alpha + 1e-9) (C); out (B, T, C). scratch holds, per block, BM + 6d
@@ -359,211 +309,6 @@ resunit_kernel(const float* __restrict__ x, const float* __restrict__ w7,
   }
 }
 
-// ------------------------------------------------------------------ bf16 entry
-// bf16 values are kept as their 16-bit patterns (uint16_t): a bf16 is the
-// top half of a float32, so widening is a shift.
-
-constexpr int KB7 = 16;  // input channels per bf16 conv7 chunk: K = 7 * 16
-constexpr int KB1 = 32;  // input channels per bf16 1x1 chunk
-constexpr int PADB = 8;  // bf16 added to each staged row (16 B)
-
-__device__ __forceinline__ float bf2f(uint16_t h) { return __uint_as_float((uint32_t)h << 16); }
-
-__device__ __forceinline__ uint16_t f2bf(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-
-// v rounded to bf16 (nearest, ties to even) and widened back
-__device__ __forceinline__ float round_bf(float v) { return bf2f(f2bf(v)); }
-
-__device__ __forceinline__ uint32_t pack_bf(float lo, float hi) {
-  return (uint32_t)f2bf(lo) | ((uint32_t)f2bf(hi) << 16);
-}
-
-__device__ __forceinline__ float lo_bf(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float hi_bf(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(uint16_t* smem, const uint16_t* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem));
-}
-
-// As gemm_tile, in bf16: acc += A . B over all C input channels, where
-// A[m][(tap, ci)] = a_src[(m + tap * dil) * C + ci] and
-// B[(tap, ci)][n] = b_src[((n0 + n) * TAPS + tap) * C + ci] (w7 as (out, tap,
-// in)). A staged A row holds KCH channels, a staged B row TAPS runs of KCH.
-// A k-step takes one tap and 16 channels: a lane loads 32-bit words at row
-// g (and g + 8) and word t (and t + 4) of its 16 channels, which with rows of
-// KCH + 8 or TAPS * KCH + 8 bf16 (12, 20 or 60 words) fall on distinct banks.
-template <int WM, int NT, int TAPS, int KCH>
-__device__ __forceinline__ void gemm_tile_bf16(float (&acc)[2][NT][4],
-                                               const uint16_t* __restrict__ a_src,
-                                               const uint16_t* __restrict__ b_src, int C, int dil,
-                                               int n0, int a_rows, uint16_t* smem, int a_elems) {
-  constexpr int BN = 8 * NT * (8 / WM);
-  constexpr int AS = KCH + PADB;
-  constexpr int BS = TAPS * KCH + PADB;
-  constexpr int AV = KCH / 8;  // 16-byte copies per run of KCH channels
-  static_assert(KCH % 16 == 0, "a k-step takes 16 channels of one tap");
-  const int stage = a_elems + BN * BS;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = (warp % WM) * 32, wc = (warp / WM) * NT * 8;
-
-  auto load = [&](int ci0, int buf) {
-    uint16_t* As = smem + buf * stage;
-    uint16_t* Bs = As + a_elems;
-    for (int e = tid; e < a_rows * AV; e += THREADS) {
-      const int r = e / AV, v = 8 * (e % AV);
-      cp_async16(As + r * AS + v, a_src + (size_t)r * C + ci0 + v);
-    }
-    for (int e = tid; e < BN * TAPS * AV; e += THREADS) {
-      const int r = e / (TAPS * AV), rem = e % (TAPS * AV), tap = rem / AV, v = 8 * (rem % AV);
-      cp_async16(Bs + r * BS + tap * KCH + v,
-                 b_src + ((size_t)(n0 + r) * TAPS + tap) * C + ci0 + v);
-    }
-  };
-
-  const int nch = C / KCH;
-  load(0, 0);
-  cp_async_commit();
-  for (int c = 0; c < nch; ++c) {
-    if (c + 1 < nch) load((c + 1) * KCH, (c + 1) & 1);
-    cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();
-    const uint16_t* As = smem + (c & 1) * stage;
-    const uint16_t* Bs = As + a_elems;
-#pragma unroll
-    for (int kk = 0; kk < TAPS * (KCH / 16); ++kk) {
-      const int tap = kk % TAPS, k0 = (kk / TAPS) * 16 + 2 * t;
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const uint16_t* ar = As + (wr + mt * 16 + g + tap * dil) * AS + k0;
-        a[mt][0] = ld32(ar);
-        a[mt][1] = ld32(ar + 8 * AS);
-        a[mt][2] = ld32(ar + 8);
-        a[mt][3] = ld32(ar + 8 * AS + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const uint16_t* br = Bs + (wc + nt * 8 + g) * BS + tap * KCH + k0;
-        const uint32_t b0 = ld32(br), b1 = ld32(br + 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], a[mt], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// x (B, T, C) bf16; w7 (C, 7, C) bf16 as (out, tap, in); w1 (C, C) bf16;
-// b7, b1 (C) bf16; alpha1, recip1, alpha2, recip2 (C) float32; out (B, T, C)
-// bf16. scratch holds, per block, BM + 6d rows of s1 and then BM rows of s2
-// (bf16). Rounding points: the comment at the top of this file.
-template <int WM, int NT>
-__global__ void __launch_bounds__(THREADS, 2)
-resunit_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w7,
-                    const uint16_t* __restrict__ b7, const uint16_t* __restrict__ w1,
-                    const uint16_t* __restrict__ b1, const float* __restrict__ alpha1,
-                    const float* __restrict__ recip1, const float* __restrict__ alpha2,
-                    const float* __restrict__ recip2, uint16_t* __restrict__ out,
-                    uint16_t* __restrict__ scratch, int T, int C, int dil, int pad_left, int ext,
-                    int a_elems) {
-  constexpr int BM = 32 * WM, BN = 8 * NT * (8 / WM);
-  extern __shared__ __align__(16) uint16_t smem_bf[];
-  const int b = blockIdx.y, t0 = blockIdx.x * BM;
-  const size_t blk = (size_t)b * gridDim.x + blockIdx.x;
-  const size_t nblk = (size_t)gridDim.x * gridDim.y;
-  const int rows_in = BM + 6 * dil;
-  uint16_t* s1 = scratch + blk * rows_in * C;
-  uint16_t* s2 = scratch + nblk * rows_in * C + blk * BM * C;
-  const uint16_t* xb = x + (size_t)b * T * C;
-  const int Tp = T + 6 * dil;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = (warp % WM) * 32, wc = (warp / WM) * NT * 8;
-
-  // 0. s1 of the padded rows, 8 channels (16 bytes) at a time
-  const int C8 = C / 8;
-  for (int e = tid; e < rows_in * C8; e += THREADS) {
-    const int r = e / C8, c = 8 * (e % C8), p = t0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    const int q = p >= Tp ? -1 : padded_row(p, T, ext, pad_left);
-    if (q >= 0) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(xb + (size_t)q * C + c);
-      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-      uint32_t o[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cj = c + 2 * j;
-        o[j] = pack_bf(snakef(lo_bf(w[j]), alpha1[cj], recip1[cj]),
-                       snakef(hi_bf(w[j]), alpha1[cj + 1], recip1[cj + 1]));
-      }
-      v = make_uint4(o[0], o[1], o[2], o[3]);
-    }
-    *reinterpret_cast<uint4*>(s1 + (size_t)r * C + c) = v;
-  }
-  __syncthreads();
-
-  float acc[2][NT][4];
-  // 1. s2 = bf16(snake2(bf16(bf16(conv7) + b7))), BN output channels at a time
-  for (int n0 = 0; n0 < C; n0 += BN) {
-    zero(acc);
-    gemm_tile_bf16<WM, NT, 7, KB7>(acc, s1, w7, C, dil, n0, rows_in, smem_bf, a_elems);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = wr + mt * 16 + g + 8 * h, co = n0 + wc + nt * 8 + 2 * t;
-          const float c0 = round_bf(__fadd_rn(round_bf(acc[mt][nt][2 * h]), bf2f(b7[co])));
-          const float c1 =
-              round_bf(__fadd_rn(round_bf(acc[mt][nt][2 * h + 1]), bf2f(b7[co + 1])));
-          *reinterpret_cast<uint32_t*>(s2 + (size_t)r * C + co) =
-              pack_bf(snakef(c0, alpha2[co], recip2[co]),
-                      snakef(c1, alpha2[co + 1], recip2[co + 1]));
-        }
-  }
-  __syncthreads();  // publishes the block's s2 rows to its own cp.async reads
-
-  // 2. out = bf16(x + bf16(bf16(conv1x1(s2)) + b1))
-  for (int n0 = 0; n0 < C; n0 += BN) {
-    zero(acc);
-    gemm_tile_bf16<WM, NT, 1, KB1>(acc, s2, w1, C, 1, n0, BM, smem_bf, a_elems);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int tr = t0 + wr + mt * 16 + g + 8 * h, co = n0 + wc + nt * 8 + 2 * t;
-          if (tr >= T) continue;
-          const uint32_t xr = ld32(xb + (size_t)tr * C + co);
-          const float y0 = round_bf(__fadd_rn(round_bf(acc[mt][nt][2 * h]), bf2f(b1[co])));
-          const float y1 =
-              round_bf(__fadd_rn(round_bf(acc[mt][nt][2 * h + 1]), bf2f(b1[co + 1])));
-          *reinterpret_cast<uint32_t*>(out + ((size_t)b * T + tr) * C + co) =
-              pack_bf(__fadd_rn(lo_bf(xr), y0), __fadd_rn(hi_bf(xr), y1));
-        }
-  }
-}
-
 // The kernel's arguments, in its order.
 struct Args {
   const float *x, *w7, *b7, *w1, *b1, *alpha1, *recip1, *alpha2, *recip2;
@@ -609,53 +354,10 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
   return launch_cfg<4, 2>(a, s);
 }
 
-// The bf16 kernel's arguments, in its order.
-struct ArgsBf16 {
-  const uint16_t *x, *w7, *b7, *w1, *b1;
-  const float *alpha1, *recip1, *alpha2, *recip2;
-  uint16_t *out, *scratch;
-  int B, T, C, dil, pad_left, ext;
-};
-
-template <int WM, int NT>
-cudaError_t launch_bf16_cfg(const ArgsBf16& a, cudaStream_t stream) {
-  constexpr int BM = 32 * WM, BN = 8 * NT * (8 / WM);
-  const int a7 = (BM + 6 * a.dil) * (KB7 + PADB), a1 = BM * (KB1 + PADB);
-  const int a_elems = a7 > a1 ? a7 : a1;
-  const size_t smem = sizeof(uint16_t) * STAGES * (size_t)(a_elems + BN * (7 * KB7 + PADB));
-  cudaError_t err = cudaFuncSetAttribute(resunit_bf16_kernel<WM, NT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(row_blocks(a.T, BM), a.B);
-  resunit_bf16_kernel<WM, NT><<<grid, THREADS, smem, stream>>>(
-      a.x, a.w7, a.b7, a.w1, a.b1, a.alpha1, a.recip1, a.alpha2, a.recip2, a.out, a.scratch,
-      a.T, a.C, a.dil, a.pad_left, a.ext, a_elems);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_bf16(const ArgsBf16& a, cudaStream_t s) {
-  if (a.C % 128 == 0)
-    return tile_rows(a.B, a.T, a.C) == 64 ? launch_bf16_cfg<2, 4>(a, s)
-                                          : launch_bf16_cfg<4, 8>(a, s);
-  if (a.C % 96 == 0) return launch_bf16_cfg<4, 6>(a, s);
-  if (a.C % 64 == 0) return launch_bf16_cfg<4, 4>(a, s);
-  return launch_bf16_cfg<4, 2>(a, s);
-}
-
-bool valid_shape(int B, int T, int C, int dil) {
-  return C > 0 && C % 32 == 0 && B > 0 && T > 0 && dil > 0;
-}
-
-// The pads are (pad_left, 6d - pad_left); reflection needs ext > either.
-bool valid_pads(int T, int dil, int pad_left, int ext) {
-  return pad_left >= 0 && pad_left <= 6 * dil && ext >= T && ext > pad_left &&
-         ext > 6 * dil - pad_left;
-}
-
 }  // namespace
 
-// Elements of scratch (float32 for the float32 entries, bf16 for the bf16
-// entry) that an entry needs for these shapes (0 if the shapes are refused).
+// Floats of scratch that the float32 and halo entries need for these shapes
+// (0 if the shapes are refused). The bf16 entry needs none.
 extern "C" long long facodec_resunit_scratch_floats(int B, int T, int C, int dil) {
   if (!valid_shape(B, T, C, dil)) return 0;
   const int BM = tile_rows(B, T, C);  // per block: BM + 6d rows of snake1, BM rows of y2
@@ -689,19 +391,4 @@ extern "C" int facodec_resunit_halo_f32(const float* x, const float* halo, const
   const Args a{x, w7, b7, w1, b1, alpha1, recip1, alpha2, recip2, out, scratch,
                halo, new_halo, B, T, C, dil, 6 * dil, T};
   return launch(a, static_cast<cudaStream_t>(stream));
-}
-
-// C entry point of the bf16 unit (see "bf16 entry" above); the pads and ext
-// as facodec_resunit_f32's. bf16 tensors are passed as their 16-bit
-// patterns; the scratch is facodec_resunit_scratch_floats' count of bf16.
-extern "C" int facodec_resunit_bf16(const uint16_t* x, const uint16_t* w7, const uint16_t* b7,
-                                    const uint16_t* w1, const uint16_t* b1, const float* alpha1,
-                                    const float* recip1, const float* alpha2,
-                                    const float* recip2, uint16_t* out, uint16_t* scratch, int B,
-                                    int T, int C, int dil, int pad_left, int ext, void* stream) {
-  if (!valid_shape(B, T, C, dil) || !valid_pads(T, dil, pad_left, ext))
-    return (int)cudaErrorInvalidValue;
-  const ArgsBf16 a{x, w7, b7, w1, b1, alpha1, recip1, alpha2, recip2, out, scratch,
-                   B, T, C, dil, pad_left, ext};
-  return launch_bf16(a, static_cast<cudaStream_t>(stream));
 }

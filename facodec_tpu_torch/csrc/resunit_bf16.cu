@@ -1,0 +1,919 @@
+// Fused DAC residual unit with bf16 activations, for Hopper (sm_90a): the
+// kernel of the `hybrid` codec's decode (the `bfloat16_act` policy).
+//
+// Replaces the Pallas TPU kernel facodec_tpu/ops/pallas/resunit.py:273
+// (`_forward`; body `_kernel`; entry `fused_residual_unit`) as the JAX
+// package runs it on bf16 activations (`bfloat16_act`, resunit.py:134-198):
+//
+//   out[b,t,:] = x[b,t,:] + W1 . snake2(W7 (*)_d snake1(xpad)[b, t .. t+6d, :] + b7) + b1
+//
+// with xpad x padded as SConv1d pads (reflect; causal (6d, 0)), which the
+// kernel does by reflecting the row index (padded_row). It rounds where the
+// JAX package's default (unfused) path rounds under that policy, which is
+// what the port's CPU tests hold the plain version to:
+//   s1 = bf16(snake1(x))                      (snake in float32)
+//   c7 = bf16(bf16(W7 (*)_d s1) + bf16(b7))   (bf16 operands, float32 sums)
+//   s2 = bf16(snake2(c7))
+//   y  = bf16(bf16(W1 . s2) + bf16(b1))
+//   out = bf16(x + y)
+// The snake is resunit_common.cuh's (__fmul_rn / __fadd_rn), so s1 and s2
+// are the plain version's bits wherever their inputs are; the float32 sums
+// of the two products differ from it in order only. Forward only.
+//
+// What bounds it. Per output row the unit does 16 C^2 FLOP (7 C^2 MACs in the
+// conv7, C^2 in the 1x1) on 4 C bytes (x in, out out), and reads the 16 C^2
+// bytes of bf16 weights once a call: 4 C FLOP per byte against the card's
+// 989 TFLOP/s / 3.35 TB/s, about 295. So operations bound it at C = 768 to
+// 192 (3072 to 768 FLOP/B), and C = 96 (384 FLOP/B) sits near the byte line.
+// The snakes add CUDA-core work that the bound leaves out: about 30
+// instructions per element of s1 (over BM + 6d rows) and of s2, which at
+// C = 96 takes the SM's 128 lanes longer than the row's tensor-core work.
+//
+// Design, against what held back the mma.sync kernel it replaces:
+// 1. wgmma. Both products are wgmma.mma_async m64nNk16 bf16 with float32
+//    accumulators, A and B from shared memory. An N tile is BN output
+//    channels (64, 96, 128, 192 or 256: C = 96 and 192 are one whole-width
+//    tile, C = 384, 512, 768 two, two and three), split between two
+//    consumer warpgroups of NW = BN / 2 channels each, so that both run
+//    their epilogues at once. Rows come in tiles of BM = 128 (two m tiles)
+//    where shared memory holds the 128-row s2 tile beside a ring of 3
+//    stages and NW <= 96 (C = 96, 192, 384), else 64 (C = 768).
+// 2. Weights by TMA. The wrapper packs w7 as the (out, 7C) K-major matrix (K
+//    index tap * C + in) and w1 as (out, C), once per weight version, with a
+//    TMA tensor map each. Thread 0 alone streams K slices of KC = 64 (rows
+//    of 128 B, 128-byte swizzle; KC = 32 and the 64-byte swizzle where
+//    C % 64 != 0 or C > 1024) into a ring of stages guarded by full / empty
+//    mbarriers, as many as shared memory holds. Where every slice of a tile
+//    fits (C <= 96), it loads them once and they stay resident for the call.
+// 3. s1 and s2 stay on chip. Seven snake warps write s1 = snake1(xpad) for
+//    a tile's BM + 6d padded rows into shared memory, KC channels at a
+//    time (a group), into two group buffers, so that they compute the next
+//    group while the consumers multiply this one. A group is stored
+//    unswizzled in column order of 16-byte octets ([channel / 8][row][8]):
+//    a core matrix (8 rows x 16 B) is then 128 contiguous bytes from any
+//    start row, so the conv7's A for tap j is the same descriptor with its
+//    start moved j * d rows, and no swizzle phase moves with it. The row
+//    count R is made odd, so that stores of one row's octets spread over
+//    the banks. Where C takes more than one N tile, each tile recomputes the
+//    groups (x comes from L2 again). s2 stays as the BM x C tile in the same
+//    layout and is the 1x1's A. Nothing is written to device memory but out,
+//    at every width up to the fit below. Past it, the s2 tile goes to the
+//    CTA's slice of a device scratch (BM x C, same layout; it stays in L2),
+//    and thread 0 brings each 1x1 slice's A from there by bulk copy into the
+//    ring stage beside its weight slice, once all 256 consumer threads have
+//    stored the tile (an mbarrier).
+// 4. A persistent grid: one CTA per SM walks the row tiles; the producers
+//    load the next slices and compute the next groups while the consumers
+//    run this tile's products and epilogues. The epilogues issue their
+//    operand loads together (the 1x1's residual rows and b1 before its
+//    products) and store s2 with st.shared: issued one at a time behind
+//    each store, those loads had made the epilogues half of the kernel.
+// Warp roles (512 threads): warp 0 issues the TMA copies, warps 1-7 compute
+// s1, warpgroups 2 and 3 issue the wgmma and run the epilogues (b7, snake2
+// into s2; b1 and the residual into out). setmaxnreg gives the consumers
+// 176 registers and the producers 80.
+//
+// Shared memory per CTA at d = 9 (the ring takes what is left of 227 KB):
+//   C    BN  BM   ring                   s1 groups      s2      total
+//   96   96  128  24 x 6 KB, resident    2 x 11.4 KB    24 KB   192 KB
+//   192  192 128  5 x 24 KB              2 x 22.9 KB    48 KB   215 KB
+//   384  192 128  3 x 24 KB              2 x 22.9 KB    96 KB   215 KB
+//   768  256 64   3 x 32 KB              2 x 14.9 KB    96 KB   223 KB
+// s2 fits in shared memory up to C = 1408 at d = 9 and 1472 at d = 1 (KC = 32
+// past 1024). Wider units take the scratch (facodec_resunit_bf16_scratch_bytes,
+// 128 C bytes per CTA; 0 where s2 fits, as at every width of the flagship),
+// with 10 stages of 20 KB in the ring: every C (a multiple of 32) is taken.
+// The float32 entries' facodec_resunit_scratch_floats (csrc/resunit.cu) does
+// not serve this entry.
+
+#include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+#include "resunit_common.cuh"
+
+namespace {
+
+constexpr int THREADS = 512;        // warpgroups 0 and 1 produce, 2 and 3 consume
+constexpr int SNAKE_THREADS = 224;  // warps 1-7
+constexpr int CONSUMER_WARPS = 8;   // warpgroups 2 and 3, one arrival each on a release
+constexpr int CONSUMER_THREADS = 256;
+constexpr int MAX_STAGES = 32;
+constexpr int ALIGN = 1024;         // of the ring's base (the swizzle atom is 512 B)
+
+// ------------------------------------------------------------- bf16 bits
+// bf16 values are kept as their 16-bit patterns: a bf16 is the top half of
+// a float32, so widening is a shift.
+__device__ __forceinline__ uint16_t f2bf(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ float round_bf(float v) {
+  return __uint_as_float((uint32_t)f2bf(v) << 16);
+}
+__device__ __forceinline__ uint32_t pack_bf(float lo, float hi) {
+  return (uint32_t)f2bf(lo) | ((uint32_t)f2bf(hi) << 16);
+}
+__device__ __forceinline__ float lo_bf(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi_bf(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// ------------------------------------------- mbarriers, TMA, proxies, wgmma
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+      "selp.u32 %0, 1, 0, p; }"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// Returns once the phase of parity `parity` has completed (a fresh barrier
+// counts its phase before the first as completed, parity 1). A wait of
+// 2^32 cycles (over 2 s; a call takes milliseconds) is a deadlock: it traps,
+// so that the launch fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - start > (1LL << 32)) __trap();
+}
+// A box of the 2-D tensor map at (k, n) into shared memory; it completes
+// its bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int k, int n,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(n), "r"(bar)
+      : "memory");
+}
+// `bytes` contiguous bytes of global memory into shared memory; they
+// complete on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// Orders this thread's shared-memory stores before reads by the async proxy
+// (wgmma's operand reads).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+// The same for global memory (the scratch s2 tile, read by bulk copies).
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+__device__ __forceinline__ void consumer_sync() { asm volatile("bar.sync 1, 256;" ::: "memory"); }
+__device__ __forceinline__ void snake_sync() { asm volatile("bar.sync 2, 224;" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma that owns them.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptors (K-major). A: no swizzle, core matrices
+// of 8 rows x 16 B at 16 B per row, the next 8 rows 128 B on (SBO), the
+// next 8 K elements `lbo` bytes on (LBO). B: a weight slice of KC K
+// elements, rows of 2 KC bytes swizzled over the whole row (128-byte swizzle
+// for KC = 64, 64-byte for KC = 32), 8-row atoms 16 KC bytes apart (SBO);
+// LBO is unused.
+__device__ __forceinline__ uint64_t desc_a(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+template <int KC>
+__device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(KC) << 32) |
+         ((uint64_t)(KC == 64 ? 1 : 2) << 62);
+}
+
+// d (64 x N, float32, the warpgroup's accumulator fragments) += A . B, one
+// k16 step from two shared-memory descriptors.
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma<32>(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0; }\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<48>(float (&d)[24], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 0, 0; }\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0; }\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<96>(float (&d)[48], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0; }\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<128>(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0; }\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// The kernel's scalars (by value). Shapes: x, out (B, T, C) bf16; b7, b1 (C)
+// bf16; alpha1, recip1, alpha2, recip2 (C) float32, recip = 1 / (alpha + 1e-9).
+struct Params {
+  const uint16_t* x;
+  const uint16_t *b7, *b1;
+  const float *alpha1, *recip1, *alpha2, *recip2;
+  uint16_t* out;
+  uint8_t* s2g;   // the scratch s2 tiles, BM x C bf16 per CTA (SPILL only)
+  int T, C, dil, pad_left, ext;
+  int n_tiles;    // N tiles of BN output channels
+  int rows;       // R, rows of an s1 group: BM + 6d, made odd
+  int stages;     // weight slices the ring holds
+  int stage;      // bytes of a ring stage: the weight slice (and, SPILL, its A)
+  int resident;   // the ring holds every slice of a tile: each loaded once
+  int tiles, row_tiles;  // row tiles in all, and per batch row
+};
+
+// Thread 0: every weight slice the consumers take, in their order, into the
+// ring. Per tile: for each N tile, each s1 group and tap, the group's K
+// slice of w7; then for each N tile the C / KC slices of w1 (with SPILL,
+// each with its K slice of the scratch s2 tile, once the consumers have
+// stored the tile).
+template <int BN, int KC, int BM, bool SPILL>
+__device__ void load_weights(const CUtensorMap* map7, const CUtensorMap* map1, const Params& p,
+                             uint32_t ring, uint32_t full, uint32_t empty, uint32_t s2_ready) {
+  constexpr int B_BYTES = BN * KC * 2, A_BYTES = BM * KC * 2;
+  int it = 0;
+  auto load = [&](const CUtensorMap* map, int k, int n, const uint8_t* a) {
+    const int s = it % p.stages;
+    if (!p.resident) mbar_wait(empty + 8 * s, ((it / p.stages) & 1) ^ 1);
+    const uint32_t dst = ring + s * p.stage;
+    mbar_expect_tx(full + 8 * s, a != nullptr ? B_BYTES + A_BYTES : B_BYTES);
+    tma_load(dst, map, k, n, full + 8 * s);
+    if (a != nullptr) bulk_load(dst + B_BYTES, a, A_BYTES, full + 8 * s);
+    ++it;
+  };
+  const uint8_t* s2 = SPILL ? p.s2g + (size_t)blockIdx.x * BM * p.C * 2 : nullptr;
+  for (int tile = blockIdx.x, k = 0; tile < p.tiles; tile += gridDim.x, ++k) {
+    for (int nt = 0; nt < p.n_tiles; ++nt)
+      for (int g = 0; g < p.C; g += KC)
+        for (int tap = 0; tap < 7; ++tap) load(map7, tap * p.C + g, nt * BN, nullptr);
+    if constexpr (SPILL) {
+      mbar_wait(s2_ready, k & 1);
+      fence_async_global();
+    }
+    for (int nt = 0; nt < p.n_tiles; ++nt)
+      for (int c = 0; c < p.C; c += KC)
+        load(map1, c, nt * BN, SPILL ? s2 + (size_t)(c / 8) * BM * 16 : nullptr);
+    if (p.resident) break;
+  }
+}
+
+// Warps 1-7: s1 of each group of KC channels the consumers take, in their
+// order, into the two group buffers ([octet][row][8] bf16; rows past the
+// padded input are zero).
+template <int BM, int KC>
+__device__ void snake_groups(const Params& p, uint8_t* s1, uint32_t s1_full, uint32_t s1_empty) {
+  constexpr int octs = KC / 8, sh = octs == 8 ? 3 : 2;
+  const int i0 = threadIdx.x - 32;
+  const int rows_in = BM + 6 * p.dil, Tp = p.T + 6 * p.dil, n = rows_in * octs;
+  const int bytes = p.rows * KC * 2;
+  constexpr int U = 4;
+  int grp = 0;
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    const int b = tile / p.row_tiles, t0 = (tile % p.row_tiles) * BM;
+    const uint16_t* xb = p.x + (size_t)b * p.T * p.C;
+    for (int nt = 0; nt < p.n_tiles; ++nt)
+      for (int g = 0; g < p.C; g += KC, ++grp) {
+        const int buf = grp & 1;
+        // one thread polls the barrier; the others sleep in the named barrier
+        if (i0 == 0) mbar_wait(s1_empty + 8 * buf, ((grp >> 1) & 1) ^ 1);
+        snake_sync();
+        uint8_t* dst = s1 + buf * bytes;
+        // SNAKE_THREADS is a multiple of 8: a thread's octet, and so its
+        // channels and snake parameters, stay the same for the whole group
+        const int o = i0 & (octs - 1), c = g + 8 * o;
+        const float4 a0 = __ldg(reinterpret_cast<const float4*>(p.alpha1 + c));
+        const float4 a1 = __ldg(reinterpret_cast<const float4*>(p.alpha1 + c + 4));
+        const float4 r0 = __ldg(reinterpret_cast<const float4*>(p.recip1 + c));
+        const float4 r1 = __ldg(reinterpret_cast<const float4*>(p.recip1 + c + 4));
+        // U rows at a time: their loads are issued together, then used
+        for (int e0 = i0; e0 < n; e0 += U * SNAKE_THREADS) {
+          uint4 w[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int r = (e0 + u * SNAKE_THREADS) >> sh, pr = t0 + r;
+            const int q = r >= rows_in || pr >= Tp ? -1 : padded_row(pr, p.T, p.ext, p.pad_left);
+            w[u] = q < 0 ? make_uint4(0u, 0u, 0u, 0u)
+                         : __ldg(reinterpret_cast<const uint4*>(xb + (size_t)q * p.C + c));
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int r = (e0 + u * SNAKE_THREADS) >> sh, pr = t0 + r;
+            if (r >= rows_in) break;
+            uint4 v = make_uint4(0u, 0u, 0u, 0u);
+            if (pr < Tp && padded_row(pr, p.T, p.ext, p.pad_left) >= 0) {
+              v.x = pack_bf(snakef(lo_bf(w[u].x), a0.x, r0.x), snakef(hi_bf(w[u].x), a0.y, r0.y));
+              v.y = pack_bf(snakef(lo_bf(w[u].y), a0.z, r0.z), snakef(hi_bf(w[u].y), a0.w, r0.w));
+              v.z = pack_bf(snakef(lo_bf(w[u].z), a1.x, r1.x), snakef(hi_bf(w[u].z), a1.y, r1.y));
+              v.w = pack_bf(snakef(lo_bf(w[u].w), a1.z, r1.z), snakef(hi_bf(w[u].w), a1.w, r1.w));
+            }
+            *reinterpret_cast<uint4*>(dst + ((size_t)o * p.rows + r) * 16) = v;
+          }
+        }
+        fence_async_smem();
+        mbar_arrive(s1_full + 8 * buf);
+      }
+  }
+}
+
+// The consumer's side of the weight ring and the s1 buffers. `stage` and
+// `phase` are the next slice's ring stage and full-barrier parity, `tail`
+// the stage of the oldest slice not yet released, `running` the slices
+// whose wgmma may still run. The s1 buffer `s1_buf` (or -1) is read last by
+// the slice that `s1_after` more releases complete.
+struct Pipe {
+  uint32_t ring, full, empty, s1_empty;
+  int stages, resident, lane;
+  int stage, phase, tail, running, s1_buf, s1_after;
+
+  // The oldest n running slices have finished: free their stages (and the
+  // s1 buffer, after its last reader).
+  __device__ __forceinline__ void release(int n) {
+    for (; n > 0; --n) {
+      if (lane == 0 && !resident) mbar_arrive(empty + 8 * tail);
+      tail = tail + 1 == stages ? 0 : tail + 1;
+      --running;
+      if (s1_buf >= 0 && --s1_after == 0) {
+        if (lane == 0) mbar_arrive(s1_empty + 8 * s1_buf);
+        s1_buf = -1;
+      }
+    }
+  }
+};
+
+template <int MT, int NA>
+__device__ __forceinline__ void zero(float (&acc)[MT][NA]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[m][i] = 0.f;
+}
+
+template <int MT, int NA>
+__device__ __forceinline__ void fence_acc(float (&acc)[MT][NA]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
+}
+
+// One weight slice (KC K elements) for this warpgroup's NW output channels
+// (rows `b_off` bytes into the stage): KC / 16 k16 steps for each m tile.
+// `a` is the A descriptor of m tile 0, step 0; each step is `ks_step` on
+// and each m tile 64 rows (64 x 16 B) on, in the descriptor's 16-byte
+// units. `first` marks an accumulation's first slice: its registers were
+// written by other instructions, so it needs wgmma.fence (wgmma of one
+// shape on the same accumulators are ordered among themselves). One
+// slice's wgmma keeps running while the next one is issued.
+template <int NW, int MT, int KC>
+__device__ __forceinline__ void slice(float (&acc)[MT][NW / 2], Pipe& q, uint32_t stage_bytes,
+                                      uint32_t b_off, uint64_t a, uint32_t ks_step, bool first,
+                                      int ends_s1) {
+  mbar_wait(q.full + 8 * q.stage, q.resident ? 0 : q.phase);
+  const uint64_t b = desc_b<KC>(q.ring + q.stage * stage_bytes + b_off);
+  fence_acc(acc);
+  if (first) wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < KC / 16; ++ks)
+#pragma unroll
+    for (int m = 0; m < MT; ++m) wgmma<NW>(acc[m], a + ks * ks_step + 64 * m, b + 2 * ks);
+  wgmma_commit();
+  if (++q.stage == q.stages) {
+    q.stage = 0;
+    q.phase ^= 1;
+  }
+  ++q.running;
+  if (ends_s1 >= 0) {
+    q.s1_buf = ends_s1;
+    q.s1_after = q.running;
+  }
+  wgmma_wait<1>();
+  fence_acc(acc);
+  q.release(q.running - 1);
+}
+
+template <int MT, int NA>
+__device__ __forceinline__ void drain(float (&acc)[MT][NA], Pipe& q) {
+  wgmma_wait<0>();
+  fence_acc(acc);
+  q.release(q.running);
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v));
+}
+
+// Epilogues. A thread's accumulator element 4j + 2h + i of m tile m is row
+// 64m + rq + 8h (rq = 16 * warp + lane / 4), column col0 + 8j + i (col0 =
+// the warpgroup's first column of the N tile + 2 (lane % 4)). Columns go in
+// groups of JC n8 blocks whose loads are issued together, then used, so
+// that their latencies overlap; columns past C (a ragged last N tile) are
+// computed on clamped operands and not stored.
+template <int NW>
+constexpr int JC = (NW / 8) % 4 == 0 ? 4 : 2;
+
+// s2 = bf16(snake2(bf16(bf16(acc) + b7))) into the s2 tile (with SPILL, the
+// CTA's scratch tile s2g).
+template <int NW, int MT, bool SPILL>
+__device__ __forceinline__ void store_s2(const float (&acc)[MT][NW / 2], const Params& p,
+                                         uint32_t s2, uint8_t* s2g, int col0, int rq) {
+  constexpr int BM = 64 * MT;
+  const uint16_t* __restrict__ b7 = p.b7;
+  const float* __restrict__ alpha2 = p.alpha2;
+  const float* __restrict__ recip2 = p.recip2;
+#pragma unroll
+  for (int j0 = 0; j0 < NW / 8; j0 += JC<NW>) {
+    uint32_t bias[JC<NW>];
+    float2 al[JC<NW>], rc[JC<NW>];
+#pragma unroll
+    for (int jj = 0; jj < JC<NW>; ++jj) {
+      const int col = min(col0 + 8 * (j0 + jj), p.C - 2);
+      bias[jj] = __ldg(reinterpret_cast<const uint32_t*>(b7 + col));
+      al[jj] = __ldg(reinterpret_cast<const float2*>(alpha2 + col));
+      rc[jj] = __ldg(reinterpret_cast<const float2*>(recip2 + col));
+    }
+#pragma unroll
+    for (int jj = 0; jj < JC<NW>; ++jj) {
+      const int j = j0 + jj, col = col0 + 8 * j;
+      if (col >= p.C) continue;
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float c0 = round_bf(__fadd_rn(round_bf(acc[m][4 * j + 2 * h]), lo_bf(bias[jj])));
+          const float c1 =
+              round_bf(__fadd_rn(round_bf(acc[m][4 * j + 2 * h + 1]), hi_bf(bias[jj])));
+          const int r = 64 * m + rq + 8 * h, off = (((col >> 3) * BM + r) * 8 + (col & 7)) * 2;
+          const uint32_t v =
+              pack_bf(snakef(c0, al[jj].x, rc[jj].x), snakef(c1, al[jj].y, rc[jj].y));
+          if constexpr (SPILL)
+            *reinterpret_cast<uint32_t*>(s2g + off) = v;
+          else
+            st_shared(s2 + off, v);
+        }
+    }
+  }
+}
+
+// The residual rows x and b1 of this thread's output elements, loaded
+// before the 1x1's products so that their latency hides behind them.
+template <int NW, int MT>
+struct OutOperands {
+  uint32_t x[NW / 8][MT][2], bias[NW / 8];
+};
+
+template <int NW, int MT>
+__device__ __forceinline__ void load_out_operands(OutOperands<NW, MT>& o, const Params& p, int b,
+                                                  int t0, int col0, int rq) {
+  const uint16_t* __restrict__ x = p.x;
+  const uint16_t* __restrict__ b1 = p.b1;
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j) {
+    const int col = min(col0 + 8 * j, p.C - 2);
+    o.bias[j] = __ldg(reinterpret_cast<const uint32_t*>(b1 + col));
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int tr = min(t0 + 64 * m + rq + 8 * h, p.T - 1);
+        o.x[j][m][h] =
+            __ldg(reinterpret_cast<const uint32_t*>(x + ((size_t)b * p.T + tr) * p.C + col));
+      }
+  }
+}
+
+// out = bf16(x + bf16(bf16(acc) + b1)), rows t0 .. of batch b.
+template <int NW, int MT>
+__device__ __forceinline__ void store_out(const float (&acc)[MT][NW / 2],
+                                          const OutOperands<NW, MT>& o, const Params& p, int b,
+                                          int t0, int col0, int rq) {
+  uint16_t* __restrict__ out = p.out;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int tr = t0 + 64 * m + rq + 8 * h;
+      uint16_t* row = out + ((size_t)b * p.T + tr) * p.C;
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j) {
+        const int col = col0 + 8 * j;
+        const float y0 = round_bf(__fadd_rn(round_bf(acc[m][4 * j + 2 * h]), lo_bf(o.bias[j])));
+        const float y1 =
+            round_bf(__fadd_rn(round_bf(acc[m][4 * j + 2 * h + 1]), hi_bf(o.bias[j])));
+        const uint32_t w = o.x[j][m][h];
+        if (tr < p.T && col < p.C)
+          *reinterpret_cast<uint32_t*>(row + col) =
+              pack_bf(__fadd_rn(lo_bf(w), y0), __fadd_rn(hi_bf(w), y1));
+      }
+    }
+}
+
+// Warpgroups 2 and 3 (cw = 0, 1), each NW = BN / 2 of an N tile's output
+// channels: per tile, conv7 (+ b7, snake2) into s2, then the 1x1 (+ b1, + x)
+// into out.
+template <int NW, int MT, int KC, bool SPILL>
+__device__ void consume(const Params& p, uint32_t ring, uint32_t s1, uint32_t s2, uint32_t full,
+                        uint32_t empty, uint32_t s1_full, uint32_t s1_empty, uint32_t s2_ready) {
+  constexpr int BM = 64 * MT, BN = 2 * NW;
+  const uint32_t stage = p.stage;
+  uint8_t* s2g = SPILL ? p.s2g + (size_t)blockIdx.x * BM * p.C * 2 : nullptr;
+  const int tid = threadIdx.x - 256, cw = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int rq = 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
+  const uint32_t b_off = cw * NW * KC * 2;  // this warpgroup's rows of a stage
+  const int bytes = p.rows * KC * 2;
+  Pipe q{ring, full, empty, s1_empty, p.stages, p.resident, lane, 0, 0, 0, 0, -1, 0};
+  float acc[MT][NW / 2];
+  int grp = 0;
+
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    const int b = tile / p.row_tiles, t0 = (tile % p.row_tiles) * BM;
+    // 1. s2 = bf16(snake2(bf16(bf16(conv7(s1)) + b7))), one N tile at a time
+    for (int nt = 0; nt < p.n_tiles; ++nt) {
+      zero(acc);
+      for (int g = 0; g < p.C; g += KC, ++grp) {
+        const int buf = grp & 1;
+        mbar_wait(s1_full + 8 * buf, (grp >> 1) & 1);
+        const uint32_t a0 = s1 + buf * bytes;
+        for (int tap = 0; tap < 7; ++tap)
+          slice<NW, MT, KC>(acc, q, stage, b_off,
+                            desc_a(a0 + tap * p.dil * 16, p.rows * 16), 2 * p.rows,
+                            g == 0 && tap == 0, tap == 6 ? buf : -1);
+      }
+      drain(acc, q);
+      if (nt == 0) consumer_sync();  // both warpgroups are past the previous tile's 1x1 on s2
+      store_s2<NW, MT, SPILL>(acc, p, s2, s2g, nt * BN + cw * NW + cq, rq);
+    }
+    if constexpr (SPILL) {
+      fence_async_global();
+      mbar_arrive(s2_ready);  // s2 complete: thread 0 may copy it
+    } else {
+      fence_async_smem();
+      consumer_sync();  // s2 complete, and visible to the wgmma
+    }
+
+    // 2. out = bf16(x + bf16(bf16(conv1x1(s2)) + b1))
+    for (int nt = 0; nt < p.n_tiles; ++nt) {
+      const int col0 = nt * BN + cw * NW + cq;
+      OutOperands<NW, MT> o;
+      load_out_operands<NW, MT>(o, p, b, t0, col0, rq);
+      zero(acc);
+      for (int c = 0; c < p.C; c += KC) {
+        // A: the s2 tile's K slice, or its copy behind the weight slice in the stage
+        const uint32_t a = SPILL ? q.ring + q.stage * stage + BN * KC * 2 : s2 + (c / 8) * BM * 16;
+        slice<NW, MT, KC>(acc, q, stage, b_off, desc_a(a, BM * 16), 2 * BM, c == 0, -1);
+      }
+      drain(acc, q);
+      store_out<NW, MT>(acc, o, p, b, t0, col0, rq);
+    }
+  }
+}
+
+// map7, map1: the TMA tensor maps of the packed w7 (C, 7C) and w1 (C, C),
+// boxes of KC K elements x BN rows, swizzled over their 2 KC-byte rows.
+template <int NW, int MT, int KC, bool SPILL>
+__global__ void __launch_bounds__(THREADS, 1)
+resunit_bf16_kernel(const __grid_constant__ CUtensorMap map7,
+                    const __grid_constant__ CUtensorMap map1, const Params p) {
+  constexpr int BM = 64 * MT, BN = 2 * NW;
+  extern __shared__ uint8_t smem_raw[];
+  // [ring: stages x stage][s1: 2 groups of R x KC][s2: BM x C, unless SPILL][mbarriers]
+  uint8_t* smem = smem_raw + (ALIGN - smem_addr(smem_raw) % ALIGN) % ALIGN;
+  const uint32_t ring = smem_addr(smem);
+  const uint32_t s1 = ring + p.stages * p.stage;
+  const uint32_t s2 = s1 + 2 * p.rows * KC * 2;
+  const uint32_t full = s2 + (SPILL ? 0 : BM * p.C * 2), empty = full + 8 * MAX_STAGES;
+  const uint32_t s1_full = empty + 8 * MAX_STAGES, s1_empty = s1_full + 16;
+  const uint32_t s2_ready = s1_empty + 16;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(s1_full + 8 * i, SNAKE_THREADS);
+      mbar_init(s1_empty + 8 * i, CONSUMER_WARPS);
+    }
+    mbar_init(s2_ready, CONSUMER_THREADS);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= 256) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 176;");
+    consume<NW, MT, KC, SPILL>(p, ring, s1, s2, full, empty, s1_full, s1_empty, s2_ready);
+  } else {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 80;");
+    if (threadIdx.x == 0)
+      load_weights<BN, KC, BM, SPILL>(&map7, &map1, p, ring, full, empty, s2_ready);
+    else if (threadIdx.x >= 32)
+      snake_groups<BM, KC>(p, smem + (s1 - ring), s1_full, s1_empty);
+  }
+}
+
+// ------------------------------------------------------------------- host
+// The tile shapes, ring and grid of one call.
+struct Plan {
+  int bn, mt, kc, n_tiles, rows, stages, stage, resident, spill, smem, grid, tiles, row_tiles;
+};
+
+// K elements of a weight slice: 64 (128-byte rows) where C % 64 == 0 and
+// two such stages fit beside a 64-row s2 tile (C <= 1024), else 32.
+int slice_k(int C) { return C % 64 == 0 && C <= 1024 ? 64 : 32; }
+
+// N tiles of equal width: the fewest of at most 256 channels, each BN of
+// 64, 96, 128, 192, 256 wide (the last one ragged where BN does not divide C).
+int pick_bn(int C, int* n_tiles) {
+  *n_tiles = (C + 255) / 256;
+  const int need = (C + *n_tiles - 1) / *n_tiles;
+  constexpr int widths[4] = {64, 96, 128, 192};
+  for (int bn : widths) {
+    if (bn >= need) return bn;
+  }
+  return 256;
+}
+
+int device_attr(cudaDeviceAttr attr) {
+  int dev = 0, v = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&v, attr, dev);
+  return v;
+}
+
+// The ring's share of shared memory at BM rows per tile: stages of
+// BN x KC weights (with `spill`, and BM x KC of s2), after the two s1
+// groups, the s2 tile (unless `spill`) and the barriers.
+void fit_ring(int C, int dil, int bm, bool spill, Plan& pl) {
+  pl.mt = bm / 64;
+  pl.spill = spill;
+  pl.rows = (bm + 6 * dil) | 1;
+  pl.stage = (pl.bn + (spill ? bm : 0)) * pl.kc * 2;
+  const long long stage = pl.stage;
+  const long long fixed = ALIGN + 2LL * pl.rows * pl.kc * 2 + (spill ? 0LL : (long long)bm * C * 2) +
+                          8LL * (2 * MAX_STAGES + 5);
+  const long long slices = (long long)pl.n_tiles * 8 * C / pl.kc;  // 7C / KC + C / KC per N tile
+  const long long fit = (device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin) - fixed) / stage;
+  const long long stages = slices < fit ? slices : fit;
+  pl.stages = (int)(stages < MAX_STAGES ? stages : (long long)MAX_STAGES);
+  pl.resident = pl.stages == slices;
+  pl.smem = (int)(fixed + (pl.stages > 0 ? pl.stages : 0) * stage);
+}
+
+// 128-row tiles (two m tiles) where the ring keeps 3 stages and each
+// consumer warpgroup's NW = BN / 2 <= 96 (its accumulators then fit beside
+// the prefetched epilogue operands), else 64; s2 in the scratch where a
+// 64-row s2 tile leaves no room for two stages.
+bool make_plan(int B, int T, int C, int dil, Plan& pl) {
+  pl.bn = pick_bn(C, &pl.n_tiles);
+  pl.kc = slice_k(C);
+  fit_ring(C, dil, 128, false, pl);
+  if (pl.bn > 192 || (pl.stages < 3 && !pl.resident)) fit_ring(C, dil, 64, false, pl);
+  if (pl.stages < 2) fit_ring(C, dil, 64, true, pl);
+  if (pl.stages < 2) return false;
+  const int bm = 64 * pl.mt;
+  pl.row_tiles = (T + bm - 1) / bm;
+  pl.tiles = B * pl.row_tiles;
+  const int sms = device_attr(cudaDevAttrMultiProcessorCount);
+  pl.grid = pl.tiles < sms ? pl.tiles : sms;
+  return true;
+}
+
+template <int NW, int MT, int KC, bool SPILL>
+cudaError_t launch_cfg(const CUtensorMap& m7, const CUtensorMap& m1, const Params& prm,
+                       const Plan& pl, cudaStream_t stream) {
+  // the opt-in limit once per device, before any capture into a graph
+  static int set_for = -1;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (set_for != dev) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(resunit_bf16_kernel<NW, MT, KC, SPILL>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin));
+    if (err != cudaSuccess) return err;
+    set_for = dev;
+  }
+  resunit_bf16_kernel<NW, MT, KC, SPILL><<<pl.grid, THREADS, pl.smem, stream>>>(m7, m1, prm);
+  return cudaGetLastError();
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver call: reached through the runtime's
+// entry-point query, so that the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// The map of a row-major (rows, k) bf16 matrix, boxes of kc K elements x bn
+// rows, swizzled over the box's 2 kc-byte rows; rows past the matrix read as
+// zeros.
+bool encode_map(CUtensorMap* map, const uint16_t* w, int rows, int k, int bn, int kc) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)k * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kc, (cuuint32_t)bn};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<uint16_t*>(w), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            kc == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,  // 2 kc bytes a row
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace
+
+// Bytes of the two tensor maps facodec_resunit_bf16_maps writes.
+extern "C" int facodec_resunit_bf16_maps_bytes() { return 2 * (int)sizeof(CUtensorMap); }
+
+// The TMA tensor maps of the packed weights, w7 (C, 7C) K-major (K index
+// tap * C + in) and w1 (C, C), both bf16, written to `maps` (host memory,
+// facodec_resunit_bf16_maps_bytes()). They hold the weights' device
+// addresses: build them once per packed weight. Returns a cudaError_t.
+extern "C" int facodec_resunit_bf16_maps(const uint16_t* w7, const uint16_t* w1, int C,
+                                         void* maps) {
+  if (C <= 0 || C % 32 != 0) return (int)cudaErrorInvalidValue;
+  int n_tiles = 0;
+  const int bn = pick_bn(C, &n_tiles);
+  CUtensorMap m[2];
+  const int kc = slice_k(C);
+  if (!encode_map(&m[0], w7, C, 7 * C, bn, kc) || !encode_map(&m[1], w1, C, C, bn, kc))
+    return (int)cudaErrorInvalidValue;
+  memcpy(maps, m, sizeof(m));
+  return 0;
+}
+
+// The plan of a call, for reports: {BN, BM, N tiles, KC (the K elements of
+// a weight slice, and the channels of an s1 group), ring stages, resident,
+// s2 in the scratch, shared-memory bytes, grid, row tiles}. Returns 0, or
+// cudaErrorInvalidValue for shapes the kernel refuses.
+extern "C" int facodec_resunit_bf16_plan(int B, int T, int C, int dil, int* out) {
+  Plan pl;
+  if (!valid_shape(B, T, C, dil) || !make_plan(B, T, C, dil, pl)) return (int)cudaErrorInvalidValue;
+  const int v[10] = {pl.bn, 64 * pl.mt, pl.n_tiles, pl.kc, pl.stages, pl.resident, pl.spill,
+                     pl.smem, pl.grid, pl.tiles};
+  memcpy(out, v, sizeof(v));
+  return 0;
+}
+
+// Bytes of device scratch a call needs: each CTA's s2 tile where it does
+// not fit in shared memory, else 0; -1 for shapes the kernel refuses.
+extern "C" long long facodec_resunit_bf16_scratch_bytes(int B, int T, int C, int dil) {
+  Plan pl;
+  if (!valid_shape(B, T, C, dil) || !make_plan(B, T, C, dil, pl)) return -1;
+  return pl.spill ? (long long)pl.grid * 64 * pl.mt * C * 2 : 0;
+}
+
+constexpr int cfg_key(int bn, int mt, int kc, int spill) {
+  return ((bn * 4 + mt) * 2 + (kc == 64)) * 2 + spill;
+}
+
+// C entry point, bound with ctypes: the unit on x (B, T, C) bf16 into out,
+// with the weights of `maps` (facodec_resunit_bf16_maps) and the pads and
+// ext of facodec_resunit_f32; `scratch` holds facodec_resunit_bf16_scratch_bytes
+// (null where that is 0). bf16 tensors are passed as their 16-bit patterns.
+// Returns a cudaError_t (0 = launched).
+extern "C" int facodec_resunit_bf16(const uint16_t* x, const void* maps, const uint16_t* b7,
+                                    const uint16_t* b1, const float* alpha1, const float* recip1,
+                                    const float* alpha2, const float* recip2, uint16_t* out,
+                                    void* scratch, int B, int T, int C, int dil, int pad_left,
+                                    int ext, void* stream) {
+  Plan pl;
+  if (!valid_shape(B, T, C, dil) || !valid_pads(T, dil, pad_left, ext) ||
+      !make_plan(B, T, C, dil, pl) || (pl.spill && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m[2];
+  memcpy(m, maps, sizeof(m));
+  const Params prm{x, b7, b1, alpha1, recip1, alpha2, recip2, out, static_cast<uint8_t*>(scratch),
+                   T, C, dil, pad_left, ext, pl.n_tiles, pl.rows, pl.stages, pl.stage,
+                   pl.resident, pl.tiles, pl.row_tiles};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cfg_key(pl.bn, pl.mt, pl.kc, pl.spill)) {
+    case cfg_key(64, 2, 64, 0): return launch_cfg<32, 2, 64, false>(m[0], m[1], prm, pl, s);
+    case cfg_key(64, 1, 64, 0): return launch_cfg<32, 1, 64, false>(m[0], m[1], prm, pl, s);
+    case cfg_key(128, 2, 64, 0): return launch_cfg<64, 2, 64, false>(m[0], m[1], prm, pl, s);
+    case cfg_key(128, 1, 64, 0): return launch_cfg<64, 1, 64, false>(m[0], m[1], prm, pl, s);
+    case cfg_key(192, 2, 64, 0): return launch_cfg<96, 2, 64, false>(m[0], m[1], prm, pl, s);
+    case cfg_key(192, 1, 64, 0): return launch_cfg<96, 1, 64, false>(m[0], m[1], prm, pl, s);
+    case cfg_key(256, 1, 64, 0): return launch_cfg<128, 1, 64, false>(m[0], m[1], prm, pl, s);
+    case cfg_key(64, 2, 32, 0): return launch_cfg<32, 2, 32, false>(m[0], m[1], prm, pl, s);
+    case cfg_key(64, 1, 32, 0): return launch_cfg<32, 1, 32, false>(m[0], m[1], prm, pl, s);
+    case cfg_key(96, 2, 32, 0): return launch_cfg<48, 2, 32, false>(m[0], m[1], prm, pl, s);
+    case cfg_key(96, 1, 32, 0): return launch_cfg<48, 1, 32, false>(m[0], m[1], prm, pl, s);
+    case cfg_key(192, 2, 32, 0): return launch_cfg<96, 2, 32, false>(m[0], m[1], prm, pl, s);
+    case cfg_key(192, 1, 32, 0): return launch_cfg<96, 1, 32, false>(m[0], m[1], prm, pl, s);
+    case cfg_key(256, 1, 32, 0): return launch_cfg<128, 1, 32, false>(m[0], m[1], prm, pl, s);
+    // s2 in the scratch: past the fit (C >= 1440), so 32-wide slices and 256-wide N tiles
+    case cfg_key(256, 1, 32, 1): return launch_cfg<128, 1, 32, true>(m[0], m[1], prm, pl, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -6,7 +6,10 @@ Port of facodec_tpu/models/dac.py. Submodules sit in `nn.ModuleList`s named
 ('block_1', 'block_0', 'block_1', 'weight_v').
 
 Every ResidualUnit goes through `ops.kernels.resunit`: the CUDA kernel for a
-tensor on the card, the plain composition on the CPU.
+tensor on the card, the plain composition on the CPU. On the card, under
+the `bfloat16_act` policy (bf16 activations, no gradient, eval mode), a unit
+keeps its operands packed for the bf16 entry and repacks only when one of
+its parameters changes.
 
 Streaming (causal models): every module takes `stream` and `first`. With a
 stream, a dict of carries keyed by the JAX module names (`block_1`,
@@ -22,7 +25,7 @@ the stream the previous call returned.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -30,7 +33,9 @@ import torch.nn as nn
 from facodec_tpu_torch.nn.activations import Snake1d
 from facodec_tpu_torch.nn.conv import SConv1d, SConvTranspose1d
 from facodec_tpu_torch.nn.lstm import SLSTM
-from facodec_tpu_torch.ops.kernels.resunit import fused_residual_unit, fused_residual_unit_stream
+from facodec_tpu_torch.ops.kernels.resunit import (Bf16Pack, fused_residual_unit,
+                                                   fused_residual_unit_packed,
+                                                   fused_residual_unit_stream, pack_bf16)
 
 Stream = Optional[Dict[str, Any]]
 
@@ -47,8 +52,29 @@ class ResidualUnit(nn.Module):
             Snake1d(dim),
             SConv1d(dim, dim, 1, causal=causal),
         ])
+        self._bf16: Optional[Tuple[tuple, Bf16Pack]] = None  # (key, pack)
+
+    def bf16_pack(self, x: torch.Tensor) -> Optional[Bf16Pack]:
+        """The bf16 entry's packed operands for x, or None where the unit
+        does not run from a pack: x not bf16 (not the `bfloat16_act`
+        policy), gradients enabled, or training (the bf16 entry is forward
+        only). The pack is kept and rebuilt when a parameter's version
+        (an in-place update) or storage changes, or x's device does."""
+        if x.dtype != torch.bfloat16 or self.training or torch.is_grad_enabled():
+            return None
+        key = (x.device, *((p.data_ptr(), p._version) for p in self.parameters()))
+        if self._bf16 is None or self._bf16[0] != key:
+            snake1, conv7, snake2, conv1 = self.block
+            self._bf16 = key, pack_bf16(conv7.effective_weight(), conv7.bias,
+                                        conv1.effective_weight(), conv1.bias, snake1.alpha,
+                                        snake2.alpha)
+        return self._bf16[1]
 
     def forward(self, x: torch.Tensor, stream: Stream = None, first: bool = False):
+        if stream is None and x.is_cuda:
+            pack = self.bf16_pack(x)
+            if pack is not None:
+                return fused_residual_unit_packed(x.contiguous(), pack, self.dilation, self.causal)
         snake1, conv7, snake2, conv1 = self.block
         args = (conv7.effective_weight(), conv7.bias, conv1.effective_weight(), conv1.bias,
                 snake1.alpha, snake2.alpha, self.dilation)

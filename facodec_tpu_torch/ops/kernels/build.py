@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` has a plain C entry point and compiles on its own into
 `_build/lib<name>-<source hash>.so` inside the package (a directory git
-ignores), at first use. `build()` starts one nvcc per source at once, so a
+ignores), at first use; the hash covers the source, the shared headers
+`csrc/*.cuh` and the flags. `build()` starts one nvcc per source at once, so a
 fresh checkout builds every kernel in the time of the slowest. ptxas's
 register and spill report for each source is kept beside its library
 (`.log`).
@@ -22,7 +23,7 @@ from typing import Dict, Iterable
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("resunit", "vq")
+SOURCES = ("resunit", "resunit_bf16", "vq")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -45,6 +46,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

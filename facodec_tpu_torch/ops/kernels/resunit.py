@@ -17,15 +17,19 @@ of the plain composition recomputed from the saved inputs, for x, w7, b7,
 w1, b1 and both alphas (the weights are the effective weight-norm weights,
 so the gradient flows on through the weight norm in autograd).
 
-A bf16 x (the decoder under the `bfloat16_act` policy) goes to the
-kernel's bf16 entry, with its own launch count
-(`fused_residual_unit.bf16_launches`; `launches` counts the float32
+A bf16 x (the decoder under the `bfloat16_act` policy) goes to the bf16
+entry, csrc/resunit_bf16.cu (wgmma, weights by TMA), with its own launch
+count (`fused_residual_unit.bf16_launches`; `launches` counts the float32
 entry): bf16 operands, float32 sums, rounded where the JAX package's
-default path rounds (csrc/resunit.cu). Its plain version is
-`residual_unit_reference` under that policy; the weights, biases and
-alphas stay float32 parameters, and the policy rounds them. The bf16 entry
-and the halo entry below are forward only (the hybrid decode and streams
-serve): asked for a gradient, they raise.
+default path rounds. Its plain version is `residual_unit_reference` under
+that policy; the weights, biases and alphas stay float32 parameters, and
+the policy rounds them. The kernel takes them packed (`pack_bf16`: w7 as
+the (out, 7C) K-major bf16 matrix, w1, the bf16 biases, the snake
+reciprocals and the TMA tensor maps of both weights). `fused_residual_unit`
+packs on every call; `fused_residual_unit_packed` (card only) takes a pack
+that the caller keeps (`models.dac.ResidualUnit` keeps one per weight
+version). The bf16 entry and the halo entry below are forward only (the
+hybrid decode and streams serve): asked for a gradient, they raise.
 
 `fused_residual_unit_stream` runs one chunk of a causal stream through the
 kernel's halo entry (plain version `residual_unit_stream_reference`): the
@@ -39,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -112,8 +116,8 @@ def residual_unit_stream_reference(x, halo, w7, b7, w1, b1, alpha1, alpha2,
 
 @functools.lru_cache(maxsize=None)
 def _entry_points():
-    """(one-shot entry, halo entry, bf16 entry, scratch size) from
-    csrc/resunit.cu, typed once per process."""
+    """(one-shot entry, halo entry, scratch size) from csrc/resunit.cu, typed
+    once per process."""
     lib = build.library("resunit")
     size = lib.facodec_resunit_scratch_floats
     size.argtypes = [ctypes.c_int] * 4
@@ -124,10 +128,28 @@ def _entry_points():
     halo_fn = lib.facodec_resunit_halo_f32
     halo_fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     halo_fn.restype = ctypes.c_int
-    bf16_fn = lib.facodec_resunit_bf16
-    bf16_fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    bf16_fn.restype = ctypes.c_int
-    return fn, halo_fn, bf16_fn, size
+    return fn, halo_fn, size
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_entry_points():
+    """(bf16 entry, tensor-map builder, map bytes, plan, scratch size) from
+    csrc/resunit_bf16.cu, typed once per process."""
+    lib = build.library("resunit_bf16")
+    fn = lib.facodec_resunit_bf16
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    maps = lib.facodec_resunit_bf16_maps
+    maps.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    maps.restype = ctypes.c_int
+    lib.facodec_resunit_bf16_maps_bytes.restype = ctypes.c_int
+    plan = lib.facodec_resunit_bf16_plan
+    plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    plan.restype = ctypes.c_int
+    size = lib.facodec_resunit_bf16_scratch_bytes
+    size.argtypes = [ctypes.c_int] * 4
+    size.restype = ctypes.c_longlong
+    return fn, maps, lib.facodec_resunit_bf16_maps_bytes(), plan, size
 
 
 def _check(who: str, name: str, t: Optional[torch.Tensor], shape, device,
@@ -146,26 +168,30 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _check_unit(who: str, x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
-                x_dtypes=(torch.float32,)) -> None:
+def _check_x(who: str, x, dilation: int, x_dtypes) -> None:
     if x.ndim != 3:
         raise ValueError(f"{who}: x must be (B, T, C), got {tuple(x.shape)}")
-    C = x.shape[-1]
     _check(who, "x", x, x.shape, x.device, x_dtypes)
-    for name, t, shape in (("w7", w7, (C, C, 7)), ("b7", b7, (C,)),
-                           ("w1", w1, (C, C, 1)), ("b1", b1, (C,)),
-                           ("alpha1", alpha1, (1, C, 1)), ("alpha2", alpha2, (1, C, 1))):
-        _check(who, name, t, shape, x.device)
     if x.device.type == "cpu":
         return
     if x.device.type != "cuda":
         raise ValueError(f"{who}: no kernel for device {x.device}")
     if not x.is_contiguous():
         raise ValueError(f"{who}: x must be contiguous")
-    if C % 32:
-        raise ValueError(f"{who}: the kernel takes C % 32 == 0, got C={C}")
+    if x.shape[-1] % 32:
+        raise ValueError(f"{who}: the kernel takes C % 32 == 0, got C={x.shape[-1]}")
     if dilation < 1:
         raise ValueError(f"{who}: dilation must be >= 1, got {dilation}")
+
+
+def _check_unit(who: str, x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
+                x_dtypes=(torch.float32,)) -> None:
+    _check_x(who, x, dilation, x_dtypes)
+    C = x.shape[-1]
+    for name, t, shape in (("w7", w7, (C, C, 7)), ("b7", b7, (C,)),
+                           ("w1", w1, (C, C, 1)), ("b1", b1, (C,)),
+                           ("alpha1", alpha1, (1, C, 1)), ("alpha2", alpha2, (1, C, 1))):
+        _check(who, name, t, shape, x.device)
 
 
 def _kernel_operands(x, w7, b7, w1, b1, alpha1, alpha2):
@@ -188,7 +214,8 @@ def _wants_grad(who: str, *tensors) -> None:
 def fused_residual_unit(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
                         causal: bool) -> torch.Tensor:
     """out = x + conv1x1(snake(conv7(snake(x)))) in one kernel on the card;
-    x float32 (with gradients), or bf16 for the bf16 entry (forward only)."""
+    x float32 (with gradients), or bf16 for the bf16 entry (forward only,
+    the weights packed for this call)."""
     _check_unit("fused_residual_unit", x, w7, b7, w1, b1, alpha1, alpha2, dilation,
                 (torch.float32, torch.bfloat16))
     if x.device.type == "cpu":
@@ -196,8 +223,75 @@ def fused_residual_unit(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
     if x.dtype == torch.bfloat16:
         _wants_grad("fused_residual_unit (bf16 entry)", x, w7, b7, w1, b1, alpha1, alpha2)
         pl, ext = _reflect_extent(x.shape[1], dilation, causal)
-        return _launch_bf16(x, w7, b7, w1, b1, alpha1, alpha2, dilation, pl, ext)
+        return launch_bf16(_aligned16(x), pack_bf16(w7, b7, w1, b1, alpha1, alpha2), dilation,
+                           pl, ext)
     return _ResidualUnitFn.apply(x, w7, b7, w1, b1, alpha1, alpha2, dilation, causal)
+
+
+class Bf16Pack(NamedTuple):
+    """The bf16 entry's operands, packed once per weight version: w7 (C, 7C)
+    bf16 with K index tap * C + in, w1 (C, C), b7 and b1 (C) bf16 (as the
+    policy rounds them), the alphas and their snake reciprocals
+    1 / (alpha + 1e-9) (C) float32, and the TMA tensor maps of w7 and w1
+    (card only: they hold the two weights' device addresses)."""
+    w7: torch.Tensor
+    w1: torch.Tensor
+    b7: torch.Tensor
+    b1: torch.Tensor
+    alpha1: torch.Tensor
+    recip1: torch.Tensor
+    alpha2: torch.Tensor
+    recip2: torch.Tensor
+    maps: Optional[ctypes.Array]
+
+
+def pack_bf16(w7, b7, w1, b1, alpha1, alpha2) -> Bf16Pack:
+    """The bf16 entry's operands from the effective (weight-normed) float32
+    weights in torch's layout; with the TMA maps where they lie on the card."""
+    C = w7.shape[0]
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        w7p = w7.to(bf16).permute(0, 2, 1).reshape(C, 7 * C).contiguous()
+        w1p = w1[:, :, 0].to(bf16).contiguous()
+        a1, a2 = (a.reshape(C).clone() for a in (alpha1, alpha2))
+        recip1, recip2 = (1.0 / (a + 1e-9) for a in (a1, a2))
+        maps = None
+        if w7.device.type == "cuda":
+            _, encode, nbytes, _, _ = _bf16_entry_points()
+            maps = ctypes.create_string_buffer(nbytes)
+            with torch.cuda.device(w7.device):
+                err = encode(w7p.data_ptr(), w1p.data_ptr(), C, maps)
+            if err != 0:
+                raise RuntimeError(f"pack_bf16: TMA tensor maps failed for C={C}, cudaError {err}")
+        return Bf16Pack(w7p, w1p, b7.to(bf16).contiguous(), b1.to(bf16).contiguous(), a1, recip1,
+                        a2, recip2, maps)
+
+
+def _check_pack(who: str, pack: Bf16Pack, C: int, device) -> None:
+    for name, shape, dtype in (("w7", (C, 7 * C), torch.bfloat16), ("w1", (C, C), torch.bfloat16),
+                               ("b7", (C,), torch.bfloat16), ("b1", (C,), torch.bfloat16),
+                               ("alpha1", (C,), torch.float32), ("recip1", (C,), torch.float32),
+                               ("alpha2", (C,), torch.float32), ("recip2", (C,), torch.float32)):
+        t = getattr(pack, name)
+        _check(who, f"pack.{name}", t, shape, device, (dtype,))
+        if not t.is_contiguous():
+            raise ValueError(f"{who}: pack.{name} must be contiguous")
+    if device.type == "cuda" and pack.maps is None:
+        raise ValueError(f"{who}: the pack has no TMA tensor maps (packed off the card)")
+
+
+def fused_residual_unit_packed(x, pack: Bf16Pack, dilation: int, causal: bool) -> torch.Tensor:
+    """The bf16 entry with operands packed by `pack_bf16`, forward only: x
+    (B, T, C) bf16 on the card (on the CPU, `fused_residual_unit` runs the
+    plain version)."""
+    who = "fused_residual_unit_packed"
+    _check_x(who, x, dilation, (torch.bfloat16,))
+    _check_pack(who, pack, x.shape[-1], x.device)
+    if x.device.type != "cuda":
+        raise ValueError(f"{who}: the packed entry runs on the card only, x is on {x.device}")
+    _wants_grad(who, x)
+    pl, ext = _reflect_extent(x.shape[1], dilation, causal)
+    return launch_bf16(_aligned16(x), pack, dilation, pl, ext)
 
 
 def _reflect_extent(T: int, dilation: int, causal: bool) -> Tuple[int, int]:
@@ -234,7 +328,7 @@ def _launch_f32(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int, causal: bool) 
     pl, ext = _reflect_extent(T, dilation, causal)
     ops = _kernel_operands(x, w7, b7, w1, b1, alpha1, alpha2)
     out = torch.empty_like(ops[0])
-    fn, _, _, size = _entry_points()
+    fn, _, size = _entry_points()
     with torch.cuda.device(x.device):
         # per block: its snake1 rows and its y2 rows (csrc/resunit.cu)
         scratch = torch.empty(size(B, T, C, dilation), dtype=torch.float32, device=x.device)
@@ -251,30 +345,43 @@ fused_residual_unit.launches = 0
 fused_residual_unit.bf16_launches = 0
 
 
-def _launch_bf16(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int, pad_left: int,
-                 ext: int) -> torch.Tensor:
-    """The bf16 entry: the weights and biases rounded to bf16 as the policy
-    rounds them, w7 as (out, tap, in); the snake parameters float32."""
+def launch_bf16(x, pack: Bf16Pack, dilation: int, pad_left: int, ext: int,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the bf16 kernel on checked operands (x contiguous and
+    16-byte aligned, a pack made on x's card), into `out` or a new tensor;
+    the pads as `_reflect_extent` gives them."""
     B, T, C = x.shape
-    bf16 = torch.bfloat16
-    x = _aligned16(x)
-    w7t = w7.permute(0, 2, 1).to(bf16).contiguous()
-    w1b = w1[:, :, 0].to(bf16).contiguous()
-    b7b, b1b = b7.to(bf16).contiguous(), b1.to(bf16).contiguous()
-    alpha1, alpha2 = alpha1.contiguous(), alpha2.contiguous()
-    recip1, recip2 = (1.0 / (a + 1e-9) for a in (alpha1, alpha2))
-    out = torch.empty_like(x)
-    _, _, fn, size = _entry_points()
+    out = torch.empty_like(x) if out is None else out
+    fn, size = (_bf16_entry_points()[i] for i in (0, 4))
     with torch.cuda.device(x.device):
-        scratch = torch.empty(size(B, T, C, dilation), dtype=bf16, device=x.device)
+        # the s2 tile of each CTA, for units too wide to keep it in shared memory
+        nbytes = size(B, T, C, dilation)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes > 0 else None
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(t.data_ptr() for t in (x, w7t, b7b, w1b, b1b, alpha1, recip1, alpha2, recip2,
-                                          out, scratch)),
-                 B, T, C, dilation, pad_left, ext, stream)
+        err = fn(x.data_ptr(), ctypes.addressof(pack.maps),
+                 *(t.data_ptr() for t in (pack.b7, pack.b1, pack.alpha1, pack.recip1,
+                                          pack.alpha2, pack.recip2, out)),
+                 None if scratch is None else scratch.data_ptr(), B, T, C, dilation, pad_left,
+                 ext, stream)
     if err != 0:
-        raise RuntimeError(f"fused_residual_unit: bf16 kernel launch failed, cudaError {err}")
+        why = " (shapes the kernel refuses: C, B, T, d and the pads)" if err == 1 else ""
+        raise RuntimeError(f"fused_residual_unit: bf16 kernel launch failed, cudaError {err}{why}")
     fused_residual_unit.bf16_launches += 1
     return out
+
+
+def bf16_plan(B: int, T: int, C: int, dilation: int) -> dict:
+    """The bf16 kernel's tiling for a call (card only): N tile width, rows
+    per tile, N tiles, K elements of a weight slice (and channels of an s1
+    group), ring stages, whether the weights stay resident, whether s2 goes
+    to the device scratch (units too wide for shared memory), dynamic
+    shared memory in bytes, grid, row tiles."""
+    plan = _bf16_entry_points()[3]
+    out = (ctypes.c_int * 10)()
+    if plan(B, T, C, dilation, out) != 0:
+        raise ValueError(f"bf16_plan: the kernel refuses B={B} T={T} C={C} d={dilation}")
+    keys = ("bn", "bm", "n_tiles", "kc", "stages", "resident", "spill", "smem", "grid", "tiles")
+    return dict(zip(keys, out))
 
 
 def fused_residual_unit_stream(x, halo, w7, b7, w1, b1, alpha1, alpha2, dilation: int
@@ -301,7 +408,7 @@ def fused_residual_unit_stream(x, halo, w7, b7, w1, b1, alpha1, alpha2, dilation
     halo = None if halo is None else _aligned16(halo)
     out = torch.empty_like(ops[0])
     new_halo = torch.empty(B, H, C, dtype=torch.float32, device=x.device)
-    _, fn, _, size = _entry_points()
+    _, fn, size = _entry_points()
     with torch.cuda.device(x.device):
         scratch = torch.empty(size(B, T, C, dilation), dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream().cuda_stream

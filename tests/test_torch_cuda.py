@@ -74,20 +74,22 @@ BF16_CASES = [(B, C, d, T) for C in (64, 96, 128, 192, 256, 384, 512, 768) for d
 BF16_MAX_ULPS = 2
 
 
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("B,C,dilation,T", BF16_CASES)
-def test_resunit_bf16_entry_matches_plain(B, C, dilation, T, causal):
-    """No element more than 2 bf16 ulps (at resunit.bf16_error_scale) from
-    the plain version under the bfloat16_act policy; one bf16 launch and
-    no float32 one."""
-    _need_cuda()
-    g = torch.Generator(device="cuda").manual_seed(C + dilation + T)
+def _bf16_unit_args(B, C, dilation, T, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(B, T, C, device="cuda", generator=g).to(torch.bfloat16)
     w7 = torch.randn(C, C, 7, device="cuda", generator=g) / (7 * C) ** 0.5
     w1 = torch.randn(C, C, 1, device="cuda", generator=g) / C ** 0.5
     b7, b1 = (0.1 * torch.randn(C, device="cuda", generator=g) for _ in range(2))
     a1, a2 = (0.5 + torch.rand(1, C, 1, device="cuda", generator=g) for _ in range(2))
-    args = (x, w7, b7, w1, b1, a1, a2, dilation, causal)
+    return x, w7, b7, w1, b1, a1, a2
+
+
+def _check_bf16_entry(args, dilation, causal):
+    """One bf16 launch and no float32 one; no element more than 2 bf16 ulps
+    (at resunit.bf16_error_scale) from the plain version under the
+    bfloat16_act policy. Prints the bit-equal share."""
+    x = args[0]
+    args = (*args, dilation, causal)
     before = (resunit.fused_residual_unit.launches, resunit.fused_residual_unit.bf16_launches)
     with float32_exact():
         got = resunit.fused_residual_unit(*args)
@@ -98,7 +100,86 @@ def test_resunit_bf16_entry_matches_plain(B, C, dilation, T, causal):
         scale = resunit.bf16_error_scale(*args)
     assert got.dtype == want.dtype == torch.bfloat16 and got.shape == x.shape
     ulps = resunit.bf16_ulps(got, want, scale)
+    equal = (got == want).float().mean().item()
+    print(f"{tuple(x.shape)} d={dilation} causal={causal}: {equal:.4%} bit-equal, worst "
+          f"{ulps.max().item():.2f} ulps")
     assert ulps.max().item() <= BF16_MAX_ULPS, ulps.max().item()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,C,dilation,T", BF16_CASES)
+def test_resunit_bf16_entry_matches_plain(B, C, dilation, T, causal):
+    _need_cuda()
+    _check_bf16_entry(_bf16_unit_args(B, C, dilation, T, C + dilation + T), dilation, causal)
+
+
+# The regimes of the wgmma kernel's tiling (csrc/resunit_bf16.cu): T at the
+# edges of its 64- and 128-row tiles (C = 768 takes 64 rows, C = 96 and 192
+# 128); fewer row tiles than SMs and many more; batch 8; the hybrid decode's
+# largest unit (C = 96, T = 240,000, weights resident) and its widest at
+# d = 9, non-causal; widths past the flagship's (C = 1024 with 64-wide weight
+# slices, 1280 with 32-wide ones) and ragged N tiles (C = 160, 544).
+BF16_TILING_CASES = (
+    [(2, C, 3, T, True) for C in (96, 192, 768) for T in (63, 64, 65, 127, 128, 129)]
+    + [(1, 384, 9, 300, True), (2, 192, 1, 40000, False), (8, 192, 1, 500, True),
+       (8, 768, 3, 129, False), (8, 96, 9, 1000, True), (4, 96, 1, 240000, True),
+       (4, 768, 9, 4800, False), (2, 1024, 9, 70, True), (1, 1280, 3, 100, False),
+       (3, 160, 3, 300, True), (2, 544, 1, 130, False)])
+
+
+@pytest.mark.parametrize("B,C,dilation,T,causal", BF16_TILING_CASES)
+def test_resunit_bf16_entry_tiling(B, C, dilation, T, causal):
+    _need_cuda()
+    _check_bf16_entry(_bf16_unit_args(B, C, dilation, T, 7 * C + dilation + T), dilation, causal)
+
+
+# Units too wide for a 64-row s2 tile beside two weight stages in shared
+# memory: s2 goes through the device scratch (C >= 1440 at d = 9). The last
+# width that fits at d = 9, the first that does not, and C = 2048 over more
+# row tiles than SMs (a CTA takes two tiles through the scratch).
+BF16_WIDE_CASES = [(1, 1408, 9, 200, True, False), (2, 1440, 9, 300, False, True),
+                   (1, 2048, 1, 9000, True, True)]
+
+
+@pytest.mark.parametrize("B,C,dilation,T,causal,spill", BF16_WIDE_CASES)
+def test_resunit_bf16_entry_wide(B, C, dilation, T, causal, spill):
+    _need_cuda()
+    plan = resunit.bf16_plan(B, T, C, dilation)
+    assert plan["spill"] == spill, plan
+    _check_bf16_entry(_bf16_unit_args(B, C, dilation, T, C + dilation + T), dilation, causal)
+
+
+def test_resunit_bf16_packed_after_in_place_update():
+    """A ResidualUnit under bfloat16_act keeps its packed operands (and TMA
+    maps) across calls; an in-place weight update repacks, and the kernel
+    then follows the new weights. One bf16 launch a call; the packed call
+    gives the unpacked entry's bits."""
+    from facodec_tpu_torch.models.dac import ResidualUnit
+    from facodec_tpu_torch.ops.precision import policy
+    _need_cuda()
+    C, d = 192, 3
+    torch.manual_seed(0)
+    unit = ResidualUnit(C, dilation=d, causal=True).cuda().eval()
+    with torch.no_grad():
+        for prm in unit.parameters():
+            prm.copy_(0.1 * torch.randn_like(prm) + (1.0 if prm.shape == (1, C, 1) else 0.0))
+    x = _bf16_unit_args(2, C, d, 500, 1)[0]
+    with torch.no_grad(), float32_exact(), policy("bfloat16_act"):
+        for step in range(2):
+            before = resunit.fused_residual_unit.bf16_launches
+            got = unit(x)
+            torch.cuda.synchronize()
+            assert resunit.fused_residual_unit.bf16_launches == before + 1
+            pack = unit.bf16_pack(x)
+            assert pack.maps is not None
+            snake1, conv7, snake2, conv1 = unit.block
+            args = (conv7.effective_weight(), conv7.bias, conv1.effective_weight(), conv1.bias,
+                    snake1.alpha, snake2.alpha)
+            assert torch.equal(got, resunit.fused_residual_unit(x, *args, d, True))
+            _check_bf16_entry((x, *args), d, True)
+            conv7.weight_v.add_(0.05 * torch.randn_like(conv7.weight_v))
+            conv1.bias.add_(0.3)
+        assert unit.bf16_pack(x) is not pack
 
 
 @pytest.mark.parametrize("fault", ["strided", "float16", "weight_bf16"])
