@@ -141,12 +141,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    fused step, the peak memory of each, and the launches each variant
    adds (the split step's second generator forward, remat's recompute).
 
+12. Training on one's own data, at full width. 12a: 10 seeded speech-like
+   wavs (8 int16 24 kHz of 1-12 s, one 8-bit 16 kHz, one float64 stereo
+   44.1 kHz) and a transcript; `assemble_data` splits them 8 / 2;
+   `extract_targets --teachers jdc --device cuda` with a seeded JDC state
+   dict in the reference layout (`{'net': sd}`, the detector branch and
+   `num_batches_tracked` in it); each wav's F0 against a CPU teacher within
+   1e-3 x max|F0|; the teacher's device time per second of audio. 12b:
+   `run_training(fields=FLAGSHIP_TRAIN, dataset=FileListDataset(train.txt),
+   F0_path=<that file>)` for 4 steps (it prints `inline F0 teacher`; 24
+   residual-unit and 6 VQ launches a step, every loss finite); the step
+   with the teacher against the same step fed the batch's F0, in turns
+   (host clock), and the teacher's own device time on the batch's mel; one
+   draws-off step with the teacher, card against CPU, batch 1 x 20 frames,
+   within 1e-3 relative (10b's check); one split step with the teacher
+   (48 / 12 launches). 12c: `evaluate.main` on val.txt with the flagship
+   codec (every aggregate key finite, or null); `evaluate_utterance` on
+   the 4 x 10 s waves under float32 (48 residual-unit launches, 6 VQ) and
+   `hybrid` (12 float32, 36 bf16, 6 VQ), both scorecards, the SI-SDR of
+   the hybrid reconstruction against the float32 one; one 1.5 s utterance
+   card against CPU: codes >= 0.99 equal, every metric within the limits
+   of `SCORECARD_TOL`.
+
 The line before the last is the kernels' JSON summary; the last line is the
 run's JSON result. The kernels' `train_launches` are a training step's,
 `train_ms` their device time in the traced step, `train_grad_max_rel` the
 worst gradient gap of phase 10a; `redecoder_train_launches`,
 `redecoder_train_ms` and `redecoder_grad_max_rel` are the same for the
-redecoder step (11c, 11a).
+redecoder step (11c, 11a); `teacher_train_launches` are a step's with the
+inline teacher (12b) and `eval_launches` one `evaluate_utterance`'s (12c;
+under `hybrid` for the bf16 entry).
 """
 
 from __future__ import annotations
@@ -1357,7 +1381,8 @@ def unit_grad_checks(units: list, gen: torch.Generator) -> tuple:
     TRAIN_GRAD_TOL x max|g|; forward and forward+backward times.
     Returns (worst forward error, worst gradient gap, summed times)."""
     worst_fwd = worst_grad = 0.0
-    tot = dict(fwd_ms=0.0, fwd_plain_ms=0.0, fwd_bwd_ms=0.0, fwd_bwd_plain_ms=0.0)
+    tot = dict(fwd_ms=0.0, fwd_plain_ms=0.0, fwd_bwd_ms=0.0, fwd_bwd_plain_ms=0.0, fwd_flops=0,
+               fwd_bound_fp32_ms=0.0, fwd_bound_ms=0.0)
     for unit, x in units:
         snake1, conv7, snake2, conv1 = unit.block
         base = [t.detach().contiguous() for t in (
@@ -1391,17 +1416,22 @@ def unit_grad_checks(units: list, gen: torch.Generator) -> tuple:
             tkb = median_ms(lambda: run(resunit.fused_residual_unit))
             tpb = median_ms(lambda: run(resunit.residual_unit_reference))
         worst_fwd, worst_grad = max(worst_fwd, err), max(worst_grad, max(rel.values()))
-        for k, v in (("fwd_ms", tk), ("fwd_plain_ms", tp), ("fwd_bwd_ms", tkb),
-                     ("fwd_bwd_plain_ms", tpb)):
-            tot[k] += v
         B, T, C = x.shape
+        flop, nbytes = resunit_cost(B, T, C)
+        for k, v in (("fwd_ms", tk), ("fwd_plain_ms", tp), ("fwd_bwd_ms", tkb),
+                     ("fwd_bwd_plain_ms", tpb), ("fwd_flops", flop),
+                     ("fwd_bound_fp32_ms", bound_ms(flop, nbytes, FP32_FLOPS)),
+                     ("fwd_bound_ms", bound_ms(3 * flop, nbytes, TF32_FLOPS))):
+            tot[k] += v
         log(f"  B={B} C={C:4d} T={T:6d} d={unit.dilation}: forward max_abs_err {err:.3e}, "
             f"gradients (of max|g|) " + " ".join(f"{k} {v:.1e}" for k, v in rel.items())
             + f"; forward kernel {tk:.3f} ms plain {tp:.3f} ms, forward+backward kernel "
             f"{tkb:.3f} ms plain {tpb:.3f} ms")
     log(f"  {len(units)} units: forward kernel {tot['fwd_ms']:.3f} ms plain "
         f"{tot['fwd_plain_ms']:.3f} ms; forward+backward kernel {tot['fwd_bwd_ms']:.3f} ms plain "
-        f"{tot['fwd_bwd_plain_ms']:.3f} ms (the backward recomputes the plain composition)")
+        f"{tot['fwd_bwd_plain_ms']:.3f} ms (the backward recomputes the plain composition); "
+        f"forward FLOP {tot['fwd_flops']:.4e}, bound {tot['fwd_bound_fp32_ms']:.3f} ms fp32 / "
+        f"{tot['fwd_bound_ms']:.3f} ms 3xtf32")
     return worst_fwd, worst_grad, tot
 
 
@@ -1785,6 +1815,330 @@ def phase_variants() -> dict:
     return dict(redecoder=red, codec=cod)
 
 
+# ------------------------------------------------------------- phase 12
+# 12a's data: 8 int16 24 kHz utterances of 1-12 s, one 8-bit 16 kHz and one
+# float64 stereo 44.1 kHz file; 2 of the 10 go to val.txt.
+OWN_SECONDS = (1.0, 2.5, 4.0, 5.5, 7.0, 8.5, 10.0, 12.0)
+TEACHER_TOL = 1e-3  # the teacher's F0, card against CPU, of max|F0|
+OWN_STEPS = 4  # run_training with the teacher: one warm-up step, three timed
+TURNS = 3  # rounds of (teacher, offline, offline, teacher) step timings
+# The scorecard, card against CPU (tests/test_torch_cuda.py's limits): the
+# losses relative, the dB metrics, STOI and the F0 probes absolute.
+SCORECARD_TOL = dict(mel_l1=("rel", 1e-3), stft_l1=("rel", 1e-3), snr_db=("abs", 0.05),
+                     si_sdr_db=("abs", 0.05), mcd_db=("abs", 0.05), stoi=("abs", 1e-3),
+                     f0_corr_prosody=("abs", 0.05), f0_corr_content=("abs", 0.05),
+                     voicing_agree_prosody=("abs", 0.05), voicing_agree_content=("abs", 0.05))
+
+
+def speechlike(seconds: float, sr: int, seed: int) -> np.ndarray:
+    """A harmonic wave whose pitch glides around 100-250 Hz under a
+    syllable-rate envelope, in [-0.5, 0.5]."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = rng.uniform(100, 180) * (1 + 0.25 * np.sin(2 * np.pi * rng.uniform(0.2, 0.6) * t))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    x = sum(np.sin(k * phase) / k for k in (1, 2, 3, 4, 5))
+    env = 0.55 + 0.45 * np.sin(2 * np.pi * rng.uniform(2.0, 4.0) * t)
+    x = x * env + 0.01 * rng.standard_normal(len(t))
+    return 0.5 * x / np.abs(x).max()
+
+
+def own_data(d: str) -> tuple:
+    """The wavs and their transcript in `d`: (transcript, {path: seconds})."""
+    from scipy.io import wavfile
+
+    files = {}
+    for i, seconds in enumerate(OWN_SECONDS):
+        path = os.path.join(d, f"utt{i}.wav")
+        wavfile.write(path, SR, (speechlike(seconds, SR, i) * 32767).astype(np.int16))
+        files[path] = seconds
+    path = os.path.join(d, "utt8_u8_16k.wav")
+    wavfile.write(path, 16000, (speechlike(3.0, 16000, 8) * 127 + 128).astype(np.uint8))
+    files[path] = 3.0
+    path = os.path.join(d, "utt9_f64_stereo_44k.wav")
+    stereo = np.stack([speechlike(4.5, 44100, 9), speechlike(4.5, 44100, 19)], axis=1)
+    wavfile.write(path, 44100, stereo.astype(np.float64))
+    files[path] = 4.5
+    transcript = os.path.join(d, "transcript.txt")
+    with open(transcript, "w") as f:
+        f.writelines(f"{p}\t{i}\ten\tutterance {i}\tphones\n" for i, p in enumerate(files))
+    return transcript, files
+
+
+def manifest_paths(manifest: str) -> list:
+    with open(manifest) as f:
+        return [line.split("\t")[0] for line in f if line.strip()]
+
+
+def phase_own_targets(d: str, jdc_path: str, smi: str) -> dict:
+    """12a: assemble_data, extract_targets on the card, the teacher's F0
+    against a CPU teacher, and its time per second of audio."""
+    from facodec_tpu_torch.cli import assemble_data, extract_targets
+    from facodec_tpu_torch.models.jdc import load_jdc_checkpoint
+    from facodec_tpu_torch.train.data import compute_mel
+    from facodec_tpu_torch.utils.audio import load_wav
+
+    log(f"phase 12a: training on one's own data: assemble_data, extract_targets --teachers jdc "
+        f"on the card (seeded JDC file in the reference layout), F0 card against a CPU teacher "
+        f"within {TEACHER_TOL} x max|F0| [{smi}]")
+    transcript, files = own_data(d)
+    if assemble_data.main(["--transcripts", transcript, "--target-dir", d, "--val-frac",
+                           "0.2"]) != 0:
+        raise AssertionError("assemble_data failed")
+    train, val = (manifest_paths(os.path.join(d, n)) for n in ("train.txt", "val.txt"))
+    if (len(train), len(val)) != (8, 2) or sorted(train + val) != sorted(files):
+        raise AssertionError(f"assemble_data split {len(train)} / {len(val)}")
+    t0 = time.perf_counter()
+    for name in ("train.txt", "val.txt"):
+        if extract_targets.main(["--manifest", os.path.join(d, name), "--teachers", "jdc",
+                                 "--jdc-ckpt", jdc_path, "--device", "cuda"]) != 0:
+            raise AssertionError(f"extract_targets on {name} failed")
+    wall = time.perf_counter() - t0
+    cpu, card = load_jdc_checkpoint(jdc_path, "cpu"), load_jdc_checkpoint(jdc_path, "cuda")
+    worst, teacher_ms, audio_s = 0.0, 0.0, 0.0
+    for path in train + val:
+        wave = load_wav(path)
+        frames = len(wave) // HOP
+        mel = torch.from_numpy(compute_mel(wave[: frames * HOP]))[None]
+        with torch.no_grad():
+            want = cpu(mel)[0][0].numpy()
+            mel_card = mel.to("cuda")
+            ms = median_ms(lambda: card(mel_card))
+        got = np.load(path + ".targets.npz")["f0"]
+        gap = float(np.abs(got - want).max()) / float(np.abs(want).max())
+        worst, teacher_ms, audio_s = max(worst, gap), teacher_ms + ms, audio_s + frames * HOP / SR
+        log(f"  {os.path.basename(path)}: {frames} frames, F0 {want.min():.1f}-{want.max():.1f} "
+            f"Hz, card against CPU {gap:.2e} of max|F0|, teacher {ms:.2f} ms on the card")
+        if not (got.shape == want.shape and np.isfinite(got).all() and gap <= TEACHER_TOL):
+            raise AssertionError(f"{path}: F0 {gap} of max|F0| off the CPU teacher")
+    log(f"  extract_targets over {audio_s:.1f} s of audio in {wall:.2f} s (host clock, mels on "
+        f"the host included); the teacher alone {teacher_ms:.2f} ms on the card, "
+        f"{teacher_ms / audio_s:.3f} ms per second of audio [{smi}]")
+    return dict(train=os.path.join(d, "train.txt"), val=os.path.join(d, "val.txt"),
+                f0_max_rel=worst, teacher_ms_per_audio_s=teacher_ms / audio_s,
+                extract_wall_s=wall)
+
+
+def phase_own_train(data: dict, jdc_path: str, smi: str) -> dict:
+    """12b: run_training with the inline teacher on the own data; the step
+    with and without the teacher in turns; a draws-off step card against
+    CPU; a split step."""
+    import contextlib
+    import io
+
+    from facodec_tpu_torch.models.jdc import load_jdc_checkpoint
+    from facodec_tpu_torch.train.data import FileListDataset
+    from facodec_tpu_torch.train.step import with_teacher_f0
+
+    log(f"phase 12b: run_training(fields=FLAGSHIP_TRAIN, dataset=FileListDataset(train.txt), "
+        f"F0_path=<seeded JDC file>, device='cuda'), batch {TRAIN_BATCH} x {TRAIN_FRAMES} "
+        f"frames, {OWN_STEPS} steps (1 warm-up) [{smi}]")
+    log_dir = tempfile.mkdtemp(prefix="own_smoke_", dir=build.BUILD_DIR)
+    try:
+        out = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            state = run_training(fields=FLAGSHIP_TRAIN, dataset=FileListDataset(data["train"]),
+                                 device="cuda", F0_path=jdc_path, max_steps=OWN_STEPS,
+                                 log_dir=log_dir, log_writer=False, log_interval=1,
+                                 save_interval=10**9, save_freq=10**9)
+        run_counts = all_counts()
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    printed = out.getvalue()
+    log("  run_training printed: " + printed.strip().replace("\n", " | "))
+    if f"inline F0 teacher: {jdc_path}" not in printed:
+        raise AssertionError("run_training did not load the inline teacher")
+    c = run_counts
+    if (c["f32"], c["vq"], c["bf16"], c["halo"]) != (24 * OWN_STEPS, 6 * OWN_STEPS, 0, 0):
+        raise AssertionError(f"launches {c} over {OWN_STEPS} steps with the teacher")
+    for k, v in sorted(state.metrics.items()):
+        if not np.isfinite(v):
+            raise AssertionError(f"{k} is not finite: {v}")
+    times = [1e3 * state.step_times[s] for s in range(2, OWN_STEPS + 1)]
+    log(f"  {OWN_STEPS} steps, every loss finite (loss/f0 {state.metrics['loss/f0']:.4g}, "
+        f"loss/gen_all {state.metrics['loss/gen_all']:.4g}); launches per step "
+        f"{c['f32'] // OWN_STEPS} residual units, {c['vq'] // OWN_STEPS} VQ; step ms "
+        + ", ".join(f"{t:.1f}" for t in times))
+
+    # the step with the teacher against the same step fed the batch's F0, in turns
+    teacher = load_jdc_checkpoint(jdc_path, "cuda")
+    ds = FileListDataset(data["train"])
+    batch = to_device(segment_batch(collate([ds[i] for i in range(TRAIN_BATCH)], 80),
+                                    max_frames=TRAIN_FRAMES,
+                                    generator=torch.Generator().manual_seed(12)), "cuda")
+    steps = dict(teacher=make_codec_train_step(state.models, state.optimizers,
+                                               f0_teacher=teacher),
+                 offline=make_codec_train_step(state.models, state.optimizers))
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    ms = dict(teacher=[], offline=[])
+    for name in ("teacher", "offline"):  # one warm step each
+        float(steps[name](batch, gen)[0]["loss/gen_all"])
+    for _ in range(TURNS):
+        for name in ("teacher", "offline", "offline", "teacher"):
+            t0 = time.perf_counter()
+            float(steps[name](batch, gen)[0]["loss/gen_all"])
+            ms[name].append(1e3 * (time.perf_counter() - t0))
+    with torch.no_grad():
+        teacher_ms = median_ms(lambda: with_teacher_f0(teacher, batch))
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    log(f"  step ms in turns (host clock until the metrics are read): with the teacher "
+        + ", ".join(f"{t:.1f}" for t in ms["teacher"]) + f" (median {med['teacher']:.1f}); "
+        f"batch F0 " + ", ".join(f"{t:.1f}" for t in ms["offline"])
+        + f" (median {med['offline']:.1f}); the teacher alone on the batch's mel "
+        f"({TRAIN_BATCH} x {TRAIN_FRAMES} frames) {teacher_ms:.3f} ms on the card [{smi}]")
+    del steps, state, teacher
+    torch.cuda.empty_cache()
+
+    # one draws-off step with the teacher, card against CPU (10b's check)
+    log(f"  draws-off step with the teacher, FLAGSHIP_TRAIN seed 7, batch 1 x 20 frames, card "
+        f"against CPU: losses and gradient norms within {STEP_TOL} relative")
+    metrics = {}
+    for device in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        models = draws_off(build_models(FLAGSHIP_TRAIN, 7, device))
+        step = make_codec_train_step(models, build_optimizers(models),
+                                     f0_teacher=load_jdc_checkpoint(jdc_path, device))
+        b1 = train_batch(1, 20, 3, device, max_s=2.0)
+        metrics[device] = {k: float(v) for k, v in step(b1, None)[0].items()}
+        log(f"  {device}: built and stepped in {time.perf_counter() - t0:.1f} s")
+        del models, step
+    worst = 0.0
+    for k in sorted(metrics["cpu"]):
+        a, b = metrics["cuda"][k], metrics["cpu"][k]
+        rel = abs(a - b) / max(abs(b), 1e-12)
+        worst = max(worst, rel)
+        if not (np.isfinite(a) and rel <= STEP_TOL):
+            raise AssertionError(f"{k}: card {a} against CPU {b}")
+    log(f"  every loss and gradient norm within {worst:.2e} relative (loss/f0 card "
+        f"{metrics['cuda']['loss/f0']:.6g} cpu {metrics['cpu']['loss/f0']:.6g})")
+
+    # one split step with the teacher
+    models = build_models(FLAGSHIP_TRAIN, 0, "cuda")
+    step = make_codec_train_step_split(models, build_optimizers(models),
+                                       f0_teacher=load_jdc_checkpoint(jdc_path, "cuda"))
+    reset_counts()
+    split = {k: float(v) for k, v in step(batch, torch.Generator(device="cuda")
+                                          .manual_seed(3))[0].items()}
+    c = all_counts()
+    if (c["f32"], c["vq"]) != (48, 12) or not all(np.isfinite(v) for v in split.values()):
+        raise AssertionError(f"split step with the teacher: launches {c}, metrics {split}")
+    log(f"  split step with the teacher: every loss finite, launches {c['f32']} residual units, "
+        f"{c['vq']} VQ (two generator forwards)")
+    del models, step
+    torch.cuda.empty_cache()
+    return dict(step_ms=med["teacher"], offline_step_ms=med["offline"], teacher_ms=teacher_ms,
+                step_max_rel=worst, times=times,
+                per_step=dict(f32=run_counts["f32"] // OWN_STEPS, vq=run_counts["vq"] // OWN_STEPS))
+
+
+def scorecard_line(card: dict) -> str:
+    return ", ".join(f"{k} {v:.4g}" for k, v in card.items() if isinstance(v, float)) + (
+        ", code_usage " + " / ".join(f"{v:.4f}" for v in card["code_usage"].values()))
+
+
+def phase_scorecard(data: dict, smi: str) -> dict:
+    """12c: evaluate.main on val.txt; evaluate_utterance under float32 and
+    hybrid on 4 x 10 s; one utterance card against CPU."""
+    from facodec_tpu_torch.cli import evaluate
+    from facodec_tpu_torch.cli.evaluate import AGG_KEYS, evaluate_utterance
+    from facodec_tpu_torch.ops.metrics import si_sdr
+    from facodec_tpu_torch.utils.audio import load_wav
+
+    log(f"phase 12c: the evaluate scorecard: evaluate.main on val.txt with the flagship codec "
+        f"(FLAGSHIP, seed 0) on the card; evaluate_utterance float32 and hybrid on "
+        f"{BATCH} x {SECONDS:.0f} s; card against CPU on one utterance [{smi}]")
+    out_json = os.path.join(os.path.dirname(data["val"]), "eval.json")
+    n_val = len(manifest_paths(data["val"]))
+    reset_counts()
+    t0 = time.perf_counter()
+    if evaluate.main(["--manifest", data["val"], "--json", out_json, "--device", "cuda"]) != 0:
+        raise AssertionError("evaluate.main failed")
+    wall = time.perf_counter() - t0
+    c = all_counts()
+    if (c["f32"], c["vq"], c["bf16"], c["halo"]) != (48 * n_val, 6 * n_val, 0, 0):
+        raise AssertionError(f"evaluate.main on {n_val} utterances launched {c}")
+    with open(out_json) as f:
+        agg = json.load(f)["aggregate"]
+    if set(agg) != set(AGG_KEYS):
+        raise AssertionError(f"aggregate keys {sorted(agg)}")
+    for k, v in agg.items():
+        if v is not None and not np.isfinite(v):
+            raise AssertionError(f"aggregate {k} = {v}")
+    log(f"  evaluate.main: {n_val} utterances in {wall:.1f} s (the codec's build included); "
+        f"aggregate {json.dumps(agg)}; launches {c}")
+
+    codec = FACodec.from_fields(FLAGSHIP, seed=0, device="cuda")
+    codec_hy = FACodec(codec.encoder, codec.quantizer, codec.decoder, precision="hybrid")
+    w = sweep_wave(BATCH, SECONDS)
+    cards, eval_ms, launches = {}, {}, {}
+    for name, c_ in (("float32", codec), ("hybrid", codec_hy)):
+        evaluate_utterance(c_, w[0])  # warm-up
+        reset_counts()
+        t0 = time.perf_counter()
+        cards[name] = [evaluate_utterance(c_, w[i]) for i in range(BATCH)]
+        eval_ms[name] = 1e3 * (time.perf_counter() - t0) / BATCH
+        launches[name] = {k: v // BATCH for k, v in all_counts().items()}
+        for i, card in enumerate(cards[name]):
+            log(f"  {name} wave {i}: " + scorecard_line(card))
+        log(f"  {name}: {eval_ms[name]:.1f} ms per {SECONDS:.0f} s utterance (host clock); "
+            f"launches per utterance {launches[name]}")
+    if launches["float32"] != dict(f32=48, bf16=0, halo=0, vq=6) or launches["hybrid"] != dict(
+            f32=12, bf16=36, halo=0, vq=6):
+        raise AssertionError(f"evaluate_utterance launches {launches}")
+    f = codec.encode(w)
+    y32, yhy = codec.decode(f), codec_hy.decode(f)
+    hy_vs_f32 = [si_sdr(yhy[i], y32[i]) for i in range(BATCH)]
+    log("  SI-SDR of the hybrid reconstruction against the float32 one (same codes): "
+        + ", ".join(f"{v:.2f}" for v in hy_vs_f32) + " dB")
+    del codec_hy
+
+    # card against CPU on one utterance (the first 1.5 s of a val wav)
+    wave = load_wav(manifest_paths(data["val"])[0])[: int(1.5 * SR)]
+    cpu = FACodec.from_fields(FLAGSHIP, seed=0, device="cpu")
+    got, want = evaluate_utterance(codec, wave), evaluate_utterance(cpu, wave)
+    fc, fg = cpu.encode(wave), codec.encode(wave)
+    match = float(np.mean(np.concatenate([(getattr(fg, s) == getattr(fc, s)).ravel()
+                                          for s in ("codes_p", "codes_c", "codes_r")])))
+    log(f"  card against CPU, 1.5 s: codes {match:.4f} equal (>= {CODE_MATCH_MIN}); "
+        + ", ".join(f"{k} {got[k]:.6g} / {want[k]:.6g}" for k in SCORECARD_TOL))
+    if match < CODE_MATCH_MIN:
+        raise AssertionError(f"codes {match} equal, card against CPU")
+    for k, (kind, tol) in SCORECARD_TOL.items():
+        if np.isnan(want[k]):
+            if not np.isnan(got[k]):
+                raise AssertionError(f"{k}: card {got[k]}, CPU NaN")
+            continue
+        limit = tol * abs(want[k]) if kind == "rel" else tol
+        if not abs(got[k] - want[k]) <= limit:
+            raise AssertionError(f"{k}: card {got[k]} against CPU {want[k]} (limit {limit})")
+    del codec, cpu
+    torch.cuda.empty_cache()
+    return dict(eval_launches=launches, eval_ms=eval_ms, hybrid_si_sdr_db=hy_vs_f32,
+                aggregate=agg, f32_card=cards["float32"], hybrid_card=cards["hybrid"])
+
+
+def phase_own(smi: str) -> tuple:
+    """Phase 12 in a scratch directory of the build tree: 12a, 12b, 12c."""
+    from facodec_tpu_torch.models.jdc import random_reference_state_dict
+
+    d = tempfile.mkdtemp(prefix="own_data_", dir=build.BUILD_DIR)
+    try:
+        jdc_path = os.path.join(d, "bst.t7")
+        torch.save({"net": random_reference_state_dict(0)}, jdc_path)
+        t0 = time.perf_counter()
+        data = phase_own_targets(d, jdc_path, smi)
+        t1 = time.perf_counter()
+        tr = phase_own_train(data, jdc_path, smi)
+        t2 = time.perf_counter()
+        sc = phase_scorecard(data, smi)
+        log(f"phase 12: 12a {t1 - t0:.1f} s, 12b {t2 - t1:.1f} s, 12c "
+            f"{time.perf_counter() - t2:.1f} s")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return data, tr, sc
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1870,6 +2224,7 @@ def main() -> None:
     rc = phase_red_cpu()
     rt = phase_red_train(smi)
     va = phase_variants()
+    own_data, own_tr, own_sc = phase_own(smi)
 
     # no single PyTorch call computes either function: library_ms is null
     kernels = [
@@ -1881,7 +2236,9 @@ def main() -> None:
              train_grad_max_rel=tk["grad_max_rel"],
              redecoder_train_launches=rt["per_step"]["f32"],
              redecoder_train_ms=rt["kernel_ms"]["residual-unit kernel"],
-             redecoder_grad_max_rel=rk["grad_max_rel"], bound_by="operations",
+             redecoder_grad_max_rel=rk["grad_max_rel"],
+             teacher_train_launches=own_tr["per_step"]["f32"],
+             eval_launches=own_sc["eval_launches"]["float32"]["f32"], bound_by="operations",
              library_ms=None, **ru, **halo),
         dict(name="nearest_code", route="cuda", source="facodec_tpu_torch/csrc/vq.cu",
              replaces="facodec_tpu/ops/pallas/vq.py:76", launches=main_path["vq"],
@@ -1890,6 +2247,8 @@ def main() -> None:
              train_ms=tr["kernel_ms"]["VQ kernel"], train_grad_max_rel=tk["vq_grad_max_rel"],
              redecoder_train_launches=rt["per_step"]["vq"],
              redecoder_train_ms=rt["kernel_ms"]["VQ kernel"],
+             teacher_train_launches=own_tr["per_step"]["vq"],
+             eval_launches=own_sc["eval_launches"]["float32"]["vq"],
              bound_by="operations", library_ms=None, **vqr),
         # the bf16 entry (csrc/resunit_bf16.cu): its main path is the hybrid
         # round trip (the serve default), whose 12 decoder units it runs
@@ -1897,7 +2256,9 @@ def main() -> None:
              source="facodec_tpu_torch/csrc/resunit_bf16.cu",
              replaces="facodec_tpu/ops/pallas/resunit.py:273", launches=hy["launches"]["bf16"],
              hybrid_launches=hy["launches"]["bf16"], train_launches=0,
-             redecoder_train_launches=0, decode_kernels=hy["decode_kernels"],
+             redecoder_train_launches=0, teacher_train_launches=0,
+             eval_launches=own_sc["eval_launches"]["hybrid"]["bf16"],
+             decode_kernels=hy["decode_kernels"],
              decode_kernels_per_call_pack=hy["decode_kernels_per_call_pack"], library_ms=None,
              **bf),
     ]
@@ -1926,6 +2287,13 @@ def main() -> None:
             f"{v} peak {r['peak_bytes'] / 2**30:.2f} GiB, launches {r['launches']}, "
             f"step {r['ms']:.1f} ms"
             for v, r in runs.items()))
+    log(f"own data: teacher {own_data['teacher_ms_per_audio_s']:.3f} ms per s of audio, F0 "
+        f"card vs CPU {own_data['f0_max_rel']:.2e} of max|F0|; step with the teacher "
+        f"{own_tr['step_ms']:.1f} ms against {own_tr['offline_step_ms']:.1f} ms with the batch's "
+        f"F0 (teacher {own_tr['teacher_ms']:.3f} ms), card vs CPU {own_tr['step_max_rel']:.2e}; "
+        f"evaluate_utterance {own_sc['eval_ms']['float32']:.1f} ms float32, "
+        f"{own_sc['eval_ms']['hybrid']:.1f} ms hybrid per 10 s; hybrid vs float32 SI-SDR "
+        + ", ".join(f"{v:.2f}" for v in own_sc["hybrid_si_sdr_db"]) + f" dB [{smi}]")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

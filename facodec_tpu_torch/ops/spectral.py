@@ -6,9 +6,11 @@ padding, power 2, 80 HTK mel bands, `(log(1e-5 + mel) + 4) / 4`. The window
 and the filterbank are built in numpy (re-homed from the JAX module so the
 port needs no JAX) and held as non-persistent buffers.
 
-`mel_frames` is the streaming form (port of facodec_tpu/models/streaming.py
-`_mel_frames`): the same log-mel from explicit frames of a context, with
-`reflect_front` / `reflect_back` for a stream's ends.
+`log_mel_np` is the same front end in numpy (the metrics' mel, a copy of
+the JAX `log_mel_spectrogram_np`). `mel_frames` is the streaming form (port
+of facodec_tpu/models/streaming.py `_mel_frames`): the same log-mel from
+explicit frames of a context, with `reflect_front` / `reflect_back` for a
+stream's ends.
 """
 
 from __future__ import annotations
@@ -126,3 +128,25 @@ def reflect_front(chunk: torch.Tensor, pad: int) -> torch.Tensor:
 def reflect_back(tail: torch.Tensor, pad: int) -> torch.Tensor:
     """torch-style right reflect of a stream's end: out[j] = tail[-2 - j]."""
     return torch.flip(tail[:, tail.shape[1] - 1 - pad : tail.shape[1] - 1], dims=[1])
+
+
+def log_mel_np(x: np.ndarray, sample_rate: int = 24000, hop_length: int = 300) -> np.ndarray:
+    """(B, T) -> (B, n_frames, 80) normalised log-mel in numpy, float32: a
+    copy of facodec_tpu/ops/spectral.py `log_mel_spectrogram_np` (the JAX
+    data pipeline's and its metrics' front end), the same arithmetic in the
+    same order, so its results are the JAX function's bits."""
+    x = np.asarray(x, np.float32)
+    window = hann_window_np(WIN_LENGTH)
+    lpad = (N_FFT - WIN_LENGTH) // 2
+    window = np.pad(window, (lpad, N_FFT - WIN_LENGTH - lpad))
+    p = N_FFT // 2
+    x = np.pad(x, ((0, 0), (p, p)), mode="reflect")
+    n_frames = 1 + (x.shape[-1] - N_FFT) // hop_length
+    idx = np.arange(n_frames)[:, None] * hop_length + np.arange(N_FFT)[None, :]
+    frames = x[:, idx] * window[None, None, :]
+    import scipy.fft
+
+    z = scipy.fft.rfft(frames, n=N_FFT, axis=-1, workers=4)
+    spec = np.square(np.abs(z)).astype(np.float32)
+    mel = spec @ _mel_filterbank_np(N_FFT // 2 + 1, N_MELS, sample_rate, 0.0, None, None)
+    return ((np.log(1e-5 + mel) - MEL_MEAN) / MEL_STD).astype(np.float32)

@@ -28,10 +28,14 @@ backward, and, with a log writer, the factorization probes
 (train/probes.py) are logged every `probe_interval` steps (default
 1000 * log_interval). `donate_params` is accepted and changes nothing: it
 is an XLA buffer-aliasing switch of the JAX loop, with no effect on any
-number. Two keys raise `NotImplementedError`, as what they ask for is not
-ported: an `F0_path` that exists, with `inline_f0` not false (the inline
-JDC F0 teacher, ROADMAP Queue 1, item 9), and `tensor_parallel` over 1 (the
-heads sharded over a model axis, item 11).
+number. Where `F0_path` names a file that exists and `inline_f0` is not
+false, the loop reads it as the JDC F0 teacher (the reference's
+`modules/JDC/bst.t7` layout, through `models.jdc.load_jdc_checkpoint`),
+prints `inline F0 teacher: <path>`, and the step runs the teacher on every
+mel segment in place of the batch's F0, as the JAX loop does; a file that
+does not load raises. `tensor_parallel` over 1 (the heads sharded over a
+model axis) raises `NotImplementedError`: it is not ported (ROADMAP Queue
+1, item 11).
 
 Draws: the step's (dropout, quantizer dropout, residual mask) from a
 generator on the device seeded with seed + 1; the data order from seed
@@ -52,6 +56,7 @@ import torch
 import torch.nn as nn
 
 from facodec_tpu_torch.config import FLAGSHIP_TRAIN
+from facodec_tpu_torch.models.jdc import load_jdc_checkpoint
 from facodec_tpu_torch.models.builder import build_train_from_fields, train_fields
 from facodec_tpu_torch.train.data import (PseudoDataset, prefetch, segment_batch,
                                           shard_iterator, to_device)
@@ -142,16 +147,21 @@ def build_models(fields: Mapping[str, Mapping[str, Any]], seed: int, device: str
 
 def check_unported(cfg: Mapping[str, Any]) -> None:
     """Raise on a config key whose JAX behaviour is not ported."""
-    f0_path = cfg.get("F0_path", "")
-    if cfg.get("inline_f0", True) and f0_path and os.path.exists(f0_path):
-        raise NotImplementedError(f"F0_path {f0_path!r} exists: the JAX loop would run the JDC "
-                                  "F0 teacher inside the step, which is not ported (ROADMAP "
-                                  "Queue 1, item 9); set inline_f0: false to train on "
-                                  "batch['f0']")
     if int(cfg.get("tensor_parallel", 1)) > 1:
         raise NotImplementedError(f"tensor_parallel {cfg['tensor_parallel']}: sharding the "
                                   "heads over a model axis is not ported (ROADMAP Queue 1, "
                                   "item 11)")
+
+
+def inline_f0_teacher(cfg: Mapping[str, Any], device: str) -> Optional[nn.Module]:
+    """The JDC teacher of `F0_path` on `device` where that file exists and
+    `inline_f0` is not false (the JAX loop's rule), else None."""
+    f0_path = cfg.get("F0_path", "")
+    if not (cfg.get("inline_f0", True) and f0_path and os.path.exists(f0_path)):
+        return None
+    teacher = load_jdc_checkpoint(f0_path, device)
+    print(f"inline F0 teacher: {f0_path}")
+    return teacher
 
 
 def _default_writer(log_dir: str):
@@ -194,7 +204,8 @@ def run_training(config_path: Optional[str] = None,
         print(f"resumed from {resume} (epoch {state.epoch}, step {state.step})")
     make_step = (make_codec_train_step_split if cfg.get("split_step", False)
                  else make_codec_train_step)
-    step_fn = make_step(models, optimizers, remat=bool(cfg.get("remat", False)))
+    step_fn = make_step(models, optimizers, remat=bool(cfg.get("remat", False)),
+                        f0_teacher=inline_f0_teacher(cfg, device))
 
     if dataset is None:
         # labels within the heads' classes (the flagship's are the defaults)

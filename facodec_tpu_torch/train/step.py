@@ -32,18 +32,24 @@ after): the recompute draws the very masks the forward drew. The kernels'
 `autograd.Function`s run again inside the recompute.
 
 The loss weights are the reference's. The step runs in float32 with TF32
-off (`api.float32_exact`), as the codec's calls do. Teacher targets (F0,
-phones, speaker) come in the batch; the inline JDC F0 teacher and bfloat16
-training are not ported and raise (ROADMAP Queue 1, items 9-10).
+off (`api.float32_exact`), as the codec's calls do; bfloat16 training is not
+ported and raises (ROADMAP Queue 1, item 10). Teacher targets (phones,
+speaker) come in the batch, and so does F0 unless an `f0_teacher` is given:
+a `models.jdc.JDCNet` (in eval, frozen) that the step runs on
+`batch["mel_seg"]` under `torch.no_grad()` before anything else, as the
+JAX step runs its teacher inline (the reference's semantics). It is outside
+every `remat` checkpoint and every optimizer, and its F0 replaces
+`batch["f0"]` for the step's losses; with a `mark`, its part is "teacher".
 
 batch (tensors on the models' device, fixed shapes):
-  wave_seg (B, Tw), mel_seg (B, F, 80), f0 (B, F), phone_ids (B, F),
-  spk_labels (B,), full_waves (B, Tmax), wave_lens (B,).
+  wave_seg (B, Tw), mel_seg (B, F, 80), f0 (B, F) (not read with a
+  teacher), phone_ids (B, F), spk_labels (B,), full_waves (B, Tmax),
+  wave_lens (B,).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Optional, Sequence
+from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -193,18 +199,25 @@ def _no_mark(name: str) -> None:
     pass
 
 
-def _check_options(precision: str, f0_teacher: Any) -> None:
+def _check_precision(precision: str) -> None:
     if precision != "float32":
         raise NotImplementedError(f"precision={precision!r} training is not ported; the step "
                                   "trains in float32 (ROADMAP Queue 1, item 10)")
-    if f0_teacher is not None:
-        raise NotImplementedError("the inline JDC F0 teacher is not ported; targets come in "
-                                  "batch['f0'] (ROADMAP Queue 1, item 9)")
+
+
+def with_teacher_f0(f0_teacher: nn.Module, batch: Mapping[str, torch.Tensor]
+                    ) -> Mapping[str, torch.Tensor]:
+    """`batch` with `f0` from the teacher on its mel segment."""
+    with torch.no_grad():
+        f0, _ = f0_teacher(batch["mel_seg"])
+    return {**batch, "f0": f0}
 
 
 def _make_step(models: Mapping[str, nn.Module], optimizers: Mapping[str, AdamW], remat: bool,
-               split: bool):
+               split: bool, f0_teacher: Optional[nn.Module]):
     disc = models["discriminator"]
+    if f0_teacher is not None:
+        f0_teacher.eval()
 
     def disc_loss_fn(fake, real):
         return discriminator_loss(*disc_pair(disc, fake, real))
@@ -218,6 +231,9 @@ def _make_step(models: Mapping[str, nn.Module], optimizers: Mapping[str, AdamW],
                    mark: Optional[Callable[[str], None]] = None):
         mark = mark or _no_mark
         with float32_exact():
+            if f0_teacher is not None:
+                batch = with_teacher_f0(f0_teacher, batch)
+                mark("teacher")
             real = batch["wave_seg"][:, :, None]
             if split:
                 start = None if generator is None else generator.get_state()
@@ -254,7 +270,7 @@ def _make_step(models: Mapping[str, nn.Module], optimizers: Mapping[str, AdamW],
 
 def make_codec_train_step(models: Mapping[str, nn.Module], optimizers: Mapping[str, AdamW],
                           remat: bool = False, precision: str = "float32",
-                          f0_teacher: Any = None):
+                          f0_teacher: Optional[nn.Module] = None):
     """Returns `train_step(batch, generator, mark=None) -> (metrics, grads)`.
     `generator` (on the models' device) feeds every draw of the generator
     forward. Metrics are 0-d tensors on the device: every `loss/*` of the JAX
@@ -263,18 +279,21 @@ def make_codec_train_step(models: Mapping[str, nn.Module], optimizers: Mapping[s
     parameter got none, in the optimizer's order]}. `mark`, if given, is
     called with each part's name as the host finishes issuing it:
     "forward", "disc" (phase D with its update), "gen_loss", "backward",
-    "update" (a profiler's phase boundaries)."""
-    _check_options(precision, f0_teacher)
-    return _make_step(models, optimizers, remat, split=False)
+    "update" (a profiler's phase boundaries), after "teacher" where an
+    `f0_teacher` (module docstring) gives the step its F0."""
+    _check_precision(precision)
+    return _make_step(models, optimizers, remat, split=False, f0_teacher=f0_teacher)
 
 
 def make_codec_train_step_split(models: Mapping[str, nn.Module],
                                 optimizers: Mapping[str, AdamW], remat: bool = False,
-                                precision: str = "float32", f0_teacher: Any = None):
+                                precision: str = "float32",
+                                f0_teacher: Optional[nn.Module] = None):
     """The split step (module docstring), with `make_codec_train_step`'s
     signature and returns; its phase G makes one discriminator pass over
     concat(fake, real), as the JAX split step's default `paired_g` does.
     Marks: "disc" (phase D: its forward, loss and update), "forward" (phase
-    G's forward), "gen_loss", "backward", "update"."""
-    _check_options(precision, f0_teacher)
-    return _make_step(models, optimizers, remat, split=True)
+    G's forward), "gen_loss", "backward", "update", after "teacher" with an
+    `f0_teacher`."""
+    _check_precision(precision)
+    return _make_step(models, optimizers, remat, split=True, f0_teacher=f0_teacher)

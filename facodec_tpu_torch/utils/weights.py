@@ -6,10 +6,11 @@ before them (`block.1` -> `block_1`), the reference's `conv`/`convtr`
 wrapper levels drop out, fixed DSP buffers map to None, and parametrized
 weight-norm keys become `weight_g`/`weight_v`.
 
-`load_jax_params` copies a JAX numpy parameter tree into a port module;
-`load_torch_checkpoint` copies a torch-saved checkpoint file (one state dict
-per module, as the reference's `pytorch_model.bin`) into port modules, both
-by the same path rule and with the same checks. Orbax training checkpoints
+`load_jax_params` copies a JAX numpy parameter tree into a port module
+(`load_jax_jdc_params` the JDC teacher's, whose JAX names follow their own
+rule); `load_torch_checkpoint` copies a torch-saved checkpoint file (one
+state dict per module, as the reference's `pytorch_model.bin`) into port
+modules, both by the same path rule and with the same checks. Orbax training checkpoints
 are the JAX trainer's format and are not read here. `init_random_` gives a
 module seeded random weights from a torch.Generator, drawn as the JAX
 package's initialisers draw them.
@@ -62,14 +63,14 @@ def flatten_tree(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> dict:
 
 
 def _copy_by_path(module: nn.Module, flat: Mapping[Tuple[str, ...], Any], caller: str,
-                  source: str) -> None:
+                  source: str, path_of=torch_key_to_path) -> None:
     """Copy {param path: array} into `module`, each port key through
-    `torch_key_to_path`. Raises on a port key with no source parameter, on a
-    source parameter no port key reaches, and on a shape mismatch."""
+    `path_of`. Raises on a port key with no source parameter, on a source
+    parameter no port key reaches, and on a shape mismatch."""
     state = module.state_dict()
     missing, shapes, used = [], [], set()
     for key, dst in state.items():
-        path = torch_key_to_path(key)
+        path = path_of(key)
         if path not in flat:
             missing.append(key)
             continue
@@ -95,6 +96,23 @@ def _copy_by_path(module: nn.Module, flat: Mapping[Tuple[str, ...], Any], caller
 def load_jax_params(module: nn.Module, params: Mapping[str, Any]) -> None:
     """Copy a JAX parameter tree (numpy leaves) into `module` by key name."""
     _copy_by_path(module, flatten_tree(params), "load_jax_params", "JAX")
+
+
+def jdc_key_to_path(key: str) -> Tuple[str, ...]:
+    """A `models.jdc.JDCNet` key -> the JAX JDCNet's param path: the inverse
+    of facodec_tpu/models/jdc.py `convert_jdc_state_dict`. The LSTM's
+    tensors sit under one composite name (`bilstm_classifier/weight_ih_l0`),
+    and `res_blockN.conv.M` keeps its Sequential index in the name
+    (`conv_M`), which `torch_key_to_path`'s `conv` rule would drop."""
+    if key.startswith("bilstm_classifier."):
+        return (key.replace(".", "/", 1),)
+    return torch_key_to_path(key.replace(".conv.", ".conv_"))
+
+
+def load_jax_jdc_params(module: nn.Module, params: Mapping[str, Any]) -> None:
+    """Copy the JAX JDCNet's parameter tree (numpy leaves) into a
+    `models.jdc.JDCNet`, with `load_jax_params`'s checks."""
+    _copy_by_path(module, flatten_tree(params), "load_jax_jdc_params", "JAX", jdc_key_to_path)
 
 
 def load_torch_checkpoint(modules: Mapping[str, nn.Module], path: str) -> None:

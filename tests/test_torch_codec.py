@@ -161,7 +161,10 @@ def test_import_leaves_jax_out():
             "facodec_tpu_torch.losses, facodec_tpu_torch.ops.gradrev, "
             "facodec_tpu_torch.nn.alias_free, facodec_tpu_torch.profile, "
             "facodec_tpu_torch.ops.resample, facodec_tpu_torch.train.probes, "
-            "facodec_tpu_torch.train.redecoder_step, facodec_tpu_torch.train.redecoder_loop; "
+            "facodec_tpu_torch.train.redecoder_step, facodec_tpu_torch.train.redecoder_loop, "
+            "facodec_tpu_torch.models.jdc, facodec_tpu_torch.ops.metrics, "
+            "facodec_tpu_torch.cli.evaluate, facodec_tpu_torch.cli.extract_targets, "
+            "facodec_tpu_torch.cli.assemble_data; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'facodec_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

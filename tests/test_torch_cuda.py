@@ -547,12 +547,13 @@ def _no_dropout(models):
     return models
 
 
-def test_train_step_card_matches_cpu():
+def _step_card_vs_cpu(teacher_file=None):
     """One seed on both devices, every draw off: the card's step (kernels,
     12 residual units and 6 VQ searches in its one generator forward) against
     the CPU's (plain versions): every loss and gradient norm within 1e-3
-    relative, and every module's parameters moved alike."""
-    _need_cuda()
+    relative, and every module's parameters moved alike. With a JDC file,
+    each device's step runs that teacher inline."""
+    from facodec_tpu_torch.models.jdc import load_jdc_checkpoint
     from facodec_tpu_torch.train.data import PseudoDataset, collate, segment_batch, to_device
     from facodec_tpu_torch.train.loop import build_models
     from facodec_tpu_torch.train.optimizers import build_optimizers
@@ -563,7 +564,8 @@ def test_train_step_card_matches_cpu():
     out = {}
     for device in ("cpu", "cuda"):
         models = _no_dropout(build_models(TRAIN_FIELDS, 3, device))
-        step = make_codec_train_step(models, build_optimizers(models))
+        teacher = load_jdc_checkpoint(teacher_file, device) if teacher_file else None
+        step = make_codec_train_step(models, build_optimizers(models), f0_teacher=teacher)
         before = resunit.fused_residual_unit.launches, vq.nearest_code.launches
         metrics, _ = step(to_device(seg, device), None)
         launched = (resunit.fused_residual_unit.launches - before[0],
@@ -577,6 +579,17 @@ def test_train_step_card_matches_cpu():
     for k in p_cpu:
         for a, b in zip(p_gpu[k], p_cpu[k]):
             torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+
+
+def test_train_step_card_matches_cpu():
+    _need_cuda()
+    _step_card_vs_cpu()
+
+
+def test_train_step_with_teacher_card_matches_cpu(jdc_file):
+    """The same with the JDC teacher inline on each device."""
+    _need_cuda()
+    _step_card_vs_cpu(jdc_file)
 
 
 def test_run_training_on_card(tmp_path):
@@ -730,3 +743,104 @@ def test_run_redecoder_training_on_card(tmp_path):
             assert torch.equal(t.cpu(), seeded[k].state_dict()[n]), f"{k}.{n}"
     assert latest_checkpoint(str(tmp_path)).endswith("_step_00002.pth")
     assert run(3).step == 3
+
+
+# ------------------------------------------------------------------ own data
+# The JDC teacher's F0, card against CPU, of max|F0| (chip_smoke.py's limit).
+TEACHER_TOL = 1e-3
+
+
+@pytest.fixture(scope="module")
+def jdc_file(tmp_path_factory):
+    """A seeded JDC state dict in the reference's layout, as a file."""
+    from facodec_tpu_torch.models.jdc import random_reference_state_dict
+
+    path = tmp_path_factory.mktemp("jdc") / "bst.t7"
+    torch.save({"net": random_reference_state_dict(0)}, path)
+    return str(path)
+
+
+@pytest.mark.parametrize("B,T", [(1, 80), (4, 80), (1, 2400)])
+def test_jdc_teacher_card_matches_cpu(jdc_file, B, T):
+    """The teacher on the card (cuDNN convolutions and LSTM, TF32 off inside
+    its forward whatever the global flags say) against the CPU's."""
+    _need_cuda()
+    from facodec_tpu_torch.models.jdc import load_jdc_checkpoint
+
+    mel = torch.randn(B, T, 80, generator=torch.Generator().manual_seed(T + B)) - 2.0
+    f0 = {}
+    for device in ("cpu", "cuda"):
+        with torch.no_grad():
+            f0[device] = load_jdc_checkpoint(jdc_file, device)(mel.to(device))[0].cpu()
+    gap = (f0["cuda"] - f0["cpu"]).abs().max().item()
+    print(f"JDC B={B} T={T}: max |F0 card - F0 cpu| {gap:.3e} Hz of max|F0| "
+          f"{f0['cpu'].abs().max().item():.1f}")
+    assert f0["cuda"].shape == (B, T) and torch.isfinite(f0["cuda"]).all()
+    assert gap <= TEACHER_TOL * f0["cpu"].abs().max().item()
+
+
+def test_extract_targets_jdc_on_card(tmp_path, jdc_file):
+    """`extract_targets --teachers jdc --device cuda` writes each wav's F0
+    within the teacher's limit of the same command on the CPU."""
+    _need_cuda()
+    from scipy.io import wavfile
+
+    from facodec_tpu_torch.cli import extract_targets
+
+    wavs = {}
+    for device in ("cpu", "cuda"):
+        d = tmp_path / device
+        d.mkdir()
+        rows = []
+        for i, seconds in enumerate((1.0, 2.5)):
+            path = str(d / f"u{i}.wav")
+            wavfile.write(path, 24000, (0.5 * sweep_wave(1, seconds, seed=i)[0] * 32767
+                                        ).astype(np.int16))
+            rows.append(f"{path}\t{i}\ten\ttext\tphones\n")
+        (d / "list.txt").write_text("".join(rows))
+        assert extract_targets.main(["--manifest", str(d / "list.txt"), "--teachers", "jdc",
+                                     "--jdc-ckpt", jdc_file, "--device", device]) == 0
+        wavs[device] = [np.load(r.split("\t")[0] + ".targets.npz")["f0"] for r in rows]
+    for got, want in zip(wavs["cuda"], wavs["cpu"]):
+        assert got.shape == want.shape and np.isfinite(got).all()
+        assert np.abs(got - want).max() <= TEACHER_TOL * np.abs(want).max()
+
+
+# The scorecard, card against CPU, on one seed: codes >= 0.99 equal; the
+# decodes differ by float32 rounding, so the losses within 1e-3 relative,
+# SNR, SI-SDR and MCD within 0.05 dB, STOI within 1e-3, the F0 probes'
+# correlations and voicing agreements within 0.05 (a frame's voicing at the
+# 0.3 threshold can flip), NaN where the CPU's is NaN.
+SCORECARD_TOL = dict(mel_l1=("rel", 1e-3), stft_l1=("rel", 1e-3), snr_db=("abs", 0.05),
+                     si_sdr_db=("abs", 0.05), mcd_db=("abs", 0.05), stoi=("abs", 1e-3),
+                     f0_corr_prosody=("abs", 0.05), f0_corr_content=("abs", 0.05),
+                     voicing_agree_prosody=("abs", 0.05), voicing_agree_content=("abs", 0.05))
+
+
+def test_evaluate_utterance_card_matches_cpu():
+    """`evaluate_utterance` at kernel widths: 24 residual-unit launches for
+    the round trip, 12 for each of the two subset decodes, 6 VQ searches."""
+    _need_cuda()
+    from facodec_tpu_torch.cli.evaluate import evaluate_utterance
+
+    wave = 0.5 * sweep_wave(1, 2.0, seed=21)[0]
+    cards, codes = {}, {}
+    for device in ("cpu", "cuda"):
+        codec = FACodec.from_fields(SMALL_CODEC, seed=5, device=device, n_c=2)
+        before = resunit.fused_residual_unit.launches, vq.nearest_code.launches
+        cards[device] = evaluate_utterance(codec, wave)
+        launched = (resunit.fused_residual_unit.launches - before[0],
+                    vq.nearest_code.launches - before[1])
+        assert launched == ((0, 0) if device == "cpu" else (48, 6)), launched
+        f = codec.encode(wave)
+        codes[device] = np.concatenate([f.codes_p, f.codes_c, f.codes_r], axis=1)
+    assert (codes["cuda"] == codes["cpu"]).mean() >= 0.99
+    got, want = cards["cuda"], cards["cpu"]
+    print("scorecard card / cpu: " + ", ".join(
+        f"{k} {got[k]:.6g} / {want[k]:.6g}" for k in SCORECARD_TOL))
+    for k, (kind, tol) in SCORECARD_TOL.items():
+        if np.isnan(want[k]):
+            assert np.isnan(got[k]), k
+            continue
+        limit = tol * abs(want[k]) if kind == "rel" else tol
+        assert abs(got[k] - want[k]) <= limit, (k, got[k], want[k])

@@ -1,6 +1,6 @@
 """The port's serving surface against the JAX package, on the CPU: torch
 checkpoints, `.fac` files, stream subsets, voice conversion, the host-side
-copies (loudness, config, wav) and the four CLIs.
+copies (loudness, config, wav), the four CLIs and the `evaluate` scorecard.
 
 One torch checkpoint file per stage is written from JAX parameters of the
 tiny config with the JAX package's own `export_state_dict`, under the port's
@@ -12,6 +12,7 @@ full scale, plus rounding).
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 
@@ -468,3 +469,66 @@ def test_cli_convert_matches_jax(env, jax_cli_models, flags):
     got = port_main.main(["convert"] + argv + ["--output", str(d / f"vc{tag}.wav"),
                                                "--device", "cpu"])
     _assert_wavs_close(got, want)
+
+
+# ------------------------------------------------------------ evaluate
+# Scorecard metrics, port against JAX: the decodes agree within the golden
+# tolerance (above), and the metrics computed from them (dB, STOI, the
+# losses) within 1e-4, absolute and relative; NaN where JAX's is NaN.
+EVAL_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _assert_scorecards_close(got: dict, want: dict):
+    assert set(got) == set(want)
+    for k, v in want.items():
+        if isinstance(v, dict):  # code_usage: counts of distinct codes, exact
+            assert got[k] == v, k
+        elif isinstance(v, str):  # the wav's path
+            assert os.path.basename(got[k]) == os.path.basename(v), k
+        elif v is None or np.isnan(v):
+            assert got[k] is None or np.isnan(got[k]), k
+        else:
+            np.testing.assert_allclose(got[k], v, err_msg=k, **EVAL_TOL)
+
+
+@pytest.fixture(scope="module")
+def j_scorecard(env):
+    """JAX's scorecard of the fixture's wave (its compiles are warm)."""
+    from facodec_tpu.cli.evaluate import evaluate_utterance as j_evaluate_utterance
+
+    return j_evaluate_utterance(env["jc"], env["wave"][0])
+
+
+def test_evaluate_utterance_matches_jax(env, j_scorecard):
+    from facodec_tpu_torch.cli.evaluate import evaluate_utterance
+
+    got = evaluate_utterance(env["pc"], env["wave"][0])
+    assert "f0_corr_prosody" in got and np.isfinite(got["si_sdr_db"])
+    _assert_scorecards_close(got, j_scorecard)
+
+
+def test_cli_evaluate_matches_jax(env, j_scorecard):
+    """`evaluate.main` on tests/tiny_config.yml with --device cpu, on a
+    two-row manifest: the JSON row of the fixture's wave is JAX's scorecard
+    (NaN as null), and the aggregate is the NaN-skipping mean of the rows."""
+    from facodec_tpu.cli.evaluate import jsonsafe as j_jsonsafe
+    from facodec_tpu_torch.cli import evaluate
+
+    d = env["dir"]
+    manifest = d / "eval.txt"
+    manifest.write_text(f"{env['src_wav']}\t1\ten\tx\ty\n{env['tgt_wav']}\t2\ten\tx\ty\n")
+    assert evaluate.main(["--manifest", str(manifest), "--config-path", TINY, "--ckpt-path",
+                          env["ckpt"]["codec"], "--json", str(d / "eval.json"),
+                          "--device", "cpu"]) == 0
+    out = json.loads((d / "eval.json").read_text())
+    rows = out["utterances"]
+    assert len(rows) == 2 and rows[0]["path"] == env["src_wav"]
+    _assert_scorecards_close({k: v for k, v in rows[0].items() if k != "path"},
+                             j_jsonsafe(j_scorecard))
+    assert set(out["aggregate"]) == set(evaluate.AGG_KEYS)
+    for k, v in out["aggregate"].items():
+        vals = [r[k] for r in rows if r[k] is not None]
+        if vals:
+            np.testing.assert_allclose(v, np.mean(vals), rtol=1e-12, err_msg=k)
+        else:
+            assert v is None, k

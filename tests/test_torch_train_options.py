@@ -16,8 +16,8 @@ mask), from one generator seed:
 - the residual units and the VQ searches each variant runs: split runs the
   generator forward twice, `remat` recomputes it once in the backward.
 The codec loop: `split_step` runs the split step, `remat` reaches the step,
-a `probe_interval` with a writer logs `probe/*` audio, and an existing
-`F0_path` or `tensor_parallel: 2` raises.
+a `probe_interval` with a writer logs `probe/*` audio, `tensor_parallel: 2`
+raises, and an `F0_path` with `inline_f0: false` is not read.
 """
 
 import numpy as np
@@ -295,10 +295,11 @@ def test_loop_logs_probes(tmp_path):
 
 
 def test_loop_raises_on_unported_keys(tmp_path):
+    """`tensor_parallel: 2` raises; an F0_path with `inline_f0: false` trains
+    on the batch's F0 without reading the file (tests/test_torch_jdc.py runs
+    an existing F0_path as the inline teacher)."""
     f0 = tmp_path / "jdc.pth"
     f0.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        train(tmp_path, F0_path=str(f0))
     with pytest.raises(NotImplementedError, match="item 11"):
         train(tmp_path, tensor_parallel=2)
     # the offline targets, as the JAX loop takes them with inline_f0 off

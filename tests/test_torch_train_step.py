@@ -129,8 +129,8 @@ def assert_grad_close(got, want, name, rel=1e-3):
     assert err <= bound, f"{name}: max err {err:.3e} > {bound:.3e} (max|g| {np.abs(want).max():.3e})"
 
 
-def _jax_step(models, optimizers):
-    parts = _make_parts(models, remat=False, precision="float32", f0_teacher=None,
+def _jax_step(models, optimizers, f0_teacher=None):
+    parts = _make_parts(models, remat=False, precision="float32", f0_teacher=f0_teacher,
                         paired_g=False)
 
     def step(params, opt_states, batch, rng):
@@ -149,8 +149,9 @@ def _jax_step(models, optimizers):
     return jax.jit(step)
 
 
-@pytest.fixture(scope="module")
-def jax_side():
+def _jax_run(f0_teacher=None):
+    """The seeded models, their JAX parameters, optimizers and batch, and
+    one JAX step's metrics and gradients (dropout off)."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
         models = {k: J_CLASSES[k](**FIELDS[k]) for k in MODULES}
@@ -160,12 +161,19 @@ def jax_side():
         optimizers = j_build_optimizers(models.keys(), base_lr=1e-4)
         opt_states = init_opt_states(optimizers, params)
         batch = make_batch(np.random.default_rng(0))
-        metrics, grads = _jax_step(models, optimizers)(
+        metrics, grads = _jax_step(models, optimizers, f0_teacher)(
             params, opt_states, {k: jnp.asarray(v) for k, v in batch.items()},
             jax.random.PRNGKey(1))
-        yield dict(models=models, params=params, optimizers=optimizers, opt_states=opt_states,
-                   batch=batch, metrics={k: float(v) for k, v in metrics.items()},
-                   grads=jax.tree.map(np.asarray, grads))
+    return dict(models=models, params=params, optimizers=optimizers, opt_states=opt_states,
+                batch=batch, metrics={k: float(v) for k, v in metrics.items()},
+                grads=jax.tree.map(np.asarray, grads))
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    with pytest.MonkeyPatch.context() as mp:  # dropout off for the module's tests
+        mp.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
+        yield _jax_run()
 
 
 @pytest.fixture(scope="module")
@@ -320,3 +328,31 @@ def test_predictors_match_jax(jax_side):
     want = by_path(port, jgp)
     for name, p in port.named_parameters():
         assert_grad_close(p.grad, want[name], name)
+
+
+@pytest.mark.slow
+def test_step_with_teacher_matches_jax(tmp_path):
+    """The step with the JDC teacher inline, from a seeded reference-layout
+    file that both packages' loaders read, against JAX's fused step with
+    its `f0_teacher`: every loss within 2e-4 and every gradient as above
+    (JAX's `tests/test_train_step.py::test_inline_f0_teacher_step` is slow
+    too: it compiles the step with the teacher)."""
+    from facodec_tpu.models.jdc import JDCNet as JJDCNet
+    from facodec_tpu.models.jdc import load_jdc_checkpoint as j_load_jdc_checkpoint
+    from facodec_tpu_torch.models.jdc import load_jdc_checkpoint, random_reference_state_dict
+
+    path = str(tmp_path / "bst.t7")
+    torch.save({"net": random_reference_state_dict(0)}, path)
+    want = _jax_run((JJDCNet(), j_load_jdc_checkpoint(path)))
+    models = port_models(want["params"])
+    optimizers = build_optimizers(models, base_lr=1e-4)
+    step = make_codec_train_step(models, optimizers, f0_teacher=load_jdc_checkpoint(path, "cpu"))
+    batch = {k: torch.from_numpy(v) for k, v in want["batch"].items()}
+    metrics, grads = step(batch, torch.Generator().manual_seed(1))
+    for k, v in want["metrics"].items():
+        if k.startswith("loss/"):
+            np.testing.assert_allclose(float(metrics[k]), v, err_msg=k, **TOL)
+    for module in MODULES:
+        ref = by_path(models[module], want["grads"][module])
+        for name, g in zip(optimizers[module].names, grads[module]):
+            assert_grad_close(g, ref[name], f"{module}.{name}")
