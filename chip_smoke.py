@@ -105,7 +105,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    heads and its discriminator, seeded random weights). 10a: one training
    forward at batch 4 x 80 frames (PseudoDataset utterances of 1-30 s,
    cropped as the loop crops them); on the inputs of its 24 residual units
-   (forward pre-hooks) the kernel's autograd.Function against the plain
+   (forward pre-hooks) the kernel's custom op (its registered gradient) against the plain
    composition's autograd, forward within phase 2a's limit and the
    gradients of x, both weights, both biases and both alphas within
    1e-4 x max|g|, with forward and forward+backward times; on its 6 VQ
@@ -125,7 +125,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    redecoder with dropout 0.2, its non-causal decoder and the
    discriminator, seed 0). 11a: one redecoder-training forward at batch
    4 x 80 frames; on the inputs of its 12 non-causal decoder units the
-   kernel's autograd.Function against the plain composition's autograd, as
+   kernel's custom op against the plain composition's autograd, as
    10a. 11b: one draws-off step, CPU against card, batch 1 x 20 frames,
    within 1e-3 relative. 11c: `run_redecoder_training(fields=
    FLAGSHIP_REDECODER_TRAIN, device="cuda")` for 6 steps (the first a
@@ -163,14 +163,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    card against CPU: codes >= 0.99 equal, every metric within the limits
    of `SCORECARD_TOL`.
 
+13. AOT export and serving from an artifact (runs after 9a, on the phase-3
+   codec's modules, seeded weights saved first as a port checkpoint):
+   `export_codec` of a hybrid artifact (all five functions) and a float32
+   one (`encode_masked`, `reconstruct_masked`) at batch 4 x 10 s, export
+   seconds per function and artifact bytes against the checkpoint's (the
+   artifact must be smaller: it stores no parameter); `ExportedCodec` with
+   `load_params` from the checkpoint and its first reconstruct (its
+   program's load included) against `FACodec.from_fields` with the
+   checkpoint and `CodecService.warmup()`; for both policies codes and
+   timbre equal to the live codec's, `reconstruct_masked` within 1e-5 max
+   abs (float32) or 1e-3 err/scale (hybrid) of live with the live path's
+   launches (24 float32 units and 6 VQ; 12, 12 bf16 and 6), the hybrid
+   artifact's encode, decode and reconstruct too, and reconstruct times,
+   live and artifact in turns, 5 each. 13b: an `ArtifactService` (batch 4)
+   and a live `CodecService` of the same cap and bucket behind
+   `make_server`, 8 concurrent 10 s /reconstruct requests to each in turns
+   (live, artifact, artifact, live): requests/s, and each served wave within
+   err / scale 2e-2 of the live hybrid codec's on the same request.
+
 The line before the last is the kernels' JSON summary; the last line is the
 run's JSON result. The kernels' `train_launches` are a training step's,
 `train_ms` their device time in the traced step, `train_grad_max_rel` the
 worst gradient gap of phase 10a; `redecoder_train_launches`,
 `redecoder_train_ms` and `redecoder_grad_max_rel` are the same for the
 redecoder step (11c, 11a); `teacher_train_launches` are a step's with the
-inline teacher (12b) and `eval_launches` one `evaluate_utterance`'s (12c;
-under `hybrid` for the bf16 entry).
+inline teacher (12b), `eval_launches` one `evaluate_utterance`'s (12c;
+under `hybrid` for the bf16 entry) and `artifact_launches` one
+`reconstruct_masked` of the float32 artifact (the bf16 entry: of the hybrid
+one; the float32 entry's `artifact_hybrid_launches` are the hybrid one's).
 """
 
 from __future__ import annotations
@@ -213,6 +234,7 @@ from facodec_tpu_torch.train.redecoder_step import (frozen_encode, make_redecode
                                                     redecoder_forward)
 from facodec_tpu_torch.train.step import (gen_forward, make_codec_train_step,
                                           make_codec_train_step_split)
+from facodec_tpu_torch.utils import export
 from facodec_tpu_torch.utils.signals import sweep_wave
 
 SR = 24000
@@ -1024,7 +1046,7 @@ def phase_bf16(calls: list) -> dict:
             args = (x, conv7.effective_weight(), conv7.bias, conv1.effective_weight(), conv1.bias,
                     snake1.alpha, snake2.alpha, d, causal)
             pack = unit.bf16_pack(x)  # kept by the decode that gave x
-            if pack is None or pack.maps is None:
+            if pack is None:
                 raise AssertionError("the decoder unit keeps no packed operands")
             got = resunit.fused_residual_unit(*args)
             packed = resunit.fused_residual_unit_packed(x, pack, d, causal)
@@ -1040,7 +1062,7 @@ def phase_bf16(calls: list) -> dict:
                 raise AssertionError(f"bf16 entry {tuple(x.shape)} d={d}: {ulps} ulps > "
                                      f"{BF16_MAX_ULPS}")
             B, T, C = x.shape
-            pad_left, ext = resunit._reflect_extent(T, d, causal)
+            pad_left, ext = resunit.reflect_extent(T, d, causal)
             out = torch.empty_like(x)
 
             def launch():
@@ -1375,7 +1397,7 @@ def draws_off(models: dict) -> dict:
 
 
 def unit_grad_checks(units: list, gen: torch.Generator) -> tuple:
-    """Each captured unit input through the kernel's autograd.Function and
+    """Each captured unit input through the kernel's custom op and
     the plain composition's autograd: forward within phase 2a's limit, the
     gradients of x, both weights, both biases and both alphas within
     TRAIN_GRAD_TOL x max|g|; forward and forward+backward times.
@@ -2139,6 +2161,229 @@ def phase_own(smi: str) -> tuple:
     return data, tr, sc
 
 
+ARTIFACT_F32_TOL = 1e-5  # a float32 artifact's waves against the live codec's, max abs
+ARTIFACT_HYBRID_TOL = 1e-3  # a hybrid artifact's waves against the live hybrid codec's, err/scale
+ARTIFACT_TURNS = 5  # timed reconstructs of each, live and artifact in turns
+
+
+def check_artifact_wave(label: str, prec: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """A float32 artifact's max abs gap, a hybrid one's err/scale at the
+    worst sample, each held to its limit."""
+    g, w_ = got.cpu().numpy(), want.cpu().numpy()
+    if g.shape != w_.shape or not np.isfinite(g).all():
+        raise AssertionError(f"{label}: {g.shape} against {w_.shape}, or not finite")
+    if prec == "float32":
+        gap, limit, what = float(np.abs(g - w_).max()), ARTIFACT_F32_TOL, "max abs"
+    else:
+        gap, limit, what = wave_gap(g, w_)[0], ARTIFACT_HYBRID_TOL, "err/scale"
+    log(f"  {label}: {what} {gap:.3e} from live (limit {limit}); bit-equal "
+        f"{bool(np.array_equal(g, w_))}")
+    if not gap <= limit:
+        raise AssertionError(f"{label}: {what} {gap} > {limit}")
+    return gap
+
+
+def phase_artifact(codec: FACodec, w: np.ndarray, smi: str) -> dict:
+    """Phase 13: export hybrid (all five functions) and float32 (the two
+    masked ones) artifacts of the flagship codec at batch B x 10 s, load
+    them with the weights of a port checkpoint, hold them to the live codec
+    (codes equal, waves, launches), time them against it in turns, and serve
+    the hybrid one over HTTP against a live CodecService."""
+    B, T = w.shape
+    log(f"phase 13: AOT export (torch.export) and serve --artifact, flagship, batch {B} x "
+        f"{SECONDS:.0f} s [{smi}]")
+    codec_hy = FACodec(codec.encoder, codec.quantizer, codec.decoder, precision="hybrid")
+    live = {"float32": codec, "hybrid": codec_hy}
+    tmp = tempfile.mkdtemp(prefix="facodec_artifact_")
+    try:
+        ckpt = os.path.join(tmp, "codec.pth")
+        torch.save({k: getattr(codec, k).state_dict() for k in export.MODULES}, ckpt)
+        ckpt_bytes = os.path.getsize(ckpt)
+        dirs, export_s, art_bytes = {}, {}, {}
+        for prec, fns in (("hybrid", tuple(export.FUNCTIONS)),
+                          ("float32", ("encode_masked", "reconstruct_masked"))):
+            dirs[prec] = os.path.join(tmp, prec)
+            rep = export.export_codec(live[prec], dirs[prec], batch=B, seconds=SECONDS,
+                                      functions=fns)
+            export_s[prec] = {n: r["seconds"] for n, r in rep.items()}
+            art_bytes[prec] = sum(r["bytes"] for r in rep.values())
+            log(f"  export {prec}: " + ", ".join(f"{n} {r['seconds']:.1f} s, {r['bytes']} B"
+                                                  for n, r in rep.items())
+                + f"; {art_bytes[prec]} B in all, the checkpoint {ckpt_bytes} B [{smi}]")
+            if not art_bytes[prec] < ckpt_bytes:
+                raise AssertionError(f"the {prec} artifact ({art_bytes[prec]} B) is not smaller "
+                                     f"than the checkpoint ({ckpt_bytes} B)")
+
+        wt = torch.from_numpy(w).cuda()
+        lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exported = {"hybrid": export.ExportedCodec(dirs["hybrid"])}
+        params = exported["hybrid"].load_params(ckpt)
+        t_load = time.perf_counter() - t0  # meta.json and the weights; programs load on use
+        exported["hybrid"].reconstruct_masked(params, wt, lens)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        exported["float32"] = export.ExportedCodec(dirs["float32"])
+        t0 = time.perf_counter()
+        fresh = FACodec.from_fields(FLAGSHIP, ckpt_path=ckpt, precision="hybrid", device="cuda")
+        svc = serve_cli.CodecService(fresh, bucket_seconds=SECONDS)
+        t_build = time.perf_counter() - t0
+        t_warm = svc.warmup()
+        svc.close()
+        del fresh
+        log(f"  hybrid artifact: ExportedCodec + load_params {t_load:.2f} s, then the first "
+            f"reconstruct_masked with its program's load, {t_first:.2f} s in all; live: FACodec.from_fields + checkpoint {t_build:.2f} s, "
+            f"CodecService.warmup {t_warm:.2f} s [{smi}]")
+
+        launches, gaps, times = {}, {}, {}
+        for prec in ("float32", "hybrid"):
+            exp, c = exported[prec], live[prec]
+            with torch.no_grad():
+                _, codes, timbre = c.encode_tensor(wt, lens)
+                cp, cc, cr, tm = exp.encode_masked(params, wt, lens)
+                for name, a, b in zip(("codes_p", "codes_c", "codes_r"), (cp, cc, cr), codes):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"{prec} artifact {name} differ from live's "
+                                             f"({int((a != b).sum())} of {a.numel()})")
+                if not torch.equal(tm, timbre):
+                    raise AssertionError(f"{prec} artifact timbre differs from live's")
+                reset_counts()
+                y_art = exp.reconstruct_masked(params, wt, lens)
+                torch.cuda.synchronize()
+                n_art = all_counts()
+                reset_counts()
+                y_live = c.decode_latent(c.encode_tensor(wt, lens)[0])
+                torch.cuda.synchronize()
+                n_live = all_counts()
+            log(f"  {prec}: codes and timbre equal to live's; reconstruct_masked launches "
+                f"{n_art} (live {n_live})")
+            if n_art != n_live:
+                raise AssertionError(f"{prec}: the artifact launched {n_art}, live {n_live}")
+            launches[prec] = n_art
+            gaps[prec] = check_artifact_wave(f"{prec} reconstruct_masked", prec, y_art, y_live)
+            if prec == "hybrid":  # the other three functions of the artifact
+                with torch.no_grad():
+                    enc = exp.encode(params, wt)
+                    _, codes, timbre = c.encode_tensor(wt)
+                    for a, b in zip(enc, (*codes, timbre)):
+                        if not torch.equal(a, b):
+                            raise AssertionError("hybrid artifact encode differs from live's")
+                    gaps["hybrid_decode"] = check_artifact_wave(
+                        "hybrid decode", prec, exp.decode(params, *enc),
+                        c.decode_tensor(*enc))
+                    gaps["hybrid_reconstruct"] = check_artifact_wave(
+                        "hybrid reconstruct", prec, exp.reconstruct(params, wt),
+                        c.decode_latent(c.encode_tensor(wt)[0]))
+            runs = {"live": lambda: c.decode_latent(c.encode_tensor(wt, lens)[0]),
+                    "artifact": lambda: exp.reconstruct_masked(params, wt, lens)}
+            times[prec] = {"live": [], "artifact": []}
+            for i in range(ARTIFACT_TURNS):
+                for k in (("live", "artifact") if i % 2 == 0 else ("artifact", "live")):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    runs[k]()
+                    torch.cuda.synchronize()
+                    times[prec][k].append(1e3 * (time.perf_counter() - t0))
+            med = {k: statistics.median(v) for k, v in times[prec].items()}
+            log(f"  {prec} reconstruct, {ARTIFACT_TURNS} each in turns: live "
+                + ", ".join(f"{t:.2f}" for t in times[prec]["live"]) + " ms, artifact "
+                + ", ".join(f"{t:.2f}" for t in times[prec]["artifact"])
+                + f" ms; medians {med['live']:.2f} / {med['artifact']:.2f} ms "
+                f"({med['artifact'] - med['live']:+.2f} ms) [{smi}]")
+            times[prec]["median"] = med
+        served = phase_artifact_serve(dirs["hybrid"], params, codec_hy, smi)
+        return dict(launches=launches, gaps=gaps, times=times, export_s=export_s,
+                    art_bytes=art_bytes, ckpt_bytes=ckpt_bytes, t_load=t_load, t_first=t_first,
+                    t_build=t_build, t_warm=t_warm, **served)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _concurrent_rps(base: str, blobs: list) -> tuple:
+    """(requests/s, outputs) of len(blobs) concurrent /reconstruct requests."""
+    results, errors = [None] * len(blobs), []
+
+    def worker(i):
+        try:
+            results[i] = serve_cli.read_wav_bytes(_http("POST", f"{base}/reconstruct", blobs[i]))
+        except Exception as e:  # noqa: BLE001 -- reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(blobs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    elapsed = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"concurrent requests failed: {errors}")
+    return len(blobs) / elapsed, results
+
+
+def phase_artifact_serve(art_dir: str, params: dict, codec_hy: FACodec, smi: str) -> dict:
+    """13b: 8 concurrent 10 s /reconstruct requests to an ArtifactService
+    (batch 4) and to a live CodecService of the same batch cap and bucket,
+    in turns (live, artifact, artifact, live)."""
+    n_req = 8
+    art = serve_cli.ArtifactService(art_dir, params, batch_window_ms=200.0)
+    live = serve_cli.CodecService(codec_hy, bucket_seconds=SECONDS, max_batch=art.max_batch,
+                                  batch_window_ms=200.0)
+    servers = {k: serve_cli.make_server(v, "127.0.0.1", 0)
+               for k, v in (("artifact", art), ("live", live))}
+    for server in servers.values():
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = {k: f"http://127.0.0.1:{v.server_address[1]}" for k, v in servers.items()}
+    log(f"phase 13b: serve --artifact ({base['artifact']}) against live CodecService "
+        f"({base['live']}), hybrid, batch cap {art.max_batch}, bucket {SECONDS:.0f} s, "
+        f"{n_req} concurrent requests of {SECONDS:.0f} s")
+    try:
+        blobs = [serve_cli.write_wav_bytes(x) for x in sweep_wave(n_req, SECONDS, seed=30)]
+        waves = [serve_cli.read_wav_bytes(b) for b in blobs]  # as the server reads them
+        for b in base.values():
+            _http("POST", f"{b}/reconstruct", blobs[0])  # warm up
+        rps = {"live": [], "artifact": []}
+        calls0 = art._batcher.calls
+        reset_counts()
+        outs = None
+        for k in ("live", "artifact", "artifact", "live"):
+            r, got = _concurrent_rps(base[k], blobs)
+            rps[k].append(r)
+            if k == "artifact":
+                outs = got
+        n = all_counts()
+        calls = art._batcher.calls - calls0
+        log(f"  requests/s (in turns): live {', '.join(f'{r:.2f}' for r in rps['live'])}; "
+            f"artifact {', '.join(f'{r:.2f}' for r in rps['artifact'])}; the artifact's "
+            f"{2 * n_req} requests ran as {calls} device calls; launches of all four rounds "
+            f"{n} [{smi}]")
+        # each served wave against the live hybrid codec's reconstruct of the
+        # request padded into a batch of the artifact's size, through WAV
+        served_gap = 0.0
+        for i, x in enumerate(waves):
+            batch = np.zeros((art.max_batch, x.shape[-1]), np.float32)
+            batch[0] = x
+            with torch.no_grad():
+                y = codec_hy.decode_latent(codec_hy.encode_tensor(torch.from_numpy(batch).cuda())[0])
+            want = serve_cli.read_wav_bytes(serve_cli.write_wav_bytes(y[:1].cpu().numpy()))
+            served_gap = max(served_gap, check_hybrid_gap(f"served request {i} vs live", outs[i],
+                                                          want)[0])
+        health = json.loads(_http("GET", f"{base['artifact']}/health"))
+        metrics = _http("GET", f"{base['artifact']}/metrics").decode()
+        if health.get("artifact") is not True or "facodec_artifact 1" not in metrics:
+            raise AssertionError(f"artifact /health {health}")
+        log(f"  /health {health}")
+        return dict(rps_artifact=rps["artifact"], rps_live=rps["live"], served_gap=served_gap,
+                    serve_calls=calls)
+    finally:
+        for server in servers.values():
+            server.shutdown()
+            server.server_close()
+        art.close()
+        live.close()
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2196,6 +2441,7 @@ def main() -> None:
     bf = phase_bf16(unit_inputs((codec_hy.decoder,), lambda: codec_hy.decode(f32_codes), 12))
     sv = phase_serve(codec_hy)
     live = phase_live(codec_hy)
+    art = phase_artifact(codec, w, smi)
     del codec, codec_hy, codec_vc, cpu, red
     torch.cuda.empty_cache()
 
@@ -2238,7 +2484,9 @@ def main() -> None:
              redecoder_train_ms=rt["kernel_ms"]["residual-unit kernel"],
              redecoder_grad_max_rel=rk["grad_max_rel"],
              teacher_train_launches=own_tr["per_step"]["f32"],
-             eval_launches=own_sc["eval_launches"]["float32"]["f32"], bound_by="operations",
+             eval_launches=own_sc["eval_launches"]["float32"]["f32"],
+             artifact_launches=art["launches"]["float32"]["f32"],
+             artifact_hybrid_launches=art["launches"]["hybrid"]["f32"], bound_by="operations",
              library_ms=None, **ru, **halo),
         dict(name="nearest_code", route="cuda", source="facodec_tpu_torch/csrc/vq.cu",
              replaces="facodec_tpu/ops/pallas/vq.py:76", launches=main_path["vq"],
@@ -2249,6 +2497,7 @@ def main() -> None:
              redecoder_train_ms=rt["kernel_ms"]["VQ kernel"],
              teacher_train_launches=own_tr["per_step"]["vq"],
              eval_launches=own_sc["eval_launches"]["float32"]["vq"],
+             artifact_launches=art["launches"]["float32"]["vq"],
              bound_by="operations", library_ms=None, **vqr),
         # the bf16 entry (csrc/resunit_bf16.cu): its main path is the hybrid
         # round trip (the serve default), whose 12 decoder units it runs
@@ -2258,6 +2507,7 @@ def main() -> None:
              hybrid_launches=hy["launches"]["bf16"], train_launches=0,
              redecoder_train_launches=0, teacher_train_launches=0,
              eval_launches=own_sc["eval_launches"]["hybrid"]["bf16"],
+             artifact_launches=art["launches"]["hybrid"]["bf16"],
              decode_kernels=hy["decode_kernels"],
              decode_kernels_per_call_pack=hy["decode_kernels_per_call_pack"], library_ms=None,
              **bf),
@@ -2294,6 +2544,14 @@ def main() -> None:
         f"evaluate_utterance {own_sc['eval_ms']['float32']:.1f} ms float32, "
         f"{own_sc['eval_ms']['hybrid']:.1f} ms hybrid per 10 s; hybrid vs float32 SI-SDR "
         + ", ".join(f"{v:.2f}" for v in own_sc["hybrid_si_sdr_db"]) + f" dB [{smi}]")
+    log(f"artifact: export " + "; ".join(
+        f"{p} {sum(v.values()):.1f} s ({len(v)} functions), {art['art_bytes'][p]} B"
+        for p, v in art["export_s"].items())
+        + f" against a {art['ckpt_bytes']} B checkpoint; reconstruct medians "
+        + "; ".join(f"{p} live {t['median']['live']:.2f} ms, artifact "
+                    f"{t['median']['artifact']:.2f} ms" for p, t in art["times"].items())
+        + f"; served {', '.join(f'{r:.2f}' for r in art['rps_artifact'])} requests/s against "
+        f"live {', '.join(f'{r:.2f}' for r in art['rps_live'])} [{smi}]")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,9 @@
   decode        .fac -> wav
   convert       zero-shot voice conversion (codec + redecoder)
   stream        chunked streaming round trip, with its per-chunk latency
-  serve         HTTP inference server (and, with --stream-port, live streams)
+  serve         HTTP inference server (and, with --stream-port, live streams;
+                with --artifact, from an exported artifact)
+  export        AOT artifacts of the codec's functions (torch.export)
   train         codec GAN training, resuming from the latest checkpoint
   train-redecoder
                 redecoder GAN training against a frozen codec (stage 2),
@@ -23,6 +25,7 @@ import sys
 
 from facodec_tpu_torch.cli import codec as codec_cli
 from facodec_tpu_torch.cli import convert as convert_cli
+from facodec_tpu_torch.cli import export_model as export_cli
 from facodec_tpu_torch.cli import reconstruct as reconstruct_cli
 from facodec_tpu_torch.cli import serve as serve_cli
 from facodec_tpu_torch.cli import stream as stream_cli
@@ -38,11 +41,13 @@ def main(argv=None):
     codec_cli.add_decode_args(sub.add_parser("decode"))
     stream_cli.add_args(sub.add_parser("stream"))
     serve_cli.add_args(sub.add_parser("serve"))
+    export_cli.add_args(sub.add_parser("export"))
     train_cli.add_args(sub.add_parser("train"))
     train_cli.add_redecoder_args(sub.add_parser("train-redecoder"))
     commands = {"reconstruct": reconstruct_cli.main, "convert": convert_cli.main,
                 "encode": codec_cli.main_encode, "decode": codec_cli.main_decode,
-                "stream": stream_cli.main, "serve": serve_cli.main, "train": train_cli.main,
+                "stream": stream_cli.main, "serve": serve_cli.main, "export": export_cli.main,
+                "train": train_cli.main,
                 "train-redecoder": train_cli.main_redecoder}
     args = parser.parse_args(argv)
     return commands[args.command](args)

@@ -31,14 +31,20 @@ The default precision is `hybrid`: a float32 encode (exact codes) and a
 bf16-activation decode (ops/precision.py). The server runs on the card
 unless given `--device cpu`.
 
-Left out (ROADMAP): serving from an AOT export (`--artifact`, item 12) and
-data-parallel inference over several cards (`--shard-inference`, item 11);
-both exit with a message.
+With --artifact DIR (and --ckpt-path for the weights) it serves an AOT
+export (`python -m facodec_tpu_torch export`, utils/export.py) through
+`ArtifactService`: one pinned (batch, seconds) program per function, no
+tracing at serving time.
+
+Left out (ROADMAP item 11, multi-GPU): data-parallel inference over several
+cards (`--shard-inference`), which exits with a message.
 
 Usage:
   python -m facodec_tpu_torch serve [--config-path cfg.yml] [--ckpt-path x.bin]
       [--port 8080] [--redecoder-config cfg.yml --redecoder-ckpt y.bin]
       [--precision hybrid] [--stream-port 8081] [--device cuda]
+  python -m facodec_tpu_torch serve --artifact DIR --ckpt-path x.pth [--port 8080]
+      [--device cuda]
 """
 
 from __future__ import annotations
@@ -183,7 +189,39 @@ class _MicroBatcher:
             self._cv.notify_all()
 
 
-class CodecService:
+class _Service:
+    """What both services share: one device lock, the micro-batcher over
+    `_run_batch`, and the request counters and latency windows that
+    /health and /metrics read."""
+
+    def __init__(self, max_batch: int, batch_window_ms: float):
+        self.max_batch = max_batch
+        self.lock = threading.Lock()
+        self.started = time.time()
+        self.requests = 0
+        self.stream_port = None  # set when a live-stream server attaches
+        self.streaming = None  # the StreamingService, for /metrics
+        self._stats_lock = threading.Lock()
+        self._lat = collections.defaultdict(lambda: collections.deque(maxlen=512))
+        self._batcher = _MicroBatcher(self._run_batch, window_s=batch_window_ms / 1e3,
+                                      max_batch=max_batch)
+
+    def _count_request(self, op=None, t0=None):
+        with self._stats_lock:
+            self.requests += 1
+            if op is not None:
+                self._lat[op].append(time.perf_counter() - t0)
+
+    def close(self) -> None:
+        self._batcher.close()
+
+
+def _device_name(dev: torch.device) -> str:
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type
+    return f"{dev.type}:{kind}"
+
+
+class CodecService(_Service):
     """Bucketed, lock-serialized inference over a FACodec (and, for
     /convert, an FARedecoder). Independent of the HTTP layer."""
 
@@ -196,22 +234,7 @@ class CodecService:
         self.stream_threshold_frames = int(stream_threshold_seconds * SR) // HOP
         self.max_frames = int(max_seconds * SR) // HOP
         # a collected batch is padded up to a power of two, within the cap
-        self.max_batch = 1 << (max(1, max_batch).bit_length() - 1)
-        self.lock = threading.Lock()
-        self.started = time.time()
-        self.requests = 0
-        self.stream_port = None  # set when a live-stream server attaches
-        self.streaming = None  # the StreamingService, for /metrics
-        self._stats_lock = threading.Lock()
-        self._lat = collections.defaultdict(lambda: collections.deque(maxlen=512))
-        self._batcher = _MicroBatcher(self._run_batch, window_s=batch_window_ms / 1e3,
-                                      max_batch=self.max_batch)
-
-    def _count_request(self, op=None, t0=None):
-        with self._stats_lock:
-            self.requests += 1
-            if op is not None:
-                self._lat[op].append(time.perf_counter() - t0)
+        super().__init__(1 << (max(1, max_batch).bit_length() - 1), batch_window_ms)
 
     # -- shape management ----------------------------------------------------
 
@@ -320,11 +343,9 @@ class CodecService:
         return time.time() - t0
 
     def health(self) -> dict:
-        dev = self.codec.device
-        kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type
         return {
             "status": "ok",
-            "device": f"{dev.type}:{kind}",
+            "device": _device_name(self.codec.device),
             "precision": self.codec.precision,
             "bucket_frames": self.bucket_frames,
             "sample_rate": SR,
@@ -337,13 +358,141 @@ class CodecService:
             "stream_port": self.stream_port,
         }
 
-    def close(self) -> None:
-        self._batcher.close()
+
+class ArtifactService(_Service):
+    """Serve from an AOT export (utils/export.py): no model code is traced
+    at serving time, and the artifact pins ONE (batch, seconds) program per
+    function. Requests zero-pad to the artifact's bucket (the masked
+    functions pool the timbre over the true length) and micro-batch up to
+    the artifact's batch, which is part of each program's signature, so
+    every device call runs at exactly that batch. Codes and waves are
+    trimmed back to the request.
+
+    Not served from an artifact, as in the JAX package: inputs past the
+    bucket (no streaming route), a decode without the residual stream, and
+    voice conversion. `params` is the artifact's parameter dict, or a
+    checkpoint path to read it from (`ExportedCodec.load_params`).
+    Duck-types CodecService for the HTTP layer."""
+
+    def __init__(self, artifact_dir: str, params, batch_window_ms: float = 5.0):
+        from facodec_tpu_torch.utils.export import ExportedCodec
+
+        self.exported = ExportedCodec(artifact_dir)
+        m = self.exported.meta
+        self.params = (self.exported.load_params(params) if isinstance(params, str)
+                       else params)
+        self.frames = int(m["frames"])
+        self.precision = m["precision"]
+        self.redecoder = None
+        super().__init__(int(m["batch"]), batch_window_ms)
+
+    def _bucketed(self, wave: np.ndarray):
+        T = len(wave) // HOP * HOP
+        frames = T // HOP
+        if frames == 0:
+            raise ValueError(f"input shorter than one hop ({HOP} samples)")
+        if frames > self.frames:
+            raise ValueError(f"input ({frames} frames) exceeds the artifact bucket "
+                             f"({self.frames} frames); export a larger artifact")
+        row = np.zeros(self.frames * HOP, np.float32)
+        row[:T] = wave[:T]
+        return row, T, frames
+
+    def _run_batch(self, key, payloads):
+        """One call of a masked function at the artifact's batch: the
+        requests' rows, then zero rows of full length."""
+        (op,) = key
+        n = len(payloads)
+        waves = np.zeros((self.max_batch, self.frames * HOP), np.float32)
+        lens = np.full(self.max_batch, self.frames * HOP, np.int32)
+        for i, (row, T) in enumerate(payloads):
+            waves[i] = row
+            lens[i] = T
+        dev = self.exported.device
+        w, wl = torch.from_numpy(waves).to(dev), torch.from_numpy(lens).to(dev)
+        with self.lock:
+            if op == "reconstruct":
+                out = self.exported.reconstruct_masked(self.params, w, wl).cpu().numpy()
+                return [out[i : i + 1] for i in range(n)]
+            cp, cc, cr, tm = (t.cpu().numpy()
+                              for t in self.exported.encode_masked(self.params, w, wl))
+        return [(cp[i : i + 1], cc[i : i + 1], cr[i : i + 1], tm[i : i + 1]) for i in range(n)]
+
+    def encode(self, wave: np.ndarray):
+        from facodec_tpu_torch.codec_file import FACodecFile
+
+        t0 = time.perf_counter()
+        row, T, true_frames = self._bucketed(np.asarray(wave, np.float32))
+        cp, cc, cr, timbre = self._batcher.submit(("encode",), (row, T))
+        cp, cc, cr = (c[..., :true_frames] for c in (cp, cc, cr))
+        self._count_request("encode", t0)
+        return FACodecFile(codes_p=cp.astype(np.uint16), codes_c=cc.astype(np.uint16),
+                           codes_r=cr.astype(np.uint16), timbre=timbre, sample_rate=SR,
+                           hop_length=HOP, original_length=true_frames * HOP)
+
+    def decode(self, f, use_residual: bool = True) -> np.ndarray:
+        t0 = time.perf_counter()
+        if not use_residual or f.codes_r is None:
+            raise ValueError("the exported decode signature requires residual codes")
+        B, frames = f.codes_p.shape[0], f.codes_p.shape[-1]
+        if frames > self.frames or B > self.max_batch:
+            raise ValueError(f"codes ({B}x{frames}) exceed the artifact signature "
+                             f"({self.max_batch}x{self.frames})")
+        dev = self.exported.device
+
+        def pad(c):
+            full = np.zeros((self.max_batch, c.shape[1], self.frames), np.int32)
+            full[:B, :, :frames] = c
+            return torch.from_numpy(full).to(dev)
+
+        tm = np.zeros((self.max_batch, f.timbre.shape[-1]), np.float32)
+        tm[:B] = f.timbre
+        with self.lock:
+            wave = self.exported.decode(self.params, pad(f.codes_p), pad(f.codes_c),
+                                        pad(f.codes_r), torch.from_numpy(tm).to(dev))
+            wave = wave.cpu().numpy()
+        self._count_request("decode", t0)
+        # causal decoder: the zero-padded tail frames cannot reach the kept prefix
+        return wave[:B, : (f.original_length or frames * HOP)]
+
+    def reconstruct(self, wave: np.ndarray) -> np.ndarray:
+        t0 = time.perf_counter()
+        row, T, true_frames = self._bucketed(np.asarray(wave, np.float32))
+        out = self._batcher.submit(("reconstruct",), (row, T))
+        self._count_request("reconstruct", t0)
+        return out[:, : true_frames * HOP]
+
+    def convert(self, source, target):
+        raise RuntimeError("VC is not available when serving from an artifact (serve with "
+                           "--config-path / --redecoder-config instead)")
+
+    def warmup(self) -> float:
+        """Run the bucket once (reconstruct); returns seconds."""
+        t0 = time.time()
+        self.reconstruct(np.zeros(self.frames * HOP, np.float32))
+        return time.time() - t0
+
+    def health(self) -> dict:
+        return {
+            "status": "ok",
+            "device": _device_name(self.exported.device),
+            "precision": self.precision,
+            "artifact": True,
+            "bucket_frames": self.frames,
+            "sample_rate": SR,
+            "vc_available": False,
+            "uptime_s": round(time.time() - self.started, 1),
+            "requests": self.requests,
+            "max_batch": self.max_batch,
+            "device_calls": self._batcher.calls,
+            "max_batch_seen": self._batcher.max_seen,
+        }
 
 
 def render_metrics(service) -> str:
     """Prometheus text: request and device-call counters, and per-op
-    latency quantiles over a 512-sample sliding window."""
+    latency quantiles over a 512-sample sliding window (CodecService and
+    ArtifactService alike; an artifact's adds `facodec_artifact 1`)."""
     h = service.health()
     lines = [
         "# TYPE facodec_requests_total counter",
@@ -354,8 +503,10 @@ def render_metrics(service) -> str:
         f"facodec_max_batch_seen {h['max_batch_seen']}",
         "# TYPE facodec_uptime_seconds gauge",
         f"facodec_uptime_seconds {h['uptime_s']}",
-        "# TYPE facodec_request_latency_seconds summary",
     ]
+    if h.get("artifact"):
+        lines += ["# TYPE facodec_artifact gauge", "facodec_artifact 1"]
+    lines.append("# TYPE facodec_request_latency_seconds summary")
     with service._stats_lock:
         snap = {op: list(d) for op, d in service._lat.items()}
     for op, xs in sorted(snap.items()):
@@ -470,7 +621,9 @@ def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "published FLAGSHIP fields")
     p.add_argument("--ckpt-path", default=None)
     p.add_argument("--artifact", default=None,
-                   help="serving from an AOT export is not ported yet (ROADMAP item 12)")
+                   help="serve an AOT export dir (python -m facodec_tpu_torch export): no "
+                        "model tracing at serving time; requires --ckpt-path for the "
+                        "weights, and --device the artifact's")
     p.add_argument("--redecoder-config", default=None, help="enable /convert")
     p.add_argument("--redecoder-ckpt", default=None)
     p.add_argument("--host", default="127.0.0.1")
@@ -507,12 +660,11 @@ def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
 def main(args) -> int:
     from facodec_tpu_torch.cli import load_codec, load_redecoder
 
-    if args.artifact:
-        raise SystemExit("serve: --artifact (serving from an AOT export) is not ported yet: "
-                         "ROADMAP item 12 (utils/export.py)")
     if args.shard_inference:
         raise SystemExit("serve: --shard-inference is not ported yet: ROADMAP item 11 "
                          "(multi-GPU)")
+    if args.artifact:
+        return _serve_artifact(args)
     codec = load_codec(args.config_path, args.ckpt_path, 2, args.device, args.precision)
     redecoder = (load_redecoder(args.redecoder_config, args.redecoder_ckpt, args.device)
                  if args.redecoder_config else None)
@@ -539,6 +691,33 @@ def main(args) -> int:
               flush=True)
     print(f"facodec_tpu_torch serving on http://{args.host}:{server.server_address[1]}",
           flush=True)
+    _serve(server, service, stream_server)
+    return 0
+
+
+def _serve_artifact(args) -> int:
+    from facodec_tpu_torch.utils.export import read_meta
+
+    if not args.ckpt_path:
+        print("--artifact requires --ckpt-path (the weights)")
+        return 2
+    device = torch.device(read_meta(args.artifact)["device"])
+    if torch.device(args.device).type != device.type:
+        raise SystemExit(f"serve: the artifact was exported on {device}, and runs there "
+                         f"only (--device {device.type})")
+    service = ArtifactService(args.artifact, args.ckpt_path,
+                              batch_window_ms=args.batch_window_ms)
+    if not args.no_warmup:
+        print(f"warmup: the artifact's bucket ({service.frames} frames)...", flush=True)
+        print(f"warmup done in {service.warmup():.1f}s", flush=True)
+    server = make_server(service, args.host, args.port)
+    print(f"facodec_tpu_torch serving artifact on http://{args.host}:"
+          f"{server.server_address[1]}", flush=True)
+    _serve(server, service)
+    return 0
+
+
+def _serve(server, service, stream_server=None) -> None:
     try:
         server.serve_forever()
     except KeyboardInterrupt:
@@ -549,4 +728,3 @@ def main(args) -> int:
             stream_server.shutdown()
             stream_server.server_close()
         service.close()
-    return 0

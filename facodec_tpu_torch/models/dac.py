@@ -9,7 +9,8 @@ Every ResidualUnit goes through `ops.kernels.resunit`: the CUDA kernel for a
 tensor on the card, the plain composition on the CPU. On the card, under
 the `bfloat16_act` policy (bf16 activations, no gradient, eval mode), a unit
 keeps its operands packed for the bf16 entry and repacks only when one of
-its parameters changes.
+its parameters changes; in a program being exported (utils/export.py) the
+packing is graph ops, on every device.
 
 Streaming (causal models): every module takes `stream` and `first`. With a
 stream, a dict of carries keyed by the JAX module names (`block_1`,
@@ -54,30 +55,34 @@ class ResidualUnit(nn.Module):
         ])
         self._bf16: Optional[Tuple[tuple, Bf16Pack]] = None  # (key, pack)
 
+    def _operands(self):
+        snake1, conv7, snake2, conv1 = self.block
+        return (conv7.effective_weight(), conv7.bias, conv1.effective_weight(), conv1.bias,
+                snake1.alpha, snake2.alpha)
+
     def bf16_pack(self, x: torch.Tensor) -> Optional[Bf16Pack]:
         """The bf16 entry's packed operands for x, or None where the unit
         does not run from a pack: x not bf16 (not the `bfloat16_act`
         policy), gradients enabled, or training (the bf16 entry is forward
         only). The pack is kept and rebuilt when a parameter's version
-        (an in-place update) or storage changes, or x's device does."""
+        (an in-place update) or storage changes, or x's device does. In a
+        program being exported it is made by graph ops on every call: the
+        program keeps no state, and a traced tensor has no storage."""
         if x.dtype != torch.bfloat16 or self.training or torch.is_grad_enabled():
             return None
+        if torch.compiler.is_exporting():
+            return pack_bf16(*self._operands())
         key = (x.device, *((p.data_ptr(), p._version) for p in self.parameters()))
         if self._bf16 is None or self._bf16[0] != key:
-            snake1, conv7, snake2, conv1 = self.block
-            self._bf16 = key, pack_bf16(conv7.effective_weight(), conv7.bias,
-                                        conv1.effective_weight(), conv1.bias, snake1.alpha,
-                                        snake2.alpha)
+            self._bf16 = key, pack_bf16(*self._operands())
         return self._bf16[1]
 
     def forward(self, x: torch.Tensor, stream: Stream = None, first: bool = False):
-        if stream is None and x.is_cuda:
+        if stream is None and (x.is_cuda or torch.compiler.is_exporting()):
             pack = self.bf16_pack(x)
             if pack is not None:
                 return fused_residual_unit_packed(x.contiguous(), pack, self.dilation, self.causal)
-        snake1, conv7, snake2, conv1 = self.block
-        args = (conv7.effective_weight(), conv7.bias, conv1.effective_weight(), conv1.bias,
-                snake1.alpha, snake2.alpha, self.dilation)
+        args = (*self._operands(), self.dilation)
         if stream is None:
             return fused_residual_unit(x.contiguous(), *args, self.causal)
         if not self.causal:

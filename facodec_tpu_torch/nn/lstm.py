@@ -14,7 +14,10 @@ the bf16 skip is float32. cuDNN cannot round h at each step, and a Python
 loop over the 800 steps of a 10 s decode is not a route on the card. So
 the port runs the float32 LSTM on the bf16-rounded input and weights
 (biases stay float32): every rounding but h's. The rounded weights are a
-cached copy of `lstm`, made again whenever a parameter changes.
+cached copy of `lstm`, made again whenever a parameter changes; in a
+program being exported (utils/export.py) they are graph ops on every call,
+run through `lstm` by `torch.func.functional_call`, which still lowers to
+one `aten.lstm` (cuDNN on the card).
 """
 
 from __future__ import annotations
@@ -57,7 +60,13 @@ class SLSTM(nn.Module):
     def forward(self, x: torch.Tensor, state: Optional[LSTMState] = None,
                 return_state: bool = False):
         if bf16_active():
-            y, new_state = self._bf16_lstm()(bf16_values(x), state)
+            if torch.compiler.is_exporting():
+                rounded = {name: bf16_values(p) if name.startswith("weight") else p
+                           for name, p in self.lstm.named_parameters()}
+                y, new_state = torch.func.functional_call(self.lstm, rounded,
+                                                          (bf16_values(x), state))
+            else:
+                y, new_state = self._bf16_lstm()(bf16_values(x), state)
             y = y + x.float()
         else:
             y, new_state = self.lstm(x, state)

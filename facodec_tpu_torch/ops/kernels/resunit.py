@@ -1,4 +1,4 @@
-"""Fused DAC residual unit: CUDA kernel wrapper and its plain PyTorch version.
+"""Fused DAC residual unit: CUDA kernel wrappers and their plain PyTorch versions.
 
 Port of facodec_tpu/ops/pallas/resunit.py. Computes
 
@@ -8,28 +8,35 @@ x NTC (B, T, C) float32, with the effective (weight-normed) torch-layout
 weights w7 (C, C, 7) and w1 (C, C, 1) and alphas of shape (1, C, 1). The pad
 is SConv1d's: reflect, (6d, 0) when causal, split otherwise.
 
-`fused_residual_unit` runs `residual_unit_reference` for a tensor on the
-CPU; for a CUDA tensor it launches csrc/resunit.cu (3xTF32 tensor cores,
-with a scratch buffer for the block-local snake1 and y2 rows) or raises.
-On the card the float32 entry is a `torch.autograd.Function`: its forward
-is the kernel, and its backward is the JAX package's `_bwd`, the gradient
-of the plain composition recomputed from the saved inputs, for x, w7, b7,
-w1, b1 and both alphas (the weights are the effective weight-norm weights,
-so the gradient flows on through the weight norm in autograd).
+The wrappers check their operands and call the custom ops of ops.py
+(`facodec::resunit_f32`, `facodec::resunit_bf16`,
+`facodec::resunit_halo_f32`): on a CUDA tensor the op launches
+csrc/resunit.cu (3xTF32 tensor cores, with a scratch buffer for the
+block-local snake1 and y2 rows) or raises. On a CPU tensor the wrapper runs
+`residual_unit_reference` itself, and goes through the op (whose CPU
+implementation is that same function) only while a program is being
+exported, where the op is one graph node: eagerly, the op's dispatch would
+add about 0.2 ms to every small call. The float32 entry carries gradients (the op's
+`register_autograd`): the JAX package's `_bwd`, the gradient of the plain
+composition recomputed from the saved inputs, for x, w7, b7, w1, b1 and
+both alphas (the weights are the effective weight-norm weights, so the
+gradient flows on through the weight norm in autograd).
 
-A bf16 x (the decoder under the `bfloat16_act` policy) goes to the bf16
-entry, csrc/resunit_bf16.cu (wgmma, weights by TMA), with its own launch
-count (`fused_residual_unit.bf16_launches`; `launches` counts the float32
-entry): bf16 operands, float32 sums, rounded where the JAX package's
-default path rounds. Its plain version is `residual_unit_reference` under
-that policy; the weights, biases and alphas stay float32 parameters, and
-the policy rounds them. The kernel takes them packed (`pack_bf16`: w7 as
-the (out, 7C) K-major bf16 matrix, w1, the bf16 biases, the snake
-reciprocals and the TMA tensor maps of both weights). `fused_residual_unit`
-packs on every call; `fused_residual_unit_packed` (card only) takes a pack
-that the caller keeps (`models.dac.ResidualUnit` keeps one per weight
-version). The bf16 entry and the halo entry below are forward only (the
-hybrid decode and streams serve): asked for a gradient, they raise.
+A bf16 x (the decoder under the `bfloat16_act` policy) goes on the card to
+the bf16 entry, csrc/resunit_bf16.cu (wgmma, weights by TMA), with its own
+launch count (`fused_residual_unit.bf16_launches`; `launches` counts the
+float32 entry): bf16 operands, float32 sums, rounded where the JAX
+package's default path rounds. Its plain version is
+`residual_unit_reference` under that policy; the weights, biases and alphas
+stay float32 parameters, and the policy rounds them. The kernel takes them
+packed (`pack_bf16`: w7 as the (out, 7C) K-major bf16 matrix, w1, the bf16
+biases and the snake reciprocals); the TMA tensor maps of both weights are
+encoded at launch (`tma_maps`, kept per weight address).
+`fused_residual_unit` packs on every call; `fused_residual_unit_packed`
+takes a pack that the caller keeps (`models.dac.ResidualUnit` keeps one per
+weight version) or, in a program being exported, makes with graph ops. The
+bf16 entry and the halo entry below are forward only (the hybrid decode and
+streams serve): asked for a gradient on the card, they raise.
 
 `fused_residual_unit_stream` runs one chunk of a causal stream through the
 kernel's halo entry (plain version `residual_unit_stream_reference`): the
@@ -41,6 +48,7 @@ reflect. It returns the output and the new halo.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple
@@ -164,7 +172,9 @@ def _check(who: str, name: str, t: Optional[torch.Tensor], shape, device,
         raise ValueError(f"{who}: {name} is on {t.device}, x on {device}")
 
 
-def _aligned16(t: torch.Tensor) -> torch.Tensor:
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its address is not 16-byte aligned (the
+    kernels' vector loads and TMA need it); called where tensors are real."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -198,7 +208,7 @@ def _kernel_operands(x, w7, b7, w1, b1, alpha1, alpha2):
     """The operands as the kernel reads them: x and every weight in its torch
     layout, as given, with 16-byte loads; the snake reciprocals as `snake`
     takes them."""
-    x, w7, w1 = (_aligned16(t.contiguous()) for t in (x, w7, w1))
+    x, w7, w1 = (aligned16(t.contiguous()) for t in (x, w7, w1))
     b7, b1, alpha1, alpha2 = (t.contiguous() for t in (b7, b1, alpha1, alpha2))
     recip1, recip2 = (1.0 / (a + 1e-9) for a in (alpha1, alpha2))
     return x, w7, b7, w1, b1, alpha1, recip1, alpha2, recip2
@@ -215,25 +225,25 @@ def fused_residual_unit(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
                         causal: bool) -> torch.Tensor:
     """out = x + conv1x1(snake(conv7(snake(x)))) in one kernel on the card;
     x float32 (with gradients), or bf16 for the bf16 entry (forward only,
-    the weights packed for this call)."""
+    the weights packed for this call; on the CPU the plain version under the
+    policy, with gradients)."""
     _check_unit("fused_residual_unit", x, w7, b7, w1, b1, alpha1, alpha2, dilation,
                 (torch.float32, torch.bfloat16))
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not torch.compiler.is_exporting():
         return residual_unit_reference(x, w7, b7, w1, b1, alpha1, alpha2, dilation, causal)
     if x.dtype == torch.bfloat16:
         _wants_grad("fused_residual_unit (bf16 entry)", x, w7, b7, w1, b1, alpha1, alpha2)
-        pl, ext = _reflect_extent(x.shape[1], dilation, causal)
-        return launch_bf16(_aligned16(x), pack_bf16(w7, b7, w1, b1, alpha1, alpha2), dilation,
-                           pl, ext)
-    return _ResidualUnitFn.apply(x, w7, b7, w1, b1, alpha1, alpha2, dilation, causal)
+        return torch.ops.facodec.resunit_bf16(x, *pack_bf16(w7, b7, w1, b1, alpha1, alpha2),
+                                              dilation, causal)
+    return torch.ops.facodec.resunit_f32(x, w7, b7, w1, b1, alpha1, alpha2, dilation, causal)
 
 
 class Bf16Pack(NamedTuple):
     """The bf16 entry's operands, packed once per weight version: w7 (C, 7C)
     bf16 with K index tap * C + in, w1 (C, C), b7 and b1 (C) bf16 (as the
     policy rounds them), the alphas and their snake reciprocals
-    1 / (alpha + 1e-9) (C) float32, and the TMA tensor maps of w7 and w1
-    (card only: they hold the two weights' device addresses)."""
+    1 / (alpha + 1e-9) (C) float32; in the order `facodec::resunit_bf16`
+    takes them."""
     w7: torch.Tensor
     w1: torch.Tensor
     b7: torch.Tensor
@@ -242,12 +252,11 @@ class Bf16Pack(NamedTuple):
     recip1: torch.Tensor
     alpha2: torch.Tensor
     recip2: torch.Tensor
-    maps: Optional[ctypes.Array]
 
 
 def pack_bf16(w7, b7, w1, b1, alpha1, alpha2) -> Bf16Pack:
     """The bf16 entry's operands from the effective (weight-normed) float32
-    weights in torch's layout; with the TMA maps where they lie on the card."""
+    weights in torch's layout."""
     C = w7.shape[0]
     bf16 = torch.bfloat16
     with torch.no_grad():
@@ -255,16 +264,37 @@ def pack_bf16(w7, b7, w1, b1, alpha1, alpha2) -> Bf16Pack:
         w1p = w1[:, :, 0].to(bf16).contiguous()
         a1, a2 = (a.reshape(C).clone() for a in (alpha1, alpha2))
         recip1, recip2 = (1.0 / (a + 1e-9) for a in (a1, a2))
-        maps = None
-        if w7.device.type == "cuda":
-            _, encode, nbytes, _, _ = _bf16_entry_points()
-            maps = ctypes.create_string_buffer(nbytes)
-            with torch.cuda.device(w7.device):
-                err = encode(w7p.data_ptr(), w1p.data_ptr(), C, maps)
-            if err != 0:
-                raise RuntimeError(f"pack_bf16: TMA tensor maps failed for C={C}, cudaError {err}")
         return Bf16Pack(w7p, w1p, b7.to(bf16).contiguous(), b1.to(bf16).contiguous(), a1, recip1,
-                        a2, recip2, maps)
+                        a2, recip2)
+
+
+_MAPS: "collections.OrderedDict[tuple, ctypes.Array]" = collections.OrderedDict()
+_MAPS_KEPT = 256  # packs whose maps stay encoded: far more than a model's 12 bf16 units
+
+
+def tma_maps(w7: torch.Tensor, w1: torch.Tensor) -> ctypes.Array:
+    """The TMA tensor maps of a pack's w7 and w1 on the card (host memory,
+    copied into the kernel's parameters at each launch). A map holds the
+    weight's address and shape and no values, so it is kept per (device,
+    addresses, C): a repack in place or a new pack at the same address
+    reuses it, and an exported program's per-call pack, which the caching
+    allocator gives the same addresses, encodes once."""
+    C = w7.shape[0]
+    key = (w7.device.index, w7.data_ptr(), w1.data_ptr(), C)
+    maps = _MAPS.get(key)
+    if maps is None:
+        _, encode, nbytes, _, _ = _bf16_entry_points()
+        maps = ctypes.create_string_buffer(nbytes)
+        with torch.cuda.device(w7.device):
+            err = encode(w7.data_ptr(), w1.data_ptr(), C, maps)
+        if err != 0:
+            raise RuntimeError(f"tma_maps: TMA tensor maps failed for C={C}, cudaError {err}")
+        _MAPS[key] = maps
+        if len(_MAPS) > _MAPS_KEPT:
+            _MAPS.popitem(last=False)
+    else:
+        _MAPS.move_to_end(key)
+    return maps
 
 
 def _check_pack(who: str, pack: Bf16Pack, C: int, device) -> None:
@@ -276,25 +306,22 @@ def _check_pack(who: str, pack: Bf16Pack, C: int, device) -> None:
         _check(who, f"pack.{name}", t, shape, device, (dtype,))
         if not t.is_contiguous():
             raise ValueError(f"{who}: pack.{name} must be contiguous")
-    if device.type == "cuda" and pack.maps is None:
-        raise ValueError(f"{who}: the pack has no TMA tensor maps (packed off the card)")
 
 
 def fused_residual_unit_packed(x, pack: Bf16Pack, dilation: int, causal: bool) -> torch.Tensor:
     """The bf16 entry with operands packed by `pack_bf16`, forward only: x
-    (B, T, C) bf16 on the card (on the CPU, `fused_residual_unit` runs the
-    plain version)."""
+    (B, T, C) bf16 on the card, or any device's in a program being exported
+    (eagerly on the CPU, `fused_residual_unit` runs the plain version)."""
     who = "fused_residual_unit_packed"
     _check_x(who, x, dilation, (torch.bfloat16,))
     _check_pack(who, pack, x.shape[-1], x.device)
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not torch.compiler.is_exporting():
         raise ValueError(f"{who}: the packed entry runs on the card only, x is on {x.device}")
     _wants_grad(who, x)
-    pl, ext = _reflect_extent(x.shape[1], dilation, causal)
-    return launch_bf16(_aligned16(x), pack, dilation, pl, ext)
+    return torch.ops.facodec.resunit_bf16(x, *pack, dilation, causal)
 
 
-def _reflect_extent(T: int, dilation: int, causal: bool) -> Tuple[int, int]:
+def reflect_extent(T: int, dilation: int, causal: bool) -> Tuple[int, int]:
     """(left pad, rows the kernel reflects over): the kernel reflects x's
     rows itself, as `pad1d` pads, and a short input is zero-extended to one
     row more than the longer pad first."""
@@ -302,30 +329,11 @@ def _reflect_extent(T: int, dilation: int, causal: bool) -> Tuple[int, int]:
     return pl, (T if T > max(pl, pr) else max(pl, pr) + 1)
 
 
-class _ResidualUnitFn(torch.autograd.Function):
-    """The float32 entry on the card: the kernel forward, the recomputed
-    plain composition's gradient backward."""
-
-    @staticmethod
-    def forward(ctx, x, w7, b7, w1, b1, alpha1, alpha2, dilation: int, causal: bool):
-        ctx.save_for_backward(x, w7, b7, w1, b1, alpha1, alpha2)
-        ctx.dilation, ctx.causal = dilation, causal
-        return _launch_f32(x, w7, b7, w1, b1, alpha1, alpha2, dilation, causal)
-
-    @staticmethod
-    def backward(ctx, g):
-        needs = ctx.needs_input_grad[:7]
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
-            out = residual_unit_reference(*leaves, ctx.dilation, ctx.causal)
-            wanted = [t for t, n in zip(leaves, needs) if n]
-            grads = iter(torch.autograd.grad(out, wanted, g))
-        return (*(next(grads) if n else None for n in needs), None, None)
-
-
-def _launch_f32(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int, causal: bool) -> torch.Tensor:
+def launch_f32(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int, causal: bool) -> torch.Tensor:
+    """One launch of the float32 one-shot entry on CUDA tensors (the CUDA
+    implementation of `facodec::resunit_f32`)."""
     B, T, C = x.shape
-    pl, ext = _reflect_extent(T, dilation, causal)
+    pl, ext = reflect_extent(T, dilation, causal)
     ops = _kernel_operands(x, w7, b7, w1, b1, alpha1, alpha2)
     out = torch.empty_like(ops[0])
     fn, _, size = _entry_points()
@@ -348,19 +356,21 @@ fused_residual_unit.bf16_launches = 0
 def launch_bf16(x, pack: Bf16Pack, dilation: int, pad_left: int, ext: int,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of the bf16 kernel on checked operands (x contiguous and
-    16-byte aligned, a pack made on x's card), into `out` or a new tensor;
-    the pads as `_reflect_extent` gives them."""
+    16-byte aligned, a pack on x's card), into `out` or a new tensor; the
+    pads as `reflect_extent` gives them (the CUDA implementation of
+    `facodec::resunit_bf16`)."""
     B, T, C = x.shape
+    w7, w1 = (aligned16(t.contiguous()) for t in (pack.w7, pack.w1))
+    rest = [t.contiguous() for t in pack[2:]]
     out = torch.empty_like(x) if out is None else out
     fn, size = (_bf16_entry_points()[i] for i in (0, 4))
+    maps = tma_maps(w7, w1)
     with torch.cuda.device(x.device):
         # the s2 tile of each CTA, for units too wide to keep it in shared memory
         nbytes = size(B, T, C, dilation)
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes > 0 else None
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), ctypes.addressof(pack.maps),
-                 *(t.data_ptr() for t in (pack.b7, pack.b1, pack.alpha1, pack.recip1,
-                                          pack.alpha2, pack.recip2, out)),
+        err = fn(x.data_ptr(), ctypes.addressof(maps), *(t.data_ptr() for t in (*rest, out)),
                  None if scratch is None else scratch.data_ptr(), B, T, C, dilation, pad_left,
                  ext, stream)
     if err != 0:
@@ -400,14 +410,22 @@ def fused_residual_unit_stream(x, halo, w7, b7, w1, b1, alpha1, alpha2, dilation
             raise ValueError(f"{who}: a stream's first chunk needs T > 6d = {H}, got T={T}")
     else:
         _check(who, "halo", halo, (B, H, C), x.device)
-    if x.device.type == "cpu":
+        if x.device.type == "cuda" and not halo.is_contiguous():
+            raise ValueError(f"{who}: halo must be contiguous")
+    if x.device.type == "cpu" and not torch.compiler.is_exporting():
         return residual_unit_stream_reference(x, halo, w7, b7, w1, b1, alpha1, alpha2, dilation)
-    if halo is not None and not halo.is_contiguous():
-        raise ValueError(f"{who}: halo must be contiguous")
+    return torch.ops.facodec.resunit_halo_f32(x, halo, w7, b7, w1, b1, alpha1, alpha2, dilation)
+
+
+def launch_halo(x, halo, w7, b7, w1, b1, alpha1, alpha2, dilation: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the halo entry on CUDA tensors (the CUDA implementation
+    of `facodec::resunit_halo_f32`)."""
+    B, T, C = x.shape
     ops = _kernel_operands(x, w7, b7, w1, b1, alpha1, alpha2)
-    halo = None if halo is None else _aligned16(halo)
+    halo = None if halo is None else aligned16(halo.contiguous())
     out = torch.empty_like(ops[0])
-    new_halo = torch.empty(B, H, C, dtype=torch.float32, device=x.device)
+    new_halo = torch.empty(B, 6 * dilation, C, dtype=torch.float32, device=x.device)
     _, fn, size = _entry_points()
     with torch.cuda.device(x.device):
         scratch = torch.empty(size(B, T, C, dilation), dtype=torch.float32, device=x.device)
@@ -416,7 +434,7 @@ def fused_residual_unit_stream(x, halo, w7, b7, w1, b1, alpha1, alpha2, dilation
                  *(t.data_ptr() for t in ops[1:]), out.data_ptr(), new_halo.data_ptr(),
                  scratch.data_ptr(), B, T, C, dilation, stream)
     if err != 0:
-        raise RuntimeError(f"{who}: kernel launch failed, cudaError {err}")
+        raise RuntimeError(f"fused_residual_unit_stream: kernel launch failed, cudaError {err}")
     fused_residual_unit_stream.launches += 1
     return out, new_halo
 

@@ -1,14 +1,15 @@
 """VQ nearest-code search: CUDA kernel wrapper over the plain version.
 
 Port of facodec_tpu/ops/pallas/vq.py `nearest_code_pallas`. `nearest_code`
-runs `ops.vq_math.nearest_code` for tensors on the CPU; for CUDA tensors it
-launches csrc/vq.cu or raises. Returns (indices int32, the gathered
-un-normalised codebook rows). On the card it is a `torch.autograd.Function`
-with the JAX package's VJP (`vq.py` `_bwd`): no gradient reaches the
-latents through the search (their gradient is zero), and the rows'
-cotangent is scatter-added into the codebook rows that were selected
-(`index_add_`, the counterpart of `segment_sum`), as the plain gather's
-gradient is on the CPU.
+checks its operands and calls the custom op `facodec::nearest_code`
+(ops.py), which launches csrc/vq.cu (`launch`) for CUDA tensors, or raises.
+For CPU tensors it runs `ops.vq_math.nearest_code` itself, through the op
+(whose CPU implementation that is) only while a program is being exported. Returns
+(indices int32, the gathered un-normalised codebook rows). The op carries
+the JAX package's VJP (`vq.py` `_bwd`): no gradient reaches the latents
+through the search (their gradient is zero), and the rows' cotangent is
+scatter-added into the codebook rows that were selected (`index_add`, the
+counterpart of `segment_sum`).
 
 One call launches two kernels on the current stream. The first normalises
 the codebook once into a scratch that this wrapper allocates: two float4
@@ -61,41 +62,25 @@ def nearest_code(
     if encodings.device != codebook.device:
         raise ValueError(f"nearest_code: encodings on {encodings.device}, "
                          f"codebook on {codebook.device}")
-    if encodings.device.type == "cpu":
+    if encodings.device.type == "cpu" and not torch.compiler.is_exporting():
         return vq_math.nearest_code(encodings, codebook)
-    if encodings.device.type != "cuda":
+    if encodings.device.type not in ("cpu", "cuda"):
         raise ValueError(f"nearest_code: no kernel for device {encodings.device}")
-    if codebook.shape[1] != CODE_DIM:
-        raise ValueError(f"nearest_code: the kernel takes D={CODE_DIM}, got {codebook.shape[1]}")
-    if not (encodings.is_contiguous() and codebook.is_contiguous()):
-        raise ValueError("nearest_code: encodings and codebook must be contiguous")
-    return _NearestCodeFn.apply(encodings, codebook)
+    if encodings.device.type == "cuda":
+        if codebook.shape[1] != CODE_DIM:
+            raise ValueError(f"nearest_code: the kernel takes D={CODE_DIM}, "
+                             f"got {codebook.shape[1]}")
+        if not (encodings.is_contiguous() and codebook.is_contiguous()):
+            raise ValueError("nearest_code: encodings and codebook must be contiguous")
+    zq, idx = torch.ops.facodec.nearest_code(encodings, codebook)
+    return idx, zq
 
 
-class _NearestCodeFn(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, encodings: torch.Tensor, codebook: torch.Tensor):
-        idx, zq = _launch(encodings, codebook)
-        ctx.mark_non_differentiable(idx)
-        ctx.save_for_backward(idx)
-        ctx.shapes = encodings.shape, codebook.shape
-        return idx, zq
-
-    @staticmethod
-    def backward(ctx, _g_idx, g_zq):
-        (idx,) = ctx.saved_tensors
-        enc_shape, cb_shape = ctx.shapes
-        g_enc = g_cb = None
-        if ctx.needs_input_grad[0]:
-            g_enc = g_zq.new_zeros(enc_shape)
-        if ctx.needs_input_grad[1]:
-            g_cb = g_zq.new_zeros(cb_shape).index_add_(
-                0, idx.reshape(-1).long(), g_zq.reshape(-1, cb_shape[1]))
-        return g_enc, g_cb
-
-
-def _launch(encodings: torch.Tensor, codebook: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def launch(encodings: torch.Tensor, codebook: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One search on CUDA tensors (the CUDA implementation of
+    `facodec::nearest_code`)."""
+    encodings, codebook = encodings.contiguous(), codebook.contiguous()
     lead = encodings.shape[:-1]
     M, N = encodings.numel() // CODE_DIM, codebook.shape[0]
     idx = torch.empty(lead, dtype=torch.int32, device=encodings.device)

@@ -29,7 +29,7 @@ phase G's loss run under `torch.utils.checkpoint` (non-reentrant).
 from an explicit generator, so `replay_checkpoint` sets the generator back
 to the state the first run started from for the recompute (and restores it
 after): the recompute draws the very masks the forward drew. The kernels'
-`autograd.Function`s run again inside the recompute.
+custom ops run again inside the recompute.
 
 The loss weights are the reference's. The step runs in float32 with TF32
 off (`api.float32_exact`), as the codec's calls do; bfloat16 training is not

@@ -62,35 +62,44 @@ def flatten_tree(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> dict:
     return out
 
 
-def _copy_by_path(module: nn.Module, flat: Mapping[Tuple[str, ...], Any], caller: str,
-                  source: str, path_of=torch_key_to_path) -> None:
-    """Copy {param path: array} into `module`, each port key through
-    `path_of`. Raises on a port key with no source parameter, on a source
-    parameter no port key reaches, and on a shape mismatch."""
-    state = module.state_dict()
-    missing, shapes, used = [], [], set()
-    for key, dst in state.items():
+def match_by_path(shapes: Mapping[str, Tuple[int, ...]], flat: Mapping[Tuple[str, ...], Any],
+                  caller: str, source: str, path_of=torch_key_to_path) -> dict:
+    """{port key: source array} for the port keys of `shapes`, each found in
+    {param path: array} through `path_of`. Raises on a port key with no
+    source parameter, on a source parameter no port key reaches, and on a
+    shape mismatch."""
+    missing, mismatched, found = [], [], {}
+    for key, shape in shapes.items():
         path = path_of(key)
         if path not in flat:
             missing.append(key)
             continue
         src = np.asarray(flat[path])
-        if tuple(src.shape) != tuple(dst.shape):
-            shapes.append(f"{key}: {source} {tuple(src.shape)} vs port {tuple(dst.shape)}")
+        if tuple(src.shape) != tuple(shape):
+            mismatched.append(f"{key}: {source} {tuple(src.shape)} vs port {tuple(shape)}")
             continue
-        used.add(path)
-        with torch.no_grad():
-            dst.copy_(torch.from_numpy(np.array(src, dtype=np.float32)))
-    left = sorted("/".join(p) for p in set(flat) - used)
+        found[key] = (path, src)
+    left = sorted("/".join(p) for p in set(flat) - {path for path, _ in found.values()})
     msgs = []
     if missing:
         msgs.append(f"{len(missing)} port keys without a {source} parameter: {missing[:8]}")
-    if shapes:
-        msgs.append(f"{len(shapes)} shape mismatches: {shapes[:8]}")
+    if mismatched:
+        msgs.append(f"{len(mismatched)} shape mismatches: {mismatched[:8]}")
     if left:
         msgs.append(f"{len(left)} {source} parameters left over: {left[:8]}")
     if msgs:
         raise ValueError(f"{caller}: " + "; ".join(msgs))
+    return {key: src for key, (_, src) in found.items()}
+
+
+def _copy_by_path(module: nn.Module, flat: Mapping[Tuple[str, ...], Any], caller: str,
+                  source: str, path_of=torch_key_to_path) -> None:
+    """Copy {param path: array} into `module` by `match_by_path`."""
+    state = module.state_dict()
+    found = match_by_path({k: v.shape for k, v in state.items()}, flat, caller, source, path_of)
+    with torch.no_grad():
+        for key, src in found.items():
+            state[key].copy_(torch.from_numpy(np.array(src, dtype=np.float32)))
 
 
 def load_jax_params(module: nn.Module, params: Mapping[str, Any]) -> None:
@@ -123,10 +132,21 @@ def load_torch_checkpoint(modules: Mapping[str, nn.Module], path: str) -> None:
     so `module.` prefixes, `conv`/`convtr` wrapper levels and parametrized
     weight-norm keys are read, and fixed DSP buffers are skipped. Raises on
     a module the file does not hold and on any key that does not line up."""
+    flats = read_torch_checkpoint(path, modules)
+    for name, module in modules.items():
+        _copy_by_path(module, flats[name], f"load_torch_checkpoint ({name})", "checkpoint")
+
+
+def read_torch_checkpoint(path: str, names) -> dict:
+    """{module name: {param path: numpy array}} of a torch-saved checkpoint
+    (under a `net` key for a training checkpoint), for the modules `names`,
+    by `torch_key_to_path`; raises on a module the file does not hold and
+    on two keys that reach one path."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(ckpt.get("net"), Mapping):
         ckpt = ckpt["net"]
-    for name, module in modules.items():
+    out = {}
+    for name in names:
         if not isinstance(ckpt.get(name), Mapping):
             raise ValueError(f"load_torch_checkpoint: {path} holds no state dict for "
                              f"{name!r} (has {sorted(ckpt)})")
@@ -139,7 +159,8 @@ def load_torch_checkpoint(modules: Mapping[str, nn.Module], path: str) -> None:
                 raise ValueError(f"load_torch_checkpoint: {name}: two keys map to "
                                  f"{'/'.join(p)}")
             flat[p] = value.detach().cpu().numpy()
-        _copy_by_path(module, flat, f"load_torch_checkpoint ({name})", "checkpoint")
+        out[name] = flat
+    return out
 
 
 def _uniform(shape, bound: float, gen: torch.Generator) -> torch.Tensor:

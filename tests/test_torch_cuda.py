@@ -150,10 +150,10 @@ def test_resunit_bf16_entry_wide(B, C, dilation, T, causal, spill):
 
 
 def test_resunit_bf16_packed_after_in_place_update():
-    """A ResidualUnit under bfloat16_act keeps its packed operands (and TMA
-    maps) across calls; an in-place weight update repacks, and the kernel
-    then follows the new weights. One bf16 launch a call; the packed call
-    gives the unpacked entry's bits."""
+    """A ResidualUnit under bfloat16_act keeps its packed operands across
+    calls (and their TMA maps stay encoded, per address); an in-place weight
+    update repacks, and the kernel then follows the new weights. One bf16
+    launch a call; the packed call gives the unpacked entry's bits."""
     from facodec_tpu_torch.models.dac import ResidualUnit
     from facodec_tpu_torch.ops.precision import policy
     _need_cuda()
@@ -171,7 +171,7 @@ def test_resunit_bf16_packed_after_in_place_update():
             torch.cuda.synchronize()
             assert resunit.fused_residual_unit.bf16_launches == before + 1
             pack = unit.bf16_pack(x)
-            assert pack.maps is not None
+            assert resunit.tma_maps(pack.w7, pack.w1) is resunit.tma_maps(pack.w7, pack.w1)
             snake1, conv7, snake2, conv1 = unit.block
             args = (conv7.effective_weight(), conv7.bias, conv1.effective_weight(), conv1.bias,
                     snake1.alpha, snake2.alpha)
@@ -454,7 +454,7 @@ UNIT_GRADS = ("x", "w7", "b7", "w1", "b1", "alpha1", "alpha2")
 @pytest.mark.parametrize("B,C,dilation,T", [(4, 64, 1, 24000), (4, 512, 9, 480), (4, 768, 9, 480),
                                             (4, 96, 3, 1000), (2, 192, 9, 50)])
 def test_resunit_gradients_match_plain(B, C, dilation, T, causal):
-    """The float32 entry's autograd.Function: one kernel launch forward, and
+    """The float32 entry's gradient (its custom op's): one kernel launch forward, and
     its gradients for x, both weights, both biases and both alphas within
     1e-4 of max|g| of the plain composition's autograd."""
     _need_cuda()
@@ -504,7 +504,7 @@ def test_forward_only_entries_refuse_gradients():
 
 @pytest.mark.parametrize("M", [37, 3200])
 def test_vq_gradients_match_plain_gather(M):
-    """nearest_code's autograd.Function: one launch; the codebook gradient is
+    """nearest_code's gradient (the custom op's): one launch; the codebook gradient is
     the plain gather's (rows scatter-added into the selected codes), and the
     latents' gradient is zero."""
     _need_cuda()
@@ -844,3 +844,149 @@ def test_evaluate_utterance_card_matches_cpu():
             continue
         limit = tol * abs(want[k]) if kind == "rel" else tol
         assert abs(got[k] - want[k]) <= limit, (k, got[k], want[k])
+
+
+# ------------------------------------------------ the custom ops under export
+class _Call(torch.nn.Module):
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def _through_export(fn, *args):
+    """fn's exported program (torch.export on the card's tensors), run on args."""
+    with torch.no_grad():
+        program = torch.export.export(_Call(fn), args, strict=False)
+        targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+        assert any(t.startswith("facodec.") for t in targets), targets
+        return program.module()(*args)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_resunit_f32_op_through_export(causal):
+    """`facodec::resunit_f32` in an exported program launches the kernel
+    once, within the kernel's tolerance of the plain version."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    B, T, C, d = 2, 700, 192, 9
+    x = torch.randn(B, T, C, device="cuda", generator=g)
+    w7 = torch.randn(C, C, 7, device="cuda", generator=g) / (7 * C) ** 0.5
+    w1 = torch.randn(C, C, 1, device="cuda", generator=g) / C ** 0.5
+    b7, b1 = (0.1 * torch.randn(C, device="cuda", generator=g) for _ in range(2))
+    a1, a2 = (0.5 + torch.rand(1, C, 1, device="cuda", generator=g) for _ in range(2))
+    args = (x, w7, b7, w1, b1, a1, a2)
+    before = resunit.fused_residual_unit.launches
+    with float32_exact():
+        got = _through_export(lambda *t: resunit.fused_residual_unit(*t, d, causal), *args)
+        torch.cuda.synchronize()
+        assert resunit.fused_residual_unit.launches == before + 1
+        want = resunit.residual_unit_reference(*args, d, causal)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_resunit_bf16_op_through_export(causal):
+    """`facodec::resunit_bf16` on a pack made by graph ops inside the
+    exported program: one bf16 launch, the eager packed entry's bits, and
+    within the bf16 entry's ulps of the plain version."""
+    _need_cuda()
+    d = 3
+    x, *weights = _bf16_unit_args(2, 384, d, 500, 11)
+
+    def unit(x, *w):
+        return resunit.fused_residual_unit_packed(x, resunit.pack_bf16(*w), d, causal)
+
+    before = resunit.fused_residual_unit.bf16_launches
+    with float32_exact():
+        got = _through_export(unit, x, *weights)
+        torch.cuda.synchronize()
+        assert resunit.fused_residual_unit.bf16_launches == before + 1
+        with torch.no_grad():
+            want = unit(x, *weights)
+    assert torch.equal(got, want)
+    _check_bf16_entry((x, *weights), d, causal)
+
+
+def test_nearest_code_op_through_export():
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    lat = torch.randn(4, 800, 8, device="cuda", generator=g)
+    cb = torch.randn(1024, 8, device="cuda", generator=g)
+    before = vq.nearest_code.launches
+    idx, zq = _through_export(vq.nearest_code, lat, cb)
+    torch.cuda.synchronize()
+    assert vq.nearest_code.launches == before + 1
+    want_idx, want_zq = vq.nearest_code(lat, cb)
+    assert torch.equal(idx, want_idx) and torch.equal(zq, want_zq)
+    _assert_vq_matches_plain(lat, cb, idx, zq)
+
+
+@pytest.mark.parametrize("first", [True, False])
+def test_resunit_halo_op_through_export(first):
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    B, T, C, d = 2, 64, 128, 3
+    x = torch.randn(B, T, C, device="cuda", generator=g)
+    halo = None if first else torch.randn(B, 6 * d, C, device="cuda", generator=g)
+    w = [torch.randn(C, C, 7, device="cuda", generator=g) / 30,
+         0.1 * torch.randn(C, device="cuda", generator=g),
+         torch.randn(C, C, 1, device="cuda", generator=g) / 11,
+         0.1 * torch.randn(C, device="cuda", generator=g),
+         0.5 + torch.rand(1, C, 1, device="cuda", generator=g),
+         0.5 + torch.rand(1, C, 1, device="cuda", generator=g)]
+    if first:
+        def chunk(x, *w):
+            return resunit.fused_residual_unit_stream(x, None, *w, d)
+        args = (x, *w)
+    else:
+        def chunk(x, h, *w):
+            return resunit.fused_residual_unit_stream(x, h, *w, d)
+        args = (x, halo, *w)
+    before = resunit.fused_residual_unit_stream.launches
+    with float32_exact():
+        out, new_halo = _through_export(chunk, *args)
+        torch.cuda.synchronize()
+        assert resunit.fused_residual_unit_stream.launches == before + 1
+        want, want_halo = resunit.residual_unit_stream_reference(x, halo, *w, d)
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(new_halo, want_halo)
+
+
+@pytest.mark.parametrize("precision", ["float32", "hybrid"])
+def test_exported_codec_on_card_matches_live(tmp_path, precision):
+    """A small codec's artifact on the card: codes equal to the live codec's,
+    waves within phase 13's limits (1e-5 max abs float32, 1e-3 err/scale
+    hybrid), and the live path's launches."""
+    _need_cuda()
+    from facodec_tpu_torch.utils import export
+
+    codec = FACodec.from_fields(SMALL_CODEC, seed=5, device="cuda", precision=precision)
+    export.export_codec(codec, str(tmp_path), batch=2, seconds=1.0,
+                        functions=("encode_masked", "reconstruct_masked"))
+    exp = export.ExportedCodec(str(tmp_path))
+    params = export.codec_params(codec)
+    w = torch.from_numpy(sweep_wave(2, 1.0, seed=9)).cuda()
+    lens = torch.tensor([24000, 15000], dtype=torch.int32, device="cuda")
+    counters = (resunit.fused_residual_unit, "launches"), \
+        (resunit.fused_residual_unit, "bf16_launches"), (vq.nearest_code, "launches")
+
+    def counts():
+        torch.cuda.synchronize()
+        return [getattr(f, a) for f, a in counters]
+
+    c0 = counts()
+    got = exp.reconstruct_masked(params, w, lens)
+    c1 = counts()
+    want = codec.decode_latent(codec.encode_tensor(w, lens)[0])
+    c2 = counts()
+    assert [b - a for a, b in zip(c0, c1)] == [b - a for a, b in zip(c1, c2)]
+    codes = exp.encode_masked(params, w, lens)[:3]
+    for a, b in zip(codes, codec.encode_tensor(w, lens)[1]):
+        assert torch.equal(a, b)
+    if precision == "float32":
+        assert (got - want).abs().max().item() <= 1e-5
+    else:
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-3
