@@ -181,6 +181,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    `make_server`, 8 concurrent 10 s /reconstruct requests to each in turns
    (live, artifact, artifact, live): requests/s, and each served wave within
    err / scale 2e-2 of the live hybrid codec's on the same request.
+14. Training and serving over several GPUs (parallel/; runs last).
+   14a: `run_training(fields=FLAGSHIP_TRAIN)` as torchrun starts it, in
+   this process as rank 0 of an NCCL group of gcd(4, visible GPUs) ranks
+   (one on a one-card machine: then the reduce is an identity), on 4
+   PseudoDataset utterances (one batch of 4 x 80 frames an epoch), draws
+   on, under PyTorch's and cuDNN's deterministic algorithms, in turns:
+   plain (4 steps), data-parallel cut at step 2 after rank 0's epoch
+   checkpoint at step 1, data-parallel resumed from it to step 4, plain
+   again; parameters and metrics bit-equal, step ms of both, the
+   all-reduce's ms a step (CUDA events around each `all_reduce_mean_`) and
+   bytes, 24 residual-unit and 6 VQ launches a step; where more GPUs are
+   visible, that many spawned NCCL ranks as 14b.
+   14b: two spawned ranks on cuda:0 over gloo, each running `run_training`
+   on its 2 rows of every 4-row batch, fused (2 steps, rank 0 writes a
+   checkpoint at step 1) and split (1 step), against the same runs in one
+   process: the rows each rank kept, the last step's gradients (as the
+   updates took them) within 1e-4 of max|g| per module, metrics and
+   parameters within rtol 2e-3 atol 2e-4, each rank's launches equal to
+   the one process's.
+   14c: `run_redecoder_training` as 14a (plain 2 steps, data-parallel cut
+   at 2 with a checkpoint at 1, resumed from it), bit-equal. 14d:
+   `shard_inference` of FLAGSHIP (float32 and hybrid) and
+   FLAGSHIP_REDECODER at batch 3 x 10 s, over every visible GPU and over
+   two replicas on cuda:0: codes equal, timbre and float32 waves within
+   1e-5 of the unsharded call's, hybrid within 2e-2 err/scale of it (a
+   replica decodes another batch: HYBRID_BF16) and within 1e-3 of the
+   unsharded codec on each replica's rows, launches per replica, ms against
+   unsharded in turns. 14e: a `CodecService` over two hybrid replicas on
+   cuda:0 against an unsharded one (max batch 8), 8 concurrent 10 s
+   /reconstruct requests to each in turns: responses within 2e-2
+   err/scale (4 + 4 rows against 8), requests/s.
 
 The line before the last is the kernels' JSON summary; the last line is the
 run's JSON result. The kernels' `train_launches` are a training step's,
@@ -192,11 +223,17 @@ inline teacher (12b), `eval_launches` one `evaluate_utterance`'s (12c;
 under `hybrid` for the bf16 entry) and `artifact_launches` one
 `reconstruct_masked` of the float32 artifact (the bf16 entry: of the hybrid
 one; the float32 entry's `artifact_hybrid_launches` are the hybrid one's).
+`dp_step_launches` are one rank's a data-parallel step (14a),
+`dp_gloo_step_launches` one gloo rank's (14b), `sharded_reconstruct_launches`
+and `sharded_hybrid_launches` one replica's in a sharded float32 and hybrid
+reconstruct (14d, two replicas on cuda:0).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import re
 import shutil
@@ -207,6 +244,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -222,6 +260,7 @@ from facodec_tpu_torch.models.streaming import HOP, StreamingFACodec
 from facodec_tpu_torch.models.quantize import ResidualVectorQuantize, VectorQuantize
 from facodec_tpu_torch.ops import vq_math
 from facodec_tpu_torch.ops.kernels import build, resunit, vq
+from facodec_tpu_torch.parallel import mesh, ranks
 from facodec_tpu_torch.profile import device_ms as traced_device_ms
 from facodec_tpu_torch.profile import print_breakdown, train_profile
 from facodec_tpu_torch.train.data import PseudoDataset, collate, segment_batch, to_device
@@ -1373,13 +1412,18 @@ TRAIN_STEPS = 6  # one warm-up step, five timed
 UNIT_GRADS = ("x", "w7", "b7", "w1", "b1", "alpha1", "alpha2")
 
 
-def train_batch(B: int, frames: int, seed: int, device: str, max_s: float = 30.0) -> dict:
-    """A training batch as the loop makes it: PseudoDataset utterances of
-    1..max_s s, collated into 80-frame buckets, one crop of `frames` each."""
+def np_train_batch(B: int, frames: int, seed: int, max_s: float = 30.0) -> dict:
+    """A training batch as the loop makes it, in numpy: PseudoDataset
+    utterances of 1..max_s s, collated into 80-frame buckets, one crop of
+    `frames` each."""
     ds = PseudoDataset(length=B, seed=seed, max_s=max_s)
-    seg = segment_batch(collate([ds[i] for i in range(B)], bucket_frames=80),
-                        max_frames=frames, generator=torch.Generator().manual_seed(seed))
-    return to_device(seg, device)
+    return segment_batch(collate([ds[i] for i in range(B)], bucket_frames=80),
+                         max_frames=frames, generator=torch.Generator().manual_seed(seed))
+
+
+def train_batch(B: int, frames: int, seed: int, device: str, max_s: float = 30.0) -> dict:
+    """`np_train_batch` on `device`."""
+    return to_device(np_train_batch(B, frames, seed, max_s), device)
 
 
 def draws_off(models: dict) -> dict:
@@ -2384,6 +2428,538 @@ def phase_artifact_serve(art_dir: str, params: dict, codec_hy: FACodec, smi: str
         live.close()
 
 
+# ------------------------------------------------------------- phase 14
+DP_STEPS = 4  # 14a: steps of each plain run; the data-parallel run is cut at DP_CUT, then resumed
+DP_CUT = 2  # its epoch's checkpoint is step DP_CUT - 1's: the resumed run starts from there
+RED_DP_STEPS = 2  # 14c: the same for run_redecoder_training
+DP_ITEMS = 4  # 14a-c: utterances (PseudoDataset seed 0): one batch of 4, one epoch, per step
+DP_GRAD_TOL = 1e-4  # 14b: the reduced gradients, of max|g| per module (the card's standard)
+DP_STEP_TOL = dict(rtol=2e-3, atol=2e-4)  # metrics and updated parameters (tests/test_parallel.py)
+SHARD_F32_TOL = 1e-5  # 14d: float32 waves and timbre, sharded against unsharded, max abs
+# 14d: hybrid waves against the unsharded codec on each replica's rows (the
+# same batch: the artifact phase's standard), err / scale. Against the
+# unsharded call on all rows, a replica's decode is another batch's (2 + 1
+# rows against 3; 14e: 4 + 4 against 8), which is HYBRID_BF16's case.
+SHARD_HYBRID_TOL = 1e-3
+SHARD_BATCH, SHARD_TURNS = 3, 3
+NO_SAVE = 10**9  # save_interval / save_freq of a run that writes no checkpoint
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's and cuDNN's deterministic algorithms inside the block: on
+    the card a training step's backward otherwise sums some gradients by
+    atomic adds in a varying order, so two plain runs from one seed differ
+    in the last bits (grad_norm/encoder 10.223515 against 10.223517 in the
+    first card run of phase 14). Ops without a deterministic form run as
+    they are (`warn_only`; their warnings are silenced)."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*deterministic.*")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic = saved[2]
+
+
+def _timed_reduce():
+    """Wrap `mesh.all_reduce_mean_` with CUDA events: returns (events, undo)."""
+    orig = mesh.all_reduce_mean_
+    events = []
+
+    def timed(tensors, *args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        orig(tensors, *args, **kwargs)
+        end.record()
+        events.append((start, end))
+
+    mesh.all_reduce_mean_ = timed
+
+    def undo():
+        mesh.all_reduce_mean_ = orig
+
+    return events, undo
+
+
+def _world_env(world: int) -> dict:
+    saved = {k: os.environ.get(k) for k in (*mesh.ENV_KEYS, "LOCAL_WORLD_SIZE")}
+    os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE=str(world),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(mesh.free_port()))
+    return saved
+
+
+def _restore_env(saved: dict) -> None:
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def dp_items() -> list:
+    """DP_ITEMS PseudoDataset utterances (seed 0, 1-30 s, the flagship's
+    label ranges) as a list: the loops read one batch of 4 per epoch, in the
+    same order in every run and on every rank, so a run resumed from an
+    epoch's checkpoint goes on as the run it was cut from."""
+    ds = PseudoDataset(length=DP_ITEMS, seed=0)
+    return [ds[i] for i in range(DP_ITEMS)]
+
+
+def dp_train(kind: str, device: str, log_dir: str, max_steps: int, record_grads: bool = False,
+             **options) -> dict:
+    """`run_training(fields=FLAGSHIP_TRAIN)` ("codec") or
+    `run_redecoder_training(fields=FLAGSHIP_REDECODER_TRAIN)` ("redecoder")
+    on `dp_items()`, as a user calls it: where this process is a rank
+    (torchrun's environment, or a group already formed) the loop joins the
+    group and trains data-parallel, else it trains alone. No checkpoint
+    unless `options` ask for one. Returns the step reached, the last
+    step's metrics, the parameters (on the CPU), the host ms of each step,
+    the kernel launches and all-reduce calls and bytes of the run, the rows
+    each codec batch kept ([global wave_lens, this process's]), and with
+    `record_grads` the last step's gradients as each update took them
+    (reduced over the ranks: recorded at train/step.py's
+    `reduce_gradients`)."""
+    from facodec_tpu_torch.train import loop as loop_mod
+    from facodec_tpu_torch.train import step as step_mod
+
+    grads, rows = {}, []
+    reduce, cut = step_mod.reduce_gradients, loop_mod.rank_batch
+
+    def recording_reduce(params, gs):
+        out = reduce(params, gs)
+        for p, g in zip(params, out):
+            grads[id(p)] = None if g is None else g.detach().clone()
+        return out
+
+    def recording_cut(batch):
+        out = cut(batch)
+        rows.append([batch["wave_lens"].tolist(), out["wave_lens"].tolist()])
+        return out
+
+    if record_grads:
+        step_mod.reduce_gradients = recording_reduce
+    loop_mod.rank_batch = recording_cut
+    options = dict(dict(save_interval=NO_SAVE, save_freq=NO_SAVE), **options)
+    calls, nbytes = mesh.REDUCED.calls, mesh.REDUCED.bytes
+    reset_counts()
+    try:
+        if kind == "codec":
+            state = run_training(fields=FLAGSHIP_TRAIN, dataset=dp_items(), max_steps=max_steps,
+                                 device=device, log_dir=log_dir, log_writer=False, log_interval=1,
+                                 **options)
+        else:
+            state = run_redecoder_training(fields=FLAGSHIP_REDECODER_TRAIN, dataset=dp_items(),
+                                           max_steps=max_steps, device=device, log_dir=log_dir,
+                                           log_writer=False, log_interval=1, **options)
+    finally:
+        step_mod.reduce_gradients, loop_mod.rank_batch = reduce, cut
+    out = dict(step=state.step, metrics=dict(state.metrics), launches=all_counts(), rows=rows,
+               step_ms={s: 1e3 * t for s, t in state.step_times.items()},
+               reduced=[mesh.REDUCED.calls - calls, mesh.REDUCED.bytes - nbytes],
+               params={f"{k}.{n}": p.detach().cpu() for k, m in state.models.items()
+                       for n, p in m.named_parameters()})
+    if record_grads:
+        out["grads"] = {k: [None if grads.get(id(p)) is None else grads[id(p)].cpu()
+                            for p in m.parameters()] for k, m in state.models.items()}
+    del state, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank(spec_path: str) -> None:
+    """One spawned rank of 14a/14b (`dp_ranks`): where the spec names a
+    backend, it forms the group over it first (gloo: two ranks on one card,
+    which NCCL refuses); else `run_training` joins it from torchrun's
+    environment. Runs `dp_train` for each of the spec's runs and writes the
+    results to <out>/rank<r>.pt."""
+    spec = torch.load(spec_path, weights_only=False)
+    if spec["backend"]:
+        mesh.init_distributed(spec["device"], spec["backend"])
+    results = [dp_train("codec", spec["device"], run["log_dir"], record_grads=True, **run["args"])
+               for run in spec["runs"]]
+    torch.save(results, os.path.join(spec["out"], f"rank{mesh.data_world()[0]}.pt"))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def _same_run(label: str, got: dict, want: dict) -> None:
+    if got["step"] != want["step"] or got["metrics"] != want["metrics"]:
+        raise AssertionError(f"{label}: step {got['step']} metrics {got['metrics']} against "
+                             f"step {want['step']} {want['metrics']}")
+    for k, v in want["params"].items():
+        if not torch.equal(got["params"][k], v):
+            raise AssertionError(f"{label}: {k} differs")
+
+
+def _per_step(run: dict) -> dict:
+    steps = len(run["step_ms"])
+    return {k: v / steps for k, v in run["launches"].items()}
+
+
+def _reduce_ms(events: list, steps: int) -> list:
+    """The all-reduce's device ms of each step of a run, from its events."""
+    torch.cuda.synchronize()
+    per = len(events) // steps
+    return [sum(s.elapsed_time(e) for s, e in events[i * per:(i + 1) * per])
+            for i in range(steps)]
+
+
+def phase_dp_nccl(smi: str) -> dict:
+    """14a and 14c: `run_training` and `run_redecoder_training` as torchrun
+    starts them, in this process as rank 0 of an NCCL group of one (its
+    environment set: the loops join the group, broadcast the parameters,
+    reduce every gradient, write as rank 0 and wait at the barrier after a
+    save), against the same calls in this process alone, in turns: plain,
+    data-parallel cut at step DP_CUT after an epoch's checkpoint,
+    data-parallel resumed from that checkpoint, plain again (the group gone).
+    All under `deterministic()`; the runs must end bit-equal."""
+    world = math.gcd(TRAIN_BATCH, torch.cuda.device_count())
+    d = tempfile.mkdtemp(prefix="dp_nccl_", dir=build.BUILD_DIR)
+    events, undo = _timed_reduce()
+    runs, red, reduce_ms = {}, {}, []
+    log(f"phase 14a: run_training(fields=FLAGSHIP_TRAIN) as rank 0 of an NCCL group of one "
+        f"(torchrun's environment, WORLD_SIZE=1), {DP_ITEMS} PseudoDataset utterances, batch "
+        f"{TRAIN_BATCH} x {TRAIN_FRAMES} frames, draws on: plain {DP_STEPS} steps; data-parallel "
+        f"cut at step {DP_CUT} (an epoch's checkpoint at step {DP_CUT - 1}) and resumed to "
+        f"{DP_STEPS}; plain again; under deterministic algorithms, bit-equal [{smi}]")
+    try:
+        with deterministic():
+            runs["plain"] = dp_train("codec", "cuda", f"{d}/plain", DP_STEPS)
+            red["plain"] = dp_train("redecoder", "cuda", f"{d}/red_plain", RED_DP_STEPS)
+            saved = _world_env(1)
+            try:
+                for key, steps, opts in (("cut", DP_CUT, dict(save_freq=1)),
+                                         ("resumed", DP_STEPS, {})):
+                    n0 = len(events)
+                    runs[key] = dp_train("codec", "cuda", f"{d}/dp", steps, **opts)
+                    reduce_ms += _reduce_ms(events[n0:], len(runs[key]["step_ms"]))
+                    if key == "cut":
+                        backend = torch.distributed.get_backend()
+                        ckpt = latest_checkpoint(f"{d}/dp")
+                        if backend != "nccl" or not (ckpt or "").endswith(
+                                f"_step_{DP_CUT - 1:05d}.pth"):
+                            raise AssertionError(f"14a: backend {backend}, checkpoint {ckpt}")
+                red["cut"] = dp_train("redecoder", "cuda", f"{d}/red_dp", RED_DP_STEPS,
+                                      save_freq=1)
+                red["resumed"] = dp_train("redecoder", "cuda", f"{d}/red_dp", RED_DP_STEPS)
+            finally:
+                if torch.distributed.is_initialized():
+                    torch.distributed.destroy_process_group()
+                _restore_env(saved)
+            runs["plain again"] = dp_train("codec", "cuda", f"{d}/plain_again", DP_STEPS)
+    finally:
+        undo()
+        shutil.rmtree(d, ignore_errors=True)
+    if sorted(runs["resumed"]["step_ms"]) != list(range(DP_CUT, DP_STEPS + 1)):
+        raise AssertionError(f"14a: the resumed run stepped {sorted(runs['resumed']['step_ms'])}")
+    _same_run("14a resumed data-parallel run against the plain run", runs["resumed"],
+              runs["plain"])
+    _same_run("14a plain runs", runs["plain again"], runs["plain"])
+    for key, run in runs.items():
+        dp = key in ("cut", "resumed")
+        per = _per_step(run)
+        if (per["f32"], per["vq"]) != (24, 6) or bool(run["reduced"][0]) != dp:
+            raise AssertionError(f"14a {key}: launches a step {per}, reduces {run['reduced']}")
+    bytes_step = runs["resumed"]["reduced"][1] // len(runs["resumed"]["step_ms"])
+    warm = {k: [t for s, t in sorted(r["step_ms"].items()) if s != min(r["step_ms"])]
+            for k, r in runs.items()}
+    dp_ms = warm["cut"] + warm["resumed"]
+    plain_ms = warm["plain"] + warm["plain again"]
+    log(f"  resumed from the step-{DP_CUT - 1} checkpoint (rank 0's) to step {DP_STEPS}: "
+        f"parameters and metrics bit-equal to the plain runs'; launches a step "
+        f"{_per_step(runs['resumed'])}; the all-reduce ms a step {[round(t, 2) for t in reduce_ms]}"
+        f" over {bytes_step} bytes ({bytes_step / 2**30:.3f} GiB, "
+        f"{runs['resumed']['reduced'][0] // len(runs['resumed']['step_ms'])} calls)")
+    log("  step ms in turns (host clock, each run's first step left out): "
+        + "; ".join(f"{k} {[round(t, 1) for t in v]}" for k, v in warm.items())
+        + f"; median data-parallel {statistics.median(dp_ms):.1f}, plain "
+        f"{statistics.median(plain_ms):.1f} [{smi}]")
+    out = {"a": dict(dp_ms=statistics.median(dp_ms), plain_ms=statistics.median(plain_ms),
+                     reduce_ms=statistics.median(reduce_ms), reduce_bytes=bytes_step,
+                     launches=_per_step(runs["resumed"]), world=world)}
+
+    log(f"phase 14c: run_redecoder_training(fields=FLAGSHIP_REDECODER_TRAIN) the same way: "
+        f"plain {RED_DP_STEPS} steps, data-parallel over NCCL cut at {RED_DP_STEPS} with a "
+        f"checkpoint at step 1, resumed from it [{smi}]")
+    if sorted(red["resumed"]["step_ms"]) != [RED_DP_STEPS]:
+        raise AssertionError(f"14c: the resumed run stepped {sorted(red['resumed']['step_ms'])}")
+    _same_run("14c resumed data-parallel run against the plain run", red["resumed"], red["plain"])
+    if not (red["cut"]["reduced"][0] and red["resumed"]["reduced"][0]) or red["plain"]["reduced"][0]:
+        raise AssertionError(f"14c: reduces {[r['reduced'] for r in red.values()]}")
+    per = _per_step(red["cut"])
+    if (per["f32"], per["vq"]) != (24, 6):
+        raise AssertionError(f"14c: launches a step {per}")
+    log(f"  parameters and metrics bit-equal; {red['cut']['reduced'][0] // RED_DP_STEPS} "
+        f"all-reduce calls a step; launches a step {per}; step ms data-parallel "
+        f"{[round(t, 1) for t in red['cut']['step_ms'].values()]}, plain "
+        f"{[round(t, 1) for t in red['plain']['step_ms'].values()]} [{smi}]")
+    out["c"] = dict(launches=per)
+    return out
+
+
+def _grad_gaps(got: dict, want: dict) -> dict:
+    gaps = {}
+    for mod, grads in want.items():
+        pairs = [(a, b) for a, b in zip(got[mod], grads) if b is not None]
+        scale = max(float(b.abs().max()) for _, b in pairs)
+        gaps[mod] = max(float((a - b).abs().max()) for a, b in pairs) / scale
+    return gaps
+
+
+def dp_ranks(smi: str, world: int, device: str, backend, title: str) -> dict:
+    """`world` spawned ranks (`dp_rank`), each running `run_training` on its
+    TRAIN_BATCH / world rows of every batch, fused (2 steps, a checkpoint at
+    step 1's epoch end) and split (1 step), against the same runs in this
+    process alone."""
+    variants = {"fused": dict(max_steps=2, save_freq=1),
+                "split": dict(max_steps=1, split_step=True)}
+    log(f"{title}: run_training(fields=FLAGSHIP_TRAIN) in each rank, {TRAIN_BATCH // world} rows "
+        f"each of every {TRAIN_BATCH} x {TRAIN_FRAMES} batch, draws on, fused (2 steps, rank 0 "
+        f"writes a checkpoint at step 1) and split (1 step), against the same runs in one "
+        f"process; the last step's gradients within {DP_GRAD_TOL} of max|g| per module, metrics "
+        f"and parameters rtol {DP_STEP_TOL['rtol']} atol {DP_STEP_TOL['atol']} [{smi}]")
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="dp_ranks_", dir=build.BUILD_DIR)
+    try:
+        spec = dict(device=device, backend=backend, out=d,
+                    runs=[dict(log_dir=os.path.join(d, k), args=v) for k, v in variants.items()])
+        torch.save(spec, os.path.join(d, "spec.pt"))
+        t0 = time.perf_counter()
+        ranks.spawn_ranks(world, ["-c", "import sys, chip_smoke; chip_smoke.dp_rank(sys.argv[1])",
+                                  os.path.join(d, "spec.pt")], timeout=600)
+        spawn_s = time.perf_counter() - t0
+        ckpt = latest_checkpoint(os.path.join(d, "fused"))
+        if not (ckpt or "").endswith("_step_00001.pth"):
+            raise AssertionError(f"{title}: rank 0's checkpoint {ckpt}")
+        got = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+               for r in range(world)]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    out = {"spawn_s": spawn_s}
+    for i, (label, args) in enumerate(variants.items()):
+        one = dp_train("codec", "cuda", os.path.join(build.BUILD_DIR, "dp_one"), record_grads=True,
+                       **dict(args, save_freq=NO_SAVE))
+        shutil.rmtree(os.path.join(build.BUILD_DIR, "dp_one"), ignore_errors=True)
+        res = [g[i] for g in got]
+        n = TRAIN_BATCH // world
+        for r, rr in enumerate(res):
+            for (glob_lens, mine), (want_lens, _) in zip(rr["rows"], one["rows"]):
+                if glob_lens != want_lens or mine != glob_lens[r * n:(r + 1) * n]:
+                    raise AssertionError(f"{title} {label}: rank {r} kept {mine} of {glob_lens}")
+        gaps = _grad_gaps(res[0]["grads"], one["grads"])
+        log(f"  {label}: each rank kept its {n} rows of the batch's wave_lens "
+            f"{one['rows'][-1][0]}; gradient gap of max|g| "
+            + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()))
+        for mod, gap in gaps.items():
+            if not gap <= DP_GRAD_TOL:
+                raise AssertionError(f"{title} {label}: {mod} gradient gap {gap:.3e} > "
+                                     f"{DP_GRAD_TOL}")
+        for rr in res[1:]:
+            for mod in one["grads"]:
+                for a, b in zip(res[0]["grads"][mod], rr["grads"][mod]):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"{title} {label}: the ranks' {mod} gradients differ")
+            for k, v in res[0]["params"].items():
+                if not torch.equal(v, rr["params"][k]):
+                    raise AssertionError(f"{title} {label}: the ranks' {k} differ")
+        worst = 0.0
+        for k, v in one["metrics"].items():
+            g = res[0]["metrics"][k]
+            worst = max(worst, abs(g - v) / max(abs(v), 1e-30))
+            if not abs(g - v) <= DP_STEP_TOL["atol"] + DP_STEP_TOL["rtol"] * abs(v):
+                raise AssertionError(f"{title} {label}: {k} {g} vs {v}")
+        for k, v in one["params"].items():
+            torch.testing.assert_close(res[0]["params"][k], v, msg=f"{title} {label}: {k}",
+                                       **DP_STEP_TOL)
+        per = [_per_step(rr) for rr in res]
+        if any(p != _per_step(one) for p in per):
+            raise AssertionError(f"{title} {label}: launches a step {per}, one process "
+                                 f"{_per_step(one)}")
+        steps = len(one["step_ms"])
+        log(f"  {label}: metrics within {worst:.2e} relative; each rank's launches a step "
+            f"{per[0]} as the one process's; rank step ms "
+            f"{[[round(t, 1) for t in rr['step_ms'].values()] for rr in res]} "
+            f"({res[0]['reduced'][0] // steps} all-reduce calls, {res[0]['reduced'][1] // steps} "
+            f"bytes a step), one process {[round(t, 1) for t in one['step_ms'].values()]} [{smi}]")
+        out[label] = dict(gaps=gaps, launches=[per[0]["f32"], per[0]["vq"]],
+                          rank_ms=[rr["step_ms"][steps] for rr in res],
+                          one_ms=one["step_ms"][steps], reduced=res[0]["reduced"])
+    log(f"  spawn, build and the runs in the ranks {spawn_s:.1f} s")
+    return out
+
+
+def _in_turns(fns: dict, turns: int = SHARD_TURNS) -> dict:
+    """Median ms of each fn, called in turns (a, b, b, a, ...)."""
+    times = {k: [] for k in fns}
+    keys = list(fns)
+    for i in range(turns):
+        for k in (keys if i % 2 == 0 else keys[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            times[k].append(1e3 * (time.perf_counter() - t0))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def phase_shard(smi: str) -> tuple:
+    """14d: shard_inference of FLAGSHIP (float32 and hybrid) and
+    FLAGSHIP_REDECODER at batch 3 x 10 s, over every visible GPU and over
+    two replicas on cuda:0, against the unsharded calls."""
+    w = sweep_wave(SHARD_BATCH, SECONDS, seed=30)
+    codec = FACodec.from_fields(FLAGSHIP, seed=0, device="cuda")
+    red = FARedecoder.from_fields(FLAGSHIP_REDECODER, seed=1, device="cuda")
+    mods = (codec.encoder, codec.quantizer, codec.decoder)
+    plain = {p: FACodec(*mods, precision=p) for p in ("float32", "hybrid")}
+    vc = FACodec(*mods, n_c=1)
+    f = plain["float32"].encode(w)
+    f1 = vc.encode(w)
+    want = {p: c.reconstruct(w) for p, c in plain.items()}
+    want_vc = red.resynthesize(f1, f.timbre)
+    layouts = {"every GPU": None, "2 on cuda:0": ["cuda:0", "cuda:0"]}
+    out = {}
+    for name, devices in layouts.items():
+        n = len(devices) if devices else torch.cuda.device_count()
+        log(f"phase 14d: shard_inference over {name} ({n} replicas), batch {SHARD_BATCH} x "
+            f"{SECONDS:.0f} s: reconstruct float32 and hybrid, encode, resynthesize [{smi}]")
+        sharded = {p: FACodec(*mods, precision=p).shard_inference(devices) for p in plain}
+        sred = FARedecoder(red.encoder, red.decoder).shard_inference(devices)
+        try:
+            got_f = sharded["float32"].encode(w)
+            for k in ("codes_p", "codes_c", "codes_r"):
+                if not np.array_equal(getattr(got_f, k), getattr(f, k)):
+                    raise AssertionError(f"14d {name}: {k} differ from the unsharded encode's")
+            timbre_gap = float(np.abs(got_f.timbre - f.timbre).max())
+            if not timbre_gap <= SHARD_F32_TOL:
+                raise AssertionError(f"14d {name}: the timbre differs from the unsharded one by "
+                                     f"{timbre_gap:.3e}")
+            counts, gaps, same_gaps, ms = {}, {}, {}, {}
+            per = -(-SHARD_BATCH // n)
+            padded = np.concatenate([w, np.zeros((per * n - SHARD_BATCH, w.shape[1]),
+                                                 np.float32)])
+            for p, c in sharded.items():
+                reset_counts()
+                got = c.reconstruct(w)
+                counts[p] = {k: v / n for k, v in all_counts().items()}
+                # the unsharded codec on each replica's rows: the same batches
+                same = np.concatenate([plain[p].reconstruct(padded[i * per:(i + 1) * per])
+                                       for i in range(n)])[:SHARD_BATCH]
+                same_gaps[p] = float(np.abs(got - same).max() / np.abs(same).max())
+                if p == "float32":
+                    gaps[p] = float(np.abs(got - want[p]).max())
+                    ok = gaps[p] <= SHARD_F32_TOL
+                else:
+                    gaps[p] = float(np.abs(got - want[p]).max() / np.abs(want[p]).max())
+                    ok = gaps[p] <= HYBRID_BF16
+                if not (ok and same_gaps[p] <= SHARD_HYBRID_TOL):
+                    raise AssertionError(f"14d {name} {p}: gap {gaps[p]:.3e} to the unsharded "
+                                         f"call, {same_gaps[p]:.3e} to it on each replica's rows")
+                ms[p] = _in_turns({"unsharded": lambda c=plain[p]: c.reconstruct(w),
+                                   "sharded": lambda c=c: c.reconstruct(w)})
+            got_vc = sred.resynthesize(f1, f.timbre)
+            vc_gap = float(np.abs(got_vc - want_vc).max())
+            if not vc_gap <= SHARD_F32_TOL:
+                raise AssertionError(f"14d {name}: resynthesize gap {vc_gap:.3e}")
+            ms["vc"] = _in_turns({"unsharded": lambda: red.resynthesize(f1, f.timbre),
+                                  "sharded": lambda: sred.resynthesize(f1, f.timbre)})
+        finally:
+            for c in (*sharded.values(), sred):
+                c.replicas.close()
+        expect = {"float32": dict(f32=24, bf16=0, halo=0, vq=6),
+                  "hybrid": dict(f32=12, bf16=12, halo=0, vq=6)}
+        for p, c in counts.items():
+            if c != expect[p]:
+                raise AssertionError(f"14d {name} {p}: launches per replica {c}, "
+                                     f"expected {expect[p]}")
+        log(f"  codes equal, timbre max abs {timbre_gap:.2e}; against the unsharded call on all "
+            f"rows: float32 max abs {gaps['float32']:.2e} (limit {SHARD_F32_TOL}), hybrid "
+            f"err/scale {gaps['hybrid']:.2e} (limit {HYBRID_BF16}); against it on each replica's "
+            f"rows, err/scale: float32 {same_gaps['float32']:.2e}, hybrid "
+            f"{same_gaps['hybrid']:.2e} (limit {SHARD_HYBRID_TOL}); resynthesize max abs "
+            f"{vc_gap:.2e}; launches per replica {counts}")
+        log("  ms unsharded / sharded, in turns: " + "; ".join(
+            f"{k} {v['unsharded']:.1f} / {v['sharded']:.1f}" for k, v in ms.items())
+            + f" [{smi}]")
+        out[name] = dict(replicas=n, gaps=gaps, same_gaps=same_gaps, vc_gap=vc_gap,
+                         timbre_gap=timbre_gap, launches=counts, ms=ms)
+    return out, plain["hybrid"]
+
+
+def phase_shard_serve(codec_hy: FACodec, smi: str) -> dict:
+    """14e: CodecService over two hybrid replicas on cuda:0 against one
+    unsharded service of the same batch cap: 8 concurrent 10 s requests to
+    each, in turns (unsharded, sharded, sharded, unsharded)."""
+    n_req = 8
+    sharded_codec = FACodec(codec_hy.encoder, codec_hy.quantizer, codec_hy.decoder,
+                            precision="hybrid").shard_inference(["cuda:0", "cuda:0"])
+    services = {"unsharded": serve_cli.CodecService(codec_hy, max_batch=n_req,
+                                                    batch_window_ms=200.0),
+                "sharded": serve_cli.CodecService(sharded_codec, max_batch=n_req,
+                                                  batch_window_ms=200.0)}
+    servers = {k: serve_cli.make_server(s, "127.0.0.1", 0) for k, s in services.items()}
+    for s in servers.values():
+        threading.Thread(target=s.serve_forever, daemon=True).start()
+    bases = {k: f"http://127.0.0.1:{s.server_address[1]}" for k, s in servers.items()}
+    log(f"phase 14e: serve --shard-inference semantics, two hybrid replicas on cuda:0 against "
+        f"one unsharded service, max batch {n_req}; {n_req} concurrent {SECONDS:.0f} s "
+        f"/reconstruct requests to each, in turns [{smi}]")
+    try:
+        blobs = [serve_cli.write_wav_bytes(x) for x in sweep_wave(n_req, SECONDS, seed=40)]
+        for base in bases.values():
+            _http("POST", f"{base}/reconstruct", blobs[0])  # warm up
+        rps = {k: [] for k in bases}
+        outs = {}
+        for k in ("unsharded", "sharded", "sharded", "unsharded"):
+            r, outs[k] = _concurrent_rps(bases[k], blobs)
+            rps[k].append(r)
+        gaps = [float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(outs["sharded"], outs["unsharded"])]
+        if not max(gaps) <= HYBRID_BF16:  # 4 + 4 rows against 8: another batch's decode
+            raise AssertionError(f"14e: sharded responses differ by err/scale {max(gaps):.3e}")
+        health = json.loads(_http("GET", f"{bases['sharded']}/health"))
+        log(f"  responses within err/scale {max(gaps):.2e} of the unsharded service's (limit "
+            f"{HYBRID_BF16}); requests/s unsharded {[round(r, 2) for r in rps['unsharded']]}"
+            f", sharded {[round(r, 2) for r in rps['sharded']]}; sharded device calls "
+            f"{health['device_calls']}, largest batch {health['max_batch_seen']} [{smi}]")
+        return dict(rps=rps, gap=max(gaps))
+    finally:
+        for s in servers.values():
+            s.shutdown()
+            s.server_close()
+        for s in services.values():
+            s.close()
+        sharded_codec.replicas.close()
+
+
+def phase_dp(smi: str) -> dict:
+    """Phase 14: training and serving over several GPUs."""
+    t0 = time.perf_counter()
+    nccl = phase_dp_nccl(smi)
+    world = nccl["a"]["world"]
+    if world > 1:
+        nccl["ranks"] = dp_ranks(smi, world, "cuda", None,
+                                 f"phase 14a: {world} NCCL ranks, one per GPU")
+    t1 = time.perf_counter()
+    gloo = dp_ranks(smi, 2, "cuda:0", "gloo", "phase 14b: 2 gloo ranks on cuda:0 (NCCL refuses "
+                    "two ranks on one card)")
+    t2 = time.perf_counter()
+    shard, codec_hy = phase_shard(smi)
+    t3 = time.perf_counter()
+    sv = phase_shard_serve(codec_hy, smi)
+    log(f"phase 14: 14a+14c {t1 - t0:.1f} s, 14b {t2 - t1:.1f} s, 14d {t3 - t2:.1f} s, 14e "
+        f"{time.perf_counter() - t3:.1f} s")
+    del codec_hy
+    torch.cuda.empty_cache()
+    return dict(nccl=nccl, gloo=gloo, shard=shard, serve=sv)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2471,6 +3047,8 @@ def main() -> None:
     rt = phase_red_train(smi)
     va = phase_variants()
     own_data, own_tr, own_sc = phase_own(smi)
+    dp = phase_dp(smi)
+    shard2 = dp["shard"]["2 on cuda:0"]["launches"]
 
     # no single PyTorch call computes either function: library_ms is null
     kernels = [
@@ -2486,7 +3064,11 @@ def main() -> None:
              teacher_train_launches=own_tr["per_step"]["f32"],
              eval_launches=own_sc["eval_launches"]["float32"]["f32"],
              artifact_launches=art["launches"]["float32"]["f32"],
-             artifact_hybrid_launches=art["launches"]["hybrid"]["f32"], bound_by="operations",
+             artifact_hybrid_launches=art["launches"]["hybrid"]["f32"],
+             dp_step_launches=dp["nccl"]["a"]["launches"]["f32"],
+             dp_gloo_step_launches=dp["gloo"]["fused"]["launches"][0],
+             sharded_reconstruct_launches=shard2["float32"]["f32"],
+             sharded_hybrid_launches=shard2["hybrid"]["f32"], bound_by="operations",
              library_ms=None, **ru, **halo),
         dict(name="nearest_code", route="cuda", source="facodec_tpu_torch/csrc/vq.cu",
              replaces="facodec_tpu/ops/pallas/vq.py:76", launches=main_path["vq"],
@@ -2498,6 +3080,10 @@ def main() -> None:
              teacher_train_launches=own_tr["per_step"]["vq"],
              eval_launches=own_sc["eval_launches"]["float32"]["vq"],
              artifact_launches=art["launches"]["float32"]["vq"],
+             dp_step_launches=dp["nccl"]["a"]["launches"]["vq"],
+             dp_gloo_step_launches=dp["gloo"]["fused"]["launches"][1],
+             sharded_reconstruct_launches=shard2["float32"]["vq"],
+             sharded_hybrid_launches=shard2["hybrid"]["vq"],
              bound_by="operations", library_ms=None, **vqr),
         # the bf16 entry (csrc/resunit_bf16.cu): its main path is the hybrid
         # round trip (the serve default), whose 12 decoder units it runs
@@ -2508,6 +3094,9 @@ def main() -> None:
              redecoder_train_launches=0, teacher_train_launches=0,
              eval_launches=own_sc["eval_launches"]["hybrid"]["bf16"],
              artifact_launches=art["launches"]["hybrid"]["bf16"],
+             dp_step_launches=dp["nccl"]["a"]["launches"]["bf16"],
+             sharded_reconstruct_launches=shard2["float32"]["bf16"],
+             sharded_hybrid_launches=shard2["hybrid"]["bf16"],
              decode_kernels=hy["decode_kernels"],
              decode_kernels_per_call_pack=hy["decode_kernels_per_call_pack"], library_ms=None,
              **bf),
@@ -2552,6 +3141,18 @@ def main() -> None:
                     f"{t['median']['artifact']:.2f} ms" for p, t in art["times"].items())
         + f"; served {', '.join(f'{r:.2f}' for r in art['rps_artifact'])} requests/s against "
         f"live {', '.join(f'{r:.2f}' for r in art['rps_live'])} [{smi}]")
+    a, sh = dp["nccl"]["a"], dp["shard"]
+    log(f"data parallel: NCCL world {a['world']} step {a['dp_ms']:.1f} ms against plain "
+        f"{a['plain_ms']:.1f} ms, all-reduce {a['reduce_ms']:.2f} ms over {a['reduce_bytes']} "
+        f"bytes; 2 gloo ranks on one card "
+        + "; ".join(f"{v} rank steps {[round(t, 1) for t in dp['gloo'][v]['rank_ms']]} ms "
+                    f"against {dp['gloo'][v]['one_ms']:.1f} ms" for v in ("fused", "split"))
+        + "; sharded reconstruct ms (unsharded / sharded) "
+        + "; ".join(f"{name}: " + ", ".join(f"{k} {v['unsharded']:.1f} / {v['sharded']:.1f}"
+                                            for k, v in r["ms"].items())
+                    for name, r in sh.items())
+        + f"; serve requests/s unsharded {[round(r, 2) for r in dp['serve']['rps']['unsharded']]}"
+        f" sharded {[round(r, 2) for r in dp['serve']['rps']['sharded']]} [{smi}]")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

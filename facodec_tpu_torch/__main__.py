@@ -15,7 +15,10 @@
                 redecoder GAN training against a frozen codec (stage 2),
                 resuming from the latest checkpoint
 
-Each command runs on the card unless given `--device cpu`.
+Each command runs on the card unless given `--device cpu`. `train` and
+`train-redecoder` run data-parallel over every visible GPU (one rank each,
+started by the command, or by `torchrun`), and `serve --shard-inference`
+serves over every visible GPU.
 """
 
 from __future__ import annotations

@@ -8,6 +8,8 @@ Port of facodec_tpu/api.py:
   writes `.fac` files that the JAX package reads too.
 - `FARedecoder`: resynthesis of source codes in a target timbre, one-shot
   or streamed (`resynthesize_streaming`, causal models).
+- `shard_inference(devices)` on both: batch-parallel one-shot calls, one
+  replica per device, each in its own worker thread (`Replicas`).
 - `convert_voice`: zero-shot voice conversion with both.
 
 Waves go in and come out as numpy arrays (24 kHz, (T,) or (B, T)). Every
@@ -30,7 +32,12 @@ policy, as the JAX package's do. `FARedecoder` is float32.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional
+import functools
+import inspect
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from copy import deepcopy
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,7 +48,8 @@ from facodec_tpu_torch.models.builder import (
     build_from_fields, build_redecoder_from_fields, codec_fields, redecoder_fields,
 )
 from facodec_tpu_torch.ops.precision import check as check_policy
-from facodec_tpu_torch.ops.precision import policy
+from facodec_tpu_torch.ops.precision import get_policy, policy
+from facodec_tpu_torch.parallel.mesh import make_devices
 from facodec_tpu_torch.utils.config import load_config
 from facodec_tpu_torch.utils.weights import init_random_, load_torch_checkpoint
 
@@ -51,22 +59,36 @@ CODEC_MODULES = ("encoder", "quantizer", "decoder")
 REDECODER_MODULES = ("encoder", "decoder")
 
 
+_EXACT_LOCK = threading.Lock()
+_EXACT: Dict[str, Any] = {"holders": 0, "saved": None}
+
+
 @contextlib.contextmanager
 def float32_exact() -> Iterator[None]:
     """Turn TF32 off for cuDNN and cuBLAS inside the block, and cuBLAS's
     bf16 reductions in bf16 (its bf16 GEMMs then sum in float32, as the
-    bfloat16_act policy asks), then restore."""
+    bfloat16_act policy asks), then restore. The flags are process-wide,
+    so the block is counted under a lock: the first to enter saves and
+    clears them, the last to leave restores them, and threads that enter
+    and leave interleaved (sharded replicas) never turn TF32 back on under
+    one another."""
     flags = torch.backends.cuda.matmul
-    saved = (torch.backends.cudnn.allow_tf32, flags.allow_tf32,
-             flags.allow_bf16_reduced_precision_reduction)
-    torch.backends.cudnn.allow_tf32 = False
-    flags.allow_tf32 = False
-    flags.allow_bf16_reduced_precision_reduction = False
+    with _EXACT_LOCK:
+        if _EXACT["holders"] == 0:
+            _EXACT["saved"] = (torch.backends.cudnn.allow_tf32, flags.allow_tf32,
+                               flags.allow_bf16_reduced_precision_reduction)
+            torch.backends.cudnn.allow_tf32 = False
+            flags.allow_tf32 = False
+            flags.allow_bf16_reduced_precision_reduction = False
+        _EXACT["holders"] += 1
     try:
         yield
     finally:
-        (torch.backends.cudnn.allow_tf32, flags.allow_tf32,
-         flags.allow_bf16_reduced_precision_reduction) = saved
+        with _EXACT_LOCK:
+            _EXACT["holders"] -= 1
+            if _EXACT["holders"] == 0:
+                (torch.backends.cudnn.allow_tf32, flags.allow_tf32,
+                 flags.allow_bf16_reduced_precision_reduction) = _EXACT["saved"]
 
 
 def _build(who: str, build: Callable[[Mapping], Dict[str, nn.Module]],
@@ -85,6 +107,138 @@ def _build(who: str, build: Callable[[Mapping], Dict[str, nn.Module]],
     if ckpt_path:
         load_torch_checkpoint({name: models[name] for name in names}, ckpt_path)
     return [models[name].to(device) for name in names]
+
+
+def _replicate(module: nn.Module, device: torch.device) -> nn.Module:
+    """A copy of `module` on `device`, without the source's kept bf16
+    operands (ResidualUnit's pack, SLSTM's rounded LSTM): each replica
+    makes its own on its device."""
+    copy = deepcopy(module).to(device)
+    for m in copy.modules():
+        if hasattr(m, "_bf16"):
+            m._bf16 = None
+        if hasattr(m, "_bf16_cache"):
+            m._bf16_cache = {}
+    return copy
+
+
+def _tensor_leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _tensor_leaves(x)]
+    return []
+
+
+def _map_tensors(fn, tree):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(fn, x) for x in tree)
+    return tree
+
+
+def _zip_tensors(fn, trees):
+    """fn(list of the trees' leaves at one place) over trees of one structure."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return fn(list(trees))
+    if isinstance(first, (list, tuple)):
+        return type(first)(_zip_tensors(fn, list(parts)) for parts in zip(*trees))
+    return first
+
+
+class Replicas:
+    """Batch-parallel inference (port of the JAX package's
+    `shard_inference`, whose SPMD program shards the batch over a data
+    axis): one unsharded replica of a model per device, each in its own
+    worker thread (on its own CUDA stream). `run(name, kwargs)`, the
+    method's arguments by name, pads the batch of every tensor argument
+    with zero rows to a multiple of the replica count (`wave_lens` with
+    full-length rows, so a padded row's timbre pools a whole row of
+    zeros), splits the rows in order, runs
+    `getattr(replica, name)` on each part concurrently, gathers the results
+    in row order on `home` and trims them to the batch. The caller's
+    precision policy is entered in each worker, and `float32_exact` once
+    around the whole call. A failure in any replica raises in the caller."""
+
+    def __init__(self, replicas: List[Any], devices: List[torch.device], home: torch.device):
+        self.replicas, self.devices, self.home = replicas, devices, home
+        self.streams = [torch.cuda.Stream(d) if d.type == "cuda" else None for d in devices]
+        self.pool = ThreadPoolExecutor(len(devices), thread_name_prefix="facodec-replica")
+
+    def __len__(self) -> int:
+        return len(self.replicas)
+
+    def _part(self, i: int, name: str, kwargs, name_policy: str, waits):
+        dev, stream = self.devices[i], self.streams[i]
+        with contextlib.ExitStack() as ctx:
+            ctx.enter_context(policy(name_policy))
+            if stream is not None:
+                ctx.enter_context(torch.cuda.device(dev))
+                ctx.enter_context(torch.cuda.stream(stream))
+                if waits is not None:
+                    stream.wait_stream(waits)  # the caller's inputs are ready
+            kwargs = _map_tensors(lambda t: t.to(dev), kwargs)
+            out = getattr(self.replicas[i], name)(**kwargs)
+            out = _map_tensors(lambda t: t.to(self.home), out)
+            if stream is not None:
+                stream.synchronize()
+            return out
+
+    def run(self, name: str, kwargs: dict):
+        leaves = _tensor_leaves(kwargs)
+        if not leaves:
+            raise ValueError(f"{name}: a sharded call needs a batch tensor")
+        B = leaves[0].shape[0]
+        n = len(self.replicas)
+        per = -(-B // n)
+        T = leaves[0].shape[-1]
+
+        def pad(t: torch.Tensor, fill=0) -> torch.Tensor:
+            extra = per * n - t.shape[0]
+            if extra == 0:
+                return t
+            return torch.cat([t, t.new_full((extra, *t.shape[1:]), fill)])
+
+        kwargs = {k: (pad(v, T) if k == "wave_lens" and v is not None else _map_tensors(pad, v))
+                  for k, v in kwargs.items()}
+        waits = torch.cuda.current_stream(self.home) if self.home.type == "cuda" else None
+        parts = [_map_tensors(lambda t: t[i * per:(i + 1) * per], kwargs) for i in range(n)]
+        with float32_exact():
+            futures = [self.pool.submit(self._part, i, name, k, get_policy(), waits)
+                       for i, k in enumerate(parts)]
+            outs = [f.result() for f in futures]
+        return _zip_tensors(lambda ts: torch.cat(ts)[:B], outs)
+
+    def close(self) -> None:
+        self.pool.shutdown()
+
+
+def _devices(devices: Optional[Sequence]) -> List[torch.device]:
+    out = [torch.device(d) for d in (make_devices() if devices is None else devices)]
+    return [torch.device("cuda", torch.cuda.current_device())
+            if d.type == "cuda" and d.index is None else d for d in out]
+
+
+def _sharded(method):
+    """The method on every replica's rows where `shard_inference` is on; its
+    arguments go to `Replicas.run` by name, however the caller passed them."""
+    signature = inspect.signature(method)
+
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        if self.replicas is None:
+            return method(self, *args, **kwargs)
+        named = signature.bind(self, *args, **kwargs).arguments
+        named.pop("self")
+        return self.replicas.run(method.__name__, dict(named))
+
+    return call
 
 
 def _codes(a: np.ndarray, n_codes: int, device: torch.device) -> torch.Tensor:
@@ -113,6 +267,26 @@ class FACodec:
         hybrid = self.precision == "hybrid"
         self.enc_policy = "float32" if hybrid else self.precision
         self.dec_policy = "bfloat16_act" if hybrid else self.precision
+        self.replicas: Optional[Replicas] = None
+
+    def shard_inference(self, devices: Optional[Sequence] = None) -> "FACodec":
+        """Batch-parallel inference over `devices` (default every visible
+        GPU; a device may repeat, e.g. two replicas on cuda:0): one replica
+        of the modules per device (the first device's shares this codec's
+        modules where it is theirs), and every one-shot entry point
+        (`encode`, `decode`, `decode_subset`, `reconstruct`, `timbre_of`
+        and the `*_tensor` forms) splits its batch over them (`Replicas`).
+        The streaming methods stay on this codec's device, as the JAX
+        package's do. Returns self."""
+        devices = _devices(devices)
+        replicas = [FACodec(*(m if d == self.device and i == 0 else _replicate(m, d)
+                              for m in (self.encoder, self.quantizer, self.decoder)),
+                            n_c=self.n_c, precision=self.precision)
+                    for i, d in enumerate(devices)]
+        if self.replicas is not None:
+            self.replicas.close()
+        self.replicas = Replicas(replicas, devices, self.device)
+        return self
 
     @classmethod
     def from_fields(cls, fields: Mapping[str, Mapping[str, Any]], seed: int = 0,
@@ -139,6 +313,7 @@ class FACodec:
         return next(self.encoder.parameters()).device
 
     # ------------------------------------------------------------- tensors
+    @_sharded
     @torch.no_grad()
     def encode_tensor(self, wave: torch.Tensor, wave_lens: Optional[torch.Tensor] = None):
         """wave (B, T) on the device -> (outs, [codes_p, codes_c, codes_r],
@@ -152,6 +327,7 @@ class FACodec:
             return self.quantizer.forward_v2(z, wave, n_c=self.n_c, full_waves=wave,
                                              wave_lens=wave_lens)
 
+    @_sharded
     @torch.no_grad()
     def decode_tensor(self, codes_p, codes_c, codes_r, timbre, use_p: bool = True,
                       use_c: bool = True, use_r: bool = True) -> torch.Tensor:
@@ -162,11 +338,22 @@ class FACodec:
                                                     use_p, use_c, use_r)
             return self.decoder(outs)[:, :, 0].float()
 
+    @_sharded
     @torch.no_grad()
     def decode_latent(self, outs: torch.Tensor) -> torch.Tensor:
         """Decoder-ready latent (B, T', d) -> float32 wave (B, T)."""
         with float32_exact(), policy(self.dec_policy):
             return self.decoder(outs)[:, :, 0].float()
+
+    @_sharded
+    @torch.no_grad()
+    def reconstruct_tensor(self, wave: torch.Tensor,
+                           wave_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """wave (B, T) on the device -> the round trip's float32 wave
+        (B, T), through the quantized latent (`wave_lens` as in
+        `encode_tensor`)."""
+        outs, _, _ = self.encode_tensor(wave, wave_lens)
+        return self.decode_latent(outs)
 
     # --------------------------------------------------------------- numpy
     def _prep(self, wave: np.ndarray) -> torch.Tensor:
@@ -273,8 +460,7 @@ class FACodec:
 
     def reconstruct(self, wave: np.ndarray) -> np.ndarray:
         """Round trip through the quantized latent."""
-        outs, _, _ = self.encode_tensor(self._prep(wave))
-        return self.decode_latent(outs).cpu().numpy()
+        return self.reconstruct_tensor(self._prep(wave)).cpu().numpy()
 
     def timbre_of(self, wave: np.ndarray) -> np.ndarray:
         """Global timbre vector of each utterance, (B, d)."""
@@ -300,6 +486,20 @@ class FARedecoder:
     def __init__(self, encoder: nn.Module, decoder: nn.Module):
         self.encoder = encoder.eval()
         self.decoder = decoder.eval()
+        self.replicas: Optional[Replicas] = None
+
+    def shard_inference(self, devices: Optional[Sequence] = None) -> "FARedecoder":
+        """Batch-parallel `resynthesize` over `devices` (see
+        `FACodec.shard_inference`); streaming stays on this model's device.
+        Returns self."""
+        devices = _devices(devices)
+        replicas = [FARedecoder(*(m if d == self.device and i == 0 else _replicate(m, d)
+                                  for m in (self.encoder, self.decoder)))
+                    for i, d in enumerate(devices)]
+        if self.replicas is not None:
+            self.replicas.close()
+        self.replicas = Replicas(replicas, devices, self.device)
+        return self
 
     @classmethod
     def from_fields(cls, fields: Mapping[str, Mapping[str, Any]], seed: int = 0,
@@ -329,15 +529,25 @@ class FARedecoder:
         target timbre (B, d) -> wave (B, T) float numpy."""
         dev = self.device
         n_codes = self.encoder.codebook_size
-        with float32_exact():
-            z = self.encoder(_codes(codes.codes_p, n_codes, dev),
-                             _codes(codes.codes_c, n_codes, dev), _timbre(target_timbre, dev),
-                             use_p_code=use_p_code, n_c=n_c)
-            wave = self.decoder(z)[:, :, 0]
+        wave = self.resynthesize_tensor(_codes(codes.codes_p, n_codes, dev),
+                                        _codes(codes.codes_c, n_codes, dev),
+                                        _timbre(target_timbre, dev), use_p_code=use_p_code,
+                                        n_c=n_c)
         out = wave.cpu().numpy()
         if codes.original_length:
             out = out[:, : codes.original_length]
         return out
+
+    @_sharded
+    @torch.no_grad()
+    def resynthesize_tensor(self, codes_p: torch.Tensor, codes_c: torch.Tensor,
+                            timbre: torch.Tensor, use_p_code: bool = False,
+                            n_c: int = 1) -> torch.Tensor:
+        """Code streams (B, n, T) on the device + a target timbre (B, d) ->
+        wave (B, T)."""
+        with float32_exact():
+            z = self.encoder(codes_p, codes_c, timbre, use_p_code=use_p_code, n_c=n_c)
+            return self.decoder(z)[:, :, 0]
 
     def resynthesize_streaming(self, codes: FACodecFile, target_timbre: np.ndarray,
                                chunk_frames: int = 16, use_p_code: bool = False,

@@ -36,13 +36,17 @@ export (`python -m facodec_tpu_torch export`, utils/export.py) through
 `ArtifactService`: one pinned (batch, seconds) program per function, no
 tracing at serving time.
 
-Left out (ROADMAP item 11, multi-GPU): data-parallel inference over several
-cards (`--shard-inference`), which exits with a message.
+With --shard-inference the codec (and redecoder) run batch-parallel over
+every visible GPU (`FACodec.shard_inference`: one replica per card, each
+stacked request batch split over them, rounded up to a multiple of the
+replica count); live streams (--stream-port) stay on the first card, as in
+the JAX package. An artifact (--artifact) is bound to the device it was
+exported on, so --shard-inference with --artifact exits with an error.
 
 Usage:
   python -m facodec_tpu_torch serve [--config-path cfg.yml] [--ckpt-path x.bin]
       [--port 8080] [--redecoder-config cfg.yml --redecoder-ckpt y.bin]
-      [--precision hybrid] [--stream-port 8081] [--device cuda]
+      [--precision hybrid] [--stream-port 8081] [--device cuda] [--shard-inference]
   python -m facodec_tpu_torch serve --artifact DIR --ckpt-path x.pth [--port 8080]
       [--device cuda]
 """
@@ -253,10 +257,14 @@ class CodecService(_Service):
     def _run_batch(self, key, payloads):
         """One device call for up to max_batch same-bucket requests: stack
         the padded rows, pad the batch to a power of two (zero rows of full
-        length), run, split per request."""
+        length; over a sharded codec, then to a multiple of its replica
+        count), run, split per request."""
         op, Tb = key
         n = len(payloads)
         nb = 1 << (n - 1).bit_length()
+        if self.codec.replicas is not None:  # a whole share of rows per replica
+            nd = len(self.codec.replicas)
+            nb = -(-nb // nd) * nd
         waves = np.zeros((nb, Tb), np.float32)
         lens = np.full(nb, Tb, np.int64)
         for i, (row, T) in enumerate(payloads):
@@ -265,10 +273,10 @@ class CodecService(_Service):
         dev = self.codec.device
         w, wl = torch.from_numpy(waves).to(dev), torch.from_numpy(lens).to(dev)
         with self.lock:
-            outs, codes, timbre = self.codec.encode_tensor(w, wave_lens=wl)
             if op == "reconstruct":
-                out = self.codec.decode_latent(outs).cpu().numpy()
+                out = self.codec.reconstruct_tensor(w, wave_lens=wl).cpu().numpy()
                 return [out[i : i + 1] for i in range(n)]
+            _, codes, timbre = self.codec.encode_tensor(w, wave_lens=wl)
             cp, cc, cr = (c.cpu().numpy() for c in codes)
             tm = timbre.cpu().numpy()
         return [(cp[i : i + 1], cc[i : i + 1], cr[i : i + 1], tm[i : i + 1]) for i in range(n)]
@@ -641,7 +649,9 @@ def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="how long a request waits for same-bucket peers")
     p.add_argument("--no-warmup", action="store_true")
     p.add_argument("--shard-inference", action="store_true",
-                   help="multi-card inference is not ported yet (ROADMAP item 11)")
+                   help="batch-parallel one-shot inference over every visible GPU (one "
+                        "replica per card, request batches split over them); live streams "
+                        "stay on the first card")
     p.add_argument("--stream-port", type=int, default=None,
                    help="also serve live duplex PCM streams on this TCP port "
                         "(cli/stream_serve.py)")
@@ -659,15 +669,24 @@ def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
 def main(args) -> int:
     from facodec_tpu_torch.cli import load_codec, load_redecoder
+    from facodec_tpu_torch.parallel.mesh import make_devices
 
-    if args.shard_inference:
-        raise SystemExit("serve: --shard-inference is not ported yet: ROADMAP item 11 "
-                         "(multi-GPU)")
     if args.artifact:
+        if args.shard_inference:
+            raise SystemExit("serve: --shard-inference does not apply to --artifact: an "
+                             "exported program runs on the one device it was exported on; "
+                             "serve the live model (--config-path / the FLAGSHIP fields) to "
+                             "shard")
         return _serve_artifact(args)
+    devices = make_devices() if args.shard_inference else None  # before any model is built
     codec = load_codec(args.config_path, args.ckpt_path, 2, args.device, args.precision)
     redecoder = (load_redecoder(args.redecoder_config, args.redecoder_ckpt, args.device)
                  if args.redecoder_config else None)
+    if devices:
+        codec.shard_inference(devices)
+        if redecoder is not None:
+            redecoder.shard_inference(devices)
+        print(f"sharded one-shot inference over {len(devices)} devices", flush=True)
     service = CodecService(codec, redecoder, bucket_seconds=args.bucket_seconds,
                            stream_threshold_seconds=args.stream_threshold_seconds,
                            max_seconds=args.max_seconds, max_batch=args.max_batch,

@@ -1,11 +1,16 @@
 """Supervision losses of the predictor heads and the energy target (port of
 facodec_tpu/losses/supervision.py): cross-entropy, the reference's focal
 loss (the focal weight on the batch-mean CE), smooth L1 (beta 1) and
-`log_norm`."""
+`log_norm`. In a data-parallel step the focal weight reads the global
+batch's mean CE (parallel/mesh.py `global_mean`), as the JAX SPMD step's
+does; the other losses are means of equal rows, which the gradient
+all-reduce averages exactly."""
 
 from __future__ import annotations
 
 import torch
+
+from facodec_tpu_torch.parallel.mesh import global_mean
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -16,7 +21,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float = 2.0) -> torch.Tensor:
-    logp = cross_entropy(logits, labels)
+    logp = global_mean(cross_entropy(logits, labels))
     p = torch.exp(-logp)
     return torch.pow(1.0 - p, gamma) * logp
 

@@ -13,7 +13,9 @@ Port of facodec_tpu/models/fa_quantizer.py:
 Train mode draws from the caller's torch.Generator: the dropouts of the
 prosody WN (0.2) and of the style encoder (0.1), the RVQs' quantizer
 dropout, and the residual stream's keep mask (kept with probability
-1 - prob_random_mask_residual per row).
+1 - prob_random_mask_residual per row). Inside a data-parallel step's row
+shard (parallel/mesh.py) each is drawn for the global batch and cut to the
+rank's rows.
 Layout: latents (B, T, C), waves (B, Tw), mels (B, Tf, n_mels).
 """
 
@@ -32,6 +34,7 @@ from facodec_tpu_torch.nn.basic import LayerNorm, Linear
 from facodec_tpu_torch.nn.conv import Conv1d, SConv1d
 from facodec_tpu_torch.ops.gradrev import GradientReversal
 from facodec_tpu_torch.ops.spectral import LogMelSpectrogram
+from facodec_tpu_torch.parallel.mesh import rand_rows
 
 
 class FAquantizer(nn.Module):
@@ -142,8 +145,7 @@ class FAquantizer(nn.Module):
         if p > 0.0:
             if generator is None:
                 raise ValueError("the residual mask draws from a torch.Generator; pass one")
-            keep = (torch.rand(keep.shape, generator=generator, device=x.device)
-                    < 1.0 - p).to(z_r.dtype)
+            keep = (rand_rows(keep.shape, generator, x.device) < 1.0 - p).to(z_r.dtype)
         outs = self._timbre_condition(z_p_sg + z_c_sg + z_r * keep, timbre)
         return (outs, [z_p, z_c, z_r], commit_p + commit_c + commit_r, cb_p + cb_c + cb_r,
                 timbre)

@@ -21,6 +21,7 @@ import torch.nn as nn
 from facodec_tpu_torch.nn.basic import Embedding
 from facodec_tpu_torch.nn.conv import Conv1d
 from facodec_tpu_torch.ops.kernels.vq import nearest_code
+from facodec_tpu_torch.parallel.mesh import global_rows
 
 
 class VectorQuantize(nn.Module):
@@ -96,13 +97,17 @@ class ResidualVectorQuantize(nn.Module):
         The losses are the batch means of each stage's masked per-sample
         losses, summed over the stages."""
         B, N = z.shape[0], self.n_codebooks
-        nq = torch.full((B,), float(N + 1), device=z.device)
-        n_dropout = int(B * self.quantizer_dropout)
+        # the dropped rows are the global batch's first ones (a data-parallel
+        # rank's share of them is cut from the global draw)
+        total, offset = global_rows(B)
+        nq = torch.full((total,), float(N + 1), device=z.device)
+        n_dropout = int(total * self.quantizer_dropout)
         if n_dropout > 0:
             if generator is None:
                 raise ValueError("quantizer dropout draws from a torch.Generator; pass one")
             nq[:n_dropout] = torch.randint(1, N + 1, (n_dropout,), generator=generator,
                                            device=z.device).float()
+        nq = nq[offset: offset + B]
         z_q = torch.zeros_like(z)
         residual = z
         commitment = codebook = 0.0

@@ -9,7 +9,9 @@ precision policy (ops/precision.py) as the JAX one does: under
 returns float32, with the bias added in float32.
 
 `dropout` is flax's `nn.Dropout` in train mode, drawn from an explicit
-torch.Generator on the tensor's device.
+torch.Generator on the tensor's device; inside a data-parallel step's row
+shard (parallel/mesh.py) the mask is drawn at the global batch's shape and
+cut to the rank's rows.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from facodec_tpu_torch.ops.precision import bf16_active, bf16_values
+from facodec_tpu_torch.parallel.mesh import rand_rows
 
 from typing import Optional
 
@@ -42,5 +45,5 @@ def dropout(x: torch.Tensor, p: float, train: bool,
         return x
     if generator is None:
         raise ValueError("dropout in train mode draws from a torch.Generator; pass one")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = rand_rows(x.shape, generator, x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))

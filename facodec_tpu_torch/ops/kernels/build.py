@@ -31,6 +31,14 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, attr: str = "launches") -> None:
+    """Add one to a wrapper's launch count, under a lock: replicas launch
+    from several threads at once (api.FACodec.shard_inference)."""
+    with _COUNT_LOCK:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def nvcc_path() -> str:

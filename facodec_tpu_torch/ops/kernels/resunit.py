@@ -51,6 +51,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -270,6 +271,7 @@ def pack_bf16(w7, b7, w1, b1, alpha1, alpha2) -> Bf16Pack:
 
 _MAPS: "collections.OrderedDict[tuple, ctypes.Array]" = collections.OrderedDict()
 _MAPS_KEPT = 256  # packs whose maps stay encoded: far more than a model's 12 bf16 units
+_MAPS_LOCK = threading.Lock()
 
 
 def tma_maps(w7: torch.Tensor, w1: torch.Tensor) -> ctypes.Array:
@@ -281,20 +283,21 @@ def tma_maps(w7: torch.Tensor, w1: torch.Tensor) -> ctypes.Array:
     allocator gives the same addresses, encodes once."""
     C = w7.shape[0]
     key = (w7.device.index, w7.data_ptr(), w1.data_ptr(), C)
-    maps = _MAPS.get(key)
-    if maps is None:
-        _, encode, nbytes, _, _ = _bf16_entry_points()
-        maps = ctypes.create_string_buffer(nbytes)
-        with torch.cuda.device(w7.device):
-            err = encode(w7.data_ptr(), w1.data_ptr(), C, maps)
-        if err != 0:
-            raise RuntimeError(f"tma_maps: TMA tensor maps failed for C={C}, cudaError {err}")
-        _MAPS[key] = maps
-        if len(_MAPS) > _MAPS_KEPT:
-            _MAPS.popitem(last=False)
-    else:
-        _MAPS.move_to_end(key)
-    return maps
+    with _MAPS_LOCK:  # replicas launch from several threads (api.FACodec.shard_inference)
+        maps = _MAPS.get(key)
+        if maps is None:
+            _, encode, nbytes, _, _ = _bf16_entry_points()
+            maps = ctypes.create_string_buffer(nbytes)
+            with torch.cuda.device(w7.device):
+                err = encode(w7.data_ptr(), w1.data_ptr(), C, maps)
+            if err != 0:
+                raise RuntimeError(f"tma_maps: TMA tensor maps failed for C={C}, cudaError {err}")
+            _MAPS[key] = maps
+            if len(_MAPS) > _MAPS_KEPT:
+                _MAPS.popitem(last=False)
+        else:
+            _MAPS.move_to_end(key)
+        return maps
 
 
 def _check_pack(who: str, pack: Bf16Pack, C: int, device) -> None:
@@ -345,7 +348,7 @@ def launch_f32(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int, causal: bool) -
                  dilation, pl, ext, stream)
     if err != 0:
         raise RuntimeError(f"fused_residual_unit: kernel launch failed, cudaError {err}")
-    fused_residual_unit.launches += 1
+    build.count_launch(fused_residual_unit)
     return out
 
 
@@ -376,7 +379,7 @@ def launch_bf16(x, pack: Bf16Pack, dilation: int, pad_left: int, ext: int,
     if err != 0:
         why = " (shapes the kernel refuses: C, B, T, d and the pads)" if err == 1 else ""
         raise RuntimeError(f"fused_residual_unit: bf16 kernel launch failed, cudaError {err}{why}")
-    fused_residual_unit.bf16_launches += 1
+    build.count_launch(fused_residual_unit, "bf16_launches")
     return out
 
 
@@ -435,7 +438,7 @@ def launch_halo(x, halo, w7, b7, w1, b1, alpha1, alpha2, dilation: int
                  scratch.data_ptr(), B, T, C, dilation, stream)
     if err != 0:
         raise RuntimeError(f"fused_residual_unit_stream: kernel launch failed, cudaError {err}")
-    fused_residual_unit_stream.launches += 1
+    build.count_launch(fused_residual_unit_stream)
     return out, new_halo
 
 

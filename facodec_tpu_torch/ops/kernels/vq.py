@@ -96,7 +96,7 @@ def launch(encodings: torch.Tensor, codebook: torch.Tensor
                  zq.data_ptr(), scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"nearest_code: kernel launch failed, cudaError {err}")
-    nearest_code.launches += 1
+    build.count_launch(nearest_code)
     return idx, zq
 
 

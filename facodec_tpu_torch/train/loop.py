@@ -34,8 +34,23 @@ false, the loop reads it as the JDC F0 teacher (the reference's
 prints `inline F0 teacher: <path>`, and the step runs the teacher on every
 mel segment in place of the batch's F0, as the JAX loop does; a file that
 does not load raises. `tensor_parallel` over 1 (the heads sharded over a
-model axis) raises `NotImplementedError`: it is not ported (ROADMAP Queue
-1, item 11).
+model axis) raises `NotImplementedError`: tensor parallelism is what is
+left of multi-GPU (ROADMAP Queue 1, item 11).
+
+Data parallelism (the JAX loop's `data` mesh axis): started as a rank
+(`torchrun`, or `cli/train.py`, which starts one rank per visible GPU), the
+loop joins the process group (parallel/mesh.py `init_distributed`: NCCL on
+cuda:LOCAL_RANK, gloo on the CPU), broadcasts rank 0's parameters after
+seeding or resuming, and runs the data-parallel step (train/step.py) on
+its rows of each batch: every rank reads the same seeded order and draws
+every row's crop, so the crop generator stays in step, and keeps its
+contiguous share of the global batch of `batch_size` rows (`rank_batch`);
+the ranks of a node must divide it. Across nodes each node is a JAX host:
+it iterates `shard_iterator(rank=node, world_size=nodes)` and its ranks
+split its batch. Only rank 0 writes checkpoints and TensorBoard, and every
+rank waits at a barrier after each save; every rank resumes from the
+latest checkpoint. The generators' states are saved once: they agree
+across ranks by construction.
 
 Draws: the step's (dropout, quantizer dropout, residual mask) from a
 generator on the device seeded with seed + 1; the data order from seed
@@ -52,12 +67,17 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Mapping, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from facodec_tpu_torch.config import FLAGSHIP_TRAIN
 from facodec_tpu_torch.models.jdc import load_jdc_checkpoint
 from facodec_tpu_torch.models.builder import build_train_from_fields, train_fields
+from facodec_tpu_torch.parallel.mesh import (broadcast_, data_world, init_distributed,
+                                             is_distributed, local_world, rank_device,
+                                             rank_rows)
 from facodec_tpu_torch.train.data import (PseudoDataset, prefetch, segment_batch,
                                           shard_iterator, to_device)
 from facodec_tpu_torch.train.optimizers import AdamW, build_optimizers
@@ -75,7 +95,8 @@ class TrainState:
     """What a run leaves: the modules, their optimizers, the step reached,
     the epoch, the last step's metrics (floats), per logged step its host
     time in seconds (a step's dispatch until its metrics are read), and the
-    frozen modules a run trains against (redecoder training's codec)."""
+    frozen modules a run trains against (redecoder training's codec) and
+    the run's generators (`step`, `data`) as the run left them."""
 
     models: Dict[str, nn.Module]
     optimizers: Dict[str, AdamW]
@@ -84,6 +105,7 @@ class TrainState:
     metrics: Dict[str, float] = field(default_factory=dict)
     step_times: Dict[int, float] = field(default_factory=dict)
     frozen: Dict[str, nn.Module] = field(default_factory=dict)
+    generators: Dict[str, torch.Generator] = field(default_factory=dict)
 
 
 def _step_of(path: str):
@@ -149,8 +171,37 @@ def check_unported(cfg: Mapping[str, Any]) -> None:
     """Raise on a config key whose JAX behaviour is not ported."""
     if int(cfg.get("tensor_parallel", 1)) > 1:
         raise NotImplementedError(f"tensor_parallel {cfg['tensor_parallel']}: sharding the "
-                                  "heads over a model axis is not ported (ROADMAP Queue 1, "
-                                  "item 11)")
+                                  "heads over a model axis is not ported; data parallelism "
+                                  "is, and tensor parallelism is what is left of multi-GPU "
+                                  "(ROADMAP Queue 1, item 11)")
+
+
+def join_ranks(device: str) -> str:
+    """The process's device: `device` in one plain process; where it was
+    started as a rank, the rank's (cuda:LOCAL_RANK, or the CPU) once it has
+    joined the process group."""
+    if init_distributed(device):
+        return str(rank_device(device))
+    return device
+
+
+def rank_batch(batch: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """This rank's contiguous rows of its node's batch (all of it in one
+    plain process). `full_waves` keeps the batch's padded length, so the
+    timbre encoder sees the shapes the one-process step sees."""
+    local_rank, local_size = local_world()
+    if local_size == 1:
+        return dict(batch)
+    rows = rank_rows(len(batch["wave_lens"]), local_rank, local_size)
+    return {k: v[rows] for k, v in batch.items()}
+
+
+def broadcast_models(*groups: Mapping[str, nn.Module]) -> None:
+    """Rank 0's parameters and buffers on every rank (after seeding or
+    resuming); nothing in one plain process."""
+    if is_distributed():
+        broadcast_([t for models in groups for m in models.values()
+                    for t in (*m.parameters(), *m.buffers())])
 
 
 def inline_f0_teacher(cfg: Mapping[str, Any], device: str) -> Optional[nn.Module]:
@@ -193,6 +244,8 @@ def run_training(config_path: Optional[str] = None,
     base_lr = float(cfg.get("base_lr", (cfg.get("loss_params") or {}).get("base_lr", 1e-4)))
 
     check_unported(cfg)
+    device = join_ranks(device)
+    rank_rows(int(cfg.get("batch_size", 4)), *local_world())  # the node's ranks divide it
     models = build_models(fields, seed, device)
     optimizers = build_optimizers(models, base_lr=base_lr)
     state = TrainState(models, optimizers, step=0, epoch=0)
@@ -202,6 +255,7 @@ def run_training(config_path: Optional[str] = None,
     if resume:
         load_checkpoint(resume, state, generators)
         print(f"resumed from {resume} (epoch {state.epoch}, step {state.step})")
+    broadcast_models(models)
     make_step = (make_codec_train_step_split if cfg.get("split_step", False)
                  else make_codec_train_step)
     step_fn = make_step(models, optimizers, remat=bool(cfg.get("remat", False)),
@@ -217,7 +271,7 @@ def run_training(config_path: Optional[str] = None,
 
     def prepare(batch):
         seg = segment_batch(batch, max_frames=max_frames, generator=generators["data"])
-        return to_device(seg, device)
+        return to_device(rank_batch(seg), device)
 
     return train_loop(state, step_fn, generators, dataset, cfg, prepare, log_dir, log_writer,
                       max_steps, int(cfg.get("bucket_frames", 80)), make_probe_fn(models))
@@ -232,17 +286,30 @@ def train_loop(state: TrainState, step_fn, generators: Mapping[str, torch.Genera
     steps (where both a probe and a writer are given), a checkpoint every
     `save_interval` steps and at each epoch's end, until `max_steps`.
     `log_writer=False` logs nothing; None makes a TensorBoard writer where
-    TensorBoard imports."""
-    if log_writer is None:
+    TensorBoard imports. Where the process is a rank, only rank 0 logs and
+    saves, and the ranks meet at a barrier after each save."""
+    rank, world = data_world()
+    local_size = local_world()[1]
+    if rank != 0:
+        log_writer = False
+    elif log_writer is None:
         log_writer = _default_writer(log_dir)
+
+    def save() -> None:
+        if rank == 0:
+            save_checkpoint(log_dir, state, generators)
+        if world > 1:
+            dist.barrier()
+
     log_interval = int(cfg.get("log_interval", 10))
     save_interval = int(cfg.get("save_interval", 1000))
     probe_interval = int(cfg.get("probe_interval", 1000 * log_interval))
     metrics: Dict[str, torch.Tensor] = {}
     for epoch in range(state.epoch, int(cfg.get("epochs", 1000))):
         state.epoch = epoch
-        batches = shard_iterator(dataset, int(cfg.get("batch_size", 4)), epoch=epoch,
-                                 bucket_frames=bucket_frames)
+        batches = shard_iterator(dataset, int(cfg.get("batch_size", 4)),
+                                 rank=rank // local_size, world_size=world // local_size,
+                                 epoch=epoch, bucket_frames=bucket_frames)
         for seg in prefetch(batches, prepare, depth=int(cfg.get("prefetch", 2))):
             t0 = time.perf_counter()
             metrics, _ = step_fn(seg, generators["step"])
@@ -258,14 +325,15 @@ def train_loop(state: TrainState, step_fn, generators: Mapping[str, torch.Genera
             if probe is not None and log_writer and state.step % probe_interval == 0:
                 log_probe_audio(log_writer, probe(seg), state.step)
             if state.step % save_interval == 0:
-                save_checkpoint(log_dir, state, generators)
+                save()
             if max_steps is not None and state.step >= max_steps:
                 break
         else:
             if (epoch + 1) % int(cfg.get("save_freq", 1)) == 0:
                 state.epoch = epoch + 1
-                save_checkpoint(log_dir, state, generators)
+                save()
             continue
         break
     state.metrics = {k: float(v) for k, v in metrics.items()}
+    state.generators = dict(generators)
     return state

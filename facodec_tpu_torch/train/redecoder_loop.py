@@ -30,7 +30,10 @@ Checkpoints are the codec loop's (train/loop.py), of the three redecoder
 modules, their optimizers and the generators; the newest 5 are kept and a
 run resumes from the latest. Draws as in the codec loop: the step's
 dropout from a generator on the device seeded with seed + 1, the crops
-from a CPU generator seeded with seed.
+from a CPU generator seeded with seed. Data parallelism is the codec
+loop's (train/loop.py): started as a rank, the loop joins the group,
+broadcasts rank 0's frozen codec and trained modules, and steps on its
+rows of each batch; rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -46,8 +49,10 @@ from facodec_tpu_torch.models.builder import (build_encoder_stage_from_fields,
                                               build_redecoder_train_from_fields,
                                               encoder_stage_fields, redecoder_train_fields)
 from facodec_tpu_torch.train.data import PseudoDataset, segment_batch, to_device
-from facodec_tpu_torch.train.loop import (TrainState, check_device, latest_checkpoint,
-                                          load_checkpoint, seeded, train_loop)
+from facodec_tpu_torch.parallel.mesh import local_world, rank_rows
+from facodec_tpu_torch.train.loop import (TrainState, broadcast_models, check_device,
+                                          join_ranks, latest_checkpoint, load_checkpoint,
+                                          rank_batch, seeded, train_loop)
 from facodec_tpu_torch.train.optimizers import build_optimizers
 from facodec_tpu_torch.train.redecoder_step import (make_redecoder_train_step,
                                                     make_redecoder_train_step_split)
@@ -110,6 +115,8 @@ def run_redecoder_training(config_path: Optional[str] = None,
         raise FileNotFoundError(f"run_redecoder_training: pretrained_encoder "
                                 f"{pretrained_encoder} not found")
 
+    device = join_ranks(device)
+    rank_rows(int(cfg.get("batch_size", 4)), *local_world())  # the node's ranks divide it
     codec = build_frozen_codec(fields["codec"], device, pretrained_encoder)
     models = build_redecoder_models(fields, seed, device)
     optimizers = build_optimizers(models, base_lr=base_lr)
@@ -120,6 +127,7 @@ def run_redecoder_training(config_path: Optional[str] = None,
     if resume:
         load_checkpoint(resume, state, generators)
         print(f"resumed from {resume} (epoch {state.epoch}, step {state.step})")
+    broadcast_models(codec, models)
     make_step = (make_redecoder_train_step_split if cfg.get("split_step", False)
                  else make_redecoder_train_step)
     step_fn = make_step(codec, models, optimizers, remat=bool(cfg.get("remat", False)))
@@ -130,7 +138,7 @@ def run_redecoder_training(config_path: Optional[str] = None,
 
     def prepare(batch):
         seg = segment_batch(batch, max_frames=max_frames, generator=generators["data"])
-        return to_device({k: seg[k] for k in BATCH_KEYS}, device)
+        return to_device(rank_batch({k: seg[k] for k in BATCH_KEYS}), device)
 
     return train_loop(state, step_fn, generators, dataset, cfg, prepare, log_dir, log_writer,
                       max_steps, cfg.get("bucket_frames"))

@@ -24,6 +24,10 @@ recomputes the generator forward and both losses in the backward
 (train/step.py); the JAX redecoder step has no such option, and the port
 gives it the codec step's.
 
+In a data-parallel step (a rank of a process group) the draws, the
+gradient reduction and the metrics are the codec step's (train/step.py):
+the one-process step of the global batch on every rank.
+
 batch: wave_seg (B, Tw), full_waves (B, Tmax), wave_lens (B,).
 """
 
@@ -39,6 +43,7 @@ from facodec_tpu_torch.losses import (
     discriminator_loss, generator_adv_losses, l1_loss, mel_spectrogram_loss,
     multi_scale_stft_loss,
 )
+from facodec_tpu_torch.parallel.mesh import average_metrics, step_rows
 from facodec_tpu_torch.train.optimizers import AdamW
 from facodec_tpu_torch.train.step import (_no_mark, disc_update, gen_update, maybe_checkpoint,
                                           replay_checkpoint)
@@ -97,7 +102,7 @@ def _make_step(codec_models: Mapping[str, nn.Module], models: Mapping[str, nn.Mo
     def train_step(batch: Mapping[str, torch.Tensor], generator: Optional[torch.Generator],
                    mark: Optional[Callable[[str], None]] = None):
         mark = mark or _no_mark
-        with float32_exact():
+        with float32_exact(), step_rows(batch["wave_seg"].shape[0]):
             codes, timbre = frozen_encode(codec_models, batch)
             mark("encode")
             real = batch["wave_seg"][:, :, None]
@@ -123,7 +128,7 @@ def _make_step(codec_models: Mapping[str, nn.Module], models: Mapping[str, nn.Mo
             grads = gen_update(loss, optimizers, REDECODER_GEN_KEYS, metrics, mark)
             metrics["loss/disc"] = d_loss
             metrics["grad_norm/discriminator"] = d_norm
-            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics = average_metrics({k: v.detach() for k, v in metrics.items()})
         grads["discriminator"] = d_grads
         return metrics, grads
 

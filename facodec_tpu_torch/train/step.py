@@ -41,6 +41,14 @@ JAX step runs its teacher inline (the reference's semantics). It is outside
 every `remat` checkpoint and every optimizer, and its F0 replaces
 `batch["f0"]` for the step's losses; with a `mark`, its part is "teacher".
 
+Data parallelism: where this process is a rank of a process group
+(parallel/mesh.py), the batch is its rows of a global batch of equal
+shares; the step draws every mask for the global batch and keeps its rows,
+reduces each gradient over the ranks before the update that clips it (a
+None gradient as zeros), and returns the metrics averaged over the ranks,
+so every rank makes the one-process step's update of the global batch. In
+one plain process nothing is reduced.
+
 batch (tensors on the models' device, fixed shapes):
   wave_seg (B, Tw), mel_seg (B, F, 80), f0 (B, F) (not read with a
   teacher), phone_ids (B, F), spk_labels (B,), full_waves (B, Tmax),
@@ -60,6 +68,7 @@ from facodec_tpu_torch.losses import (
     cross_entropy, discriminator_loss, focal_loss, generator_adv_losses, l1_loss, log_norm,
     mel_spectrogram_loss, multi_scale_stft_loss, smooth_l1_loss,
 )
+from facodec_tpu_torch.parallel.mesh import average_metrics, reduce_gradients, step_rows
 from facodec_tpu_torch.train.optimizers import GEN_KEYS, AdamW
 from facodec_tpu_torch.train.targets import normalize_f0
 
@@ -172,19 +181,22 @@ def gen_loss(gen_outs, disc: nn.Module, batch: Mapping[str, torch.Tensor],
 
 def disc_update(d_opt: AdamW, loss_fn: Callable, fake: torch.Tensor, real: torch.Tensor,
                 remat: bool):
-    """Phase D's loss, its gradients and the discriminator's update:
-    (loss, gradients, their norm before the clip)."""
+    """Phase D's loss, its gradients (averaged over the ranks in a
+    data-parallel step) and the discriminator's update: (loss, gradients,
+    their norm before the clip)."""
     d_loss = maybe_checkpoint(remat, loss_fn, fake, real)
-    d_grads = list(torch.autograd.grad(d_loss, d_opt.params, allow_unused=True))
+    d_grads = reduce_gradients(d_opt.params,
+                               torch.autograd.grad(d_loss, d_opt.params, allow_unused=True))
     return d_loss, d_grads, d_opt.step(d_grads)
 
 
 def gen_update(loss: torch.Tensor, optimizers: Mapping[str, AdamW], keys: Sequence[str],
                metrics: Dict[str, torch.Tensor], mark: Callable[[str], None]) -> Dict[str, list]:
-    """One backward of phase G's loss into the modules `keys` only, then
-    their updates; adds `grad_norm/<module>` to `metrics`."""
+    """One backward of phase G's loss into the modules `keys` only, the
+    gradients averaged over the ranks in a data-parallel step, then their
+    updates; adds `grad_norm/<module>` to `metrics`."""
     params = [p for key in keys for p in optimizers[key].params]
-    flat = list(torch.autograd.grad(loss, params, allow_unused=True))
+    flat = reduce_gradients(params, torch.autograd.grad(loss, params, allow_unused=True))
     mark("backward")
     grads: Dict[str, list] = {}
     for key in keys:
@@ -230,7 +242,7 @@ def _make_step(models: Mapping[str, nn.Module], optimizers: Mapping[str, AdamW],
     def train_step(batch: Mapping[str, torch.Tensor], generator: Optional[torch.Generator],
                    mark: Optional[Callable[[str], None]] = None):
         mark = mark or _no_mark
-        with float32_exact():
+        with float32_exact(), step_rows(batch["wave_seg"].shape[0]):
             if f0_teacher is not None:
                 batch = with_teacher_f0(f0_teacher, batch)
                 mark("teacher")
@@ -261,7 +273,7 @@ def _make_step(models: Mapping[str, nn.Module], optimizers: Mapping[str, AdamW],
             grads = gen_update(loss, optimizers, GEN_KEYS, metrics, mark)
             metrics["loss/disc"] = d_loss
             metrics["grad_norm/discriminator"] = d_norm
-            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics = average_metrics({k: v.detach() for k, v in metrics.items()})
         grads["discriminator"] = d_grads
         return metrics, grads
 

@@ -120,7 +120,12 @@ def export_codec(codec, out_dir: str, batch: int = 1, seconds: float = 10.0,
                  functions: Sequence[str] = tuple(FUNCTIONS)) -> Dict[str, Dict[str, float]]:
     """Export the codec's inference functions (all five, or those named)
     for one (batch, seconds) signature, on the codec's device; returns
-    {name: {"bytes": file size, "seconds": export time}}."""
+    {name: {"bytes": file size, "seconds": export time}}. A codec sharded
+    over replicas (`shard_inference`) is refused: a program runs on the one
+    device it was exported on."""
+    if codec.replicas is not None:
+        raise ValueError("export_codec: the codec is sharded over replicas (shard_inference); "
+                         "export an unsharded codec")
     dev = codec.device
     frames = int(seconds * SR) // HOP
     T = frames * HOP

@@ -7,6 +7,8 @@ dependencies:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -990,3 +992,126 @@ def test_exported_codec_on_card_matches_live(tmp_path, precision):
         assert (got - want).abs().max().item() <= 1e-5
     else:
         assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-3
+
+
+# ------------------------------------------------------------ data parallelism
+DP_FIELDS = dict(TRAIN_FIELDS, quantizer=dict(SMALL_CODEC["quantizer"], quantizer_dropout=0.5,
+                                              prob_random_mask_residual=0.75))
+
+
+def _dp_batch(n=4):
+    from facodec_tpu_torch.train.data import PseudoDataset, collate, segment_batch
+
+    ds = PseudoDataset(length=n, seed=0, min_s=1.0, max_s=2.0, n_phones=32, n_speakers=16)
+    return segment_batch(collate([ds[i] for i in range(n)]), 8,
+                         generator=torch.Generator().manual_seed(0))
+
+
+def _dp_spawn(world, spec_path, out, *args):
+    from facodec_tpu_torch.parallel import ranks
+
+    ranks.spawn_ranks(world, [os.path.join(os.path.dirname(__file__), "dp_harness.py"),
+                              str(spec_path), str(out), *args], timeout=600)
+
+
+def test_two_gloo_ranks_on_one_card_match_one_process(tmp_path):
+    """Two ranks on cuda:0 over gloo, 2 rows each of a 4-row batch with
+    every draw on, fused and split: the reduced gradients within 1e-4 of
+    max|g| per module (the card's gradient standard, chip_smoke.py's
+    DP_GRAD_TOL: the card's backward sums some gradients by atomic adds, so
+    the one process is not bit-stable either), metrics and updated
+    parameters (rtol 2e-3, atol 2e-4) against the one-process step on the
+    card, and each rank's launches a step (12 residual-unit and 6 VQ in
+    the fused step, twice that in the split step) those of the one process."""
+    _need_cuda()
+    import dp_harness
+
+    specs = [dict(kind="codec", fields=DP_FIELDS, batch=_dp_batch(), split=s) for s in (0, 1)]
+    torch.save(specs, tmp_path / "spec.pt")
+    _dp_spawn(2, tmp_path / "spec.pt", tmp_path, "--device", "cuda:0", "--backend", "gloo")
+    got = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    for i, spec in enumerate(specs):
+        one = dp_harness.run_steps(spec, "cuda")
+        # the split step runs the generator forward twice
+        assert one["launches"] == [[12 * (1 + i), 6 * (1 + i)]]
+        for r in range(2):
+            assert got[r][i]["launches"] == one["launches"]
+        gaps = {}
+        for mod, grads in one["grads"].items():
+            pairs = [(a, b) for a, b in zip(got[0][i]["grads"][mod], grads) if b is not None]
+            scale = max(float(b.abs().max()) for _, b in pairs)
+            gaps[mod] = max(float((a - b).abs().max()) for a, b in pairs) / scale
+        print(f"split {i}: gradient gaps of max|g| {gaps}")
+        assert max(gaps.values()) <= 1e-4, gaps
+        for k, v in one["metrics"][0].items():
+            np.testing.assert_allclose(got[0][i]["metrics"][0][k], v, rtol=2e-3, atol=2e-4,
+                                       err_msg=k)
+        for k, v in one["params"].items():
+            torch.testing.assert_close(got[0][i]["params"][k], v, rtol=2e-3, atol=2e-4, msg=k)
+            assert torch.equal(got[0][i]["params"][k], got[1][i]["params"][k]), k
+
+
+def test_nccl_world_one_is_bit_equal(tmp_path):
+    """One NCCL rank (the torchrun environment at world size 1): two steps
+    whose gradients go through the all-reduce, bit-equal to the plain
+    process's, codec and redecoder. Both run PyTorch's deterministic
+    algorithms (`dp_harness.deterministic`): the card's backward otherwise
+    sums some gradients by atomic adds, and two plain steps differ in the
+    last bits."""
+    _need_cuda()
+    import dp_harness
+
+    batch = _dp_batch()
+    specs = [dict(kind="codec", fields=DP_FIELDS, batch=batch, steps=2, deterministic=True),
+             dict(kind="redecoder", fields=RED_TRAIN_FIELDS, steps=2, deterministic=True,
+                  batch={k: batch[k] for k in ("wave_seg", "full_waves", "wave_lens")})]
+    torch.save(specs, tmp_path / "spec.pt")
+    _dp_spawn(1, tmp_path / "spec.pt", tmp_path, "--device", "cuda")
+    got = torch.load(tmp_path / "rank0.pt", weights_only=False)
+    for spec, res in zip(specs, got):
+        one = dp_harness.run_steps(spec, "cuda")
+        assert res["reduced"][0][0] > 0 and one["reduced"] == [[0, 0], [0, 0]]
+        assert res["metrics"] == one["metrics"]
+        for k, v in one["params"].items():
+            assert torch.equal(res["params"][k], v), k
+
+
+def test_two_replicas_on_one_card_match_unsharded():
+    """shard_inference(["cuda:0", "cuda:0"]) at batch 3 (the pad path):
+    codes equal to the unsharded codec's and the timbre within 1e-5; the
+    waves within 1e-3 err/scale of the unsharded codec on each replica's
+    rows (rows 0-1, then row 2 and a zero row: the same batches), and
+    against the unsharded batch-3 call the float32 waves within 1e-5. A
+    replica's hybrid decode is another batch's than the batch-3 call's,
+    which moves its worst sample by a few bf16 output ulps (2.03e-2 of the
+    peak at these widths on the card, 1.12e-2 at the flagship's in
+    chip_smoke.py phase 14d): held as tests/test_torch_precision.py holds
+    two faithful bf16 decodes, within 2e-2 (HYBRID_BF16) in RMS and 8e-2
+    at the worst sample."""
+    _need_cuda()
+    from facodec_tpu_torch.utils.signals import sweep_wave
+
+    w = sweep_wave(3, 1.0)
+    padded = np.concatenate([w, np.zeros_like(w[:1])])
+    for precision in ("float32", "hybrid"):
+        codec = FACodec.from_fields(SMALL_CODEC, seed=0, device="cuda", precision=precision)
+        want_f, want = codec.encode(w), codec.reconstruct(w)
+        same = np.concatenate([codec.reconstruct(padded[:2]), codec.reconstruct(padded[2:])])[:3]
+        codec.shard_inference(["cuda:0", "cuda:0"])
+        before = resunit.fused_residual_unit.launches + resunit.fused_residual_unit.bf16_launches
+        got_f, got = codec.encode(w), codec.reconstruct(w)
+        after = resunit.fused_residual_unit.launches + resunit.fused_residual_unit.bf16_launches
+        codec.replicas.close()
+        assert after > before
+        for name in ("codes_p", "codes_c", "codes_r"):
+            np.testing.assert_array_equal(getattr(got_f, name), getattr(want_f, name))
+        np.testing.assert_allclose(got_f.timbre, want_f.timbre, rtol=1e-5, atol=1e-5)
+        assert np.abs(got - same).max() <= 1e-3 * np.abs(same).max()
+        if precision == "float32":
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        else:
+            gap = np.abs(got - want).max() / np.abs(want).max()
+            rms = np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2))
+            print(f"hybrid, 2 replicas against the batch-3 call: err/scale {gap:.3e} at the "
+                  f"worst sample, {rms:.3e} in RMS")
+            assert rms <= 2e-2 and gap < 8e-2, (rms, gap)

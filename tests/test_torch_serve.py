@@ -311,7 +311,9 @@ def test_http_body_cap(http_server):
 def test_serve_cli_defaults_and_device(monkeypatch):
     """`serve` defaults to the card and to hybrid, and raises where torch
     sees no CUDA device; `--artifact` needs `--ckpt-path` (exit 2, as the
-    JAX package's); the left-out options exit naming their ROADMAP item."""
+    JAX package's); `--shard-inference` raises where there is no GPU to shard
+    over (it never serves from the CPU alone); `bfloat16` raises naming its
+    ROADMAP item."""
     import argparse
 
     args = serve.add_args(argparse.ArgumentParser()).parse_args([])
@@ -320,7 +322,7 @@ def test_serve_cli_defaults_and_device(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA"):
         port_main.main(["serve", "--config-path", TINY, "--no-warmup"])
     assert port_main.main(["serve", "--artifact", "x", "--device", "cpu"]) == 2
-    with pytest.raises(SystemExit, match="ROADMAP item 11"):
+    with pytest.raises(RuntimeError, match="replica GPU"):
         port_main.main(["serve", "--shard-inference", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
         port_main.main(["serve", "--config-path", TINY, "--device", "cpu",
