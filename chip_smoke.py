@@ -95,7 +95,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    (50 ms) chunks: tick times with 1, 4 and 8 active slots, and 10 ticks at
    8 slots under torch.profiler. Then a `StreamingService` with group
    capacity 8 behind `make_stream_server`, and 1, 4 and 8 concurrent
-   connections of 10 s each from a client process of their own (the port's
+   connections of 5 s each from a client process of their own (the port's
    `stream_wav` in threads, each sending as fast as it is answered):
    per-tick p50 / p95, slots per tick, each stream's time per chunk against
    the 50 ms of audio it carries; every stream's output within 1e-3 of a
@@ -212,6 +212,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    cuda:0 against an unsharded one (max batch 8), 8 concurrent 10 s
    /reconstruct requests to each in turns: responses within 2e-2
    err/scale (4 + 4 rows against 8), requests/s.
+15. The precision policies `bfloat16` and `hybrid_int8` at full width,
+   batch 4 x 10 s, on the phase-3 codec's modules (runs after phase 8a).
+   15a holds the bf16 kernel's float32-in/out forms (csrc/resunit_bf16.cu)
+   to their plain versions: the `bfloat16` form on the inputs of the 24
+   units of one `bfloat16` round trip, the act form on the 3 C = 384 units
+   of one `hybrid_int8` decode (forward pre-hooks): <= 2 bf16 ulps at
+   `resunit.bf16_error_scale`. 15b holds the int8 unit (csrc/resunit_int8.cu,
+   two launches: row maxima, unit) to its plain version on the 3 C = 768
+   units of that decode: the row maxima, the quantized padded input and
+   the conv7 output bit-equal, the output <= 2 bf16 ulps. Per shape: the
+   kernel's device time (50 launches in one CUDA graph), the wrapper's
+   (`fused_residual_unit` under the policy, packing per call) and the
+   plain version's, the bound (the bf16 forms: 16 C^2 FLOP a row at 989
+   TFLOP/s or the bytes at 3.35 TB/s; the int8 unit: 14 C^2 int8
+   operations a row at 1979 TOPS plus 2 C^2 FLOP at 989 TFLOP/s). 15c: round
+   trips under float32, hybrid, bfloat16 and hybrid_int8 in turns (times),
+   each policy's launches (bfloat16: 24 float32-in/out units and 6 VQ
+   searches; hybrid_int8: 12 float32 units, 3 + 3 int8 launches, 3 act
+   units, 6 bf16 units and 6 VQ searches), the share of bfloat16 codes
+   equal to float32's (>= 0.9), hybrid_int8's codes and timbre equal to
+   float32's, each wave's SI-SDR against the float32 wave, and for each
+   policy the card's decode against the CPU's on equal codes (batch 1 x
+   2 s, err / scale <= 2e-2 at the worst sample).
 
 The line before the last is the kernels' JSON summary; the last line is the
 run's JSON result. The kernels' `train_launches` are a training step's,
@@ -226,7 +249,9 @@ one; the float32 entry's `artifact_hybrid_launches` are the hybrid one's).
 `dp_step_launches` are one rank's a data-parallel step (14a),
 `dp_gloo_step_launches` one gloo rank's (14b), `sharded_reconstruct_launches`
 and `sharded_hybrid_launches` one replica's in a sharded float32 and hybrid
-reconstruct (14d, two replicas on cuda:0).
+reconstruct (14d, two replicas on cuda:0). The phase-15 kernels' `ms` is
+the kernel alone (device time), `wrapper_ms` the wrapper's per-call-pack
+call; `launches` are those of one round trip under their policy.
 """
 
 from __future__ import annotations
@@ -259,6 +284,7 @@ from facodec_tpu_torch.models.dac import ResidualUnit
 from facodec_tpu_torch.models.streaming import HOP, StreamingFACodec
 from facodec_tpu_torch.models.quantize import ResidualVectorQuantize, VectorQuantize
 from facodec_tpu_torch.ops import vq_math
+from facodec_tpu_torch.ops.precision import policy
 from facodec_tpu_torch.ops.kernels import build, resunit, vq
 from facodec_tpu_torch.parallel import mesh, ranks
 from facodec_tpu_torch.profile import device_ms as traced_device_ms
@@ -309,7 +335,13 @@ HYBRID_BF16 = 2e-2
 HYBRID_VS_F32 = 8e-2
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print one line; a phase's header carries the seconds since the start."""
+    if msg.startswith("phase "):
+        msg = f"[{time.perf_counter() - _START:.1f} s] {msg}"
     print(msg, flush=True)
 
 
@@ -339,9 +371,14 @@ def unit_inputs(parts, run, expected: int) -> list:
     return calls
 
 
+POLICY_COUNTERS = dict(f32="launches", bf16="bf16_launches", f32io="f32io_launches",
+                       act="f32io_act_launches", amax="int8_amax_launches",
+                       int8="int8_launches")
+
+
 def reset_counts() -> None:
-    resunit.fused_residual_unit.launches = 0
-    resunit.fused_residual_unit.bf16_launches = 0
+    for attr in POLICY_COUNTERS.values():
+        setattr(resunit.fused_residual_unit, attr, 0)
     resunit.fused_residual_unit_stream.launches = 0
     vq.nearest_code.launches = 0
 
@@ -993,12 +1030,12 @@ def phase_hybrid(codec: FACodec, codec_hy: FACodec, cpu: FACodec, w: np.ndarray)
     # decode as it runs), and with each unit packing its bf16 operands on
     # every call (its pack switched off for this count only)
     kept = decode_launches(codec_hy, fhy)
-    bf16_pack = ResidualUnit.bf16_pack
-    ResidualUnit.bf16_pack = lambda self, x: None
+    kept_pack = ResidualUnit.kept_pack
+    ResidualUnit.kept_pack = lambda self, x, route: None
     try:
         per_call = decode_launches(codec_hy, fhy)
     finally:
-        ResidualUnit.bf16_pack = bf16_pack
+        ResidualUnit.kept_pack = kept_pack
     log(f"  CUDA kernel launches of one hybrid decode (traced): {kept} with the units' kept "
         f"packs, {per_call} packing on every call ({(per_call - kept) / 12:.1f} a unit)")
 
@@ -1084,7 +1121,7 @@ def phase_bf16(calls: list) -> dict:
                 raise AssertionError(f"decoder unit input is {x.dtype}, expected bfloat16")
             args = (x, conv7.effective_weight(), conv7.bias, conv1.effective_weight(), conv1.bias,
                     snake1.alpha, snake2.alpha, d, causal)
-            pack = unit.bf16_pack(x)  # kept by the decode that gave x
+            pack = unit.kept_pack(x, "bf16")  # kept by the decode that gave x
             if pack is None:
                 raise AssertionError("the decoder unit keeps no packed operands")
             got = resunit.fused_residual_unit(*args)
@@ -1318,6 +1355,9 @@ def phase_group_ticks(codec: FACodec, chunk: int, capacity: int) -> dict:
     return out
 
 
+LIVE_SECONDS = 5.0  # each live stream's length, and each solo session's it is held to
+
+
 def phase_live(codec_hy: FACodec) -> dict:
     import os
     import tempfile
@@ -1343,7 +1383,8 @@ def phase_live(codec_hy: FACodec) -> dict:
     chunk_ms = chunk * HOP / SR * 1e3
     log(f"phase 9a: live streams through StreamingService (group capacity {capacity}, window "
         f"{disp.window_s * 1e3:.0f} ms) on tcp://127.0.0.1:{port}, {chunk}-frame "
-        f"({chunk_ms:.0f} ms) chunks, {SECONDS:.0f} s per stream, clients in a separate process")
+        f"({chunk_ms:.0f} ms) chunks, {LIVE_SECONDS:.0f} s per stream, clients in a separate "
+        f"process")
     sess = streaming.session(chunk)
     root = os.path.dirname(os.path.abspath(__file__))
     out = {"group_alone": group_alone}
@@ -1363,7 +1404,7 @@ def phase_live(codec_hy: FACodec) -> dict:
 
             run_clients(sweep_wave(1, 1.0, seed=29), "warm")
             for n in (1, 4, 8):
-                waves = sweep_wave(n, SECONDS, seed=30 + n)
+                waves = sweep_wave(n, LIVE_SECONDS, seed=30 + n)
                 disp.tick_s.clear()
                 tick_counts.clear()
                 results, wall = run_clients(waves, f"s{n}")
@@ -2960,6 +3001,222 @@ def phase_dp(smi: str) -> dict:
     return dict(nccl=nccl, gloo=gloo, shard=shard, serve=sv)
 
 
+# ---------------------------------------------------------------- phase 15
+POLICY_GRAPH_LAUNCHES = 50  # phase 15's CUDA graphs: 30 units' shapes inside its time
+INT8_OPS = 1979e12  # int8 tensor-core peak, operations/s
+CODE_SHARE_MIN = 0.9  # bfloat16 codes equal to float32's (the JAX package saw 96.67%)
+
+
+def policy_counts() -> dict:
+    f = resunit.fused_residual_unit
+    out = {k: getattr(f, attr) for k, attr in POLICY_COUNTERS.items()}
+    return dict(out, halo=resunit.fused_residual_unit_stream.launches, vq=vq.nearest_code.launches)
+
+
+def f32io_unit_cost(B: int, T: int, C: int) -> tuple:
+    """(FLOP, bytes) of a float32-in/out unit: 16 C^2 FLOP a row; x read and
+    out written in float32; the pack read once (bf16 weights, float32
+    biases, alphas and reciprocals)."""
+    return 16 * B * T * C * C, 8 * B * T * C + 2 * 8 * C * C + 4 * 6 * C
+
+
+def int8_unit_cost(B: int, T: int, C: int) -> tuple:
+    """(int8 operations, bf16 FLOP, bytes) of the int8 unit: 14 C^2 int8
+    operations (the conv7) and 2 C^2 FLOP (the 1x1) a row; x read twice
+    (row maxima, unit) and out written in float32; the pack once (int8 w7,
+    bf16 w1 and b1, float32 scales, b7, alphas, reciprocals)."""
+    return (14 * B * T * C * C, 2 * B * T * C * C,
+            12 * B * T * C + 7 * C * C + 2 * C * C + 2 * C + 4 * 6 * C)
+
+
+def phase_policy_units(calls: list, route: str, title: str) -> dict:
+    """15a / 15b: each captured unit input through its kernel form and the
+    plain version under the form's policy."""
+    log(title)
+    pol = {"f32io": "bfloat16", "f32io_act": "bfloat16_act", "int8": "int8"}[route]
+    tot = dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, bound_ms=0.0, flops=0, int8_ops=0)
+    bound_of = {"operations": 0.0, "bytes": 0.0}
+    worst_abs = worst_ulps = 0.0
+    for unit, x in calls:
+        d, causal = unit.dilation, unit.causal
+        B, T, C = x.shape
+        x = x.contiguous()
+        if x.dtype != torch.float32:
+            raise AssertionError(f"{route} unit input is {x.dtype}, expected float32")
+        w = unit._operands()
+        args = (x, *w, d, causal)
+        pl, ext = resunit.reflect_extent(T, d, causal)
+        out = torch.empty_like(x)
+        with torch.no_grad(), float32_exact():
+            pack = unit.kept_pack(x, route)  # kept by the round trip that gave x
+            if pack is None:
+                raise AssertionError("the unit keeps no packed operands")
+            got = resunit.run_packed(route, x, pack, d, causal)
+            extra = ""
+            if route == "int8":
+                amax = resunit.int8_row_amax_reference(x, w[4])
+                parts = resunit.int8_unit_parts(x, amax, pack, d, causal)
+                want = parts["out"]
+                c7 = torch.empty_like(x)
+                q1 = torch.empty(B, T + 6 * d, C, dtype=torch.int8, device=x.device)
+                k_amax = resunit.launch_int8_amax(x, pack.alpha1, pack.recip1)
+                resunit.launch_int8(x, k_amax, pack, d, pl, ext, out, c7=c7, q1=q1)
+                torch.cuda.synchronize()
+                if not (torch.equal(k_amax, amax) and torch.equal(q1, parts["q1"])
+                        and torch.equal(c7, parts["c7"])):
+                    raise AssertionError(f"int8 unit {tuple(x.shape)} d={d}: row maxima, q1 or "
+                                         f"c7 differ from the plain version's")
+                if not torch.equal(out, got):
+                    raise AssertionError("the int8 unit differs between two launches")
+                extra = "; row maxima, q1 and c7 bit-equal"
+                del parts, c7, q1
+
+                def launch():
+                    resunit.launch_int8_amax(x, pack.alpha1, pack.recip1, amax)
+                    resunit.launch_int8(x, amax, pack, d, pl, ext, out)
+                amax_ms = device_ms(lambda: resunit.launch_int8_amax(x, pack.alpha1, pack.recip1,
+                                                                     amax), POLICY_GRAPH_LAUNCHES)
+                extra += f"; row maxima alone {amax_ms:.4f} ms"
+                plain = lambda: resunit.residual_unit_int8_reference(*args)  # noqa: E731
+            else:
+                want = resunit.residual_unit_reference(*args, pol)
+                act = route == "f32io_act"
+
+                def launch():
+                    resunit.launch_f32io(x, pack, d, pl, ext, act, out)
+                plain = lambda: resunit.residual_unit_reference(*args, pol)  # noqa: E731
+            scale = resunit.bf16_error_scale(*args, route)
+            torch.cuda.synchronize()
+            ulps = resunit.bf16_ulps(got, want, scale).max().item()
+            err = (got - want).abs().max().item()
+            equal = (got == want).float().mean().item()
+            del want, scale
+            if got.dtype != torch.float32 or not ulps <= BF16_MAX_ULPS:
+                raise AssertionError(f"{route} unit {tuple(x.shape)} d={d}: {got.dtype}, {ulps} "
+                                     f"ulps > {BF16_MAX_ULPS}")
+            del got
+            tk = device_ms(launch, POLICY_GRAPH_LAUNCHES)
+            with policy(pol):
+                tw = median_ms(lambda: resunit.fused_residual_unit(*args))
+            tp = median_ms(plain)
+        if route == "int8":
+            ops, flop, nbytes = int8_unit_cost(B, T, C)
+            t_ops = ops / INT8_OPS + flop / BF16_FLOPS
+            tot["int8_ops"] += ops
+        else:
+            flop, nbytes = f32io_unit_cost(B, T, C)
+            t_ops = flop / BF16_FLOPS
+        b = 1e3 * max(t_ops, nbytes / HBM_BYTES_S)
+        by = "operations" if t_ops > nbytes / HBM_BYTES_S else "bytes"
+        bound_of[by] += b
+        worst_abs, worst_ulps = max(worst_abs, err), max(worst_ulps, ulps)
+        for k, v in (("ms", tk), ("wrapper_ms", tw), ("plain_ms", tp), ("bound_ms", b),
+                     ("flops", flop)):
+            tot[k] += v
+        log(f"  B={B} C={C:4d} T={T:6d} d={d}: bound {b:.4f} ms ({by}); kernel {tk:.4f} ms "
+            f"({b / tk:.1%} of the bound), wrapper {tw:.4f} ms, plain {tp:.4f} ms; "
+            f"{equal:.4%} bit-equal, worst {ulps:.2f} ulps, max abs {err:.3e}{extra}")
+    by_all = max(bound_of, key=bound_of.get)
+    log(f"  {len(calls)} units: kernel {tot['ms']:.3f} ms ({tot['bound_ms'] / tot['ms']:.1%} of the "
+        f"{tot['bound_ms']:.3f} ms bound, {by_all}), wrapper {tot['wrapper_ms']:.3f} ms, plain "
+        f"{tot['plain_ms']:.3f} ms")
+    return dict(max_abs_err=worst_abs, max_ulps=worst_ulps, bound_by=by_all, **tot)
+
+
+def _code_share(a, b) -> float:
+    names = ("codes_p", "codes_c", "codes_r")
+    same = sum(int((getattr(a, n) == getattr(b, n)).sum()) for n in names)
+    return same / sum(getattr(a, n).size for n in names)
+
+
+def phase_policies(codec: FACodec, codec_hy: FACodec, cpu: FACodec, w: np.ndarray,
+                   smi: str) -> dict:
+    from facodec_tpu_torch.ops.metrics import si_sdr
+
+    t_phase = time.perf_counter()
+    B = w.shape[0]
+    log(f"phase 15: precision policies bfloat16 and hybrid_int8, flagship, batch {B} x "
+        f"{SECONDS:.0f} s [{smi}]")
+    codec_bf = FACodec(codec.encoder, codec.quantizer, codec.decoder, precision="bfloat16")
+    codec_i8 = FACodec(codec.encoder, codec.quantizer, codec.decoder, precision="hybrid_int8")
+    f32 = codec.encode(w)
+    units_bf = unit_inputs((codec.encoder, codec.decoder),
+                           lambda: codec_bf.decode(codec_bf.encode(w)), 24)
+    units_i8 = unit_inputs((codec.decoder,), lambda: codec_i8.decode(f32), 12)
+    k1 = phase_policy_units(units_bf, "f32io", "phase 15a: the bfloat16 form of the bf16 kernel "
+                            "(float32 in and out) vs plain on the 24 units of a bfloat16 round "
+                            "trip; <= 2 bf16 ulps")
+    act_calls = [(u, x) for u, x in units_i8 if x.dtype == torch.float32 and x.shape[-1] == 384]
+    int8_calls = [(u, x) for u, x in units_i8 if x.shape[-1] == 768]
+    if len(act_calls) != 3 or len(int8_calls) != 3:
+        raise AssertionError(f"hybrid_int8 decode: {len(act_calls)} float32 C=384 units, "
+                             f"{len(int8_calls)} C=768 units, expected 3 and 3")
+    k1a = phase_policy_units(act_calls, "f32io_act", "phase 15a: the act form (float32 in and "
+                             "out, the bf16 entry's rounding) vs plain on the 3 C=384 units of a "
+                             "hybrid_int8 decode; <= 2 bf16 ulps")
+    k2 = phase_policy_units(int8_calls, "int8", "phase 15b: the int8 unit (row maxima + unit) "
+                            "vs plain on the 3 C=768 units of a hybrid_int8 decode")
+    del units_bf, units_i8, act_calls, int8_calls
+    torch.cuda.empty_cache()
+
+    log("phase 15c: round trips in turns (float32, hybrid, bfloat16, hybrid_int8, then "
+        "reversed), encode -> decode")
+    codecs = {"float32": codec, "hybrid": codec_hy, "bfloat16": codec_bf, "hybrid_int8": codec_i8}
+    expected = {"float32": dict(f32=24, vq=6), "hybrid": dict(f32=12, bf16=12, vq=6),
+                "bfloat16": dict(f32io=24, vq=6),
+                "hybrid_int8": dict(f32=12, amax=3, int8=3, act=3, bf16=6, vq=6)}
+    times = {p: [] for p in codecs}
+    files, waves, launches = {}, {}, {}
+    for p in (*codecs, *reversed(codecs)):
+        c = codecs[p]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        f = c.encode(w)
+        y = c.decode(f)
+        torch.cuda.synchronize()
+        times[p].append(time.perf_counter() - t0)
+        n = {k: v for k, v in policy_counts().items() if v}
+        want = expected[p]
+        if n != want:
+            raise AssertionError(f"{p} round trip launched {n}, expected {want}")
+        launches[p] = n
+        files[p], waves[p] = f, y
+    for p in codecs:
+        y = waves[p]
+        if y.dtype != np.float32 or y.shape != (B, int(SR * SECONDS)) or not np.isfinite(y).all():
+            raise AssertionError(f"{p} wave {y.dtype} {y.shape} is not a finite float32 wave")
+    share = _code_share(files["bfloat16"], files["float32"])
+    i8_share = _code_share(files["hybrid_int8"], files["float32"])
+    if share < CODE_SHARE_MIN:
+        raise AssertionError(f"bfloat16 codes equal to float32's: {share} < {CODE_SHARE_MIN}")
+    if i8_share != 1.0 or not np.array_equal(files["hybrid_int8"].timbre, files["float32"].timbre):
+        raise AssertionError("hybrid_int8 codes or timbre differ from float32's (its encode is "
+                             "float32)")
+    sdr = {p: [float(si_sdr(waves[p][i], waves["float32"][i])) for i in range(B)]
+           for p in ("hybrid", "bfloat16", "hybrid_int8")}
+    log(f"  times (s, in turns): " + "; ".join(f"{p} {', '.join(f'{t:.3f}' for t in v)}"
+                                             for p, v in times.items()))
+    log(f"  launches: {launches}")
+    log(f"  bfloat16 codes equal to float32's: {share:.4%}; hybrid_int8: {i8_share:.4%} "
+        f"(timbre equal)")
+    log("  SI-SDR against the float32 wave (dB, per row): "
+        + "; ".join(f"{p} {[round(v, 2) for v in r]}" for p, r in sdr.items()))
+
+    wc = sweep_wave(1, 2.0, seed=3)
+    f = codec.encode(wc)
+    gaps = {}
+    for p, c in codecs.items():
+        c_cpu = FACodec(cpu.encoder, cpu.quantizer, cpu.decoder, precision=p)
+        t0 = time.perf_counter()
+        y_cpu = c_cpu.decode(f)
+        gaps[p] = check_hybrid_gap(f"{p} decode card vs CPU, batch 1 x 2 s, equal codes "
+                                   f"(CPU {time.perf_counter() - t0:.1f} s)", c.decode(f), y_cpu)
+    log(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(k1=k1, k1a=k1a, k2=k2, times=times, launches=launches, bf16_code_share=share,
+                si_sdr_db=sdr, cpu_gaps=gaps)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -3015,6 +3272,7 @@ def main() -> None:
     hy = phase_hybrid(codec, codec_hy, cpu, w)
     f32_codes = hy.pop("f")
     bf = phase_bf16(unit_inputs((codec_hy.decoder,), lambda: codec_hy.decode(f32_codes), 12))
+    pol = phase_policies(codec, codec_hy, cpu, w, smi)
     sv = phase_serve(codec_hy)
     live = phase_live(codec_hy)
     art = phase_artifact(codec, w, smi)
@@ -3099,7 +3357,24 @@ def main() -> None:
              sharded_hybrid_launches=shard2["hybrid"]["bf16"],
              decode_kernels=hy["decode_kernels"],
              decode_kernels_per_call_pack=hy["decode_kernels_per_call_pack"], library_ms=None,
-             **bf),
+             hybrid_int8_launches=pol["launches"]["hybrid_int8"].get("bf16", 0), **bf),
+        # phase 15: the bf16 kernel's float32-in/out forms and the int8 unit
+        dict(name="fused_residual_unit_f32io", route="cuda",
+             source="facodec_tpu_torch/csrc/resunit_bf16.cu",
+             replaces="facodec_tpu/ops/pallas/resunit.py:273",
+             launches=pol["launches"]["bfloat16"]["f32io"], policy="bfloat16", library_ms=None,
+             **pol["k1"]),
+        dict(name="fused_residual_unit_f32io_act", route="cuda",
+             source="facodec_tpu_torch/csrc/resunit_bf16.cu",
+             replaces="facodec_tpu/ops/pallas/resunit.py:273",
+             launches=pol["launches"]["hybrid_int8"]["act"], policy="hybrid_int8",
+             library_ms=None, **pol["k1a"]),
+        dict(name="fused_residual_unit_int8", route="cuda",
+             source="facodec_tpu_torch/csrc/resunit_int8.cu",
+             replaces="facodec_tpu/ops/pallas/resunit.py:273",
+             launches=pol["launches"]["hybrid_int8"]["int8"],
+             amax_launches=pol["launches"]["hybrid_int8"]["amax"], policy="hybrid_int8",
+             library_ms=None, **pol["k2"]),
     ]
     log(f"streaming: chunk 16 batch 1 p50 {st16['p50_ms']:.2f} ms ({st16['rtf']:.1f}x realtime, "
         f"device {st16['device_ms']:.2f} ms of a traced {st16['traced_wall_ms']:.2f} ms), "
@@ -3153,6 +3428,10 @@ def main() -> None:
                     for name, r in sh.items())
         + f"; serve requests/s unsharded {[round(r, 2) for r in dp['serve']['rps']['unsharded']]}"
         f" sharded {[round(r, 2) for r in dp['serve']['rps']['sharded']]} [{smi}]")
+    log(f"policies: round trips (s, in turns) " + "; ".join(
+        f"{p} {', '.join(f'{t:.3f}' for t in v)}" for p, v in pol["times"].items())
+        + f"; bfloat16 codes equal to float32's {pol['bf16_code_share']:.4%}; SI-SDR vs float32 "
+        + "; ".join(f"{p} {min(v):.2f} dB" for p, v in pol["si_sdr_db"].items()) + f" [{smi}]")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

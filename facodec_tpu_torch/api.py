@@ -21,11 +21,14 @@ Every call runs with TF32 off for cuDNN convolutions and cuBLAS matmuls,
 scoped to the call: cuDNN convolutions default to TF32 on Hopper, and the
 codes of a float32 codec must not depend on it.
 
-`FACodec(precision=)` takes the policies of ops/precision.py: "float32"
-(the default) or "hybrid", which encodes in float32 (codes exact) and
-decodes under `bfloat16_act` (bf16 activations; decoded waves come back as
-float32 numpy), as the JAX package's "hybrid" does; "bfloat16_act" runs
-both under it. The streaming methods and sessions stay float32 under every
+`FACodec(precision=)` takes the policies of ops/precision.py, aliases
+included: "float32" (the default); "hybrid", which encodes in float32
+(codes exact) and decodes under `bfloat16_act` (bf16 activations; decoded
+waves come back as float32 numpy), as the JAX package's "hybrid" does;
+"hybrid_int8", a float32 encode and an `int8` decode (W8A8 wide convs, one
+shot only: the activation scales pool over whole batch rows); and
+"bfloat16", "bfloat16_act" and "int8", which run both halves under the
+policy. The streaming methods and sessions stay float32 under every
 policy, as the JAX package's do. `FARedecoder` is float32.
 """
 
@@ -48,7 +51,7 @@ from facodec_tpu_torch.models.builder import (
     build_from_fields, build_redecoder_from_fields, codec_fields, redecoder_fields,
 )
 from facodec_tpu_torch.ops.precision import check as check_policy
-from facodec_tpu_torch.ops.precision import get_policy, policy
+from facodec_tpu_torch.ops.precision import entry_policies, get_policy, policy
 from facodec_tpu_torch.parallel.mesh import make_devices
 from facodec_tpu_torch.utils.config import load_config
 from facodec_tpu_torch.utils.weights import init_random_, load_torch_checkpoint
@@ -110,13 +113,13 @@ def _build(who: str, build: Callable[[Mapping], Dict[str, nn.Module]],
 
 
 def _replicate(module: nn.Module, device: torch.device) -> nn.Module:
-    """A copy of `module` on `device`, without the source's kept bf16
+    """A copy of `module` on `device`, without the source's kept packed
     operands (ResidualUnit's pack, SLSTM's rounded LSTM): each replica
     makes its own on its device."""
     copy = deepcopy(module).to(device)
     for m in copy.modules():
-        if hasattr(m, "_bf16"):
-            m._bf16 = None
+        if hasattr(m, "_packs"):
+            m._packs = {}
         if hasattr(m, "_bf16_cache"):
             m._bf16_cache = {}
     return copy
@@ -264,9 +267,7 @@ class FACodec:
         self.decoder = decoder.eval()
         self.n_c = n_c
         self.precision = check_policy(precision)
-        hybrid = self.precision == "hybrid"
-        self.enc_policy = "float32" if hybrid else self.precision
-        self.dec_policy = "bfloat16_act" if hybrid else self.precision
+        self.enc_policy, self.dec_policy = entry_policies(self.precision)
         self.replicas: Optional[Replicas] = None
 
     def shard_inference(self, devices: Optional[Sequence] = None) -> "FACodec":

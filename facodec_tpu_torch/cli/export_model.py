@@ -10,6 +10,8 @@ cross-export). Load it with `facodec_tpu_torch.utils.export.ExportedCodec`;
 serve it with `python -m facodec_tpu_torch serve --artifact DIR --ckpt-path
 CKPT`. The checkpoint only sets the weights traced through: the artifact
 stores none, and takes any checkpoint of the same architecture.
+The precisions are the JAX package's export choices; `export_codec` takes
+`int8` too, and refuses `hybrid_int8` as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -28,8 +30,7 @@ def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--seconds", type=float, default=10.0)
     p.add_argument("--precision", default="hybrid",
-                   choices=["float32", "hybrid", "bfloat16", "bfloat16_act"],
-                   help="bfloat16 is not ported yet (ROADMAP item 6)")
+                   choices=["float32", "hybrid", "bfloat16", "bfloat16_act"])
     add_device_arg(p)
     return p
 

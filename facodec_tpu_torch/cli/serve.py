@@ -637,8 +637,7 @@ def add_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--precision", default="hybrid",
-                   choices=["float32", "hybrid", "bfloat16", "bfloat16_act"],
-                   help="bfloat16 is not ported yet (ROADMAP item 6)")
+                   choices=["float32", "hybrid", "bfloat16", "bfloat16_act"])
     p.add_argument("--bucket-seconds", type=float, default=1.0)
     p.add_argument("--stream-threshold-seconds", type=float, default=32.0)
     p.add_argument("--max-seconds", type=float, default=120.0)

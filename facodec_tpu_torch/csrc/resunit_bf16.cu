@@ -1,5 +1,7 @@
 // Fused DAC residual unit with bf16 activations, for Hopper (sm_90a): the
-// kernel of the `hybrid` codec's decode (the `bfloat16_act` policy).
+// kernel of the `hybrid` codec's decode (the `bfloat16_act` policy), and in
+// two float32-in/out forms (the I/O forms below) the units of the
+// `bfloat16` policy and the `int8` policy's units that do not quantize.
 //
 // Replaces the Pallas TPU kernel facodec_tpu/ops/pallas/resunit.py:273
 // (`_forward`; body `_kernel`; entry `fused_residual_unit`) as the JAX
@@ -19,6 +21,11 @@
 // The snake is resunit_common.cuh's (__fmul_rn / __fadd_rn), so s1 and s2
 // are the plain version's bits wherever their inputs are; the float32 sums
 // of the two products differ from it in order only. Forward only.
+// The float32-in/out forms read x and the biases and write out in float32
+// (F32_ACT: the rounding above with out = x + y in float32; F32_BF16, the
+// `bfloat16` policy's: c7 = float(bf16(W7 (*) s1)) + b7 and y =
+// float(bf16(W1 . s2)) + b1 in float32). They double the bytes of x and
+// out: at C = 64, 96 and 128 (2 C FLOP a byte) the bytes bound them.
 //
 // What bounds it. Per output row the unit does 16 C^2 FLOP (7 C^2 MACs in the
 // conv7, C^2 in the 1x1) on 4 C bytes (x in, out out), and reads the 16 C^2
@@ -92,6 +99,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <type_traits>
+
 #include "resunit_common.cuh"
 
 namespace {
@@ -117,6 +126,79 @@ __device__ __forceinline__ uint32_t pack_bf(float lo, float hi) {
 }
 __device__ __forceinline__ float lo_bf(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float hi_bf(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// ------------------------------------------------------------- I/O forms
+// IO = BF16: x, out, b7 and b1 bf16 (the bf16 entry). The float32-in/out
+// forms read x and the biases and write out in float32, with s1 and s2
+// bf16 on chip as in the bf16 entry:
+//   F32_ACT (the bf16 entry's rounding; `int8`'s units that do not
+//   quantize, given a float32 x): c7 = bf16(bf16(acc) + bf16(b7)),
+//   y = bf16(bf16(acc) + bf16(b1)), out = x + y in float32;
+//   F32_BF16 (the `bfloat16` policy's): c7 = float(bf16(acc)) + b7,
+//   y = float(bf16(acc)) + b1, out = x + y, every sum in float32.
+constexpr int BF16 = 0, F32_ACT = 1, F32_BF16 = 2;
+template <int IO>
+using io_t = std::conditional_t<IO == BF16, uint16_t, float>;
+// two adjacent biases as loaded: their bf16 bits, or two floats
+template <int IO>
+using bias2_t = std::conditional_t<IO == BF16, uint32_t, float2>;
+
+template <int IO>
+__device__ __forceinline__ bias2_t<IO> load_bias2(const void* base, int col) {
+  if constexpr (IO == BF16)
+    return __ldg(reinterpret_cast<const uint32_t*>(static_cast<const uint16_t*>(base) + col));
+  else
+    return __ldg(reinterpret_cast<const float2*>(static_cast<const float*>(base) + col));
+}
+__device__ __forceinline__ float bias_lo(uint32_t b) { return lo_bf(b); }
+__device__ __forceinline__ float bias_hi(uint32_t b) { return hi_bf(b); }
+__device__ __forceinline__ float bias_lo(float2 b) { return b.x; }
+__device__ __forceinline__ float bias_hi(float2 b) { return b.y; }
+
+// A conv's output element from its float32 sum and its bias, rounded where
+// the form's policy rounds (above).
+template <int IO>
+__device__ __forceinline__ float conv_out(float acc, float bias) {
+  if constexpr (IO == F32_BF16)
+    return __fadd_rn(round_bf(acc), bias);
+  else
+    return round_bf(__fadd_rn(round_bf(acc), IO == F32_ACT ? round_bf(bias) : bias));
+}
+
+// Eight consecutive channels of one x row, as loaded (16 bytes of bf16,
+// or 32 of float32), and widened to float32 one at a time (i is a
+// constant after unrolling).
+template <int IO>
+struct Row8;
+template <>
+struct Row8<BF16> {
+  uint4 w;
+  __device__ __forceinline__ void load(const uint16_t* p) {
+    w = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void zero() { w = make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ float get(int i) const {
+    const uint32_t v = i < 2 ? w.x : i < 4 ? w.y : i < 6 ? w.z : w.w;
+    return (i & 1) ? hi_bf(v) : lo_bf(v);
+  }
+};
+struct Row8F32 {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p + 4));
+  }
+  __device__ __forceinline__ void zero() { a = b = make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ __forceinline__ float get(int i) const {
+    const float4& v = i < 4 ? a : b;
+    const int k = i & 3;
+    return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+  }
+};
+template <>
+struct Row8<F32_ACT> : Row8F32 {};
+template <>
+struct Row8<F32_BF16> : Row8F32 {};
 
 // ------------------------------------------- mbarriers, TMA, proxies, wgmma
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -302,13 +384,14 @@ __device__ __forceinline__ void wgmma<128>(float (&d)[64], uint64_t a, uint64_t 
       : "l"(a), "l"(b), "r"(1));
 }
 
-// The kernel's scalars (by value). Shapes: x, out (B, T, C) bf16; b7, b1 (C)
-// bf16; alpha1, recip1, alpha2, recip2 (C) float32, recip = 1 / (alpha + 1e-9).
+// The kernel's scalars (by value). Shapes: x, out (B, T, C) and b7, b1 (C),
+// bf16 or float32 as the I/O form says (io_t); alpha1, recip1, alpha2,
+// recip2 (C) float32, recip = 1 / (alpha + 1e-9).
 struct Params {
-  const uint16_t* x;
-  const uint16_t *b7, *b1;
+  const void* x;
+  const void *b7, *b1;
   const float *alpha1, *recip1, *alpha2, *recip2;
-  uint16_t* out;
+  void* out;
   uint8_t* s2g;   // the scratch s2 tiles, BM x C bf16 per CTA (SPILL only)
   int T, C, dil, pad_left, ext;
   int n_tiles;    // N tiles of BN output channels
@@ -357,17 +440,17 @@ __device__ void load_weights(const CUtensorMap* map7, const CUtensorMap* map1, c
 // Warps 1-7: s1 of each group of KC channels the consumers take, in their
 // order, into the two group buffers ([octet][row][8] bf16; rows past the
 // padded input are zero).
-template <int BM, int KC>
+template <int BM, int KC, int IO>
 __device__ void snake_groups(const Params& p, uint8_t* s1, uint32_t s1_full, uint32_t s1_empty) {
   constexpr int octs = KC / 8, sh = octs == 8 ? 3 : 2;
   const int i0 = threadIdx.x - 32;
   const int rows_in = BM + 6 * p.dil, Tp = p.T + 6 * p.dil, n = rows_in * octs;
   const int bytes = p.rows * KC * 2;
-  constexpr int U = 4;
+  constexpr int U = IO == BF16 ? 4 : 2;  // 64 bytes of x in flight a thread
   int grp = 0;
   for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
     const int b = tile / p.row_tiles, t0 = (tile % p.row_tiles) * BM;
-    const uint16_t* xb = p.x + (size_t)b * p.T * p.C;
+    const io_t<IO>* xb = static_cast<const io_t<IO>*>(p.x) + (size_t)b * p.T * p.C;
     for (int nt = 0; nt < p.n_tiles; ++nt)
       for (int g = 0; g < p.C; g += KC, ++grp) {
         const int buf = grp & 1;
@@ -384,13 +467,15 @@ __device__ void snake_groups(const Params& p, uint8_t* s1, uint32_t s1_full, uin
         const float4 r1 = __ldg(reinterpret_cast<const float4*>(p.recip1 + c + 4));
         // U rows at a time: their loads are issued together, then used
         for (int e0 = i0; e0 < n; e0 += U * SNAKE_THREADS) {
-          uint4 w[U];
+          Row8<IO> w[U];
 #pragma unroll
           for (int u = 0; u < U; ++u) {
             const int r = (e0 + u * SNAKE_THREADS) >> sh, pr = t0 + r;
             const int q = r >= rows_in || pr >= Tp ? -1 : padded_row(pr, p.T, p.ext, p.pad_left);
-            w[u] = q < 0 ? make_uint4(0u, 0u, 0u, 0u)
-                         : __ldg(reinterpret_cast<const uint4*>(xb + (size_t)q * p.C + c));
+            if (q < 0)
+              w[u].zero();
+            else
+              w[u].load(xb + (size_t)q * p.C + c);
           }
 #pragma unroll
           for (int u = 0; u < U; ++u) {
@@ -398,10 +483,10 @@ __device__ void snake_groups(const Params& p, uint8_t* s1, uint32_t s1_full, uin
             if (r >= rows_in) break;
             uint4 v = make_uint4(0u, 0u, 0u, 0u);
             if (pr < Tp && padded_row(pr, p.T, p.ext, p.pad_left) >= 0) {
-              v.x = pack_bf(snakef(lo_bf(w[u].x), a0.x, r0.x), snakef(hi_bf(w[u].x), a0.y, r0.y));
-              v.y = pack_bf(snakef(lo_bf(w[u].y), a0.z, r0.z), snakef(hi_bf(w[u].y), a0.w, r0.w));
-              v.z = pack_bf(snakef(lo_bf(w[u].z), a1.x, r1.x), snakef(hi_bf(w[u].z), a1.y, r1.y));
-              v.w = pack_bf(snakef(lo_bf(w[u].w), a1.z, r1.z), snakef(hi_bf(w[u].w), a1.w, r1.w));
+              v.x = pack_bf(snakef(w[u].get(0), a0.x, r0.x), snakef(w[u].get(1), a0.y, r0.y));
+              v.y = pack_bf(snakef(w[u].get(2), a0.z, r0.z), snakef(w[u].get(3), a0.w, r0.w));
+              v.z = pack_bf(snakef(w[u].get(4), a1.x, r1.x), snakef(w[u].get(5), a1.y, r1.y));
+              v.w = pack_bf(snakef(w[u].get(6), a1.z, r1.z), snakef(w[u].get(7), a1.w, r1.w));
             }
             *reinterpret_cast<uint4*>(dst + ((size_t)o * p.rows + r) * 16) = v;
           }
@@ -506,23 +591,22 @@ __device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
 template <int NW>
 constexpr int JC = (NW / 8) % 4 == 0 ? 4 : 2;
 
-// s2 = bf16(snake2(bf16(bf16(acc) + b7))) into the s2 tile (with SPILL, the
-// CTA's scratch tile s2g).
-template <int NW, int MT, bool SPILL>
+// s2 = bf16(snake2(c7)), c7 = conv_out(acc, b7), into the s2 tile (with
+// SPILL, the CTA's scratch tile s2g).
+template <int NW, int MT, bool SPILL, int IO>
 __device__ __forceinline__ void store_s2(const float (&acc)[MT][NW / 2], const Params& p,
                                          uint32_t s2, uint8_t* s2g, int col0, int rq) {
   constexpr int BM = 64 * MT;
-  const uint16_t* __restrict__ b7 = p.b7;
   const float* __restrict__ alpha2 = p.alpha2;
   const float* __restrict__ recip2 = p.recip2;
 #pragma unroll
   for (int j0 = 0; j0 < NW / 8; j0 += JC<NW>) {
-    uint32_t bias[JC<NW>];
+    bias2_t<IO> bias[JC<NW>];
     float2 al[JC<NW>], rc[JC<NW>];
 #pragma unroll
     for (int jj = 0; jj < JC<NW>; ++jj) {
       const int col = min(col0 + 8 * (j0 + jj), p.C - 2);
-      bias[jj] = __ldg(reinterpret_cast<const uint32_t*>(b7 + col));
+      bias[jj] = load_bias2<IO>(p.b7, col);
       al[jj] = __ldg(reinterpret_cast<const float2*>(alpha2 + col));
       rc[jj] = __ldg(reinterpret_cast<const float2*>(recip2 + col));
     }
@@ -534,9 +618,8 @@ __device__ __forceinline__ void store_s2(const float (&acc)[MT][NW / 2], const P
       for (int m = 0; m < MT; ++m)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const float c0 = round_bf(__fadd_rn(round_bf(acc[m][4 * j + 2 * h]), lo_bf(bias[jj])));
-          const float c1 =
-              round_bf(__fadd_rn(round_bf(acc[m][4 * j + 2 * h + 1]), hi_bf(bias[jj])));
+          const float c0 = conv_out<IO>(acc[m][4 * j + 2 * h], bias_lo(bias[jj]));
+          const float c1 = conv_out<IO>(acc[m][4 * j + 2 * h + 1], bias_hi(bias[jj]));
           const int r = 64 * m + rq + 8 * h, off = (((col >> 3) * BM + r) * 8 + (col & 7)) * 2;
           const uint32_t v =
               pack_bf(snakef(c0, al[jj].x, rc[jj].x), snakef(c1, al[jj].y, rc[jj].y));
@@ -549,63 +632,100 @@ __device__ __forceinline__ void store_s2(const float (&acc)[MT][NW / 2], const P
   }
 }
 
-// The residual rows x and b1 of this thread's output elements, loaded
-// before the 1x1's products so that their latency hides behind them.
-template <int NW, int MT>
+// The residual rows x (bf16 entry only: float32 rows would not fit the
+// registers beside the accumulators) and b1 of this thread's output
+// elements, loaded before the 1x1's products so that their latency hides
+// behind them.
+template <int NW, int MT, int IO>
 struct OutOperands {
-  uint32_t x[NW / 8][MT][2], bias[NW / 8];
+  uint32_t x[IO == BF16 ? NW / 8 : 1][MT][2];
+  bias2_t<IO> bias[NW / 8];
 };
 
-template <int NW, int MT>
-__device__ __forceinline__ void load_out_operands(OutOperands<NW, MT>& o, const Params& p, int b,
-                                                  int t0, int col0, int rq) {
-  const uint16_t* __restrict__ x = p.x;
-  const uint16_t* __restrict__ b1 = p.b1;
+template <int NW, int MT, int IO>
+__device__ __forceinline__ void load_out_operands(OutOperands<NW, MT, IO>& o, const Params& p,
+                                                  int b, int t0, int col0, int rq) {
+  const uint16_t* __restrict__ x = static_cast<const uint16_t*>(p.x);
 #pragma unroll
   for (int j = 0; j < NW / 8; ++j) {
     const int col = min(col0 + 8 * j, p.C - 2);
-    o.bias[j] = __ldg(reinterpret_cast<const uint32_t*>(b1 + col));
+    o.bias[j] = load_bias2<IO>(p.b1, col);
+    if constexpr (IO == BF16) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int tr = min(t0 + 64 * m + rq + 8 * h, p.T - 1);
+          o.x[j][m][h] =
+              __ldg(reinterpret_cast<const uint32_t*>(x + ((size_t)b * p.T + tr) * p.C + col));
+        }
+    }
+  }
+}
+
+// out = x + conv_out(acc, b1): in bf16 for the bf16 entry (bf16(x + y)),
+// else in float32, its x rows loaded JC n8 blocks at a time.
+template <int NW, int MT, int IO>
+__device__ __forceinline__ void store_out(const float (&acc)[MT][NW / 2],
+                                          const OutOperands<NW, MT, IO>& o, const Params& p,
+                                          int b, int t0, int col0, int rq) {
+  if constexpr (IO == BF16) {
+    uint16_t* __restrict__ out = static_cast<uint16_t*>(p.out);
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int tr = min(t0 + 64 * m + rq + 8 * h, p.T - 1);
-        o.x[j][m][h] =
-            __ldg(reinterpret_cast<const uint32_t*>(x + ((size_t)b * p.T + tr) * p.C + col));
+        const int tr = t0 + 64 * m + rq + 8 * h;
+        uint16_t* row = out + ((size_t)b * p.T + tr) * p.C;
+#pragma unroll
+        for (int j = 0; j < NW / 8; ++j) {
+          const int col = col0 + 8 * j;
+          const float y0 = conv_out<IO>(acc[m][4 * j + 2 * h], bias_lo(o.bias[j]));
+          const float y1 = conv_out<IO>(acc[m][4 * j + 2 * h + 1], bias_hi(o.bias[j]));
+          const uint32_t w = o.x[j][m][h];
+          if (tr < p.T && col < p.C)
+            *reinterpret_cast<uint32_t*>(row + col) =
+                pack_bf(__fadd_rn(lo_bf(w), y0), __fadd_rn(hi_bf(w), y1));
+        }
       }
-  }
-}
-
-// out = bf16(x + bf16(bf16(acc) + b1)), rows t0 .. of batch b.
-template <int NW, int MT>
-__device__ __forceinline__ void store_out(const float (&acc)[MT][NW / 2],
-                                          const OutOperands<NW, MT>& o, const Params& p, int b,
-                                          int t0, int col0, int rq) {
-  uint16_t* __restrict__ out = p.out;
+  } else {
+    const float* __restrict__ x = static_cast<const float*>(p.x);
+    float* __restrict__ out = static_cast<float*>(p.out);
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+    for (int j0 = 0; j0 < NW / 8; j0 += JC<NW>) {
+      float2 xv[JC<NW>][MT][2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int tr = t0 + 64 * m + rq + 8 * h;
-      uint16_t* row = out + ((size_t)b * p.T + tr) * p.C;
+      for (int jj = 0; jj < JC<NW>; ++jj)
 #pragma unroll
-      for (int j = 0; j < NW / 8; ++j) {
-        const int col = col0 + 8 * j;
-        const float y0 = round_bf(__fadd_rn(round_bf(acc[m][4 * j + 2 * h]), lo_bf(o.bias[j])));
-        const float y1 =
-            round_bf(__fadd_rn(round_bf(acc[m][4 * j + 2 * h + 1]), hi_bf(o.bias[j])));
-        const uint32_t w = o.x[j][m][h];
-        if (tr < p.T && col < p.C)
-          *reinterpret_cast<uint32_t*>(row + col) =
-              pack_bf(__fadd_rn(lo_bf(w), y0), __fadd_rn(hi_bf(w), y1));
-      }
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int col = min(col0 + 8 * (j0 + jj), p.C - 2);
+            const int tr = min(t0 + 64 * m + rq + 8 * h, p.T - 1);
+            xv[jj][m][h] =
+                __ldg(reinterpret_cast<const float2*>(x + ((size_t)b * p.T + tr) * p.C + col));
+          }
+#pragma unroll
+      for (int jj = 0; jj < JC<NW>; ++jj)
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = j0 + jj, col = col0 + 8 * j, tr = t0 + 64 * m + rq + 8 * h;
+            const float y0 = conv_out<IO>(acc[m][4 * j + 2 * h], bias_lo(o.bias[j]));
+            const float y1 = conv_out<IO>(acc[m][4 * j + 2 * h + 1], bias_hi(o.bias[j]));
+            if (tr < p.T && col < p.C)
+              *reinterpret_cast<float2*>(out + ((size_t)b * p.T + tr) * p.C + col) =
+                  make_float2(__fadd_rn(xv[jj][m][h].x, y0), __fadd_rn(xv[jj][m][h].y, y1));
+          }
     }
+  }
 }
 
 // Warpgroups 2 and 3 (cw = 0, 1), each NW = BN / 2 of an N tile's output
 // channels: per tile, conv7 (+ b7, snake2) into s2, then the 1x1 (+ b1, + x)
 // into out.
-template <int NW, int MT, int KC, bool SPILL>
+template <int NW, int MT, int KC, bool SPILL, int IO>
 __device__ void consume(const Params& p, uint32_t ring, uint32_t s1, uint32_t s2, uint32_t full,
                         uint32_t empty, uint32_t s1_full, uint32_t s1_empty, uint32_t s2_ready) {
   constexpr int BM = 64 * MT, BN = 2 * NW;
@@ -621,7 +741,7 @@ __device__ void consume(const Params& p, uint32_t ring, uint32_t s1, uint32_t s2
 
   for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
     const int b = tile / p.row_tiles, t0 = (tile % p.row_tiles) * BM;
-    // 1. s2 = bf16(snake2(bf16(bf16(conv7(s1)) + b7))), one N tile at a time
+    // 1. s2 = bf16(snake2(conv_out(conv7(s1), b7))), one N tile at a time
     for (int nt = 0; nt < p.n_tiles; ++nt) {
       zero(acc);
       for (int g = 0; g < p.C; g += KC, ++grp) {
@@ -635,7 +755,7 @@ __device__ void consume(const Params& p, uint32_t ring, uint32_t s1, uint32_t s2
       }
       drain(acc, q);
       if (nt == 0) consumer_sync();  // both warpgroups are past the previous tile's 1x1 on s2
-      store_s2<NW, MT, SPILL>(acc, p, s2, s2g, nt * BN + cw * NW + cq, rq);
+      store_s2<NW, MT, SPILL, IO>(acc, p, s2, s2g, nt * BN + cw * NW + cq, rq);
     }
     if constexpr (SPILL) {
       fence_async_global();
@@ -645,11 +765,11 @@ __device__ void consume(const Params& p, uint32_t ring, uint32_t s1, uint32_t s2
       consumer_sync();  // s2 complete, and visible to the wgmma
     }
 
-    // 2. out = bf16(x + bf16(bf16(conv1x1(s2)) + b1))
+    // 2. out = x + conv_out(conv1x1(s2), b1)
     for (int nt = 0; nt < p.n_tiles; ++nt) {
       const int col0 = nt * BN + cw * NW + cq;
-      OutOperands<NW, MT> o;
-      load_out_operands<NW, MT>(o, p, b, t0, col0, rq);
+      OutOperands<NW, MT, IO> o;
+      load_out_operands<NW, MT, IO>(o, p, b, t0, col0, rq);
       zero(acc);
       for (int c = 0; c < p.C; c += KC) {
         // A: the s2 tile's K slice, or its copy behind the weight slice in the stage
@@ -657,14 +777,14 @@ __device__ void consume(const Params& p, uint32_t ring, uint32_t s1, uint32_t s2
         slice<NW, MT, KC>(acc, q, stage, b_off, desc_a(a, BM * 16), 2 * BM, c == 0, -1);
       }
       drain(acc, q);
-      store_out<NW, MT>(acc, o, p, b, t0, col0, rq);
+      store_out<NW, MT, IO>(acc, o, p, b, t0, col0, rq);
     }
   }
 }
 
 // map7, map1: the TMA tensor maps of the packed w7 (C, 7C) and w1 (C, C),
 // boxes of KC K elements x BN rows, swizzled over their 2 KC-byte rows.
-template <int NW, int MT, int KC, bool SPILL>
+template <int NW, int MT, int KC, bool SPILL, int IO>
 __global__ void __launch_bounds__(THREADS, 1)
 resunit_bf16_kernel(const __grid_constant__ CUtensorMap map7,
                     const __grid_constant__ CUtensorMap map1, const Params p) {
@@ -693,13 +813,13 @@ resunit_bf16_kernel(const __grid_constant__ CUtensorMap map7,
   __syncthreads();
   if (threadIdx.x >= 256) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 176;");
-    consume<NW, MT, KC, SPILL>(p, ring, s1, s2, full, empty, s1_full, s1_empty, s2_ready);
+    consume<NW, MT, KC, SPILL, IO>(p, ring, s1, s2, full, empty, s1_full, s1_empty, s2_ready);
   } else {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 80;");
     if (threadIdx.x == 0)
       load_weights<BN, KC, BM, SPILL>(&map7, &map1, p, ring, full, empty, s2_ready);
     else if (threadIdx.x >= 32)
-      snake_groups<BM, KC>(p, smem + (s1 - ring), s1_full, s1_empty);
+      snake_groups<BM, KC, IO>(p, smem + (s1 - ring), s1_full, s1_empty);
   }
 }
 
@@ -770,7 +890,7 @@ bool make_plan(int B, int T, int C, int dil, Plan& pl) {
   return true;
 }
 
-template <int NW, int MT, int KC, bool SPILL>
+template <int NW, int MT, int KC, bool SPILL, int IO>
 cudaError_t launch_cfg(const CUtensorMap& m7, const CUtensorMap& m1, const Params& prm,
                        const Plan& pl, cudaStream_t stream) {
   // the opt-in limit once per device, before any capture into a graph
@@ -779,13 +899,13 @@ cudaError_t launch_cfg(const CUtensorMap& m7, const CUtensorMap& m1, const Param
   cudaGetDevice(&dev);
   if (set_for != dev) {
     const cudaError_t err =
-        cudaFuncSetAttribute(resunit_bf16_kernel<NW, MT, KC, SPILL>,
+        cudaFuncSetAttribute(resunit_bf16_kernel<NW, MT, KC, SPILL, IO>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin));
     if (err != cudaSuccess) return err;
     set_for = dev;
   }
-  resunit_bf16_kernel<NW, MT, KC, SPILL><<<pl.grid, THREADS, pl.smem, stream>>>(m7, m1, prm);
+  resunit_bf16_kernel<NW, MT, KC, SPILL, IO><<<pl.grid, THREADS, pl.smem, stream>>>(m7, m1, prm);
   return cudaGetLastError();
 }
 
@@ -873,9 +993,60 @@ extern "C" long long facodec_resunit_bf16_scratch_bytes(int B, int T, int C, int
   return pl.spill ? (long long)pl.grid * 64 * pl.mt * C * 2 : 0;
 }
 
+namespace {
+
 constexpr int cfg_key(int bn, int mt, int kc, int spill) {
   return ((bn * 4 + mt) * 2 + (kc == 64)) * 2 + spill;
 }
+
+// The instantiation of a plan, for I/O form IO.
+template <int IO>
+cudaError_t dispatch(const CUtensorMap& m7, const CUtensorMap& m1, const Params& prm,
+                     const Plan& pl, cudaStream_t s) {
+  switch (cfg_key(pl.bn, pl.mt, pl.kc, pl.spill)) {
+    case cfg_key(64, 2, 64, 0): return launch_cfg<32, 2, 64, false, IO>(m7, m1, prm, pl, s);
+    case cfg_key(64, 1, 64, 0): return launch_cfg<32, 1, 64, false, IO>(m7, m1, prm, pl, s);
+    case cfg_key(128, 2, 64, 0): return launch_cfg<64, 2, 64, false, IO>(m7, m1, prm, pl, s);
+    case cfg_key(128, 1, 64, 0): return launch_cfg<64, 1, 64, false, IO>(m7, m1, prm, pl, s);
+    case cfg_key(192, 2, 64, 0): return launch_cfg<96, 2, 64, false, IO>(m7, m1, prm, pl, s);
+    case cfg_key(192, 1, 64, 0): return launch_cfg<96, 1, 64, false, IO>(m7, m1, prm, pl, s);
+    case cfg_key(256, 1, 64, 0): return launch_cfg<128, 1, 64, false, IO>(m7, m1, prm, pl, s);
+    case cfg_key(64, 2, 32, 0): return launch_cfg<32, 2, 32, false, IO>(m7, m1, prm, pl, s);
+    case cfg_key(64, 1, 32, 0): return launch_cfg<32, 1, 32, false, IO>(m7, m1, prm, pl, s);
+    case cfg_key(96, 2, 32, 0): return launch_cfg<48, 2, 32, false, IO>(m7, m1, prm, pl, s);
+    case cfg_key(96, 1, 32, 0): return launch_cfg<48, 1, 32, false, IO>(m7, m1, prm, pl, s);
+    case cfg_key(192, 2, 32, 0): return launch_cfg<96, 2, 32, false, IO>(m7, m1, prm, pl, s);
+    case cfg_key(192, 1, 32, 0): return launch_cfg<96, 1, 32, false, IO>(m7, m1, prm, pl, s);
+    case cfg_key(256, 1, 32, 0): return launch_cfg<128, 1, 32, false, IO>(m7, m1, prm, pl, s);
+    // s2 in the scratch: past the fit (C >= 1440), so 32-wide slices and 256-wide N tiles
+    case cfg_key(256, 1, 32, 1): return launch_cfg<128, 1, 32, true, IO>(m7, m1, prm, pl, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int launch_io(int io, const void* x, const void* maps, const void* b7, const void* b1,
+              const float* alpha1, const float* recip1, const float* alpha2, const float* recip2,
+              void* out, void* scratch, int B, int T, int C, int dil, int pad_left, int ext,
+              void* stream) {
+  Plan pl;
+  if (!valid_shape(B, T, C, dil) || !valid_pads(T, dil, pad_left, ext) ||
+      !make_plan(B, T, C, dil, pl) || (pl.spill && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m[2];
+  memcpy(m, maps, sizeof(m));
+  const Params prm{x, b7, b1, alpha1, recip1, alpha2, recip2, out, static_cast<uint8_t*>(scratch),
+                   T, C, dil, pad_left, ext, pl.n_tiles, pl.rows, pl.stages, pl.stage,
+                   pl.resident, pl.tiles, pl.row_tiles};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (io) {
+    case BF16: return (int)dispatch<BF16>(m[0], m[1], prm, pl, s);
+    case F32_ACT: return (int)dispatch<F32_ACT>(m[0], m[1], prm, pl, s);
+    case F32_BF16: return (int)dispatch<F32_BF16>(m[0], m[1], prm, pl, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
 
 // C entry point, bound with ctypes: the unit on x (B, T, C) bf16 into out,
 // with the weights of `maps` (facodec_resunit_bf16_maps) and the pads and
@@ -887,33 +1058,19 @@ extern "C" int facodec_resunit_bf16(const uint16_t* x, const void* maps, const u
                                     const float* alpha2, const float* recip2, uint16_t* out,
                                     void* scratch, int B, int T, int C, int dil, int pad_left,
                                     int ext, void* stream) {
-  Plan pl;
-  if (!valid_shape(B, T, C, dil) || !valid_pads(T, dil, pad_left, ext) ||
-      !make_plan(B, T, C, dil, pl) || (pl.spill && scratch == nullptr))
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap m[2];
-  memcpy(m, maps, sizeof(m));
-  const Params prm{x, b7, b1, alpha1, recip1, alpha2, recip2, out, static_cast<uint8_t*>(scratch),
-                   T, C, dil, pad_left, ext, pl.n_tiles, pl.rows, pl.stages, pl.stage,
-                   pl.resident, pl.tiles, pl.row_tiles};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (cfg_key(pl.bn, pl.mt, pl.kc, pl.spill)) {
-    case cfg_key(64, 2, 64, 0): return launch_cfg<32, 2, 64, false>(m[0], m[1], prm, pl, s);
-    case cfg_key(64, 1, 64, 0): return launch_cfg<32, 1, 64, false>(m[0], m[1], prm, pl, s);
-    case cfg_key(128, 2, 64, 0): return launch_cfg<64, 2, 64, false>(m[0], m[1], prm, pl, s);
-    case cfg_key(128, 1, 64, 0): return launch_cfg<64, 1, 64, false>(m[0], m[1], prm, pl, s);
-    case cfg_key(192, 2, 64, 0): return launch_cfg<96, 2, 64, false>(m[0], m[1], prm, pl, s);
-    case cfg_key(192, 1, 64, 0): return launch_cfg<96, 1, 64, false>(m[0], m[1], prm, pl, s);
-    case cfg_key(256, 1, 64, 0): return launch_cfg<128, 1, 64, false>(m[0], m[1], prm, pl, s);
-    case cfg_key(64, 2, 32, 0): return launch_cfg<32, 2, 32, false>(m[0], m[1], prm, pl, s);
-    case cfg_key(64, 1, 32, 0): return launch_cfg<32, 1, 32, false>(m[0], m[1], prm, pl, s);
-    case cfg_key(96, 2, 32, 0): return launch_cfg<48, 2, 32, false>(m[0], m[1], prm, pl, s);
-    case cfg_key(96, 1, 32, 0): return launch_cfg<48, 1, 32, false>(m[0], m[1], prm, pl, s);
-    case cfg_key(192, 2, 32, 0): return launch_cfg<96, 2, 32, false>(m[0], m[1], prm, pl, s);
-    case cfg_key(192, 1, 32, 0): return launch_cfg<96, 1, 32, false>(m[0], m[1], prm, pl, s);
-    case cfg_key(256, 1, 32, 0): return launch_cfg<128, 1, 32, false>(m[0], m[1], prm, pl, s);
-    // s2 in the scratch: past the fit (C >= 1440), so 32-wide slices and 256-wide N tiles
-    case cfg_key(256, 1, 32, 1): return launch_cfg<128, 1, 32, true>(m[0], m[1], prm, pl, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_io(BF16, x, maps, b7, b1, alpha1, recip1, alpha2, recip2, out, scratch, B, T, C,
+                   dil, pad_left, ext, stream);
+}
+
+// The float32-in/out forms: x, out (B, T, C) and b7, b1 (C) float32, the
+// rest as facodec_resunit_bf16's; `act` != 0 rounds as the bf16 entry does,
+// 0 as the bfloat16 policy does (the I/O forms above).
+extern "C" int facodec_resunit_bf16_f32io(const float* x, const void* maps, const float* b7,
+                                          const float* b1, const float* alpha1,
+                                          const float* recip1, const float* alpha2,
+                                          const float* recip2, float* out, void* scratch, int B,
+                                          int T, int C, int dil, int pad_left, int ext, int act,
+                                          void* stream) {
+  return launch_io(act ? F32_ACT : F32_BF16, x, maps, b7, b1, alpha1, recip1, alpha2, recip2, out,
+                   scratch, B, T, C, dil, pad_left, ext, stream);
 }

@@ -6,11 +6,15 @@ Port of facodec_tpu/models/dac.py. Submodules sit in `nn.ModuleList`s named
 ('block_1', 'block_0', 'block_1', 'weight_v').
 
 Every ResidualUnit goes through `ops.kernels.resunit`: the CUDA kernel for a
-tensor on the card, the plain composition on the CPU. On the card, under
-the `bfloat16_act` policy (bf16 activations, no gradient, eval mode), a unit
-keeps its operands packed for the bf16 entry and repacks only when one of
-its parameters changes; in a program being exported (utils/export.py) the
-packing is graph ops, on every device.
+tensor on the card, the plain composition under the policy on the CPU. On
+the card the policy, x's dtype and the unit's width pick the kernel form
+(`resunit.unit_route`): the float32 entry, the bf16 entry (`bfloat16_act`,
+and `int8`'s units that do not quantize, on a bf16 x), its float32-in/out
+forms (`bfloat16`; `int8`'s units that do not quantize, on a float32 x) or
+the int8 unit (`int8`, `is_int8(7 C)`). Outside the float32 entry (no
+gradient, eval mode) a unit keeps its operands packed for its form and
+repacks only when one of its parameters changes; in a program being
+exported (utils/export.py) the packing is graph ops, on every device.
 
 Streaming (causal models): every module takes `stream` and `first`. With a
 stream, a dict of carries keyed by the JAX module names (`block_1`,
@@ -34,9 +38,9 @@ import torch.nn as nn
 from facodec_tpu_torch.nn.activations import Snake1d
 from facodec_tpu_torch.nn.conv import SConv1d, SConvTranspose1d
 from facodec_tpu_torch.nn.lstm import SLSTM
-from facodec_tpu_torch.ops.kernels.resunit import (Bf16Pack, fused_residual_unit,
-                                                   fused_residual_unit_packed,
-                                                   fused_residual_unit_stream, pack_bf16)
+from facodec_tpu_torch.ops.kernels.resunit import (fused_residual_unit,
+                                                   fused_residual_unit_stream, make_pack,
+                                                   run_packed, unit_route)
 
 Stream = Optional[Dict[str, Any]]
 
@@ -53,35 +57,38 @@ class ResidualUnit(nn.Module):
             Snake1d(dim),
             SConv1d(dim, dim, 1, causal=causal),
         ])
-        self._bf16: Optional[Tuple[tuple, Bf16Pack]] = None  # (key, pack)
+        self._packs: Dict[str, Tuple[tuple, Any]] = {}  # route -> (key, pack)
 
     def _operands(self):
         snake1, conv7, snake2, conv1 = self.block
         return (conv7.effective_weight(), conv7.bias, conv1.effective_weight(), conv1.bias,
                 snake1.alpha, snake2.alpha)
 
-    def bf16_pack(self, x: torch.Tensor) -> Optional[Bf16Pack]:
-        """The bf16 entry's packed operands for x, or None where the unit
-        does not run from a pack: x not bf16 (not the `bfloat16_act`
-        policy), gradients enabled, or training (the bf16 entry is forward
-        only). The pack is kept and rebuilt when a parameter's version
-        (an in-place update) or storage changes, or x's device does. In a
+    def kept_pack(self, x: torch.Tensor, route: str):
+        """The packed operands of kernel form `route` (resunit.unit_route)
+        for x, or None where the unit does not run from a pack: the float32
+        entry, gradients enabled, or training (the packed forms are forward
+        only). A pack is kept per route (codecs of several policies may
+        share the modules) and rebuilt when a parameter's version (an
+        in-place update) or storage changes, or x's device does. In a
         program being exported it is made by graph ops on every call: the
         program keeps no state, and a traced tensor has no storage."""
-        if x.dtype != torch.bfloat16 or self.training or torch.is_grad_enabled():
+        if route == "f32" or self.training or torch.is_grad_enabled():
             return None
         if torch.compiler.is_exporting():
-            return pack_bf16(*self._operands())
+            return make_pack(route, *self._operands())
         key = (x.device, *((p.data_ptr(), p._version) for p in self.parameters()))
-        if self._bf16 is None or self._bf16[0] != key:
-            self._bf16 = key, pack_bf16(*self._operands())
-        return self._bf16[1]
+        kept = self._packs.get(route)
+        if kept is None or kept[0] != key:
+            kept = self._packs[route] = key, make_pack(route, *self._operands())
+        return kept[1]
 
     def forward(self, x: torch.Tensor, stream: Stream = None, first: bool = False):
         if stream is None and (x.is_cuda or torch.compiler.is_exporting()):
-            pack = self.bf16_pack(x)
+            route = unit_route(x.dtype, x.shape[-1])
+            pack = self.kept_pack(x, route)
             if pack is not None:
-                return fused_residual_unit_packed(x.contiguous(), pack, self.dilation, self.causal)
+                return run_packed(route, x.contiguous(), pack, self.dilation, self.causal)
         args = (*self._operands(), self.dilation)
         if stream is None:
             return fused_residual_unit(x.contiguous(), *args, self.causal)

@@ -23,7 +23,7 @@ import torch.nn as nn
 from facodec_tpu_torch.nn.activations import mish
 from facodec_tpu_torch.nn.basic import dropout
 from facodec_tpu_torch.nn.conv import Conv1d
-from facodec_tpu_torch.ops.precision import bf16_active, bf16_values
+from facodec_tpu_torch.ops.precision import bf16_values, compute_dtype
 
 
 class Mish(nn.Module):
@@ -54,7 +54,7 @@ class MultiHeadAttention(nn.Module):
         k = self.conv_k(c).reshape(B, Tk, H, kc).transpose(1, 2)
         v = self.conv_v(c).reshape(B, Tk, H, kc).transpose(1, 2)
         q = q / math.sqrt(kc)
-        bf16 = bf16_active()
+        bf16 = compute_dtype() == torch.bfloat16
         if bf16:
             q, k, v = bf16_values(q), bf16_values(k), bf16_values(v)
         scores = q @ k.transpose(-1, -2)

@@ -5,8 +5,8 @@ torch's own modules are the counterparts, with the parameter names and shapes
 the JAX tree mirrors (`weight` (out, in), `bias`; LayerNorm eps 1e-5, and
 `elementwise_affine=False` for the timbre norm). `Linear` follows the
 precision policy (ops/precision.py) as the JAX one does: under
-`bfloat16_act` its operands are rounded to bf16 and it accumulates and
-returns float32, with the bias added in float32.
+`bfloat16`, `bfloat16_act` and `int8` its operands are rounded to bf16 and
+it accumulates and returns float32, with the bias added in float32.
 
 `dropout` is flax's `nn.Dropout` in train mode, drawn from an explicit
 torch.Generator on the tensor's device; inside a data-parallel step's row
@@ -20,7 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from facodec_tpu_torch.ops.precision import bf16_active, bf16_values
+from facodec_tpu_torch.ops.precision import bf16_values, compute_dtype
 from facodec_tpu_torch.parallel.mesh import rand_rows
 
 from typing import Optional
@@ -31,7 +31,7 @@ LayerNorm = nn.LayerNorm
 
 class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not bf16_active():
+        if compute_dtype() != torch.bfloat16:
             return super().forward(x)
         y = F.linear(bf16_values(x), bf16_values(self.weight))
         return y if self.bias is None else y + self.bias

@@ -17,8 +17,13 @@ operands to bf16, accumulates in float32, rounds the result to bf16 and
 only then adds the bias in bf16, as the JAX package does. On the card that
 is cuDNN's (or cuBLAS's) bf16 convolution; on the CPU a float32 convolution
 of bf16-valued tensors, rounded after, which rounds at the same points.
-`exact=True` keeps a conv in float32 under every policy (the VQ
-projections).
+Under `bfloat16` the result is rounded to bf16 the same way and returned
+widened to float32, plus the float32 bias. Under `int8` a conv whose fan-in
+(C_in * K) reaches `INT8_MIN_FANIN` runs W8A8 (`w8a8_conv`): its input
+quantized per batch row, its weight per output channel, the int8 products
+summed exactly and returned in float32 as `sum * (sx * sw) + bias`; the
+other convs round as under `bfloat16_act`. `exact=True` keeps a conv in
+float32 under every policy (the VQ projections).
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from facodec_tpu_torch.ops.padding import get_extra_padding_for_conv1d, pad1d
-from facodec_tpu_torch.ops.precision import bf16_active, bf16_values
+from facodec_tpu_torch.ops.precision import (bf16_values, compute_dtype, is_int8, out_dtype,
+                                             quantize_dynamic)
 
 
 def apply_weight_norm(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -40,12 +46,89 @@ def apply_weight_norm(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def bf16_op(fn, x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
     """fn(x, w) with bf16 operands and float32 accumulation, rounded to
-    bf16, then `+ bias` in bf16 (the module docstring)."""
+    bf16, then `+ bias` in the policy's output dtype: in bf16 under
+    `bfloat16_act` and `int8`, widened to float32 under `bfloat16` (the
+    module docstring)."""
     if x.device.type == "cuda":
         y = fn(x.to(torch.bfloat16), w.to(torch.bfloat16))
     else:
         y = fn(bf16_values(x), bf16_values(w)).to(torch.bfloat16)
-    return y if bias is None else y + bias.to(torch.bfloat16)
+    y = y.to(out_dtype())
+    return y if bias is None else y + bias.to(y.dtype)
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) @ b (N, K).T of int8 matrices, summed exactly: int32 on the
+    card (`torch._int_mm`, cuBLASLt; K and N zero-padded to multiples of 8
+    and M to more than 16 rows, as it asks), float64 on the CPU (every sum
+    of int8 products here is an integer far below 2^53)."""
+    if a.device.type != "cuda":
+        return a.double() @ b.double().T
+    M, K = a.shape
+    N = b.shape[0]
+    kp, np_, mp = -(-K // 8) * 8, -(-N // 8) * 8, max(M, 17)
+    a = F.pad(a, (0, kp - K, 0, mp - M))
+    b = F.pad(b, (0, kp - K, 0, np_ - N))
+    return torch._int_mm(a, b.T)[:M, :N]
+
+
+def int8_conv1d(xq: torch.Tensor, wq: torch.Tensor, stride: int, dilation: int, padding: int,
+                 groups: int) -> torch.Tensor:
+    """The exact sums of an int8 conv over NTC input with an (O, I / groups, K)
+    weight: float64 conv on the CPU, im2col and `int8_matmul` on the card."""
+    if xq.device.type != "cuda":
+        y = F.conv1d(xq.double().transpose(1, 2), wq.double(), stride=stride, padding=padding,
+                     dilation=dilation, groups=groups)
+        return y.transpose(1, 2)
+    if groups != 1:
+        raise ValueError("a W8A8 conv on the card takes groups == 1")
+    B = xq.shape[0]
+    O, I, K = wq.shape
+    if padding:
+        xq = F.pad(xq, (0, 0, padding, padding))
+    cols = xq.unfold(1, dilation * (K - 1) + 1, stride)[..., ::dilation]  # (B, T', I, K)
+    T = cols.shape[1]
+    y = int8_matmul(cols.reshape(B * T, I * K), wq.reshape(O, I * K))
+    return y.reshape(B, T, O)
+
+
+def int8_conv_transpose1d(xq: torch.Tensor, wq: torch.Tensor, stride: int) -> torch.Tensor:
+    """The exact sums of an int8 transposed conv over NTC input with an
+    (I, O, K) weight, untrimmed: float64 on the CPU; on the card each input
+    row times the weight (`int8_matmul`, (B T, K O)), then the K taps added
+    onto their output rows in int32, `stride` taps at a time."""
+    if xq.device.type != "cuda":
+        y = F.conv_transpose1d(xq.double().transpose(1, 2), wq.double(), stride=stride)
+        return y.transpose(1, 2)
+    B, T, I = xq.shape
+    O, K = wq.shape[1], wq.shape[2]
+    n = -(-K // stride)
+    cols = int8_matmul(xq.reshape(B * T, I), wq.permute(2, 1, 0).reshape(K * O, I))
+    cols = F.pad(cols.reshape(B, T, K * O), (0, (n * stride - K) * O))
+    cols = cols.reshape(B, T, n, stride * O)
+    y = cols.new_zeros(B, T + n - 1, stride * O)
+    for j in range(n):
+        y[:, j:j + T] += cols[:, :, j]
+    return y.reshape(B, (T + n - 1) * stride, O)[:, :(T - 1) * stride + K]
+
+
+def w8a8_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+              transpose: bool = False, stride: int = 1, dilation: int = 1, padding: int = 0,
+              groups: int = 1) -> torch.Tensor:
+    """The `int8` policy's conv: x quantized per batch row over (T, C), the
+    weight per output channel over (in, tap) (`quantize_dynamic`), the int8
+    products summed exactly, then `float32(sum) * (sx * sw) + bias`, as the
+    JAX package computes it; `transpose` for an (I, O, K) transposed-conv
+    weight."""
+    xq, sx = quantize_dynamic(x, (1, 2))  # (B, 1, 1)
+    if transpose:
+        wq, sw = quantize_dynamic(weight, (0, 2))  # (1, O, 1)
+        acc = int8_conv_transpose1d(xq, wq, stride)
+    else:
+        wq, sw = quantize_dynamic(weight, (1, 2))  # (O, 1, 1)
+        acc = int8_conv1d(xq, wq, stride, dilation, padding, groups)
+    y = acc.float() * (sx * sw.reshape(1, 1, -1))
+    return y if bias is None else y + bias
 
 
 def conv1d_ntc(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
@@ -55,7 +138,10 @@ def conv1d_ntc(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tenso
     precision policy unless `exact`. A pointwise conv is a matmul over
     channels and runs as one, as in the JAX package."""
     pointwise = weight.shape[-1] == 1 and stride == 1 and padding == 0 and groups == 1
-    if not exact and bf16_active():
+    if not exact and is_int8(weight.shape[1] * weight.shape[2]):
+        return w8a8_conv(x, weight, bias, stride=stride, dilation=dilation, padding=padding,
+                         groups=groups)
+    if not exact and compute_dtype() == torch.bfloat16:
         if pointwise:
             return bf16_op(lambda a, w: F.linear(a, w[:, :, 0]), x, weight, bias)
         return bf16_op(lambda a, w: F.conv1d(a.transpose(1, 2), w, stride=stride,
@@ -78,7 +164,9 @@ def conv_transpose1d_ntc(x: torch.Tensor, weight: torch.Tensor, bias: Optional[t
     def fn(a, w):
         return F.conv_transpose1d(a.transpose(1, 2), w, stride=stride).transpose(1, 2)
 
-    if bf16_active():
+    if is_int8(weight.shape[0] * weight.shape[2]):
+        return w8a8_conv(x, weight, bias, transpose=True, stride=stride)
+    if compute_dtype() == torch.bfloat16:
         return bf16_op(fn, x, weight, bias)
     y = F.conv_transpose1d(x.transpose(1, 2), weight, bias, stride=stride)
     return y.transpose(1, 2)

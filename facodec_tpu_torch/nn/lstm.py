@@ -7,17 +7,20 @@ submodule named `lstm`. The one-shot call starts from a zero state; a
 stream passes `(h, c)`, each (layers, B, H) as in the JAX package, and
 gets the final state back.
 
-Under the `bfloat16_act` policy the JAX package rounds both matmuls'
-operands to bf16 (the input, the weights and, at every step, h) and keeps
-the (h, c) carries, the gates and the output in float32; the output plus
-the bf16 skip is float32. cuDNN cannot round h at each step, and a Python
+Under the `bfloat16`, `bfloat16_act` and `int8` policies the JAX package
+rounds both matmuls' operands to bf16 (the input, the weights and, at
+every step, h) and keeps the (h, c) carries, the gates and the output in
+float32; the output plus the skip (bf16 or float32) is float32. cuDNN cannot round h at each step, and a Python
 loop over the 800 steps of a 10 s decode is not a route on the card. So
 the port runs the float32 LSTM on the bf16-rounded input and weights
 (biases stay float32): every rounding but h's. The rounded weights are a
 cached copy of `lstm`, made again whenever a parameter changes; in a
 program being exported (utils/export.py) they are graph ops on every call,
 run through `lstm` by `torch.func.functional_call`, which still lowers to
-one `aten.lstm` (cuDNN on the card).
+one `aten.lstm` (cuDNN on the card). The JAX package's opt-in W8A8
+recurrence (`FACODEC_LSTM_INT8`, never a default) is not ported: cuDNN has
+no int8 recurrence, so under `int8` the LSTM runs as under the other bf16
+policies.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from facodec_tpu_torch.ops.precision import bf16_active, bf16_values
+from facodec_tpu_torch.ops.precision import bf16_values, compute_dtype
 
 LSTMState = Tuple[torch.Tensor, torch.Tensor]
 
@@ -59,7 +62,7 @@ class SLSTM(nn.Module):
 
     def forward(self, x: torch.Tensor, state: Optional[LSTMState] = None,
                 return_state: bool = False):
-        if bf16_active():
+        if compute_dtype() == torch.bfloat16:
             if torch.compiler.is_exporting():
                 rounded = {name: bf16_values(p) if name.startswith("weight") else p
                            for name, p in self.lstm.named_parameters()}

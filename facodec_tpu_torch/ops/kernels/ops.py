@@ -13,6 +13,16 @@ see it as one node and never reach its `data_ptr()` calls:
                                   outputs into the first one's dtype)
   facodec::resunit_halo_f32(x, halo?, w7, b7, w1, b1, alpha1, alpha2, dilation)
       -> (out, new_halo)          csrc/resunit.cu, the halo entry
+  facodec::resunit_bf16_f32io(x, w7, w1, b7, b1, alpha1, recip1, alpha2, recip2,
+                              dilation, causal, act)
+      -> out                      csrc/resunit_bf16.cu, float32 in and out
+                                  (`bfloat16`'s rounding, or with `act` the
+                                  bf16 entry's), on a pack with float32 biases
+  facodec::resunit_int8_amax(x, alpha1, recip1)
+      -> amax (B,)                csrc/resunit_int8.cu, max |snake1(x)| per row
+  facodec::resunit_int8(x, amax, q7, sw, w1, b7, b1, alpha1, recip1, alpha2,
+                        recip2, dilation, causal)
+      -> out                      csrc/resunit_int8.cu, on `pack_int8`'s tensors
 
 Every op has three implementations: a fake one (shapes and dtypes only,
 for tracing), a CUDA one that launches its kernel (the launchers in
@@ -26,10 +36,10 @@ The float32 entry and the VQ search carry gradients (`register_autograd`):
 the residual unit's is the plain composition's, recomputed from the saved
 inputs (the JAX package's `_bwd`); the search passes none to the latents
 and scatter-adds the rows' cotangent into the codebook rows it selected
-(`index_add`, the counterpart of `segment_sum`). The bf16 and halo entries
-are forward only.
+(`index_add`, the counterpart of `segment_sum`). The other entries are
+forward only.
 
-The bf16 entry takes the packed weights as tensors; its CUDA implementation
+The bf16 entries take the packed weights as tensors; their CUDA implementation
 encodes the two TMA tensor maps itself (`resunit.tma_maps`, kept per
 packed weights' address), so a pack made by graph ops in an exported
 program serves the kernel as one kept by `models.dac.ResidualUnit` does.
@@ -176,3 +186,64 @@ def _resunit_halo_f32_cuda(x, halo, w7, b7, w1, b1, alpha1, alpha2, dilation):
 def _resunit_halo_f32_fake(x, halo, w7, b7, w1, b1, alpha1, alpha2, dilation):
     B, _, C = x.shape
     return _new_like(x), x.new_empty(B, 6 * dilation, C)
+
+
+# ---------------------------------------------------- float32-in/out forms
+@torch.library.custom_op("facodec::resunit_bf16_f32io", mutates_args=(), device_types="cpu")
+def resunit_bf16_f32io(x: Tensor, w7: Tensor, w1: Tensor, b7: Tensor, b1: Tensor,
+                       alpha1: Tensor, recip1: Tensor, alpha2: Tensor, recip2: Tensor,
+                       dilation: int, causal: bool, act: bool) -> Tensor:
+    pack = resunit.Bf16Pack(w7, w1, b7, b1, alpha1, recip1, alpha2, recip2)
+    return resunit.f32io_reference(x, pack, dilation, causal, act).contiguous()
+
+
+@resunit_bf16_f32io.register_kernel("cuda")
+def _resunit_bf16_f32io_cuda(x, w7, w1, b7, b1, alpha1, recip1, alpha2, recip2, dilation,
+                             causal, act):
+    pl, ext = resunit.reflect_extent(x.shape[1], dilation, causal)
+    pack = resunit.Bf16Pack(w7, w1, b7, b1, alpha1, recip1, alpha2, recip2)
+    return resunit.launch_f32io(resunit.aligned16(x.contiguous()), pack, dilation, pl, ext, act)
+
+
+@resunit_bf16_f32io.register_fake
+def _resunit_bf16_f32io_fake(x, w7, w1, b7, b1, alpha1, recip1, alpha2, recip2, dilation,
+                             causal, act):
+    return _new_like(x)
+
+
+# ------------------------------------------------------------ int8 unit
+@torch.library.custom_op("facodec::resunit_int8_amax", mutates_args=(), device_types="cpu")
+def resunit_int8_amax(x: Tensor, alpha1: Tensor, recip1: Tensor) -> Tensor:
+    return resunit.int8_row_amax_reference(x, alpha1).contiguous()
+
+
+@resunit_int8_amax.register_kernel("cuda")
+def _resunit_int8_amax_cuda(x, alpha1, recip1):
+    return resunit.launch_int8_amax(x, alpha1, recip1)
+
+
+@resunit_int8_amax.register_fake
+def _resunit_int8_amax_fake(x, alpha1, recip1):
+    return x.new_empty(x.shape[0])
+
+
+@torch.library.custom_op("facodec::resunit_int8", mutates_args=(), device_types="cpu")
+def resunit_int8(x: Tensor, amax: Tensor, q7: Tensor, sw: Tensor, w1: Tensor, b7: Tensor,
+                 b1: Tensor, alpha1: Tensor, recip1: Tensor, alpha2: Tensor, recip2: Tensor,
+                 dilation: int, causal: bool) -> Tensor:
+    pack = resunit.Int8Pack(q7, sw, w1, b7, b1, alpha1, recip1, alpha2, recip2)
+    return resunit.int8_unit_parts(x, amax, pack, dilation, causal)["out"].contiguous()
+
+
+@resunit_int8.register_kernel("cuda")
+def _resunit_int8_cuda(x, amax, q7, sw, w1, b7, b1, alpha1, recip1, alpha2, recip2, dilation,
+                       causal):
+    pl, ext = resunit.reflect_extent(x.shape[1], dilation, causal)
+    pack = resunit.Int8Pack(q7, sw, w1, b7, b1, alpha1, recip1, alpha2, recip2)
+    return resunit.launch_int8(x, amax, pack, dilation, pl, ext)
+
+
+@resunit_int8.register_fake
+def _resunit_int8_fake(x, amax, q7, sw, w1, b7, b1, alpha1, recip1, alpha2, recip2, dilation,
+                       causal):
+    return _new_like(x)

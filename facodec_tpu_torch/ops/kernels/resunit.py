@@ -38,6 +38,24 @@ weight version) or, in a program being exported, makes with graph ops. The
 bf16 entry and the halo entry below are forward only (the hybrid decode and
 streams serve): asked for a gradient on the card, they raise.
 
+Under the other precision policies the unit runs in the kernel form that
+`unit_route` picks from the policy, x's dtype and the unit's width, each
+forward only, on operands packed once per weight version (`make_pack`,
+kept by `models.dac.ResidualUnit`), each with its launch count:
+  - the float32-in/out forms of the bf16 kernel (csrc/resunit_bf16.cu,
+    `facodec::resunit_bf16_f32io`, `pack_bf16` with float32 biases):
+    `bfloat16` (`f32io_launches`: the conv outputs rounded to bf16 and
+    widened, float32 biases) and, with `act`, the bf16 entry's rounding on
+    a float32 x and out (`f32io_act_launches`: `int8`'s units whose conv7
+    does not quantize); plain version `f32io_reference`;
+  - the int8 unit (csrc/resunit_int8.cu, `pack_int8`): the W8A8 conv7 of
+    `int8`'s units with `is_int8(7 C)`, two launches, the row maxima of
+    |snake1(x)| (`facodec::resunit_int8_amax`, `int8_amax_launches`) and
+    the unit (`facodec::resunit_int8`, `int8_launches`); plain version
+    `int8_unit_parts` (bit-equal in its int8 operands and conv7 output).
+On the CPU `fused_residual_unit` runs the plain composition under the
+current policy, which every form's plain version equals on its route.
+
 `fused_residual_unit_stream` runs one chunk of a causal stream through the
 kernel's halo entry (plain version `residual_unit_stream_reference`): the
 left pad is the carried halo, the last 6d rows of the previous chunk's
@@ -57,10 +75,11 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from facodec_tpu_torch.nn.activations import snake
-from facodec_tpu_torch.nn.conv import conv1d_ntc
+from facodec_tpu_torch.nn.conv import conv1d_ntc, int8_conv1d
 from facodec_tpu_torch.ops.kernels import build
 from facodec_tpu_torch.ops.padding import pad1d
-from facodec_tpu_torch.ops.precision import policy
+from facodec_tpu_torch.ops.precision import (INT8_SCALE, compute_dtype, get_policy, is_int8,
+                                             policy, quantize_dynamic)
 
 
 def _pads(dilation: int, causal: bool) -> Tuple[int, int]:
@@ -69,12 +88,15 @@ def _pads(dilation: int, causal: bool) -> Tuple[int, int]:
 
 
 def residual_unit_reference(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
-                            causal: bool) -> torch.Tensor:
-    """The plain composition (the JAX package's `_reference`); a bf16 x runs
-    under the `bfloat16_act` policy, whose convs round as the kernel's bf16
-    entry does."""
+                            causal: bool, policy_name: Optional[str] = None) -> torch.Tensor:
+    """The plain composition (the JAX package's `_reference`) under
+    `policy_name`, or else the current policy; a bf16 x where that policy
+    keeps float32 outputs runs under `bfloat16_act`, whose convs round as
+    the kernel's bf16 entry does."""
     C = x.shape[-1]
-    with policy("bfloat16_act" if x.dtype == torch.bfloat16 else None):
+    if policy_name is None and x.dtype == torch.bfloat16 and compute_dtype() == torch.float32:
+        policy_name = "bfloat16_act"
+    with policy(policy_name):
         y = snake(x, alpha1.reshape(1, 1, C))
         y = pad1d(y, _pads(dilation, causal))
         y = conv1d_ntc(y, w7, b7, dilation=dilation)
@@ -82,24 +104,67 @@ def residual_unit_reference(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
         return x + conv1d_ntc(y, w1, b1)
 
 
+# the policy each kernel form's plain version runs under (unit_route)
+ROUTE_POLICY = {"f32": "float32", "bf16": "bfloat16_act", "f32io": "bfloat16",
+                "f32io_act": "bfloat16_act"}
+
+
+def unit_route(dtype: torch.dtype, C: int) -> str:
+    """Which kernel form runs a unit of width C on an input of `dtype` on the
+    card under the current policy, following the JAX package's dtypes:
+    "f32" (the float32 entry: float32 and the entry-point policies' float32
+    reading), "bf16" (bf16 in and out: `bfloat16_act`, and `int8`'s units
+    that do not quantize, on a bf16 x), "f32io" (float32 in and out with
+    `bfloat16`'s rounding), "f32io_act" (float32 in and out with the bf16
+    entry's rounding: `int8`'s units that do not quantize, on a float32 x)
+    or "int8" (a conv7 that quantizes: `is_int8(7 C)`, float32 x). Raises
+    where no kernel computes what the policy asks: a bf16 x under
+    `bfloat16`, or under `int8` into a quantizing conv7, and a unit whose
+    1x1 quantizes too (INT8_MIN_FANIN <= C)."""
+    pol, bf16 = get_policy(), dtype == torch.bfloat16
+    if pol == "int8":
+        if is_int8(C):
+            raise ValueError(f"no residual-unit kernel quantizes the 1x1 conv (C={C} >= "
+                             f"INT8_MIN_FANIN); it runs only on the CPU")
+        if is_int8(7 * C):
+            if bf16:
+                raise TypeError("the int8 residual unit takes a float32 x, got bfloat16")
+            return "int8"
+        return "bf16" if bf16 else "f32io_act"
+    if pol == "bfloat16":
+        if bf16:
+            raise TypeError("under the bfloat16 policy a residual unit takes a float32 x")
+        return "f32io"
+    if pol == "bfloat16_act":
+        return "bf16" if bf16 else "f32io_act"
+    return "bf16" if bf16 else "f32"
+
+
 def bf16_error_scale(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
-                     causal: bool) -> torch.Tensor:
-    """Per element of a bf16 unit's output, the magnitude whose bf16 ulp
-    measures a difference between two evaluations of the unit: the largest
-    term of its last sums, max(|x|, |out|, |b1|, |W1| . |s2|). Two summation
+                     causal: bool, route: str = "bf16") -> torch.Tensor:
+    """Per element of a bf16-operand unit's output (kernel form `route`),
+    the magnitude whose bf16 ulp measures a difference between two
+    evaluations of the unit: the largest term of its last sums, max(|x|,
+    |out|, |b1|, |W1| . |s2|), s2 the 1x1's bf16 operand. Two summation
     orders can round a sum one ulp apart; such a step in s2 moves W1 . s2 by
     up to |W1| . ulp(s2), and reaches the output unchanged where the 1x1's
     products or x + y cancel. |W1| . |s2| bounds the 1x1's terms as a
     rounding-error analysis of a sum does."""
     C = x.shape[-1]
-    with policy("bfloat16_act"):
-        y = snake(x, alpha1.reshape(1, 1, C))
-        y = conv1d_ntc(pad1d(y, _pads(dilation, causal)), w7, b7, dilation=dilation)
-        s2 = snake(y, alpha2.reshape(1, 1, C))
-        terms = conv1d_ntc(s2.float().abs(), w1.to(torch.bfloat16).float().abs(), None,
-                           exact=True)
-        out = residual_unit_reference(x, w7, b7, w1, b1, alpha1, alpha2, dilation, causal)
-    parts = (x.float().abs(), out.float().abs(), terms, b1.abs().expand_as(terms))
+    if route == "int8":
+        parts = int8_unit_parts(x, int8_row_amax_reference(x, alpha1),
+                                pack_int8(w7, b7, w1, b1, alpha1, alpha2), dilation, causal)
+        s2, out = parts["s2"], parts["out"]
+    else:
+        with policy(ROUTE_POLICY[route]):
+            y = snake(x, alpha1.reshape(1, 1, C))
+            y = conv1d_ntc(pad1d(y, _pads(dilation, causal)), w7, b7, dilation=dilation)
+            s2 = snake(y, alpha2.reshape(1, 1, C))
+        out = residual_unit_reference(x, w7, b7, w1, b1, alpha1, alpha2, dilation, causal,
+                                      ROUTE_POLICY[route])
+    terms = conv1d_ntc(s2.to(torch.bfloat16).float().abs(),
+                       w1.to(torch.bfloat16).float().abs(), None, exact=True)
+    parts = (x.float().abs(), out.float().abs(), terms, b1.float().abs().expand_as(terms))
     return torch.stack(parts).amax(dim=0)
 
 
@@ -142,8 +207,9 @@ def _entry_points():
 
 @functools.lru_cache(maxsize=None)
 def _bf16_entry_points():
-    """(bf16 entry, tensor-map builder, map bytes, plan, scratch size) from
-    csrc/resunit_bf16.cu, typed once per process."""
+    """(bf16 entry, tensor-map builder, map bytes, plan, scratch size,
+    float32-in/out entry) from csrc/resunit_bf16.cu, typed once per
+    process."""
     lib = build.library("resunit_bf16")
     fn = lib.facodec_resunit_bf16
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -158,7 +224,10 @@ def _bf16_entry_points():
     size = lib.facodec_resunit_bf16_scratch_bytes
     size.argtypes = [ctypes.c_int] * 4
     size.restype = ctypes.c_longlong
-    return fn, maps, lib.facodec_resunit_bf16_maps_bytes(), plan, size
+    f32io = lib.facodec_resunit_bf16_f32io
+    f32io.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    f32io.restype = ctypes.c_int
+    return fn, maps, lib.facodec_resunit_bf16_maps_bytes(), plan, size, f32io
 
 
 def _check(who: str, name: str, t: Optional[torch.Tensor], shape, device,
@@ -224,27 +293,47 @@ def _wants_grad(who: str, *tensors) -> None:
 
 def fused_residual_unit(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
                         causal: bool) -> torch.Tensor:
-    """out = x + conv1x1(snake(conv7(snake(x)))) in one kernel on the card;
-    x float32 (with gradients), or bf16 for the bf16 entry (forward only,
-    the weights packed for this call; on the CPU the plain version under the
-    policy, with gradients)."""
+    """out = x + conv1x1(snake(conv7(snake(x)))) under the current policy:
+    on the card in the kernel form `unit_route` picks, its operands packed
+    for this call (the float32 entry with gradients, the others forward
+    only); on the CPU the plain version under the policy, with gradients."""
     _check_unit("fused_residual_unit", x, w7, b7, w1, b1, alpha1, alpha2, dilation,
                 (torch.float32, torch.bfloat16))
     if x.device.type == "cpu" and not torch.compiler.is_exporting():
         return residual_unit_reference(x, w7, b7, w1, b1, alpha1, alpha2, dilation, causal)
-    if x.dtype == torch.bfloat16:
-        _wants_grad("fused_residual_unit (bf16 entry)", x, w7, b7, w1, b1, alpha1, alpha2)
-        return torch.ops.facodec.resunit_bf16(x, *pack_bf16(w7, b7, w1, b1, alpha1, alpha2),
-                                              dilation, causal)
-    return torch.ops.facodec.resunit_f32(x, w7, b7, w1, b1, alpha1, alpha2, dilation, causal)
+    route = unit_route(x.dtype, x.shape[-1])
+    if route == "f32":
+        return torch.ops.facodec.resunit_f32(x, w7, b7, w1, b1, alpha1, alpha2, dilation, causal)
+    _wants_grad(f"fused_residual_unit ({route} entry)", x, w7, b7, w1, b1, alpha1, alpha2)
+    return run_packed(route, x, make_pack(route, w7, b7, w1, b1, alpha1, alpha2), dilation,
+                      causal)
+
+
+def make_pack(route: str, w7, b7, w1, b1, alpha1, alpha2):
+    """The packed operands of kernel form `route` (not "f32") from the
+    effective float32 weights."""
+    if route == "int8":
+        return pack_int8(w7, b7, w1, b1, alpha1, alpha2)
+    bias = torch.bfloat16 if route == "bf16" else torch.float32
+    return pack_bf16(w7, b7, w1, b1, alpha1, alpha2, bias)
+
+
+def run_packed(route: str, x, pack, dilation: int, causal: bool) -> torch.Tensor:
+    """Kernel form `route` (not "f32") on a pack that `make_pack` made."""
+    if route == "bf16":
+        return fused_residual_unit_packed(x, pack, dilation, causal)
+    if route == "int8":
+        return fused_residual_unit_int8_packed(x, pack, dilation, causal)
+    return fused_residual_unit_f32io_packed(x, pack, dilation, causal, act=route == "f32io_act")
 
 
 class Bf16Pack(NamedTuple):
-    """The bf16 entry's operands, packed once per weight version: w7 (C, 7C)
-    bf16 with K index tap * C + in, w1 (C, C), b7 and b1 (C) bf16 (as the
-    policy rounds them), the alphas and their snake reciprocals
-    1 / (alpha + 1e-9) (C) float32; in the order `facodec::resunit_bf16`
-    takes them."""
+    """The bf16 kernel's operands, packed once per weight version: w7 (C, 7C)
+    bf16 with K index tap * C + in, w1 (C, C), b7 and b1 (C) (bf16 as the
+    policy rounds them for the bf16 entry; float32 for the float32-in/out
+    forms, which round them where their policy does), the alphas and their
+    snake reciprocals 1 / (alpha + 1e-9) (C) float32; in the order
+    `facodec::resunit_bf16` and `facodec::resunit_bf16_f32io` take them."""
     w7: torch.Tensor
     w1: torch.Tensor
     b7: torch.Tensor
@@ -255,9 +344,9 @@ class Bf16Pack(NamedTuple):
     recip2: torch.Tensor
 
 
-def pack_bf16(w7, b7, w1, b1, alpha1, alpha2) -> Bf16Pack:
-    """The bf16 entry's operands from the effective (weight-normed) float32
-    weights in torch's layout."""
+def pack_bf16(w7, b7, w1, b1, alpha1, alpha2, bias_dtype=torch.bfloat16) -> Bf16Pack:
+    """The bf16 kernel's operands from the effective (weight-normed) float32
+    weights in torch's layout, with biases of `bias_dtype`."""
     C = w7.shape[0]
     bf16 = torch.bfloat16
     with torch.no_grad():
@@ -265,8 +354,8 @@ def pack_bf16(w7, b7, w1, b1, alpha1, alpha2) -> Bf16Pack:
         w1p = w1[:, :, 0].to(bf16).contiguous()
         a1, a2 = (a.reshape(C).clone() for a in (alpha1, alpha2))
         recip1, recip2 = (1.0 / (a + 1e-9) for a in (a1, a2))
-        return Bf16Pack(w7p, w1p, b7.to(bf16).contiguous(), b1.to(bf16).contiguous(), a1, recip1,
-                        a2, recip2)
+        return Bf16Pack(w7p, w1p, b7.to(bias_dtype).contiguous(), b1.to(bias_dtype).contiguous(),
+                        a1, recip1, a2, recip2)
 
 
 _MAPS: "collections.OrderedDict[tuple, ctypes.Array]" = collections.OrderedDict()
@@ -286,7 +375,7 @@ def tma_maps(w7: torch.Tensor, w1: torch.Tensor) -> ctypes.Array:
     with _MAPS_LOCK:  # replicas launch from several threads (api.FACodec.shard_inference)
         maps = _MAPS.get(key)
         if maps is None:
-            _, encode, nbytes, _, _ = _bf16_entry_points()
+            _, encode, nbytes = _bf16_entry_points()[:3]
             maps = ctypes.create_string_buffer(nbytes)
             with torch.cuda.device(w7.device):
                 err = encode(w7.data_ptr(), w1.data_ptr(), C, maps)
@@ -300,9 +389,12 @@ def tma_maps(w7: torch.Tensor, w1: torch.Tensor) -> ctypes.Array:
         return maps
 
 
-def _check_pack(who: str, pack: Bf16Pack, C: int, device) -> None:
-    for name, shape, dtype in (("w7", (C, 7 * C), torch.bfloat16), ("w1", (C, C), torch.bfloat16),
-                               ("b7", (C,), torch.bfloat16), ("b1", (C,), torch.bfloat16),
+def _check_pack(who: str, pack, C: int, device, bias=torch.bfloat16) -> None:
+    w7 = ("q7", (C, 7 * C), torch.int8) if isinstance(pack, Int8Pack) else \
+        ("w7", (C, 7 * C), torch.bfloat16)
+    b7 = torch.float32 if isinstance(pack, Int8Pack) else bias
+    for name, shape, dtype in (w7, ("w1", (C, C), torch.bfloat16),
+                               ("b7", (C,), b7), ("b1", (C,), bias),
                                ("alpha1", (C,), torch.float32), ("recip1", (C,), torch.float32),
                                ("alpha2", (C,), torch.float32), ("recip2", (C,), torch.float32)):
         t = getattr(pack, name)
@@ -352,8 +444,12 @@ def launch_f32(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int, causal: bool) -
     return out
 
 
-fused_residual_unit.launches = 0
+fused_residual_unit.launches = 0  # the float32 entry
 fused_residual_unit.bf16_launches = 0
+fused_residual_unit.f32io_launches = 0  # float32 in and out, bfloat16's rounding
+fused_residual_unit.f32io_act_launches = 0  # float32 in and out, the bf16 entry's rounding
+fused_residual_unit.int8_amax_launches = 0  # the int8 unit's row maxima
+fused_residual_unit.int8_launches = 0  # the int8 unit
 
 
 def launch_bf16(x, pack: Bf16Pack, dilation: int, pad_left: int, ext: int,
@@ -443,3 +539,209 @@ def launch_halo(x, halo, w7, b7, w1, b1, alpha1, alpha2, dilation: int
 
 
 fused_residual_unit_stream.launches = 0
+
+
+# ------------------------------------------- float32-in/out forms (bf16 kernel)
+def fused_residual_unit_f32io_packed(x, pack: Bf16Pack, dilation: int, causal: bool,
+                                     act: bool) -> torch.Tensor:
+    """The bf16 kernel's float32-in/out forms on a pack with float32 biases
+    (`pack_bf16(..., torch.float32)`), forward only: with `act` the bf16
+    entry's rounding (`bfloat16_act`; the `int8` policy's units that do not
+    quantize, given a float32 x), else the `bfloat16` policy's, whose convs
+    round their products to bf16 and add the float32 biases in float32. x
+    (B, T, C) float32 on the card, or any device's in a program being
+    exported."""
+    who = "fused_residual_unit_f32io_packed"
+    _check_x(who, x, dilation, (torch.float32,))
+    _check_pack(who, pack, x.shape[-1], x.device, bias=torch.float32)
+    if x.device.type != "cuda" and not torch.compiler.is_exporting():
+        raise ValueError(f"{who}: the packed entry runs on the card only, x is on {x.device}")
+    _wants_grad(who, x)
+    return torch.ops.facodec.resunit_bf16_f32io(x, *pack, dilation, causal, act)
+
+
+def f32io_reference(x, pack: Bf16Pack, dilation: int, causal: bool, act: bool) -> torch.Tensor:
+    """The plain version of the float32-in/out forms on their pack: the
+    packed weights are the bf16 roundings the policy makes of the float32
+    ones, which it leaves as they are."""
+    C = x.shape[-1]
+    w7 = pack.w7.reshape(C, 7, C).permute(0, 2, 1)
+    return residual_unit_reference(
+        x, w7, pack.b7, pack.w1[:, :, None], pack.b1, pack.alpha1.reshape(1, C, 1),
+        pack.alpha2.reshape(1, C, 1), dilation, causal, "bfloat16_act" if act else "bfloat16")
+
+
+def launch_f32io(x, pack: Bf16Pack, dilation: int, pad_left: int, ext: int, act: bool,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of a float32-in/out form of the bf16 kernel on checked
+    operands (x float32, contiguous and 16-byte aligned; a pack with float32
+    biases on x's card), into `out` or a new tensor (the CUDA implementation
+    of `facodec::resunit_bf16_f32io`)."""
+    B, T, C = x.shape
+    w7, w1 = (aligned16(t.contiguous()) for t in (pack.w7, pack.w1))
+    rest = [t.contiguous() for t in pack[2:]]
+    out = torch.empty_like(x) if out is None else out
+    fn, size = (_bf16_entry_points()[i] for i in (5, 4))
+    maps = tma_maps(w7, w1)
+    with torch.cuda.device(x.device):
+        nbytes = size(B, T, C, dilation)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes > 0 else None
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), ctypes.addressof(maps), *(t.data_ptr() for t in (*rest, out)),
+                 None if scratch is None else scratch.data_ptr(), B, T, C, dilation, pad_left,
+                 ext, int(act), stream)
+    if err != 0:
+        why = " (shapes the kernel refuses: C, B, T, d and the pads)" if err == 1 else ""
+        raise RuntimeError(f"fused_residual_unit: float32-in/out bf16 kernel launch failed, "
+                           f"cudaError {err}{why}")
+    build.count_launch(fused_residual_unit, "f32io_act_launches" if act else "f32io_launches")
+    return out
+
+
+# ----------------------------------------------------- the int8 unit (W8A8)
+class Int8Pack(NamedTuple):
+    """The int8 unit's operands, packed once per weight version: q7 (C, 7C)
+    int8, the conv7's weight quantized per output channel over (tap, in),
+    K index tap * C + in; sw (C) float32, its scales; w1 (C, C) bf16; b7
+    (C) float32; b1 (C) bf16 (as `bfloat16_act` rounds it); the alphas and
+    their snake reciprocals (C) float32; in the order `facodec::resunit_int8`
+    takes them after x and the row maxima."""
+    q7: torch.Tensor
+    sw: torch.Tensor
+    w1: torch.Tensor
+    b7: torch.Tensor
+    b1: torch.Tensor
+    alpha1: torch.Tensor
+    recip1: torch.Tensor
+    alpha2: torch.Tensor
+    recip2: torch.Tensor
+
+
+def pack_int8(w7, b7, w1, b1, alpha1, alpha2) -> Int8Pack:
+    """The int8 unit's operands from the effective (weight-normed) float32
+    weights in torch's layout (`quantize_dynamic` per output channel, as the
+    JAX package's W8A8 conv quantizes its weight)."""
+    C = w7.shape[0]
+    with torch.no_grad():
+        q7, sw = quantize_dynamic(w7, (1, 2))
+        a1, a2 = (a.reshape(C).float().clone() for a in (alpha1, alpha2))
+        recip1, recip2 = (1.0 / (a + 1e-9) for a in (a1, a2))
+        return Int8Pack(q7.permute(0, 2, 1).reshape(C, 7 * C).contiguous(),
+                        sw.reshape(C).contiguous(), w1[:, :, 0].to(torch.bfloat16).contiguous(),
+                        b7.float().contiguous(), b1.to(torch.bfloat16).contiguous(), a1, recip1,
+                        a2, recip2)
+
+
+def int8_row_amax_reference(x, alpha1) -> torch.Tensor:
+    """max |snake1(x)| over (T, C) per batch row, (B,) float32: the amax of
+    the conv7's per-row activation scale (the reflect pad copies rows, so
+    the padded input has the same maximum)."""
+    C = x.shape[-1]
+    return snake(x, alpha1.reshape(1, 1, C)).abs().amax(dim=(1, 2))
+
+
+def int8_unit_parts(x, amax, pack: Int8Pack, dilation: int, causal: bool) -> dict:
+    """The int8 unit's plain version on its pack, step by step, as the JAX
+    package's default path computes a unit under the `int8` policy whose
+    conv7 quantizes and whose 1x1 does not:
+        s1 = snake1(pad(x))                        float32
+        sx = max(amax, 1e-12) * (1/127)            per batch row
+        q1 = clip(rint(s1 / sx), -127, 127)        int8
+        c7 = float32(q1 (*)_d q7) * (sx * sw) + b7   float32
+        s2 = snake2(c7)                            float32 (the 1x1 rounds it)
+        y  = bf16(bf16(W1 . bf16(s2)) + bf16(b1))
+        out = x + y                                float32
+    Returns {"sx" (B, 1, 1), "q1" (B, T + 6d, C), "c7", "s2", "out"}."""
+    C = x.shape[-1]
+    s1 = pad1d(snake(x, pack.alpha1.reshape(1, 1, C)), _pads(dilation, causal))
+    sx = (torch.clamp_min(amax, 1e-12) * INT8_SCALE).reshape(-1, 1, 1)
+    q1 = torch.clamp(torch.round(s1 / sx), -127, 127).to(torch.int8)
+    acc = int8_conv1d(q1, pack.q7.reshape(C, 7, C).permute(0, 2, 1), 1, dilation, 0, 1)
+    c7 = acc.float() * (sx * pack.sw.reshape(1, 1, C)) + pack.b7
+    s2 = snake(c7, pack.alpha2.reshape(1, 1, C))
+    with policy("bfloat16_act"):
+        y = conv1d_ntc(s2, pack.w1[:, :, None], pack.b1)
+    return dict(sx=sx, q1=q1, c7=c7, s2=s2, out=x + y)
+
+
+def residual_unit_int8_reference(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
+                                 causal: bool) -> torch.Tensor:
+    """The int8 unit's plain version from the float32 weights."""
+    pack = pack_int8(w7, b7, w1, b1, alpha1, alpha2)
+    return int8_unit_parts(x, int8_row_amax_reference(x, alpha1), pack, dilation, causal)["out"]
+
+
+def fused_residual_unit_int8_packed(x, pack: Int8Pack, dilation: int,
+                                    causal: bool) -> torch.Tensor:
+    """The int8 unit on a pack (`pack_int8`), forward only: two launches,
+    the row maxima of |snake1(x)| (`facodec::resunit_int8_amax`), then the
+    unit (`facodec::resunit_int8`). x (B, T, C) float32 on the card, or any
+    device's in a program being exported."""
+    who = "fused_residual_unit_int8_packed"
+    _check_x(who, x, dilation, (torch.float32,))
+    _check_pack(who, pack, x.shape[-1], x.device)
+    _check(who, "pack.sw", pack.sw, (x.shape[-1],), x.device)
+    if x.device.type != "cuda" and not torch.compiler.is_exporting():
+        raise ValueError(f"{who}: the packed entry runs on the card only, x is on {x.device}")
+    _wants_grad(who, x)
+    amax = torch.ops.facodec.resunit_int8_amax(x, pack.alpha1, pack.recip1)
+    return torch.ops.facodec.resunit_int8(x, amax, *pack, dilation, causal)
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_entry_points():
+    """(row-maxima entry, unit entry) from csrc/resunit_int8.cu, typed once
+    per process."""
+    lib = build.library("resunit_int8")
+    amax = lib.facodec_resunit_int8_amax
+    amax.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    amax.restype = ctypes.c_int
+    fn = lib.facodec_resunit_int8
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return amax, fn
+
+
+def launch_int8_amax(x, alpha1, recip1, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the int8 unit's first kernel on CUDA tensors: max
+    |snake1(x)| per batch row into `out` (B,) float32, zeroed here (the
+    kernel takes maxima into it with atomics; the CUDA implementation of
+    `facodec::resunit_int8_amax`)."""
+    B, T, C = x.shape
+    x = aligned16(x.contiguous())
+    alpha1, recip1 = (aligned16(t.contiguous()) for t in (alpha1, recip1))
+    out = torch.zeros(B, dtype=torch.float32, device=x.device) if out is None else out.zero_()
+    fn = _int8_entry_points()[0]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), alpha1.data_ptr(), recip1.data_ptr(), out.data_ptr(), B, T, C,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"fused_residual_unit: int8 row-maxima launch failed, cudaError {err}")
+    build.count_launch(fused_residual_unit, "int8_amax_launches")
+    return out
+
+
+def launch_int8(x, amax, pack: Int8Pack, dilation: int, pad_left: int, ext: int,
+                out: Optional[torch.Tensor] = None, c7: Optional[torch.Tensor] = None,
+                q1: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the int8 unit on checked CUDA operands, into `out` or a
+    new tensor (the CUDA implementation of `facodec::resunit_int8`). Given
+    `c7` (B, T, C) float32 and `q1` (B, T + 6d, C) int8, the kernel also
+    writes its conv7 output and its quantized padded input there, for the
+    tests that hold them bit-equal to the plain version's."""
+    B, T, C = x.shape
+    x = aligned16(x.contiguous())
+    ops = [aligned16(t.contiguous()) for t in pack]
+    out = torch.empty_like(x) if out is None else out
+    fn = _int8_entry_points()[1]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), amax.data_ptr(), *(t.data_ptr() for t in ops), out.data_ptr(),
+                 None if c7 is None else c7.data_ptr(), None if q1 is None else q1.data_ptr(),
+                 B, T, C, dilation, pad_left, ext, stream)
+    if err != 0:
+        why = " (shapes the kernel refuses: C, d, and shared memory)" if err == 1 else ""
+        raise RuntimeError(f"fused_residual_unit: int8 kernel launch failed, cudaError {err}{why}")
+    build.count_launch(fused_residual_unit, "int8_launches")
+    return out

@@ -64,6 +64,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from facodec_tpu_torch.api import float32_exact
+from facodec_tpu_torch.ops.precision import INT8_POLICIES
 from facodec_tpu_torch.losses import (
     cross_entropy, discriminator_loss, focal_loss, generator_adv_losses, l1_loss, log_norm,
     mel_spectrogram_loss, multi_scale_stft_loss, smooth_l1_loss,
@@ -212,6 +213,10 @@ def _no_mark(name: str) -> None:
 
 
 def _check_precision(precision: str) -> None:
+    if str(precision).lower() in INT8_POLICIES:
+        raise ValueError(f"precision={precision!r} is inference-only: the W8A8 round() has zero "
+                         "gradient, so training under it would silently stop updating the "
+                         "quantized convs. Use float32.")
     if precision != "float32":
         raise NotImplementedError(f"precision={precision!r} training is not ported; the step "
                                   "trains in float32 (ROADMAP Queue 1, item 10)")

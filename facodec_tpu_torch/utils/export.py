@@ -32,7 +32,7 @@ an artifact computes what the live codec computes: the residual units and
 the VQ search are the `facodec::` custom ops (ops/kernels/ops.py), one node
 each; the LSTMs stay single `aten.lstm` nodes (no decomposition is run, which
 would unroll them). Under `hybrid` the decoder's bf16 operands are packed by
-graph ops on every call (models/dac.py `ResidualUnit.bf16_pack`), where the
+graph ops on every call (models/dac.py `ResidualUnit.kept_pack`), where the
 live codec keeps a pack per weight version.
 
 Departures from the JAX package: there is no `--platforms` cross-export. A
@@ -55,6 +55,7 @@ import torch.nn as nn
 
 import facodec_tpu_torch.ops.kernels  # noqa: F401 -- registers the facodec:: ops a program holds
 from facodec_tpu_torch.api import HOP, SR, float32_exact
+from facodec_tpu_torch.ops.precision import POLICY_NAMES
 from facodec_tpu_torch.utils.weights import match_by_path, read_torch_checkpoint
 
 FORMAT = "facodec-torch-export"
@@ -126,6 +127,11 @@ def export_codec(codec, out_dir: str, batch: int = 1, seconds: float = 10.0,
     if codec.replicas is not None:
         raise ValueError("export_codec: the codec is sharded over replicas (shard_inference); "
                          "export an unsharded codec")
+    if codec.precision == "hybrid_int8":
+        # the JAX package's export hands the name to `policy()`, which knows
+        # only the in-model policies and "hybrid" split by export itself
+        raise ValueError(f"unknown precision policy {codec.precision!r}; expected one of "
+                         f"{[n for n in POLICY_NAMES if n != 'hybrid_int8']}")
     dev = codec.device
     frames = int(seconds * SR) // HOP
     T = frames * HOP

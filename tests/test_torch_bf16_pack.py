@@ -36,6 +36,12 @@ def _weights(unit: ResidualUnit):
             snake1.alpha, snake2.alpha)
 
 
+def _kept(unit: ResidualUnit, x: torch.Tensor):
+    """The pack the unit's card forward would read for x: `kept_pack` of the
+    kernel form `unit_route` picks under the current policy."""
+    return unit.kept_pack(x, resunit.unit_route(x.dtype, x.shape[-1]))
+
+
 PACKED = ("w7", "w1", "b7", "b1", "alpha1", "recip1", "alpha2", "recip2")
 
 
@@ -50,7 +56,7 @@ def test_pack_equals_per_call_operands(C):
     from the effective weights for one call."""
     unit = _unit(C, 3, True)
     with torch.no_grad():
-        pack = unit.bf16_pack(_x(1, 8, C))
+        pack = _kept(unit, _x(1, 8, C))
         w7, b7, w1, b1, a1, a2 = _weights(unit)
         assert torch.equal(pack.w7, w7.permute(0, 2, 1).to(torch.bfloat16).reshape(C, 7 * C))
         assert torch.equal(pack.w1, w1[:, :, 0].to(torch.bfloat16))
@@ -79,7 +85,7 @@ def test_cpu_forward_keeps_no_pack(C, dilation, causal, T):
     with torch.no_grad(), policy("bfloat16_act"):
         got = unit(x)
         want = resunit.fused_residual_unit(x, *_weights(unit), dilation, causal)
-    assert unit._bf16 is None
+    assert not unit._packs
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
 
 
@@ -87,9 +93,9 @@ def test_second_call_reuses_the_pack():
     unit = _unit(64, 1, True)
     x = _x(1, 16, 64)
     with torch.no_grad():
-        first = unit.bf16_pack(x)
-        assert unit.bf16_pack(x[:, :5]) is first
-        assert unit.bf16_pack(x) is first
+        first = _kept(unit, x)
+        assert _kept(unit, x[:, :5]) is first
+        assert _kept(unit, x) is first
 
 
 @pytest.mark.parametrize("which", ["weight_v", "weight_g", "bias", "alpha", "conv1x1"])
@@ -103,11 +109,11 @@ def test_in_place_update_repacks(which):
     param = {"weight_v": conv7.weight_v, "weight_g": conv7.weight_g, "bias": conv7.bias,
              "alpha": snake2.alpha, "conv1x1": conv1.weight_v}[which]
     with torch.no_grad():
-        first = unit.bf16_pack(x)
+        first = _kept(unit, x)
         param.add_(0.25)  # weight norm makes a scale of weight_v a no-op
-        second = unit.bf16_pack(x)
+        second = _kept(unit, x)
         want = resunit.pack_bf16(*_weights(unit))
-        again = unit.bf16_pack(x)
+        again = _kept(unit, x)
     assert second is not first and again is second
     assert not _same_pack(first, second)
     assert _same_pack(second, want)
@@ -117,10 +123,10 @@ def test_load_state_dict_repacks():
     unit, other = _unit(32, 1, True, seed=0), _unit(32, 1, True, seed=5)
     x = _x(1, 10, 32)
     with torch.no_grad():
-        first = unit.bf16_pack(x)
+        first = _kept(unit, x)
         unit.load_state_dict(other.state_dict())
-        got = unit.bf16_pack(x)
-        want = other.bf16_pack(x)
+        got = _kept(unit, x)
+        want = _kept(other, x)
     assert got is not first
     assert _same_pack(got, want)
 
@@ -128,18 +134,19 @@ def test_load_state_dict_repacks():
 @pytest.mark.parametrize("case", ["grad", "training", "float32"])
 def test_nothing_packed_where_the_entry_does_not_run(case):
     """The bf16 entry is forward only: with gradients enabled or in training
-    the unit packs nothing (and float32 activations take the float32
-    entry)."""
+    the unit packs nothing (and float32 activations under the float32
+    policy take the float32 entry)."""
     unit = _unit(32, 1, True)
     x = _x(1, 10, 32)
     if case == "float32":
         x = x.float()
     if case == "training":
         unit.train()
-    with torch.set_grad_enabled(case == "grad"), policy("bfloat16_act"):
-        assert unit.bf16_pack(x) is None
+    pol = "float32" if case == "float32" else "bfloat16_act"
+    with torch.set_grad_enabled(case == "grad"), policy(pol):
+        assert _kept(unit, x) is None
         unit(x)
-    assert unit._bf16 is None
+    assert not unit._packs
 
 
 @pytest.mark.parametrize("fault,error,match", [
@@ -153,7 +160,7 @@ def test_packed_entry_checks_its_operands(fault, error, match):
     unit = _unit(C, 1, True)
     x = _x(1, 10, C)
     with torch.no_grad():
-        pack = unit.bf16_pack(x)
+        pack = _kept(unit, x)
         if fault == "float32_x":
             x = x.float()
         elif fault == "width":

@@ -8,6 +8,7 @@ dependencies:
 """
 
 import os
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -172,7 +173,7 @@ def test_resunit_bf16_packed_after_in_place_update():
             got = unit(x)
             torch.cuda.synchronize()
             assert resunit.fused_residual_unit.bf16_launches == before + 1
-            pack = unit.bf16_pack(x)
+            pack = unit.kept_pack(x, "bf16")
             assert resunit.tma_maps(pack.w7, pack.w1) is resunit.tma_maps(pack.w7, pack.w1)
             snake1, conv7, snake2, conv1 = unit.block
             args = (conv7.effective_weight(), conv7.bias, conv1.effective_weight(), conv1.bias,
@@ -181,7 +182,7 @@ def test_resunit_bf16_packed_after_in_place_update():
             _check_bf16_entry((x, *args), d, True)
             conv7.weight_v.add_(0.05 * torch.randn_like(conv7.weight_v))
             conv1.bias.add_(0.3)
-        assert unit.bf16_pack(x) is not pack
+        assert unit.kept_pack(x, "bf16") is not pack
 
 
 @pytest.mark.parametrize("fault", ["strided", "float16", "weight_bf16"])
@@ -202,6 +203,206 @@ def test_resunit_bf16_entry_rejects(fault):
     with pytest.raises(ValueError if fault == "strided" else TypeError):
         resunit.fused_residual_unit(*args, dilation=1, causal=True)
     assert resunit.fused_residual_unit.bf16_launches == before
+
+
+# ------------------------------------------ float32-in/out forms and int8 unit
+def _f32_unit_args(B, C, dilation, T, seed):
+    x, *w = _bf16_unit_args(B, C, dilation, T, seed)
+    return (x.float() * 1.3, *w)
+
+
+def _check_packed_form(route, args, dilation, causal):
+    """One launch of `route`'s kernel on its pack, against the plain version
+    under its policy: float32 out, no element more than 2 bf16 ulps (at
+    resunit.bf16_error_scale) off; for the int8 unit, its row maxima, its
+    quantized padded input and its conv7 output bit-equal."""
+    x, w = args[0], args[1:]
+    pack = resunit.make_pack(route, *w)
+    counter = {"f32io": "f32io_launches", "f32io_act": "f32io_act_launches",
+               "int8": "int8_launches"}[route]
+    before = getattr(resunit.fused_residual_unit, counter)
+    with torch.no_grad(), float32_exact():
+        got = resunit.run_packed(route, x, pack, dilation, causal)
+        torch.cuda.synchronize()
+        assert getattr(resunit.fused_residual_unit, counter) == before + 1
+        if route == "int8":
+            amax = resunit.int8_row_amax_reference(x, w[4])
+            parts = resunit.int8_unit_parts(x, amax, pack, dilation, causal)
+            want = parts["out"]
+            B, T, C = x.shape
+            c7 = torch.empty(B, T, C, device="cuda")
+            q1 = torch.empty(B, T + 6 * dilation, C, dtype=torch.int8, device="cuda")
+            pl, ext = resunit.reflect_extent(T, dilation, causal)
+            got_amax = resunit.launch_int8_amax(x, pack.alpha1, pack.recip1)
+            again = resunit.launch_int8(x, got_amax, pack, dilation, pl, ext, c7=c7, q1=q1)
+            torch.cuda.synchronize()
+            assert torch.equal(got_amax, amax)
+            assert torch.equal(q1, parts["q1"]) and torch.equal(c7, parts["c7"])
+            assert torch.equal(again, got)
+        else:
+            want = resunit.residual_unit_reference(x, *w, dilation, causal,
+                                                   resunit.ROUTE_POLICY[route])
+        scale = resunit.bf16_error_scale(x, *w, dilation, causal, route)
+    assert got.dtype == want.dtype == torch.float32 and got.shape == x.shape
+    ulps = resunit.bf16_ulps(got, want, scale)
+    equal = (got == want).float().mean().item()
+    print(f"{route} {tuple(x.shape)} d={dilation} causal={causal}: {equal:.4%} bit-equal, worst "
+          f"{ulps.max().item():.2f} ulps")
+    assert ulps.max().item() <= BF16_MAX_ULPS, ulps.max().item()
+
+
+# The float32-in/out forms at every flagship width and dilation, T = 53 (the
+# pad's zero-extend at d = 9) and 1000 (a ragged last tile), causal; and a
+# few non-causal.
+F32IO_CASES = ([(4, C, d, T, True) for C in (64, 96, 128, 192, 256, 384, 512, 768)
+                for d in (1, 3, 9) for T in (53, 1000)]
+               + [(2, C, 9, 700, False) for C in (96, 384, 768)])
+
+
+@pytest.mark.parametrize("act", [False, True])
+@pytest.mark.parametrize("B,C,dilation,T,causal", F32IO_CASES)
+def test_resunit_f32io_forms_match_plain(B, C, dilation, T, causal, act):
+    _need_cuda()
+    _check_packed_form("f32io_act" if act else "f32io",
+                       _f32_unit_args(B, C, dilation, T, C + dilation + T), dilation, causal)
+
+
+# The int8 unit at the flagship's width (C = 768, every dilation; T = 1, 53
+# and the decode's 4800 rows) and at narrower widths that thresholds below
+# the default quantize, with a ragged last N tile (C = 96, 160).
+INT8_CASES = ([(4, 768, d, T, True) for d in (1, 3, 9) for T in (1, 53, 4800)]
+              + [(2, 768, 9, 300, False), (2, 384, 3, 1000, True), (2, 512, 9, 333, True),
+                 (3, 96, 1, 500, True), (2, 160, 3, 129, False)])
+
+
+@pytest.mark.parametrize("B,C,dilation,T,causal", INT8_CASES)
+def test_resunit_int8_matches_plain(B, C, dilation, T, causal):
+    _need_cuda()
+    _check_packed_form("int8", _f32_unit_args(B, C, dilation, T, 3 * C + dilation + T),
+                       dilation, causal)
+
+
+def test_residual_unit_routes_by_policy(monkeypatch):
+    """ResidualUnit on the card under each policy: the kernel form of its
+    route, one launch each (the int8 unit two: row maxima, then the unit);
+    a bf16 x into a quantizing conv7, and a quantizing 1x1, raise."""
+    from facodec_tpu_torch.models.dac import ResidualUnit
+    from facodec_tpu_torch.ops import precision
+    _need_cuda()
+    monkeypatch.setattr(precision, "INT8_MIN_FANIN", 7 * 256)
+    unit = ResidualUnit(256, dilation=3, causal=True).cuda().eval()
+    x = _f32_unit_args(2, 256, 3, 300, 1)[0]
+    f = resunit.fused_residual_unit
+    names = ("launches", "bf16_launches", "f32io_launches", "f32io_act_launches",
+             "int8_amax_launches", "int8_launches")
+    cases = [("float32", x, "launches"), ("hybrid_int8", x, "launches"),
+             ("bfloat16", x, "f32io_launches"), ("bfloat16_act", x.bfloat16(), "bf16_launches"),
+             ("int8", x, ("int8_amax_launches", "int8_launches"))]
+    with torch.no_grad(), float32_exact():
+        for name, xin, want in cases:
+            before = {n: getattr(f, n) for n in names}
+            with precision.policy(name):
+                out = unit(xin)
+            torch.cuda.synchronize()
+            moved = {n for n in names if getattr(f, n) != before[n]}
+            assert moved == set(want if isinstance(want, tuple) else (want,)), (name, moved)
+            assert out.dtype == (torch.bfloat16 if name == "bfloat16_act" else torch.float32)
+        monkeypatch.setattr(precision, "INT8_MIN_FANIN", 7 * 256 + 1)
+        with precision.policy("int8"):
+            before = f.f32io_act_launches
+            assert unit(x).dtype == torch.float32 and f.f32io_act_launches == before + 1
+            monkeypatch.setattr(precision, "INT8_MIN_FANIN", 7 * 256)
+            with pytest.raises(TypeError, match="float32 x"):
+                unit(x.bfloat16())
+            monkeypatch.setattr(precision, "INT8_MIN_FANIN", 256)
+            with pytest.raises(ValueError, match="quantizes the 1x1"):
+                unit(x)
+
+
+# The flagship's W8A8 convs outside the unit (torch._int_mm): the decoder's
+# first conv, its two wide transposed convs, the encoder's last down-conv.
+INT_MM_CASES = [(1024, 1536, 7, 1, False), (1536, 768, 12, 6, True), (768, 384, 10, 5, True),
+                (512, 1024, 12, 6, False)]
+
+
+@pytest.mark.parametrize("I,O,K,stride,transpose", INT_MM_CASES)
+def test_int8_convs_bit_equal_to_float64(I, O, K, stride, transpose):
+    from facodec_tpu_torch.nn import conv
+    _need_cuda()
+    g = torch.Generator().manual_seed(I + K)
+    x = torch.randn(2, 201, I, generator=g)
+    w = torch.randn(*((I, O, K) if transpose else (O, I, K)), generator=g) / (I * K) ** 0.5
+    b = 0.1 * torch.randn(O, generator=g)
+    xq, _ = conv.quantize_dynamic(x, (1, 2))
+    wq, _ = conv.quantize_dynamic(w, (0, 2) if transpose else (1, 2))
+    if transpose:
+        want = conv.int8_conv_transpose1d(xq, wq, stride)
+        got = conv.int8_conv_transpose1d(xq.cuda(), wq.cuda(), stride)
+    else:
+        want = conv.int8_conv1d(xq, wq, stride, 1, 0, 1)
+        got = conv.int8_conv1d(xq.cuda(), wq.cuda(), stride, 1, 0, 1)
+    assert got.dtype == torch.int32 and torch.equal(got.cpu().double(), want)
+    # the whole W8A8 conv: the card's bits are the CPU's
+    full = conv.w8a8_conv(x, w, b, transpose=transpose, stride=stride)
+    full_card = conv.w8a8_conv(x.cuda(), w.cuda(), b.cuda(), transpose=transpose, stride=stride)
+    assert torch.equal(full_card.cpu(), full)
+
+
+@pytest.mark.parametrize("case", ["f32io", "f32io_act", "int8_amax", "int8"])
+def test_new_resunit_ops_opcheck(case):
+    """`torch.library.opcheck` of the new ops on CUDA tensors."""
+    _need_cuda()
+    x, *w = _f32_unit_args(2, 64, 3, 90, 4)
+    if case.startswith("f32io"):
+        op = torch.ops.facodec.resunit_bf16_f32io.default
+        args = (x, *resunit.make_pack(case, *w), 3, True, case == "f32io_act")
+    elif case == "int8_amax":
+        pack = resunit.pack_int8(*w)
+        op, args = torch.ops.facodec.resunit_int8_amax.default, (x, pack.alpha1, pack.recip1)
+    else:
+        op = torch.ops.facodec.resunit_int8.default
+        args = (x, resunit.int8_row_amax_reference(x, w[4]), *resunit.pack_int8(*w), 3, True)
+    result = torch.library.opcheck(op, args)
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+def test_hybrid_int8_codec_on_card(monkeypatch):
+    """A small hybrid_int8 codec whose thresholds quantize what the
+    flagship's do (the decoder's first wide transposed convs, block 0's
+    conv7s): the launches of one round trip (12 float32 encoder units, then
+    3 int8 units of two launches, 3 float32-in/out act units, 6 bf16 units,
+    6 VQ searches), float32's codes, and the CPU's decode of the same codes
+    within 2.5e-2 in RMS and under 8e-2 of the peak at the worst sample.
+    The worst-sample limit is the port's for two faithful bf16 decodes
+    (tests/test_torch_precision.py); the RMS limit is set from the readings
+    on an H100 (PERF.md, PR 14): this codec's random weights amplify a
+    flipped bf16 rounding, so its hybrid_int8 decode stands 2.13e-2 RMS from
+    the CPU's, and its plain hybrid decode, with no int8 step, 2.07e-2."""
+    from facodec_tpu_torch.ops import precision
+    _need_cuda()
+    monkeypatch.setattr(precision, "INT8_MIN_FANIN", 7 * 256)
+    codec = FACodec.from_fields(SMALL_CODEC, seed=2, device="cuda", precision="hybrid_int8")
+    cpu = FACodec.from_fields(SMALL_CODEC, seed=2, device="cpu", precision="hybrid_int8")
+    f32 = FACodec(codec.encoder, codec.quantizer, codec.decoder)
+    w = sweep_wave(2, 1.0, seed=3)
+    f = codec.encode(w)
+    codec.decode(f)
+    f_ = resunit.fused_residual_unit
+    names = ("launches", "bf16_launches", "f32io_launches", "f32io_act_launches",
+             "int8_amax_launches", "int8_launches")
+    before = [getattr(f_, n) for n in names] + [vq.nearest_code.launches]
+    f = codec.encode(w)
+    y = codec.decode(f)
+    torch.cuda.synchronize()
+    after = [getattr(f_, n) for n in names] + [vq.nearest_code.launches]
+    assert [b - a for a, b in zip(before, after)] == [12, 6, 0, 3, 3, 3, 6]
+    want = f32.encode(w)
+    for name in ("codes_p", "codes_c", "codes_r"):
+        np.testing.assert_array_equal(getattr(f, name), getattr(want, name))
+    y_cpu = cpu.decode(f)
+    err = np.abs(y - y_cpu).max() / np.abs(y_cpu).max()
+    rms = np.sqrt(np.mean((y - y_cpu) ** 2) / np.mean(y_cpu ** 2))
+    assert rms <= 2.5e-2 and err < 8e-2, (rms, err)
 
 
 def _unit_args(B, T, C, dilation, seed=0):
@@ -957,23 +1158,33 @@ def test_resunit_halo_op_through_export(first):
     assert torch.equal(new_halo, want_halo)
 
 
-@pytest.mark.parametrize("precision", ["float32", "hybrid"])
+@pytest.mark.parametrize("precision", ["float32", "hybrid", "bfloat16", "int8"])
 def test_exported_codec_on_card_matches_live(tmp_path, precision):
     """A small codec's artifact on the card: codes equal to the live codec's,
     waves within phase 13's limits (1e-5 max abs float32, 1e-3 err/scale
-    hybrid), and the live path's launches."""
+    hybrid and bfloat16) and bit-equal under int8, and the live path's
+    launches. The int8 case takes the flagship's decoder width (1536) at
+    the default threshold, so that it quantizes what the flagship's decode
+    does: the first two transposed convs through `torch._int_mm`, block 0's
+    units (C = 768) in the int8 unit, block 1's in the float32-in/out act
+    form; no encoder conv or unit quantizes, as at the flagship."""
     _need_cuda()
     from facodec_tpu_torch.utils import export
 
-    codec = FACodec.from_fields(SMALL_CODEC, seed=5, device="cuda", precision=precision)
+    fields = SMALL_CODEC
+    if precision == "int8":
+        fields = dict(SMALL_CODEC, decoder=dict(SMALL_CODEC["decoder"], channels=1536))
+    codec = FACodec.from_fields(fields, seed=5, device="cuda", precision=precision)
     export.export_codec(codec, str(tmp_path), batch=2, seconds=1.0,
                         functions=("encode_masked", "reconstruct_masked"))
     exp = export.ExportedCodec(str(tmp_path))
     params = export.codec_params(codec)
     w = torch.from_numpy(sweep_wave(2, 1.0, seed=9)).cuda()
     lens = torch.tensor([24000, 15000], dtype=torch.int32, device="cuda")
-    counters = (resunit.fused_residual_unit, "launches"), \
-        (resunit.fused_residual_unit, "bf16_launches"), (vq.nearest_code, "launches")
+    f_ = resunit.fused_residual_unit
+    counters = (f_, "launches"), (f_, "bf16_launches"), (f_, "f32io_launches"), \
+        (f_, "f32io_act_launches"), (f_, "int8_amax_launches"), (f_, "int8_launches"), \
+        (vq.nearest_code, "launches")
 
     def counts():
         torch.cuda.synchronize()
@@ -990,6 +1201,13 @@ def test_exported_codec_on_card_matches_live(tmp_path, precision):
         assert torch.equal(a, b)
     if precision == "float32":
         assert (got - want).abs().max().item() <= 1e-5
+    elif precision == "int8":
+        assert [b - a for a, b in zip(c0, c1)] == [0, 18, 0, 3, 3, 3, 6]
+        nodes = Counter(str(n.target) for n in exp.program("reconstruct_masked").graph.nodes
+                        if n.op == "call_function")
+        assert (nodes["facodec.resunit_int8_amax.default"], nodes["facodec.resunit_int8.default"],
+                nodes["aten._int_mm.default"]) == (3, 3, 2), nodes
+        assert torch.equal(got, want)
     else:
         assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-3
 

@@ -28,8 +28,9 @@ from facodec_tpu.utils import export as jexport
 from facodec_tpu.utils.config import load_config
 from facodec_tpu_torch import __main__ as port_main
 from facodec_tpu_torch.api import FACodec
-from facodec_tpu_torch.cli import serve
+from facodec_tpu_torch.cli import load_codec, serve
 from facodec_tpu_torch.models.builder import build_codec
+from facodec_tpu_torch.ops import precision as port_precision
 from facodec_tpu_torch.ops.kernels import resunit
 from facodec_tpu_torch.utils import export
 from facodec_tpu_torch.utils.weights import init_random_, load_jax_params
@@ -212,10 +213,106 @@ def test_jax_artifact_rejected(jax_artifacts, tmp_path):
         export.ExportedCodec(str(tmp_path))
 
 
-def test_export_cli_refuses_unported_policy(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        port_main.main(["export", "--out", str(tmp_path), "--config-path", TINY,
-                        "--precision", "bfloat16", "--device", "cpu"])
+def test_export_cli_refuses_unported_policy(jax_params, ckpt, monkeypatch, tmp_path):
+    """`export --precision bfloat16`, once refused, hands `export_codec` the
+    bfloat16 codec it loads. Its artifact (here of the two functions
+    `ArtifactService` encodes and decodes with, exported from the codec the
+    CLI loads) holds the float32-in/out residual-unit op (12 each) and
+    computes the live bfloat16 codec's bits; against JAX's bfloat16
+    artifact its codes are equal and its decode within the bf16 decode's
+    recorded departure; `ArtifactService` serves it. `hybrid_int8` is
+    refused as the JAX package's export refuses it (its policy() does not
+    know the name)."""
+    models, params = jax_params
+    d = str(tmp_path / "bf16")
+    seen = {}
+    with monkeypatch.context() as m:
+        m.setattr(export, "export_codec",
+                  lambda codec, out, **kw: seen.update(precision=codec.precision, out=out, **kw)
+                  or {})
+        assert port_main.main(["export", "--out", d, "--config-path", TINY, "--ckpt-path",
+                               ckpt, "--batch", str(BATCH), "--seconds", str(SECONDS),
+                               "--precision", "bfloat16", "--device", "cpu"]) == 0
+    assert seen == dict(precision="bfloat16", out=d, batch=BATCH, seconds=SECONDS)
+    codec = load_codec(TINY, ckpt, 2, "cpu", "bfloat16")
+    export.export_codec(codec, d, batch=BATCH, seconds=SECONDS,
+                        functions=("encode_masked", "decode"))
+    port = export.ExportedCodec(d)
+    assert port.meta["precision"] == "bfloat16"
+    assert sorted(port.meta["functions"]) == ["decode", "encode_masked"]
+    for name in ("encode_masked", "decode"):
+        counts = Counter(str(n.target) for n in port.program(name).graph.nodes
+                         if n.op == "call_function")
+        assert {k: v for k, v in counts.items() if "resunit" in k} == {
+            "facodec.resunit_bf16_f32io.default": 12}, name
+    tparams = export.codec_params(codec)
+    w, lens = waves()
+    tw, tl = torch.from_numpy(w), torch.from_numpy(lens)
+    got = port.encode_masked(tparams, tw, tl)
+    _, codes, timbre = codec.encode_tensor(tw, tl)
+    for a, b in zip(got, (*codes, timbre)):
+        assert torch.equal(a, b)
+    y = port.decode(tparams, *got)
+    assert torch.equal(y, codec.decode_tensor(*codes, timbre))
+
+    jd = str(tmp_path / "jax_bf16")
+    jexport.export_codec(JaxFACodec(models=models, params=params, n_c=2, precision="bfloat16"),
+                         jd, batch=BATCH, seconds=SECONDS)
+    jexp = jexport.ExportedCodec(jd)
+    want = jexp.encode_masked(params, jnp.asarray(w), jnp.asarray(lens))
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    yj = np.asarray(jexp.decode(params, *(jnp.asarray(a.numpy()) for a in got)))
+    scale = np.abs(yj).max()
+    rms = np.sqrt(np.mean((y.numpy() - yj) ** 2)) / scale
+    worst = np.abs(y.numpy() - yj).max() / scale
+    assert rms <= HYBRID_RMS and worst < HYBRID_WORST, (rms, worst)
+
+    svc = serve.ArtifactService(d, tparams, batch_window_ms=1.0)
+    try:
+        assert svc.health()["precision"] == "bfloat16"
+        f = svc.encode(w[0])
+        np.testing.assert_array_equal(f.codes_c, got[1][:1].numpy())
+        assert svc.decode(f).shape == (1, T)
+    finally:
+        svc.close()
+
+    with pytest.raises(ValueError, match="unknown precision policy 'hybrid_int8'"):
+        jexport.export_codec(JaxFACodec(models=models, params=params, n_c=2,
+                                        precision="hybrid_int8"),
+                             str(tmp_path / "jax_no"), batch=BATCH, seconds=SECONDS)
+    with pytest.raises(ValueError, match="unknown precision policy 'hybrid_int8'"):
+        export.export_codec(FACodec(codec.encoder, codec.quantizer, codec.decoder,
+                                    precision="hybrid_int8"),
+                            str(tmp_path / "no"), batch=BATCH, seconds=SECONDS)
+
+
+def test_int8_decode_artifact_equals_live(live, monkeypatch, tmp_path):
+    """`export_codec` under `int8` (the JAX package's API takes it; its CLI
+    offers no int8 choice), with INT8_MIN_FANIN at 7 x the decoder's widest
+    unit so that the tiny decode runs every form: its first conv and first
+    two transposed convs W8A8, block 0's units the int8 unit (two ops each),
+    block 1's (float32 x) the float32-in/out act form, the rest the bf16
+    entry. The decode program computes the live int8 codec's bits. The
+    encoder is not exported at this threshold: its C = 16 units take a
+    bf16 x into a quantizing conv7, which no kernel form runs (ROADMAP item
+    6's departures); the live codec's plain CPU path encodes."""
+    monkeypatch.setattr(port_precision, "INT8_MIN_FANIN", 7 * 16)
+    f = live["float32"]
+    codec = FACodec(f.encoder, f.quantizer, f.decoder, precision="int8")
+    d = str(tmp_path / "int8")
+    export.export_codec(codec, d, batch=BATCH, seconds=SECONDS, functions=("decode",))
+    port = export.ExportedCodec(d)
+    assert port.meta["precision"] == "int8"
+    counts = Counter(str(n.target) for n in port.program("decode").graph.nodes
+                     if n.op == "call_function")
+    assert {k: v for k, v in counts.items() if "resunit" in k} == {
+        "facodec.resunit_int8_amax.default": 3, "facodec.resunit_int8.default": 3,
+        "facodec.resunit_bf16_f32io.default": 3, "facodec.resunit_bf16.default": 6}
+    w, lens = waves()
+    _, codes, timbre = codec.encode_tensor(torch.from_numpy(w), torch.from_numpy(lens))
+    y = port.decode(export.codec_params(codec), *codes, timbre)
+    assert y.dtype == torch.float32 and torch.equal(y, codec.decode_tensor(*codes, timbre))
 
 
 # ---------------------------------------------------------- against JAX
@@ -358,6 +455,18 @@ OPCHECK_CASES = {
                                  (torch.randn(2, 12, 32), torch.randn(2, 18, 32), *_unit(), 3)),
     "resunit_halo_f32_first": lambda: (torch.ops.facodec.resunit_halo_f32.default,
                                        (torch.randn(2, 40, 32), None, *_unit(), 3)),
+    "resunit_bf16_f32io": lambda: (torch.ops.facodec.resunit_bf16_f32io.default,
+                                   (torch.randn(2, 40, 32),
+                                    *resunit.pack_bf16(*_unit(), torch.float32), 3, True, False)),
+    "resunit_bf16_f32io_act": lambda: (torch.ops.facodec.resunit_bf16_f32io.default,
+                                       (torch.randn(2, 40, 32),
+                                        *resunit.pack_bf16(*_unit(), torch.float32), 9, False,
+                                        True)),
+    "resunit_int8_amax": lambda: (torch.ops.facodec.resunit_int8_amax.default,
+                                  (torch.randn(2, 40, 32), *resunit.pack_int8(*_unit())[5:7])),
+    "resunit_int8": lambda: (torch.ops.facodec.resunit_int8.default,
+                             (torch.randn(2, 40, 32), 3.0 + torch.rand(2),
+                              *resunit.pack_int8(*_unit()), 3, True)),
 }
 
 

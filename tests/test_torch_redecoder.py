@@ -64,6 +64,14 @@ def _port_vc(models, cp, cc, timbre, use_p_code, n_c):
         return z.numpy(), models["decoder"](z)[:, :, 0].numpy()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)  # the suite runs six files at once: eight spinning threads each thrash
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def tiny():
     cfg = load_config(TINY)

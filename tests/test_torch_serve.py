@@ -312,8 +312,9 @@ def test_serve_cli_defaults_and_device(monkeypatch):
     """`serve` defaults to the card and to hybrid, and raises where torch
     sees no CUDA device; `--artifact` needs `--ckpt-path` (exit 2, as the
     JAX package's); `--shard-inference` raises where there is no GPU to shard
-    over (it never serves from the CPU alone); `bfloat16` raises naming its
-    ROADMAP item."""
+    over (it never serves from the CPU alone); `--precision bfloat16`, once
+    refused, serves: the command's server (port 0) answers a reconstruct
+    with the bfloat16 codec's wave and reports the policy in /health."""
     import argparse
 
     args = serve.add_args(argparse.ArgumentParser()).parse_args([])
@@ -324,6 +325,24 @@ def test_serve_cli_defaults_and_device(monkeypatch):
     assert port_main.main(["serve", "--artifact", "x", "--device", "cpu"]) == 2
     with pytest.raises(RuntimeError, match="replica GPU"):
         port_main.main(["serve", "--shard-inference", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        port_main.main(["serve", "--config-path", TINY, "--device", "cpu",
-                        "--precision", "bfloat16", "--no-warmup"])
+    started = {}
+    monkeypatch.setattr(serve, "_serve", lambda server, service, stream_server:
+                        started.update(server=server, service=service))
+    assert port_main.main(["serve", "--config-path", TINY, "--device", "cpu", "--precision",
+                           "bfloat16", "--no-warmup", "--port", "0"]) == 0
+    server, service = started["server"], started["service"]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        health = json.loads(urllib.request.urlopen(f"{base}/health").read())
+        assert health["precision"] == "bfloat16" and service.codec.precision == "bfloat16"
+        w = tone(0.5)
+        got = serve.read_wav_bytes(_post(f"{base}/reconstruct", serve.write_wav_bytes(w)).read())
+        want = service.reconstruct(serve.read_wav_bytes(serve.write_wav_bytes(w)))
+        assert got.size == len(w) // HOP * HOP and np.isfinite(got).all()
+        np.testing.assert_array_equal(got, serve.read_wav_bytes(serve.write_wav_bytes(want))
+                                      .reshape(got.shape))
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()

@@ -76,6 +76,14 @@ def _write_wav(path, wave, sr=24000):
     return str(path)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)  # the suite runs six files at once: eight spinning threads each thrash
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def env(tmp_path_factory):
     """JAX `from_config` builds each stage with random weights, which are

@@ -175,6 +175,14 @@ def test_residual_unit_stream_first_chunk_must_cover_the_halo():
     assert resunit.fused_residual_unit_stream.launches == before
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)  # the suite runs six files at once: eight spinning threads each thrash
+    yield
+    torch.set_num_threads(n)
+
+
 # ----------------------------------------------------- (c) codec sessions
 @pytest.fixture(scope="module")
 def tiny():

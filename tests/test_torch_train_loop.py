@@ -50,6 +50,14 @@ def gen(seed=0):
     return torch.Generator().manual_seed(seed)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)  # the suite runs six files at once: eight spinning threads each thrash
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def quantizer():
     models = build_train_from_fields(FIELDS)
