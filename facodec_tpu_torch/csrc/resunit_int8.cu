@@ -26,43 +26,87 @@
 // quantize before the row's maximum is known:
 //   resunit_int8_amax: max |snake1(x)| per batch row, a grid-stride pass over
 //     x with an atomic max (float bits as int: the values are >= 0);
-//   resunit_int8_kernel: one CTA per tile of BM = 64 rows. It quantizes the
-//     tile's BM + 6d padded rows of s1 into shared memory (int8, rows of
-//     C + 16 bytes), runs the conv7 as int8 mma.sync m16n8k32 (s8 x s8 ->
-//     s32) over N tiles of BN = 128 output channels, with the weight K
-//     slices (64 bytes x BN rows) brought by cp.async through a ring of 3
-//     stages; its epilogue writes c7 -> s2 as a BM x C bf16 tile in shared
-//     memory; then the 1x1 as bf16 mma.sync m16n8k16 on that tile, with the
-//     bf16 w1 slices through the same ring, and the residual into out.
-//     8 warps, each 32 rows x 32 channels of an N tile.
+//   resunit_int8_kernel: the unit, below.
 //
 // What bounds it. Per output row: 14 C^2 int8 operations (7 C^2 MACs) and
 // 2 C^2 bf16 FLOP, on 8 C bytes (x in, out out, float32): at C = 768 about
 // 1350 int8 operations a byte, far above the card's ridge (1979 TOPS /
-// 3.35 TB/s = 590), so the tensor cores bound it. mma.sync reaches a part of
-// the int8 peak that wgmma reaches in full: a wgmma k32 s8 form is later work.
+// 3.35 TB/s = 590), so the tensor cores bound it. Two things stand between
+// them and that bound: the weights (5.3 MB at C = 768: q7 4.1 MB, w1 1.2 MB)
+// stream from L2 once per 64-row tile, 128 int8 operations per byte of L2
+// read, about what L2 can feed 132 SMs at the tensor cores' rate; and the
+// quantization (snake, IEEE division, rint) of a tile's 64 + 6d rows is
+// CUDA-core work of the order of the tile's tensor-core time.
 //
-// Shared memory per CTA at C = 768, d = 9: s1 118 x 784 B = 92.5 KB, s2
-// 64 x 1552 B = 97 KB, the ring 3 x 128 x 80 B = 30 KB: 219.6 KB. Shapes whose
-// tiles do not fit (wider C, larger d) are refused (the entry returns
-// cudaErrorInvalidValue).
+// Design:
+// 1. wgmma. The conv7 is wgmma.mma_async m64nNk32 .s32.s8.s8, the 1x1
+//    m64nNk16 bf16 with float32 sums, A and B from shared memory (int8
+//    operands must both be K-major: q1's rows and q7's are). An N tile is BN
+//    output channels (64, 96, 128, 192 or 256; 256 at C = 768, three N
+//    tiles), split between two consumer warpgroups of NW = BN / 2 channels.
+// 2. q1 is quantized once per tile, into shared memory in the 16-byte
+//    octet-column order of the bf16 kernel's s1 ([channel / 16][row][16 B]):
+//    a core matrix (8 rows x 16 B) is 128 contiguous bytes from any start
+//    row, so tap j's A descriptor is tap 0's with its start moved j * d rows.
+//    The row count R = 64 + 6d is made odd, so that one row's stores spread
+//    over the banks. Seven quantizer warps fill it in tap order (rows 0-63,
+//    then d rows per tap), each part behind an mbarrier, while the consumers
+//    run the previous tile's 1x1 (which reads s2, not q1), and go on during
+//    this tile's first N tile, whose tap-j slices wait for part j only.
+// 3. Weights by TMA. One producer thread streams K slices of KC bytes (q7,
+//    and w1 as bytes) x BN rows through a ring of stages guarded by full /
+//    empty mbarriers, with the 64-byte swizzle for KC = 64 and the 32-byte
+//    for KC = 32. Slices run in K order over 7C; a k32 step never straddles
+//    two taps (C % 32 == 0), and each step's A descriptor has its own tap.
+// 4. A 2-CTA cluster shares the weight stream: each CTA's producer loads
+//    half of each slice's rows and multicasts it into both CTAs, whose
+//    consumers release a stage in both (remote mbarrier arrivals), so L2
+//    serves each weight byte once per two tiles. (`cluster` = 1 streams a
+//    CTA's own.)
+// 5. A persistent grid: one CTA per SM (a cluster per SM pair, as many as
+//    the card keeps resident) walks the row tiles of all batch rows; each
+//    tile reads its own row's scale from amax.
+// 6. s2 stays on chip as the 64 x C bf16 tile in the same octet-column
+//    layout; it is the 1x1's A. Nothing is written to device memory but out
+//    (and c7 / q1 where the caller asks for them).
+// Warp roles (512 threads): warp 0 issues the TMA copies, warps 1-7
+// quantize, warpgroups 2 and 3 issue the wgmma and run the epilogues.
+// setmaxnreg gives the consumers 160 registers and the others 96.
+//
+// Shared memory per CTA at C = 768 (227 KB; the ring takes what is left):
+//   d   q1 (R x C int8)   s2 (64 x C bf16)   ring                 total
+//   1   71 x 768  = 53 KB     96 KB          4 x 16 KB (KC 64)   215 KB
+//   3   83 x 768  = 62 KB     96 KB          4 x 16 KB (KC 64)   224 KB
+//   9   119 x 768 = 89 KB     96 KB          5 x 8 KB (KC 32)    227 KB
+// KC = 64 where four such stages fit, else 32; shapes where two stages do
+// not fit are refused (the entry returns cudaErrorInvalidValue): every C (a
+// multiple of 32) up to 832 at d = 9 and 1024 at d = 1 is taken.
+//
+// The host side reads the card's SM count, opt-in shared memory and
+// resident clusters once per device (the caller passes the device index),
+// and sets each instantiation's shared-memory limit once per device: no
+// device query on the launch path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
+#include <atomic>
+#include <mutex>
+
+#include "hopper.cuh"
 #include "resunit_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int BM = 64;        // rows of a tile
-constexpr int BN = 128;       // output channels of an N tile
-constexpr int KCH = 64;       // bytes of a weight K slice (a row of a ring stage)
-constexpr int WS = KCH + 16;  // bytes between the rows of a stage (no bank conflicts)
-constexpr int STAGES = 3;
-constexpr int STAGE_BYTES = BN * WS;
+constexpr int THREADS = 512;      // warpgroups 0 and 1 produce, 2 and 3 consume
+constexpr int QUANT_THREADS = 224;  // warps 1-7
+constexpr int CONSUMER_WARPS = 8;
+constexpr int BM = 64;            // rows of a tile
+constexpr int MAX_STAGES = 16;
+constexpr int ALIGN = 1024;       // of the ring's base
+constexpr int MAX_DEVICES = 64;
 constexpr float INV127 = (float)(1.0 / 127.0);
 
 __device__ __forceinline__ uint16_t f2bf(float v) {
@@ -74,43 +118,13 @@ __device__ __forceinline__ float round_bf(float v) {
 __device__ __forceinline__ uint32_t pack_bf(float lo, float hi) {
   return (uint32_t)f2bf(lo) | ((uint32_t)f2bf(hi) << 16);
 }
-__device__ __forceinline__ float bf_at(const uint16_t* p, int i) {
-  return __uint_as_float((uint32_t)__ldg(p + i) << 16);
-}
+__device__ __forceinline__ float lo_bf(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi_bf(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 bytes of global memory into shared memory; `bytes` = 0 writes zeros.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-// Four 8 x 16-byte matrices from shared memory, one per register.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ void consumer_sync() { asm volatile("bar.sync 1, 256;" ::: "memory"); }
+__device__ __forceinline__ void quant_sync() { asm volatile("bar.sync 2, 224;" ::: "memory"); }
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v));
 }
 
 // ------------------------------------------------------------ row maxima
@@ -149,232 +163,512 @@ __global__ void __launch_bounds__(256) resunit_int8_amax(const float* __restrict
 struct Params {
   const float* x;
   const float* amax;
-  const int8_t* q7;  // (C, 7C)
   const float* sw;
-  const uint16_t* w1;  // (C, C) bf16
   const float* b7;
   const uint16_t* b1;  // bf16
   const float *alpha1, *recip1, *alpha2, *recip2;
   float* out;
-  float* c7_out;    // or null
-  int8_t* q1_out;   // or null: (B, T + 6d, C)
-  int T, C, dil, pad_left, ext, row_tiles;
-  int rs_q, rs_s;   // bytes between rows of the s1 and s2 tiles
+  float* c7_out;   // or null
+  int8_t* q1_out;  // or null: (B, T + 6d, C)
+  int T, C, dil, pad_left, ext;
+  int n_tiles;     // N tiles of BN output channels
+  int rows;        // R, rows of the q1 tile: BM + 6d, made odd
+  int stages;      // weight slices the ring holds
+  int tiles, row_tiles;  // row tiles in all, and per batch row
+  int groups;      // groups of CL consecutive tiles, one per cluster at a time
 };
 
-// The ring's stage `st` gets BN rows x 64 bytes of a row-major matrix with
-// `ld` bytes a row, from row n0 and byte k0; rows past C and bytes past
-// `kmax` read as zeros.
-__device__ __forceinline__ void load_stage(uint32_t ring, int st, const uint8_t* w, int ld, int n0,
-                                           int k0, int kmax, int C) {
-#pragma unroll
-  for (int i = 0; i < BN * (KCH / 16) / THREADS; ++i) {
-    const int idx = threadIdx.x + i * THREADS, row = idx >> 2, part = idx & 3;
-    const int n = n0 + row, k = k0 + 16 * part;
-    const bool ok = n < C && k < kmax;
-    const uint8_t* src = ok ? w + (size_t)n * ld + k : w;
-    cp_async16(ring + st * STAGE_BYTES + row * WS + 16 * part, src, ok ? 16 : 0);
+// A CTA's tile of group g (past the last tile: a dummy that stores nothing)
+struct Tile {
+  int b, t0;
+  bool live;
+  float sx;
+  __device__ __forceinline__ Tile(const Params& p, int tile) {
+    live = tile < p.tiles;
+    b = live ? tile / p.row_tiles : 0;
+    t0 = live ? (tile % p.row_tiles) * BM : 0;
+    sx = __fmul_rn(fmaxf(__ldg(p.amax + b), 1e-12f), INV127);
+  }
+};
+
+// Thread 0: every weight slice the consumers take, in their order, into the
+// ring: per tile, for each N tile the 7C / KC slices of q7, then for each N
+// tile the 2C / KC of w1. Each box is half a slice's rows: with CL = 2 this
+// CTA's half, multicast into both CTAs of the cluster.
+template <int BN, int KC, int CL>
+__device__ void load_weights(const CUtensorMap* map7, const CUtensorMap* map1, const Params& p,
+                             uint32_t ring, uint32_t full, uint32_t empty, uint32_t rank) {
+  constexpr int HALF = BN / 2, STAGE = BN * KC;
+  const int s7 = (7 * p.C + KC - 1) / KC, s1 = 2 * p.C / KC;
+  int it = 0;
+  auto load = [&](const CUtensorMap* map, int k, int n) {
+    const int s = it % p.stages;
+    mbar_wait(empty + 8 * s, ((it / p.stages) & 1) ^ 1);
+    const uint32_t dst = ring + s * STAGE, bar = full + 8 * s;
+    mbar_expect_tx(bar, STAGE);
+    if constexpr (CL == 1) {
+      tma_load(dst, map, k, n, bar);
+      tma_load(dst + HALF * KC, map, k, n + HALF, bar);
+    } else {
+      tma_load_multicast(dst + rank * HALF * KC, map, k, n + rank * HALF, bar, (1 << CL) - 1);
+    }
+    ++it;
+  };
+  for (int g = blockIdx.x / CL; g < p.groups; g += gridDim.x / CL) {
+    for (int nt = 0; nt < p.n_tiles; ++nt)
+      for (int sl = 0; sl < s7; ++sl) load(map7, sl * KC, nt * BN);
+    for (int nt = 0; nt < p.n_tiles; ++nt)
+      for (int sl = 0; sl < s1; ++sl) load(map1, sl * (KC / 2), nt * BN);
   }
 }
 
-// One GEMM pass over K = `kbytes` bytes of weights in 64-byte slices
-// through the ring, `step(stage address, slice)` computing each.
-template <typename Step>
-__device__ __forceinline__ void pipeline(uint32_t ring, const uint8_t* w, int ld, int n0,
-                                         int kbytes, int C, Step step) {
-  const int slices = (kbytes + KCH - 1) / KCH;
-  __syncthreads();  // every warp is done with the ring's previous pass
+// Warps 1-7: q1 = clip(rint(snake1(xpad) / sx)) of each tile's R padded
+// rows into the q1 tile ([channel / 16][row][16 B]; rows past the padded
+// input are zero), in seven parts: part 0 rows 0-63 (tap 0's), part j the d
+// rows tap j adds; each behind its mbarrier. 8 channels a thread at a time,
+// two rows' loads in flight.
+template <int CL>
+__device__ void quantize(const Params& p, uint8_t* q1, uint32_t q1_ready, uint32_t q1_empty,
+                         uint32_t rank) {
+  const int i0 = threadIdx.x - 32, C = p.C, c8 = C / 8, Tp = p.T + 6 * p.dil;
+  int k = 0;
+  for (int g = blockIdx.x / CL; g < p.groups; g += gridDim.x / CL, ++k) {
+    const Tile tl(p, g * CL + rank);
+    const float* xb = p.x + (size_t)tl.b * p.T * C;
+    // one thread polls the barrier; the others sleep in the named barrier
+    if (i0 == 0) mbar_wait(q1_empty, (k & 1) ^ 1);
+    quant_sync();
+    for (int j = 0; j < 7; ++j) {
+      const int r0 = j == 0 ? 0 : BM + (j - 1) * p.dil, n = (j == 0 ? BM : p.dil) * c8;
+      for (int e0 = i0; e0 < n; e0 += 2 * QUANT_THREADS) {
+        float4 v[2][2], a[2][2], rc[2][2];
+        int r[2], c[2], q[2];
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < slices) load_stage(ring, s, w, ld, n0, s * KCH, kbytes, C);
-    cp_commit();
+        for (int u = 0; u < 2; ++u) {
+          const int e = e0 + u * QUANT_THREADS, rr = e / c8;
+          r[u] = r0 + rr;
+          c[u] = 8 * (e - rr * c8);
+          const int pr = tl.t0 + r[u];
+          q[u] = e < n && tl.live && pr < Tp ? padded_row(pr, p.T, p.ext, p.pad_left) : -1;
+          if (q[u] >= 0) {
+            const float* src = xb + (size_t)q[u] * C + c[u];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              v[u][h] = __ldg(reinterpret_cast<const float4*>(src) + h);
+              a[u][h] = __ldg(reinterpret_cast<const float4*>(p.alpha1 + c[u]) + h);
+              rc[u][h] = __ldg(reinterpret_cast<const float4*>(p.recip1 + c[u]) + h);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          if (e0 + u * QUANT_THREADS >= n) break;
+          uint32_t w[2] = {0u, 0u};
+          if (q[u] >= 0) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float s[4] = {snakef(v[u][h].x, a[u][h].x, rc[u][h].x),
+                                  snakef(v[u][h].y, a[u][h].y, rc[u][h].y),
+                                  snakef(v[u][h].z, a[u][h].z, rc[u][h].z),
+                                  snakef(v[u][h].w, a[u][h].w, rc[u][h].w)};
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const float qv = fminf(fmaxf(rintf(__fdiv_rn(s[i], tl.sx)), -127.f), 127.f);
+                w[h] |= (uint32_t)(uint8_t)(int8_t)(int)qv << (8 * i);
+              }
+            }
+          }
+          *reinterpret_cast<uint2*>(q1 + ((size_t)(c[u] >> 4) * p.rows + r[u]) * 16 + (c[u] & 15)) =
+              make_uint2(w[0], w[1]);
+          const int pr = tl.t0 + r[u];
+          if (p.q1_out != nullptr && tl.live && pr < Tp && (r[u] < BM || tl.t0 + BM >= p.T))
+            *reinterpret_cast<uint2*>(p.q1_out + ((size_t)tl.b * Tp + pr) * C + c[u]) =
+                make_uint2(w[0], w[1]);
+        }
+      }
+      fence_async_smem();
+      mbar_arrive(q1_ready + 8 * j);
+    }
   }
-  for (int i = 0; i < slices; ++i) {
-    cp_wait<STAGES - 2>();
-    __syncthreads();
-    const int nxt = i + STAGES - 1;
-    if (nxt < slices) load_stage(ring, nxt % STAGES, w, ld, n0, nxt * KCH, kbytes, C);
-    cp_commit();
-    step(ring + (i % STAGES) * STAGE_BYTES, i);
-  }
-  cp_wait<0>();
 }
 
-__global__ void __launch_bounds__(THREADS, 1) resunit_int8_kernel(const Params p) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int rows_in = BM + 6 * p.dil, C = p.C, K7 = 7 * C;
-  uint8_t* q1s = smem;                                    // rows_in x rs_q int8
-  uint8_t* s2s = smem + (size_t)rows_in * p.rs_q;         // BM x rs_s bf16
-  const uint32_t q1a = smem_addr(q1s), s2a = smem_addr(s2s);
-  const uint32_t ring = s2a + BM * p.rs_s;
-  const int b = blockIdx.x / p.row_tiles, t0 = (blockIdx.x % p.row_tiles) * BM;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp & 1, wn = warp >> 1, g = lane >> 2, tig = lane & 3;
-  const float sx = __fmul_rn(fmaxf(__ldg(p.amax + b), 1e-12f), INV127);
-  const float* xb = p.x + (size_t)b * p.T * C;
-  const int Tp = p.T + 6 * p.dil;
+// The consumers' side of the ring: `stage` and `phase` are the next slice's
+// ring stage and full-barrier parity; `held` the stage whose wgmma may still
+// run (released once the next slice's is issued and it has finished).
+template <int CL>
+struct Ring {
+  uint32_t ring, full, empty;
+  int stages, lane, stage, phase, held;
 
-  // 1. q1 = clip(rint(snake1(xpad) / sx)) for the tile's padded rows, 4
-  //    channels a thread at a time
-  const int c4 = C / 4;
-  for (int e = threadIdx.x; e < rows_in * c4; e += THREADS) {
-    const int r = e / c4, c = 4 * (e - r * c4), pr = t0 + r;
-    const int q = pr < Tp ? padded_row(pr, p.T, p.ext, p.pad_left) : -1;
-    uint32_t packed = 0u;
-    if (q >= 0) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(xb + (size_t)q * C + c));
-      const float4 a = __ldg(reinterpret_cast<const float4*>(p.alpha1 + c));
-      const float4 rc = __ldg(reinterpret_cast<const float4*>(p.recip1 + c));
-      const float s[4] = {snakef(v.x, a.x, rc.x), snakef(v.y, a.y, rc.y), snakef(v.z, a.z, rc.z),
-                          snakef(v.w, a.w, rc.w)};
+  __device__ __forceinline__ void release(int s) {
+    if (lane != 0) return;
+    if constexpr (CL == 1) {
+      mbar_arrive(empty + 8 * s);
+    } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float qv = fminf(fmaxf(rintf(__fdiv_rn(s[i], sx)), -127.f), 127.f);
-        packed |= (uint32_t)(uint8_t)(int8_t)(int)qv << (8 * i);
+      for (int r = 0; r < CL; ++r) mbar_arrive_cluster(empty + 8 * s, r);
+    }
+  }
+  // Waits for the next slice; returns its stage.
+  __device__ __forceinline__ int next() {
+    mbar_wait(full + 8 * stage, phase);
+    const int s = stage;
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+    return s;
+  }
+  // After a slice's wgmma are committed: the previous one's have finished
+  // (one group stays in flight), so its stage goes back to the producer.
+  __device__ __forceinline__ void issued(int s) {
+    wgmma_wait<1>();
+    if (held >= 0) release(held);
+    held = s;
+  }
+  __device__ __forceinline__ void drain() {
+    wgmma_wait<0>();
+    if (held >= 0) release(held);
+    held = -1;
+  }
+};
+
+template <int NW>
+constexpr int JC = (NW / 8) % 4 == 0 ? 4 : 2;
+
+// c7 = float(acc) * (sx * sw) + b7 and s2 = bf16(snake2(c7)) into the s2
+// tile (and c7 into c7_out). A thread's accumulator element 4j + 2h + i is
+// row rq + 8h, column col0 + 8j + i; columns go in groups of JC n8 blocks
+// whose operand loads are issued together; columns past C are not stored.
+template <int NW>
+__device__ __forceinline__ void store_s2(const int (&acc)[NW / 2], const Params& p, const Tile& tl,
+                                         uint32_t s2, int col0, int rq) {
+#pragma unroll
+  for (int j0 = 0; j0 < NW / 8; j0 += JC<NW>) {
+    float2 sw[JC<NW>], b7[JC<NW>], al[JC<NW>], rc[JC<NW>];
+#pragma unroll
+    for (int jj = 0; jj < JC<NW>; ++jj) {
+      const int col = min(col0 + 8 * (j0 + jj), p.C - 2);
+      sw[jj] = __ldg(reinterpret_cast<const float2*>(p.sw + col));
+      b7[jj] = __ldg(reinterpret_cast<const float2*>(p.b7 + col));
+      al[jj] = __ldg(reinterpret_cast<const float2*>(p.alpha2 + col));
+      rc[jj] = __ldg(reinterpret_cast<const float2*>(p.recip2 + col));
+    }
+#pragma unroll
+    for (int jj = 0; jj < JC<NW>; ++jj) {
+      const int j = j0 + jj, col = col0 + 8 * j;
+      if (col >= p.C) continue;
+      const float sc0 = __fmul_rn(tl.sx, sw[jj].x), sc1 = __fmul_rn(tl.sx, sw[jj].y);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = rq + 8 * h;
+        const float c0 = __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), sc0), b7[jj].x);
+        const float c1 =
+            __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), sc1), b7[jj].y);
+        st_shared(s2 + (((col >> 3) * BM + r) * 8 + (col & 7)) * 2,
+                  pack_bf(snakef(c0, al[jj].x, rc[jj].x), snakef(c1, al[jj].y, rc[jj].y)));
+        if (p.c7_out != nullptr && tl.live && tl.t0 + r < p.T)
+          *reinterpret_cast<float2*>(p.c7_out + ((size_t)tl.b * p.T + tl.t0 + r) * p.C + col) =
+              make_float2(c0, c1);
       }
     }
-    *reinterpret_cast<uint32_t*>(q1s + (size_t)r * p.rs_q + c) = packed;
-    if (p.q1_out != nullptr && pr < Tp && (r < BM || t0 + BM >= p.T))
-      *reinterpret_cast<uint32_t*>(p.q1_out + ((size_t)b * Tp + pr) * C + c) = packed;
   }
-  // (the first pipeline pass syncs before any warp reads q1)
+}
 
-  // 2. conv7 in int8, one N tile at a time; c7 -> s2 (bf16) into shared memory
-  for (int n0 = 0; n0 < C; n0 += BN) {
-    int acc[2][4][4];
+// out = x + bf16(bf16(acc) + b1), b1 (bf16 pairs) loaded before the products.
+template <int NW>
+__device__ __forceinline__ void store_out(const float (&acc)[NW / 2], const uint32_t (&b1)[NW / 8],
+                                          const Params& p, const Tile& tl, int col0, int rq) {
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+  for (int j0 = 0; j0 < NW / 8; j0 += JC<NW>) {
+    float2 xv[JC<NW>][2];
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+    for (int jj = 0; jj < JC<NW>; ++jj)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[m][n][i] = 0;
-    pipeline(ring, reinterpret_cast<const uint8_t*>(p.q7), K7, n0, K7, C,
-             [&](uint32_t st, int slice) {
+      for (int h = 0; h < 2; ++h) {
+        const int col = min(col0 + 8 * (j0 + jj), p.C - 2);
+        const int t = min(tl.t0 + rq + 8 * h, p.T - 1);
+        xv[jj][h] = __ldg(reinterpret_cast<const float2*>(p.x + ((size_t)tl.b * p.T + t) * p.C + col));
+      }
 #pragma unroll
-               for (int s = 0; s < KCH / 32; ++s) {
-                 const int k = slice * KCH + 32 * s;
-                 if (k >= K7) break;
-                 const int tap = k / C, c = k - tap * C;
-                 uint32_t a[2][4], bf[4][2];
+    for (int jj = 0; jj < JC<NW>; ++jj)
 #pragma unroll
-                 for (int m = 0; m < 2; ++m)
-                   ldmatrix_x4(a[m], q1a + (wm * 32 + m * 16 + (lane & 15) + tap * p.dil) * p.rs_q +
-                                         c + (lane >> 4) * 16);
+      for (int h = 0; h < 2; ++h) {
+        const int j = j0 + jj, col = col0 + 8 * j, t = tl.t0 + rq + 8 * h;
+        const float y0 = round_bf(__fadd_rn(round_bf(acc[4 * j + 2 * h]), lo_bf(b1[j])));
+        const float y1 = round_bf(__fadd_rn(round_bf(acc[4 * j + 2 * h + 1]), hi_bf(b1[j])));
+        if (tl.live && t < p.T && col < p.C)
+          *reinterpret_cast<float2*>(p.out + ((size_t)tl.b * p.T + t) * p.C + col) =
+              make_float2(__fadd_rn(xv[jj][h].x, y0), __fadd_rn(xv[jj][h].y, y1));
+      }
+  }
+}
+
+// Warpgroups 2 and 3 (cw = 0, 1), each NW = BN / 2 of an N tile's output
+// channels: per tile, the conv7 (int8) into s2, then the 1x1 (bf16) into out.
+template <int NW, int KC, int CL>
+__device__ void consume(const Params& p, uint32_t ring, uint32_t q1, uint32_t s2, uint32_t full,
+                        uint32_t empty, uint32_t q1_ready, uint32_t q1_empty, uint32_t rank) {
+  constexpr int BN = 2 * NW, STAGE = BN * KC, KS = KC / 32;
+  const int tid = threadIdx.x - 256, cw = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int rq = 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
+  const uint32_t b_off = cw * NW * KC;  // this warpgroup's rows of a stage
+  const int C = p.C, K7 = 7 * C, s7 = (K7 + KC - 1) / KC, s1 = 2 * C / KC;
+  Ring<CL> rg{ring, full, empty, p.stages, lane, 0, 0, -1};
+  int k = 0;
+
+  for (int g = blockIdx.x / CL; g < p.groups; g += gridDim.x / CL, ++k) {
+    const Tile tl(p, g * CL + rank);
+    // 1. the conv7 in int8, one N tile at a time; c7 -> s2
+    for (int nt = 0; nt < p.n_tiles; ++nt) {
+      int acc[NW / 2];
 #pragma unroll
-                 for (int np = 0; np < 2; ++np) {
-                   uint32_t r[4];
-                   ldmatrix_x4(r, st + (wn * 32 + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * WS +
-                                      32 * s + ((lane >> 3) & 1) * 16);
-                   bf[2 * np][0] = r[0];
-                   bf[2 * np][1] = r[1];
-                   bf[2 * np + 1][0] = r[2];
-                   bf[2 * np + 1][1] = r[3];
-                 }
+      for (int i = 0; i < NW / 2; ++i) acc[i] = 0;
+      int tap = 0, ch = 0, ready = nt == 0 ? -1 : 6;  // the q1 parts this N tile has waited for
+      for (int sl = 0; sl < s7; ++sl) {
+        const int last = (min(sl * KC + KC, K7) - 1) / C;  // the slice's last tap
+        while (ready < last) mbar_wait(q1_ready + 8 * ++ready, k & 1);
+        const int s = rg.next();
+        const uint64_t b = desc_sw<KC>(ring + s * STAGE + b_off);
+        fence_regs(acc);
+        if (sl == 0) wgmma_fence();
 #pragma unroll
-                 for (int m = 0; m < 2; ++m)
-#pragma unroll
-                   for (int n = 0; n < 4; ++n) mma_s8(acc[m][n], a[m], bf[n]);
-               }
-             });
-    // epilogue: c7 = float(acc) * (sx * sw) + b7, s2 = bf16(snake2(c7))
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int col = n0 + wn * 32 + n * 8 + 2 * tig;
-      if (col >= C) continue;
-      const float2 sw = __ldg(reinterpret_cast<const float2*>(p.sw + col));
-      const float2 b7 = __ldg(reinterpret_cast<const float2*>(p.b7 + col));
-      const float2 a2 = __ldg(reinterpret_cast<const float2*>(p.alpha2 + col));
-      const float2 r2 = __ldg(reinterpret_cast<const float2*>(p.recip2 + col));
-      const float sc0 = __fmul_rn(sx, sw.x), sc1 = __fmul_rn(sx, sw.y);
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = wm * 32 + m * 16 + g + 8 * h;
-          const float c0 = __fadd_rn(__fmul_rn(__int2float_rn(acc[m][n][2 * h]), sc0), b7.x);
-          const float c1 = __fadd_rn(__fmul_rn(__int2float_rn(acc[m][n][2 * h + 1]), sc1), b7.y);
-          *reinterpret_cast<uint32_t*>(s2s + (size_t)r * p.rs_s + 2 * col) =
-              pack_bf(snakef(c0, a2.x, r2.x), snakef(c1, a2.y, r2.y));
-          if (p.c7_out != nullptr && t0 + r < p.T)
-            *reinterpret_cast<float2*>(p.c7_out + ((size_t)b * p.T + t0 + r) * C + col) =
-                make_float2(c0, c1);
+        for (int ks = 0; ks < KS; ++ks) {
+          if (tap < 7) {
+            const uint32_t a = q1 + ((ch >> 4) * p.rows + tap * p.dil) * 16;
+            wgmma_s8<NW>(acc, desc_a(a, p.rows * 16), b + 2 * ks);
+          }
+          ch += 32;
+          if (ch == C) {
+            ch = 0;
+            ++tap;
+          }
         }
+        wgmma_commit();
+        rg.issued(s);
+        fence_regs(acc);
+      }
+      rg.drain();
+      fence_regs(acc);
+      if (nt == p.n_tiles - 1 && lane == 0) mbar_arrive(q1_empty);  // q1's last reader is done
+      if (nt == 0) consumer_sync();  // both warpgroups are past the previous tile's 1x1 on s2
+      store_s2<NW>(acc, p, tl, s2, nt * BN + cw * NW + cq, rq);
     }
-  }
-  // (the next pipeline pass syncs before any warp reads s2)
+    fence_async_smem();
+    consumer_sync();  // s2 complete, and visible to the wgmma
 
-  // 3. the 1x1 in bf16 on the s2 tile; out = x + bf16(bf16(acc) + bf16(b1))
-  for (int n0 = 0; n0 < C; n0 += BN) {
-    float acc[2][4][4];
+    // 2. the 1x1 in bf16 on the s2 tile; out = x + bf16(bf16(acc) + bf16(b1))
+    for (int nt = 0; nt < p.n_tiles; ++nt) {
+      const int col0 = nt * BN + cw * NW + cq;
+      uint32_t b1[NW / 8];
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+      for (int j = 0; j < NW / 8; ++j)
+        b1[j] = __ldg(reinterpret_cast<const uint32_t*>(p.b1 + min(col0 + 8 * j, C - 2)));
+      float acc[NW / 2];
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+      for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+      for (int sl = 0; sl < s1; ++sl) {
+        const int s = rg.next();
+        const uint64_t b = desc_sw<KC>(ring + s * STAGE + b_off);
+        fence_regs(acc);
+        if (sl == 0) wgmma_fence();
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
-    pipeline(ring, reinterpret_cast<const uint8_t*>(p.w1), 2 * C, n0, 2 * C, C,
-             [&](uint32_t st, int slice) {
-#pragma unroll
-               for (int s = 0; s < KCH / 32; ++s) {
-                 const int kb = slice * KCH + 32 * s;  // byte of s2's row: 16 channels a step
-                 uint32_t a[2][4], bf[4][2];
-#pragma unroll
-                 for (int m = 0; m < 2; ++m)
-                   ldmatrix_x4(a[m], s2a + (wm * 32 + m * 16 + (lane & 15)) * p.rs_s + kb +
-                                         (lane >> 4) * 16);
-#pragma unroll
-                 for (int np = 0; np < 2; ++np) {
-                   uint32_t r[4];
-                   ldmatrix_x4(r, st + (wn * 32 + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * WS +
-                                      32 * s + ((lane >> 3) & 1) * 16);
-                   bf[2 * np][0] = r[0];
-                   bf[2 * np][1] = r[1];
-                   bf[2 * np + 1][0] = r[2];
-                   bf[2 * np + 1][1] = r[3];
-                 }
-#pragma unroll
-                 for (int m = 0; m < 2; ++m)
-#pragma unroll
-                   for (int n = 0; n < 4; ++n) mma_bf16(acc[m][n], a[m], bf[n]);
-               }
-             });
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int col = n0 + wn * 32 + n * 8 + 2 * tig;
-      if (col >= C) continue;
-      const float bl = bf_at(p.b1, col), bh = bf_at(p.b1, col + 1);
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int t = t0 + wm * 32 + m * 16 + g + 8 * h;
-          if (t >= p.T) continue;
-          const size_t off = ((size_t)b * p.T + t) * C + col;
-          const float2 xv = __ldg(reinterpret_cast<const float2*>(p.x + off));
-          const float y0 = round_bf(__fadd_rn(round_bf(acc[m][n][2 * h]), bl));
-          const float y1 = round_bf(__fadd_rn(round_bf(acc[m][n][2 * h + 1]), bh));
-          *reinterpret_cast<float2*>(p.out + off) = make_float2(__fadd_rn(xv.x, y0),
-                                                                __fadd_rn(xv.y, y1));
+        for (int ks = 0; ks < KS; ++ks) {
+          const int c = sl * (KC / 2) + 16 * ks;  // s2's channel: 16 a k16 step
+          wgmma<NW>(acc, desc_a(s2 + (c >> 3) * BM * 16, BM * 16), b + 2 * ks);
         }
+        wgmma_commit();
+        rg.issued(s);
+        fence_regs(acc);
+      }
+      rg.drain();
+      fence_regs(acc);
+      store_out<NW>(acc, b1, p, tl, col0, rq);
     }
   }
 }
 
-int device_attr(cudaDeviceAttr attr) {
-  int dev = 0, v = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&v, attr, dev);
-  return v;
+// map7, map1: the TMA tensor maps of q7 (C, 7C) int8 and w1 (C, C) bf16,
+// boxes of KC bytes x BN / 2 rows, swizzled over their KC-byte rows.
+template <int NW, int KC, int CL>
+__global__ void __launch_bounds__(THREADS, 1)
+resunit_int8_kernel(const __grid_constant__ CUtensorMap map7,
+                    const __grid_constant__ CUtensorMap map1, const Params p) {
+  constexpr int BN = 2 * NW;
+  extern __shared__ uint8_t smem_raw[];
+  // [ring: stages x BN x KC][q1: R x C][s2: 64 x C bf16][mbarriers]
+  uint8_t* smem = smem_raw + (ALIGN - smem_addr(smem_raw) % ALIGN) % ALIGN;
+  const uint32_t ring = smem_addr(smem);
+  const uint32_t q1 = ring + p.stages * BN * KC;
+  const uint32_t s2 = q1 + p.rows * p.C;
+  const uint32_t full = s2 + BM * p.C * 2, empty = full + 8 * MAX_STAGES;
+  const uint32_t q1_ready = empty + 8 * MAX_STAGES, q1_empty = q1_ready + 8 * 7;
+  const uint32_t rank = CL > 1 ? cluster_rank() : 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS * CL);
+    }
+    for (int j = 0; j < 7; ++j) mbar_init(q1_ready + 8 * j, QUANT_THREADS);
+    mbar_init(q1_empty, CONSUMER_WARPS);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // the peer's barriers are initialized before any multicast or remote arrival
+  if constexpr (CL > 1)
+    cluster_sync();
+  else
+    __syncthreads();
+  if (threadIdx.x >= 256) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 160;");
+    consume<NW, KC, CL>(p, ring, q1, s2, full, empty, q1_ready, q1_empty, rank);
+  } else {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 96;");
+    if (threadIdx.x == 0)
+      load_weights<BN, KC, CL>(&map7, &map1, p, ring, full, empty, rank);
+    else if (threadIdx.x >= 32)
+      quantize<CL>(p, smem + (q1 - ring), q1_ready, q1_empty, rank);
+  }
+  // no CTA leaves while its peer may still multicast into it or arrive on its barriers
+  if constexpr (CL > 1) cluster_sync();
 }
 
-// Dynamic shared memory of a call: the s1 tile, the s2 tile and the ring.
-long long smem_bytes(int C, int dil) {
-  return (long long)(BM + 6 * dil) * (C + 16) + (long long)BM * (2 * C + 16) +
-         (long long)STAGES * STAGE_BYTES;
+// ------------------------------------------------------------------- host
+// The card's numbers the plan needs, read once per device.
+struct Device {
+  std::atomic<int> ready{0};
+  int sms = 0, optin = 0, clusters = 0;  // SMs, opt-in shared memory, resident 2-CTA clusters
+};
+Device g_devices[MAX_DEVICES];
+std::mutex g_device_lock;
+
+template <int NW, int KC, int CL>
+cudaError_t set_smem_limit(int dev, int optin) {
+  static std::atomic<int> done[MAX_DEVICES];
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      resunit_int8_kernel<NW, KC, CL>, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess) done[dev].store(1, std::memory_order_release);
+  return err;
 }
 
-bool fits(int B, int T, int C, int dil) {
-  return valid_shape(B, T, C, dil) && smem_bytes(C, dil) <= device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
+// The device's numbers, read on its first call (the caller has made `dev`
+// current); null where they cannot be read.
+const Device* device(int dev) {
+  if (dev < 0 || dev >= MAX_DEVICES) return nullptr;
+  Device& d = g_devices[dev];
+  if (d.ready.load(std::memory_order_acquire)) return &d;
+  std::lock_guard<std::mutex> guard(g_device_lock);
+  if (!d.ready.load(std::memory_order_relaxed)) {
+    if (cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&d.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+            cudaSuccess ||
+        set_smem_limit<64, 64, 2>(dev, d.optin) != cudaSuccess)
+      return nullptr;
+    // every instantiation takes one CTA per SM (its registers), so one
+    // stands for all: how many 2-CTA clusters the card keeps resident
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 2;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(d.sms);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = d.optin;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if (cudaOccupancyMaxActiveClusters(&d.clusters, resunit_int8_kernel<64, 64, 2>, &cfg) !=
+        cudaSuccess) {
+      cudaGetLastError();  // clear it: the plan then streams per CTA
+      d.clusters = 0;
+    }
+    d.ready.store(1, std::memory_order_release);
+  }
+  return &d;
+}
+
+struct Plan {
+  int bn, kc, n_tiles, rows, stages, smem, cl, grid, tiles, row_tiles, groups;
+};
+
+// N tiles of equal width: the fewest of at most 256 channels, each BN of
+// 64, 96, 128, 192, 256 wide (the last one ragged where BN does not divide C).
+int pick_bn(int C, int* n_tiles) {
+  *n_tiles = (C + 255) / 256;
+  const int need = (C + *n_tiles - 1) / *n_tiles;
+  constexpr int widths[4] = {64, 96, 128, 192};
+  for (int bn : widths) {
+    if (bn >= need) return bn;
+  }
+  return 256;
+}
+
+// `cluster` 1 or 2 asks for that many CTAs a cluster, 0 for the default (2
+// where there are two tiles and the card keeps 2-CTA clusters resident).
+bool make_plan(int B, int T, int C, int dil, int cluster, const Device& dv, Plan& pl) {
+  if (!valid_shape(B, T, C, dil) || cluster < 0 || cluster > 2) return false;
+  pl.bn = pick_bn(C, &pl.n_tiles);
+  pl.rows = (BM + 6 * dil) | 1;
+  const long long fixed = ALIGN + (long long)pl.rows * C + 2LL * BM * C + 8LL * (2 * MAX_STAGES + 8);
+  const long long room = dv.optin - fixed;
+  pl.kc = room / (pl.bn * 64) >= 4 ? 64 : 32;
+  const long long stage = (long long)pl.bn * pl.kc;
+  const long long stages = room / stage < MAX_STAGES ? room / stage : MAX_STAGES;
+  if (stages < 2) return false;
+  pl.stages = (int)stages;
+  pl.smem = (int)(fixed + stages * stage);
+  pl.row_tiles = (T + BM - 1) / BM;
+  pl.tiles = B * pl.row_tiles;
+  pl.cl = cluster != 0 ? cluster : (pl.tiles > 1 && dv.clusters > 0 ? 2 : 1);
+  if (pl.cl == 2 && dv.clusters <= 0) return false;
+  pl.groups = (pl.tiles + pl.cl - 1) / pl.cl;
+  const int slots = pl.cl == 1 ? dv.sms : dv.clusters;
+  pl.grid = pl.cl * (pl.groups < slots ? pl.groups : slots);
+  return true;
+}
+
+template <int NW, int KC, int CL>
+cudaError_t launch_cfg(const CUtensorMap* maps, const Params& prm, const Plan& pl, int dev,
+                       int optin, cudaStream_t stream) {
+  const cudaError_t err = set_smem_limit<NW, KC, CL>(dev, optin);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(pl.grid);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  // maps: q7 and w1 for KC = 64, then for KC = 32
+  const int m = KC == 64 ? 0 : 2;
+  return cudaLaunchKernelEx(&cfg, resunit_int8_kernel<NW, KC, CL>, maps[m], maps[m + 1], prm);
+}
+
+template <int KC, int CL>
+cudaError_t dispatch_nw(const CUtensorMap* maps, const Params& prm, const Plan& pl, int dev,
+                        int optin, cudaStream_t s) {
+  switch (pl.bn) {
+    case 64: return launch_cfg<32, KC, CL>(maps, prm, pl, dev, optin, s);
+    case 96: return launch_cfg<48, KC, CL>(maps, prm, pl, dev, optin, s);
+    case 128: return launch_cfg<64, KC, CL>(maps, prm, pl, dev, optin, s);
+    case 192: return launch_cfg<96, KC, CL>(maps, prm, pl, dev, optin, s);
+    case 256: return launch_cfg<128, KC, CL>(maps, prm, pl, dev, optin, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch(const CUtensorMap* maps, const Params& prm, const Plan& pl, int dev, int optin,
+                     cudaStream_t s) {
+  if (pl.kc == 64)
+    return pl.cl == 2 ? dispatch_nw<64, 2>(maps, prm, pl, dev, optin, s)
+                      : dispatch_nw<64, 1>(maps, prm, pl, dev, optin, s);
+  return pl.cl == 2 ? dispatch_nw<32, 2>(maps, prm, pl, dev, optin, s)
+                    : dispatch_nw<32, 1>(maps, prm, pl, dev, optin, s);
 }
 
 }  // namespace
@@ -392,34 +686,67 @@ extern "C" int facodec_resunit_int8_amax(const float* x, const float* alpha1, co
   return (int)cudaGetLastError();
 }
 
-// C entry point, bound with ctypes: the unit on x (B, T, C) float32 into
-// out, with the row maxima amax (facodec_resunit_int8_amax) and the packed
-// operands (q7 int8 (C, 7C), sw, b7, the alphas and reciprocals float32, w1
-// (C, C) and b1 bf16 as 16-bit patterns), the pads and ext of
-// facodec_resunit_f32. c7_out (B, T, C) float32 and q1_out (B, T + 6d, C)
-// int8 may be null; given, they get the conv7's output and the quantized
-// padded input. Returns a cudaError_t (0 = launched).
-extern "C" int facodec_resunit_int8(const float* x, const float* amax, const int8_t* q7,
-                                    const float* sw, const uint16_t* w1, const float* b7,
-                                    const uint16_t* b1, const float* alpha1, const float* recip1,
-                                    const float* alpha2, const float* recip2, float* out,
-                                    float* c7_out, int8_t* q1_out, int B, int T, int C, int dil,
-                                    int pad_left, int ext, void* stream) {
-  if (!fits(B, T, C, dil) || !valid_pads(T, dil, pad_left, ext)) return (int)cudaErrorInvalidValue;
-  const int row_tiles = (T + BM - 1) / BM;
-  const Params prm{x, amax, q7, sw, w1, b7, b1, alpha1, recip1, alpha2, recip2, out, c7_out, q1_out,
-                   T, C, dil, pad_left, ext, row_tiles, C + 16, 2 * C + 16};
-  const int smem = (int)smem_bytes(C, dil);
-  static int set_for = -1;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (set_for != dev) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(resunit_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin));
-    if (err != cudaSuccess) return (int)err;
-    set_for = dev;
+// Bytes of the tensor maps facodec_resunit_int8_maps writes.
+extern "C" int facodec_resunit_int8_maps_bytes() { return 4 * (int)sizeof(CUtensorMap); }
+
+// The TMA tensor maps of the packed weights, q7 (C, 7C) int8 K-major (K
+// index tap * C + in) and w1 (C, C) bf16, for slices of 64 and of 32 bytes,
+// written to `maps` (host memory, facodec_resunit_int8_maps_bytes()). They
+// hold the weights' device addresses: build them once per packed weight.
+// Returns a cudaError_t.
+extern "C" int facodec_resunit_int8_maps(const int8_t* q7, const uint16_t* w1, int C, void* maps) {
+  if (C <= 0 || C % 32 != 0) return (int)cudaErrorInvalidValue;
+  int n_tiles = 0;
+  const int half = pick_bn(C, &n_tiles) / 2;
+  CUtensorMap m[4];
+  for (int i = 0; i < 2; ++i) {
+    const int kc = i == 0 ? 64 : 32;
+    if (!encode_map(&m[2 * i], q7, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, C, 7 * C, half, kc) ||
+        !encode_map(&m[2 * i + 1], w1, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, C, C, half, kc / 2))
+      return (int)cudaErrorInvalidValue;
   }
-  resunit_int8_kernel<<<B * row_tiles, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(prm);
-  return (int)cudaGetLastError();
+  memcpy(maps, m, sizeof(m));
+  return 0;
+}
+
+// The plan of a call on device `dev` (current), for reports: {BN, KC (bytes
+// of a weight slice), N tiles, ring stages, shared-memory bytes, CTAs a
+// cluster, grid, row tiles}. `cluster` as facodec_resunit_int8's. Returns 0,
+// or cudaErrorInvalidValue for shapes the kernel refuses.
+extern "C" int facodec_resunit_int8_plan(int B, int T, int C, int dil, int cluster, int dev,
+                                         int* out) {
+  const Device* dv = device(dev);
+  Plan pl;
+  if (dv == nullptr || !make_plan(B, T, C, dil, cluster, *dv, pl)) return (int)cudaErrorInvalidValue;
+  const int v[8] = {pl.bn, pl.kc, pl.n_tiles, pl.stages, pl.smem, pl.cl, pl.grid, pl.tiles};
+  memcpy(out, v, sizeof(v));
+  return 0;
+}
+
+// C entry point, bound with ctypes: the unit on x (B, T, C) float32 into
+// out, with the row maxima amax (facodec_resunit_int8_amax), the weights of
+// `maps` (facodec_resunit_int8_maps) and the packed operands (sw, b7, the
+// alphas and reciprocals float32, b1 bf16 as 16-bit patterns), the pads
+// and ext of facodec_resunit_f32. c7_out (B, T, C) float32 and q1_out
+// (B, T + 6d, C) int8 may be null; given, they get the conv7's output and
+// the quantized padded input. `cluster`: 0 for the default, or 1 or 2 CTAs
+// a cluster; `dev`: the index of the current device. Returns a cudaError_t
+// (0 = launched).
+extern "C" int facodec_resunit_int8(const float* x, const float* amax, const void* maps,
+                                    const float* sw, const float* b7, const uint16_t* b1,
+                                    const float* alpha1, const float* recip1, const float* alpha2,
+                                    const float* recip2, float* out, float* c7_out, int8_t* q1_out,
+                                    int B, int T, int C, int dil, int pad_left, int ext, int cluster,
+                                    int dev, void* stream) {
+  const Device* dv = device(dev);
+  Plan pl;
+  if (dv == nullptr || !make_plan(B, T, C, dil, cluster, *dv, pl) ||
+      !valid_pads(T, dil, pad_left, ext))
+    return (int)cudaErrorInvalidValue;
+  const Params prm{x,      amax,        sw,     b7,         b1,       alpha1,    recip1,
+                   alpha2, recip2,      out,    c7_out,     q1_out,   T,         C,
+                   dil,    pad_left,    ext,    pl.n_tiles, pl.rows,  pl.stages, pl.tiles,
+                   pl.row_tiles, pl.groups};
+  return (int)dispatch(static_cast<const CUtensorMap*>(maps), prm, pl, dev, dv->optin,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -359,23 +359,26 @@ def pack_bf16(w7, b7, w1, b1, alpha1, alpha2, bias_dtype=torch.bfloat16) -> Bf16
 
 
 _MAPS: "collections.OrderedDict[tuple, ctypes.Array]" = collections.OrderedDict()
-_MAPS_KEPT = 256  # packs whose maps stay encoded: far more than a model's 12 bf16 units
+_MAPS_KEPT = 256  # packs whose maps stay encoded: far more than a model's kernel units
 _MAPS_LOCK = threading.Lock()
 
 
-def tma_maps(w7: torch.Tensor, w1: torch.Tensor) -> ctypes.Array:
-    """The TMA tensor maps of a pack's w7 and w1 on the card (host memory,
-    copied into the kernel's parameters at each launch). A map holds the
-    weight's address and shape and no values, so it is kept per (device,
-    addresses, C): a repack in place or a new pack at the same address
-    reuses it, and an exported program's per-call pack, which the caching
-    allocator gives the same addresses, encodes once."""
+def tma_maps(w7: torch.Tensor, w1: torch.Tensor, kind: str = "bf16") -> ctypes.Array:
+    """The TMA tensor maps of a pack's conv7 and 1x1 weights on the card
+    (host memory, copied into the kernel's parameters at each launch), for
+    the bf16 kernel (`kind` "bf16": w7 and w1 bf16) or the int8 unit
+    ("int8": q7 int8 and w1). A map holds the weight's address and shape
+    and no values, so it is kept per (kind, device, addresses, C): a repack
+    in place or a new pack at the same address reuses it, and an exported
+    program's per-call pack, which the caching allocator gives the same
+    addresses, encodes once."""
     C = w7.shape[0]
-    key = (w7.device.index, w7.data_ptr(), w1.data_ptr(), C)
+    key = (kind, w7.device.index, w7.data_ptr(), w1.data_ptr(), C)
     with _MAPS_LOCK:  # replicas launch from several threads (api.FACodec.shard_inference)
         maps = _MAPS.get(key)
         if maps is None:
-            _, encode, nbytes = _bf16_entry_points()[:3]
+            entries = _bf16_entry_points() if kind == "bf16" else _int8_entry_points()
+            encode, nbytes = entries[1], entries[2]
             maps = ctypes.create_string_buffer(nbytes)
             with torch.cuda.device(w7.device):
                 err = encode(w7.data_ptr(), w1.data_ptr(), C, maps)
@@ -690,16 +693,23 @@ def fused_residual_unit_int8_packed(x, pack: Int8Pack, dilation: int,
 
 @functools.lru_cache(maxsize=None)
 def _int8_entry_points():
-    """(row-maxima entry, unit entry) from csrc/resunit_int8.cu, typed once
-    per process."""
+    """(row-maxima entry, tensor-map builder, map bytes, unit entry, plan)
+    from csrc/resunit_int8.cu, typed once per process."""
     lib = build.library("resunit_int8")
     amax = lib.facodec_resunit_int8_amax
     amax.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     amax.restype = ctypes.c_int
+    maps = lib.facodec_resunit_int8_maps
+    maps.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    maps.restype = ctypes.c_int
+    lib.facodec_resunit_int8_maps_bytes.restype = ctypes.c_int
     fn = lib.facodec_resunit_int8
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return amax, fn
+    plan = lib.facodec_resunit_int8_plan
+    plan.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    plan.restype = ctypes.c_int
+    return amax, maps, lib.facodec_resunit_int8_maps_bytes(), fn, plan
 
 
 def launch_int8_amax(x, alpha1, recip1, out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -724,24 +734,45 @@ def launch_int8_amax(x, alpha1, recip1, out: Optional[torch.Tensor] = None) -> t
 
 def launch_int8(x, amax, pack: Int8Pack, dilation: int, pad_left: int, ext: int,
                 out: Optional[torch.Tensor] = None, c7: Optional[torch.Tensor] = None,
-                q1: Optional[torch.Tensor] = None) -> torch.Tensor:
+                q1: Optional[torch.Tensor] = None, cluster: int = 0) -> torch.Tensor:
     """One launch of the int8 unit on checked CUDA operands, into `out` or a
     new tensor (the CUDA implementation of `facodec::resunit_int8`). Given
     `c7` (B, T, C) float32 and `q1` (B, T + 6d, C) int8, the kernel also
     writes its conv7 output and its quantized padded input there, for the
-    tests that hold them bit-equal to the plain version's."""
+    tests that hold them bit-equal to the plain version's. `cluster` (1 or
+    2 CTAs sharing each weight slice; 0, the default plan) is for timing
+    the two against each other."""
     B, T, C = x.shape
     x = aligned16(x.contiguous())
-    ops = [aligned16(t.contiguous()) for t in pack]
+    q7, sw, w1, *rest = (aligned16(t.contiguous()) for t in pack)
     out = torch.empty_like(x) if out is None else out
-    fn = _int8_entry_points()[1]
+    fn = _int8_entry_points()[3]
+    maps = tma_maps(q7, w1, "int8")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), amax.data_ptr(), *(t.data_ptr() for t in ops), out.data_ptr(),
+        err = fn(x.data_ptr(), amax.data_ptr(), ctypes.addressof(maps),
+                 *(t.data_ptr() for t in (sw, *rest, out)),
                  None if c7 is None else c7.data_ptr(), None if q1 is None else q1.data_ptr(),
-                 B, T, C, dilation, pad_left, ext, stream)
+                 B, T, C, dilation, pad_left, ext, cluster, x.device.index, stream)
     if err != 0:
         why = " (shapes the kernel refuses: C, d, and shared memory)" if err == 1 else ""
         raise RuntimeError(f"fused_residual_unit: int8 kernel launch failed, cudaError {err}{why}")
     build.count_launch(fused_residual_unit, "int8_launches")
     return out
+
+
+def int8_plan(B: int, T: int, C: int, dilation: int, cluster: int = 0,
+              device: Optional[torch.device] = None) -> dict:
+    """The int8 unit's tiling for a call (card only): N tile width, bytes of
+    a weight slice, N tiles, ring stages, dynamic shared memory in bytes,
+    CTAs a cluster, grid, row tiles."""
+    plan = _int8_entry_points()[4]
+    device = torch.device("cuda", torch.cuda.current_device()) if device is None else device
+    out = (ctypes.c_int * 8)()
+    with torch.cuda.device(device):
+        err = plan(B, T, C, dilation, cluster, device.index, out)
+    if err != 0:
+        raise ValueError(f"int8_plan: the kernel refuses B={B} T={T} C={C} d={dilation} "
+                         f"cluster={cluster}")
+    keys = ("bn", "kc", "n_tiles", "stages", "smem", "cluster", "grid", "tiles")
+    return dict(zip(keys, out))

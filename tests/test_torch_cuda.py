@@ -282,6 +282,71 @@ def test_resunit_int8_matches_plain(B, C, dilation, T, causal):
                        dilation, causal)
 
 
+# The edges of the int8 unit's tiling (csrc/resunit_int8.cu: 64-row tiles,
+# a persistent grid of 2-CTA clusters sharing each weight slice): fewer row
+# tiles than SMs (B = 1, T = 100); 133 tiles (7 x 19, one past the SM
+# count: a cluster takes a second pair, the last pair half a dummy); T not
+# a multiple of the tile at d = 9, causal and not; C = 96 and 160 at d = 9
+# (one N tile, ragged at 160; 32-byte weight slices beside the wider q1
+# tile); the widest units the mma.sync kernel it replaced took (C = 800 at
+# d = 9, 992 at d = 1).
+INT8_TILING_CASES = [(1, 768, 3, 100, True), (7, 768, 9, 1200, False), (2, 768, 9, 1001, True),
+                     (2, 768, 9, 1001, False), (2, 96, 9, 777, True), (2, 160, 9, 300, True),
+                     (1, 800, 9, 200, True), (1, 992, 1, 200, False)]
+
+
+@pytest.mark.parametrize("B,C,dilation,T,causal", INT8_TILING_CASES)
+def test_resunit_int8_tiling(B, C, dilation, T, causal):
+    _need_cuda()
+    _check_packed_form("int8", _f32_unit_args(B, C, dilation, T, 5 * C + dilation + T),
+                       dilation, causal)
+
+
+@pytest.mark.parametrize("dilation", [1, 3, 9])
+def test_resunit_int8_deterministic(dilation):
+    """The flagship decode's int8 units (C = 768, T = 4800, batch 4): two
+    launches of the default plan, and one with each CTA streaming its own
+    weights (no cluster), give the same q1, c7 and out bits: the persistent
+    walk and the shared weight stream change no sum's order."""
+    _need_cuda()
+    B, T, C = 4, 4800, 768
+    x, *w = _f32_unit_args(B, C, dilation, T, 11 * dilation)
+    pack = resunit.pack_int8(*w)
+    pl, ext = resunit.reflect_extent(T, dilation, True)
+    assert resunit.int8_plan(B, T, C, dilation)["cluster"] == 2
+    runs = []
+    with torch.no_grad():
+        amax = resunit.launch_int8_amax(x, pack.alpha1, pack.recip1)
+        for cluster in (0, 0, 1):
+            c7 = torch.empty(B, T, C, device="cuda")
+            q1 = torch.empty(B, T + 6 * dilation, C, dtype=torch.int8, device="cuda")
+            out = resunit.launch_int8(x, amax, pack, dilation, pl, ext, c7=c7, q1=q1,
+                                      cluster=cluster)
+            runs.append((out, c7, q1))
+        torch.cuda.synchronize()
+    for again in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], again))
+
+
+def test_resunit_int8_plan():
+    """The int8 unit's plan at the flagship's width: 256-wide N tiles (three),
+    64-byte weight slices at d = 1 and 3 and 32-byte ones at d = 9 (the
+    wider q1 tile leaves less room), a 2-CTA cluster over many tiles and
+    none over one, a grid no larger than the card; a unit too wide for two
+    ring stages beside its q1 and s2 tiles is refused."""
+    _need_cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for d, kc in ((1, 64), (3, 64), (9, 32)):
+        plan = resunit.int8_plan(4, 4800, 768, d)
+        assert (plan["bn"], plan["n_tiles"], plan["kc"], plan["cluster"]) == (256, 3, kc, 2), plan
+        assert plan["stages"] >= 4 and plan["grid"] <= sms and plan["tiles"] == 300, plan
+    one = resunit.int8_plan(1, 50, 768, 9)
+    assert (one["cluster"], one["grid"], one["tiles"]) == (1, 1, 1), one
+    assert resunit.int8_plan(1, 50, 768, 9, cluster=2)["grid"] == 2
+    with pytest.raises(ValueError):
+        resunit.int8_plan(1, 100, 1088, 9)
+
+
 def test_residual_unit_routes_by_policy(monkeypatch):
     """ResidualUnit on the card under each policy: the kernel form of its
     route, one launch each (the int8 unit two: row maxima, then the unit);
