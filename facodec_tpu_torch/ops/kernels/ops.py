@@ -39,10 +39,11 @@ and scatter-adds the rows' cotangent into the codebook rows it selected
 (`index_add`, the counterpart of `segment_sum`). The other entries are
 forward only.
 
-The bf16 entries take the packed weights as tensors; their CUDA implementation
-encodes the two TMA tensor maps itself (`resunit.tma_maps`, kept per
-packed weights' address), so a pack made by graph ops in an exported
-program serves the kernel as one kept by `models.dac.ResidualUnit` does.
+The bf16 entries and the int8 unit take the packed weights as tensors;
+their CUDA implementations encode the TMA tensor maps themselves
+(`resunit.tma_maps`, kept per packed weights' address), so a pack made by
+graph ops in an exported program serves the kernel as one kept by
+`models.dac.ResidualUnit` does.
 
 Import this module (the `ops.kernels` package does) before loading an
 exported program that holds these ops.

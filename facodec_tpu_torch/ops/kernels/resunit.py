@@ -51,8 +51,10 @@ kept by `models.dac.ResidualUnit`), each with its launch count:
   - the int8 unit (csrc/resunit_int8.cu, `pack_int8`): the W8A8 conv7 of
     `int8`'s units with `is_int8(7 C)`, two launches, the row maxima of
     |snake1(x)| (`facodec::resunit_int8_amax`, `int8_amax_launches`) and
-    the unit (`facodec::resunit_int8`, `int8_launches`); plain version
-    `int8_unit_parts` (bit-equal in its int8 operands and conv7 output).
+    the unit (`facodec::resunit_int8`, `int8_launches`: int8 and bf16
+    wgmma, the weights by TMA, their maps encoded at launch as the bf16
+    kernel's); plain version `int8_unit_parts` (bit-equal in its int8
+    operands and conv7 output).
 On the CPU `fused_residual_unit` runs the plain composition under the
 current policy, which every form's plain version equals on its route.
 
