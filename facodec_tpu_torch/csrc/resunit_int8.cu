@@ -103,7 +103,8 @@ namespace {
 constexpr int THREADS = 512;      // warpgroups 0 and 1 produce, 2 and 3 consume
 constexpr int QUANT_THREADS = 224;  // warps 1-7
 constexpr int CONSUMER_WARPS = 8;
-constexpr int BM = 64;            // rows of a tile
+constexpr int CONSUMER_THREADS = 256;
+constexpr int BM = 128;           // rows of a tile: 64 a consumer warpgroup
 constexpr int MAX_STAGES = 16;
 constexpr int ALIGN = 1024;       // of the ring's base
 constexpr int MAX_DEVICES = 64;
@@ -121,11 +122,7 @@ __device__ __forceinline__ uint32_t pack_bf(float lo, float hi) {
 __device__ __forceinline__ float lo_bf(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float hi_bf(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
-__device__ __forceinline__ void consumer_sync() { asm volatile("bar.sync 1, 256;" ::: "memory"); }
 __device__ __forceinline__ void quant_sync() { asm volatile("bar.sync 2, 224;" ::: "memory"); }
-__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v));
-}
 
 // ------------------------------------------------------------ row maxima
 // amax[b] = max |snake1(x[b])| over (T, C); amax zeroed by the caller.
@@ -170,6 +167,7 @@ struct Params {
   float* out;
   float* c7_out;   // or null
   int8_t* q1_out;  // or null: (B, T + 6d, C)
+  uint16_t* s2g;   // the s2 tiles, BM x C bf16 per CTA ([channel / 8][row][8])
   int T, C, dil, pad_left, ext;
   int n_tiles;     // N tiles of BN output channels
   int rows;        // R, rows of the q1 tile: BM + 6d, made odd
@@ -191,41 +189,53 @@ struct Tile {
   }
 };
 
-// Thread 0: every weight slice the consumers take, in their order, into the
-// ring: per tile, for each N tile the 7C / KC slices of q7, then for each N
-// tile the 2C / KC of w1. Each box is half a slice's rows: with CL = 2 this
-// CTA's half, multicast into both CTAs of the cluster.
+// Thread 0: every slice the consumers take, in their order, into the ring:
+// per tile, for each N tile the 7C / KC slices of q7 (KC bytes x BN rows);
+// then, once the consumers have stored the tile's s2, for each N tile the
+// 4C / KC slices of the 1x1, each KC / 2 bytes of w1's rows beside the same
+// channels of the CTA's s2 tile (BM rows, by bulk copy). Each weight box is
+// half a slice's rows: with CL = 2 this CTA's half, multicast into both
+// CTAs of the cluster.
 template <int BN, int KC, int CL>
 __device__ void load_weights(const CUtensorMap* map7, const CUtensorMap* map1, const Params& p,
-                             uint32_t ring, uint32_t full, uint32_t empty, uint32_t rank) {
-  constexpr int HALF = BN / 2, STAGE = BN * KC;
-  const int s7 = (7 * p.C + KC - 1) / KC, s1 = 2 * p.C / KC;
+                             uint32_t ring, uint32_t full, uint32_t empty, uint32_t s2_ready,
+                             uint32_t rank) {
+  constexpr int HALF = BN / 2, STAGE = (BN + BM) * KC / 2, A_BYTES = BM * KC / 2;
+  const int s7 = (7 * p.C + KC - 1) / KC, s1 = 4 * p.C / KC;
+  const uint8_t* s2 = reinterpret_cast<const uint8_t*>(p.s2g) + (size_t)blockIdx.x * BM * p.C * 2;
   int it = 0;
-  auto load = [&](const CUtensorMap* map, int k, int n) {
+  // the slice's weight rows n .. n + BN of `map` at K element k (rows of
+  // `rb` bytes), and `a` bytes of the s2 tile from `src` behind them
+  auto load = [&](const CUtensorMap* map, int k, int n, int rb, const uint8_t* src, int a) {
     const int s = it % p.stages;
     mbar_wait(empty + 8 * s, ((it / p.stages) & 1) ^ 1);
     const uint32_t dst = ring + s * STAGE, bar = full + 8 * s;
-    mbar_expect_tx(bar, STAGE);
+    mbar_expect_tx(bar, BN * rb + a);
     if constexpr (CL == 1) {
       tma_load(dst, map, k, n, bar);
-      tma_load(dst + HALF * KC, map, k, n + HALF, bar);
+      tma_load(dst + HALF * rb, map, k, n + HALF, bar);
     } else {
-      tma_load_multicast(dst + rank * HALF * KC, map, k, n + rank * HALF, bar, (1 << CL) - 1);
+      tma_load_multicast(dst + rank * HALF * rb, map, k, n + rank * HALF, bar, (1 << CL) - 1);
     }
+    if (a > 0) bulk_load(dst + BN * rb, src, a, bar);
     ++it;
   };
-  for (int g = blockIdx.x / CL; g < p.groups; g += gridDim.x / CL) {
+  int k = 0;
+  for (int g = blockIdx.x / CL; g < p.groups; g += gridDim.x / CL, ++k) {
     for (int nt = 0; nt < p.n_tiles; ++nt)
-      for (int sl = 0; sl < s7; ++sl) load(map7, sl * KC, nt * BN);
+      for (int sl = 0; sl < s7; ++sl) load(map7, sl * KC, nt * BN, KC, nullptr, 0);
+    mbar_wait(s2_ready, k & 1);
+    fence_async_global();
     for (int nt = 0; nt < p.n_tiles; ++nt)
-      for (int sl = 0; sl < s1; ++sl) load(map1, sl * (KC / 2), nt * BN);
+      for (int sl = 0; sl < s1; ++sl)
+        load(map1, sl * (KC / 4), nt * BN, KC / 2, s2 + (size_t)sl * A_BYTES, A_BYTES);
   }
 }
 
 // Warps 1-7: q1 = clip(rint(snake1(xpad) / sx)) of each tile's R padded
 // rows into the q1 tile ([channel / 16][row][16 B]; rows past the padded
-// input are zero), in seven parts: part 0 rows 0-63 (tap 0's), part j the d
-// rows tap j adds; each behind its mbarrier. 8 channels a thread at a time,
+// input are zero), in seven parts: part 0 rows 0-127 (tap 0's), part j the
+// d rows tap j adds; each behind its mbarrier. 8 channels a thread at a time,
 // two rows' loads in flight.
 template <int CL>
 __device__ void quantize(const Params& p, uint8_t* q1, uint32_t q1_ready, uint32_t q1_empty,
@@ -336,13 +346,14 @@ struct Ring {
 template <int NW>
 constexpr int JC = (NW / 8) % 4 == 0 ? 4 : 2;
 
-// c7 = float(acc) * (sx * sw) + b7 and s2 = bf16(snake2(c7)) into the s2
-// tile (and c7 into c7_out). A thread's accumulator element 4j + 2h + i is
-// row rq + 8h, column col0 + 8j + i; columns go in groups of JC n8 blocks
-// whose operand loads are issued together; columns past C are not stored.
+// c7 = float(acc) * (sx * sw) + b7 and s2 = bf16(snake2(c7)) into the
+// CTA's s2 tile (and c7 into c7_out). A thread's accumulator element
+// 4j + 2h + i is row r0 + 8h, column col0 + 8j + i; columns go in groups of
+// JC n8 blocks whose operand loads are issued together; columns past C are
+// not stored.
 template <int NW>
 __device__ __forceinline__ void store_s2(const int (&acc)[NW / 2], const Params& p, const Tile& tl,
-                                         uint32_t s2, int col0, int rq) {
+                                         uint16_t* s2, int col0, int r0) {
 #pragma unroll
   for (int j0 = 0; j0 < NW / 8; j0 += JC<NW>) {
     float2 sw[JC<NW>], b7[JC<NW>], al[JC<NW>], rc[JC<NW>];
@@ -361,12 +372,12 @@ __device__ __forceinline__ void store_s2(const int (&acc)[NW / 2], const Params&
       const float sc0 = __fmul_rn(tl.sx, sw[jj].x), sc1 = __fmul_rn(tl.sx, sw[jj].y);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int r = rq + 8 * h;
+        const int r = r0 + 8 * h;
         const float c0 = __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), sc0), b7[jj].x);
         const float c1 =
             __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), sc1), b7[jj].y);
-        st_shared(s2 + (((col >> 3) * BM + r) * 8 + (col & 7)) * 2,
-                  pack_bf(snakef(c0, al[jj].x, rc[jj].x), snakef(c1, al[jj].y, rc[jj].y)));
+        *reinterpret_cast<uint32_t*>(s2 + ((col >> 3) * BM + r) * 8 + (col & 7)) =
+            pack_bf(snakef(c0, al[jj].x, rc[jj].x), snakef(c1, al[jj].y, rc[jj].y));
         if (p.c7_out != nullptr && tl.live && tl.t0 + r < p.T)
           *reinterpret_cast<float2*>(p.c7_out + ((size_t)tl.b * p.T + tl.t0 + r) * p.C + col) =
               make_float2(c0, c1);
@@ -378,7 +389,7 @@ __device__ __forceinline__ void store_s2(const int (&acc)[NW / 2], const Params&
 // out = x + bf16(bf16(acc) + b1), b1 (bf16 pairs) loaded before the products.
 template <int NW>
 __device__ __forceinline__ void store_out(const float (&acc)[NW / 2], const uint32_t (&b1)[NW / 8],
-                                          const Params& p, const Tile& tl, int col0, int rq) {
+                                          const Params& p, const Tile& tl, int col0, int r0) {
 #pragma unroll
   for (int j0 = 0; j0 < NW / 8; j0 += JC<NW>) {
     float2 xv[JC<NW>][2];
@@ -387,14 +398,14 @@ __device__ __forceinline__ void store_out(const float (&acc)[NW / 2], const uint
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int col = min(col0 + 8 * (j0 + jj), p.C - 2);
-        const int t = min(tl.t0 + rq + 8 * h, p.T - 1);
+        const int t = min(tl.t0 + r0 + 8 * h, p.T - 1);
         xv[jj][h] = __ldg(reinterpret_cast<const float2*>(p.x + ((size_t)tl.b * p.T + t) * p.C + col));
       }
 #pragma unroll
     for (int jj = 0; jj < JC<NW>; ++jj)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int j = j0 + jj, col = col0 + 8 * j, t = tl.t0 + rq + 8 * h;
+        const int j = j0 + jj, col = col0 + 8 * j, t = tl.t0 + r0 + 8 * h;
         const float y0 = round_bf(__fadd_rn(round_bf(acc[4 * j + 2 * h]), lo_bf(b1[j])));
         const float y1 = round_bf(__fadd_rn(round_bf(acc[4 * j + 2 * h + 1]), hi_bf(b1[j])));
         if (tl.live && t < p.T && col < p.C)
@@ -404,39 +415,41 @@ __device__ __forceinline__ void store_out(const float (&acc)[NW / 2], const uint
   }
 }
 
-// Warpgroups 2 and 3 (cw = 0, 1), each NW = BN / 2 of an N tile's output
-// channels: per tile, the conv7 (int8) into s2, then the 1x1 (bf16) into out.
-template <int NW, int KC, int CL>
-__device__ void consume(const Params& p, uint32_t ring, uint32_t q1, uint32_t s2, uint32_t full,
-                        uint32_t empty, uint32_t q1_ready, uint32_t q1_empty, uint32_t rank) {
-  constexpr int BN = 2 * NW, STAGE = BN * KC, KS = KC / 32;
+// Warpgroups 2 and 3 (cw = 0, 1), each 64 rows of the tile and all BN
+// output channels of an N tile: per tile, the conv7 (int8) into the s2
+// tile, then the 1x1 (bf16) into out.
+template <int BN, int KC, int CL>
+__device__ void consume(const Params& p, uint32_t ring, uint32_t q1, uint32_t full, uint32_t empty,
+                        uint32_t q1_ready, uint32_t q1_empty, uint32_t s2_ready, uint32_t rank) {
+  constexpr int STAGE = (BN + BM) * KC / 2;
   const int tid = threadIdx.x - 256, cw = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-  const int rq = 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
-  const uint32_t b_off = cw * NW * KC;  // this warpgroup's rows of a stage
-  const int C = p.C, K7 = 7 * C, s7 = (K7 + KC - 1) / KC, s1 = 2 * C / KC;
+  const int r0 = 64 * cw + 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
+  const int C = p.C, K7 = 7 * C, s7 = (K7 + KC - 1) / KC, s1 = 4 * C / KC;
+  uint16_t* s2 = p.s2g + (size_t)blockIdx.x * BM * C;
+  const uint32_t q1w = q1 + 64 * cw * 16;  // this warpgroup's first q1 row
   Ring<CL> rg{ring, full, empty, p.stages, lane, 0, 0, -1};
   int k = 0;
 
   for (int g = blockIdx.x / CL; g < p.groups; g += gridDim.x / CL, ++k) {
     const Tile tl(p, g * CL + rank);
-    // 1. the conv7 in int8, one N tile at a time; c7 -> s2
+    // 1. the conv7 in int8, one N tile at a time; c7 -> the s2 tile
     for (int nt = 0; nt < p.n_tiles; ++nt) {
-      int acc[NW / 2];
+      int acc[BN / 2];
 #pragma unroll
-      for (int i = 0; i < NW / 2; ++i) acc[i] = 0;
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
       int tap = 0, ch = 0, ready = nt == 0 ? -1 : 6;  // the q1 parts this N tile has waited for
       for (int sl = 0; sl < s7; ++sl) {
         const int last = (min(sl * KC + KC, K7) - 1) / C;  // the slice's last tap
         while (ready < last) mbar_wait(q1_ready + 8 * ++ready, k & 1);
         const int s = rg.next();
-        const uint64_t b = desc_sw<KC>(ring + s * STAGE + b_off);
+        const uint64_t b = desc_sw<KC>(ring + s * STAGE);
         fence_regs(acc);
         if (sl == 0) wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
+        for (int ks = 0; ks < KC / 32; ++ks) {
           if (tap < 7) {
-            const uint32_t a = q1 + ((ch >> 4) * p.rows + tap * p.dil) * 16;
-            wgmma_s8<NW>(acc, desc_a(a, p.rows * 16), b + 2 * ks);
+            const uint32_t a = q1w + ((ch >> 4) * p.rows + tap * p.dil) * 16;
+            wgmma_s8<BN>(acc, desc_a(a, p.rows * 16), b + 2 * ks);
           }
           ch += 32;
           if (ch == C) {
@@ -451,58 +464,56 @@ __device__ void consume(const Params& p, uint32_t ring, uint32_t q1, uint32_t s2
       rg.drain();
       fence_regs(acc);
       if (nt == p.n_tiles - 1 && lane == 0) mbar_arrive(q1_empty);  // q1's last reader is done
-      if (nt == 0) consumer_sync();  // both warpgroups are past the previous tile's 1x1 on s2
-      store_s2<NW>(acc, p, tl, s2, nt * BN + cw * NW + cq, rq);
+      store_s2<BN>(acc, p, tl, s2, nt * BN + cq, r0);
     }
-    fence_async_smem();
-    consumer_sync();  // s2 complete, and visible to the wgmma
+    fence_async_global();
+    mbar_arrive(s2_ready);  // the s2 tile is stored: thread 0 may copy it
 
     // 2. the 1x1 in bf16 on the s2 tile; out = x + bf16(bf16(acc) + bf16(b1))
     for (int nt = 0; nt < p.n_tiles; ++nt) {
-      const int col0 = nt * BN + cw * NW + cq;
-      uint32_t b1[NW / 8];
+      const int col0 = nt * BN + cq;
+      uint32_t b1[BN / 8];
 #pragma unroll
-      for (int j = 0; j < NW / 8; ++j)
+      for (int j = 0; j < BN / 8; ++j)
         b1[j] = __ldg(reinterpret_cast<const uint32_t*>(p.b1 + min(col0 + 8 * j, C - 2)));
-      float acc[NW / 2];
+      float acc[BN / 2];
 #pragma unroll
-      for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
       for (int sl = 0; sl < s1; ++sl) {
         const int s = rg.next();
-        const uint64_t b = desc_sw<KC>(ring + s * STAGE + b_off);
+        const uint32_t st = ring + s * STAGE;
+        const uint64_t b = desc_sw<KC / 2>(st);
+        const uint32_t a = st + BN * KC / 2 + 64 * cw * 16;  // the s2 slice behind the weights
         fence_regs(acc);
         if (sl == 0) wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          const int c = sl * (KC / 2) + 16 * ks;  // s2's channel: 16 a k16 step
-          wgmma<NW>(acc, desc_a(s2 + (c >> 3) * BM * 16, BM * 16), b + 2 * ks);
-        }
+        for (int ks = 0; ks < KC / 64; ++ks)
+          wgmma<BN>(acc, desc_a(a + ks * 2 * BM * 16, BM * 16), b + 2 * ks);
         wgmma_commit();
         rg.issued(s);
         fence_regs(acc);
       }
       rg.drain();
       fence_regs(acc);
-      store_out<NW>(acc, b1, p, tl, col0, rq);
+      store_out<BN>(acc, b1, p, tl, col0, r0);
     }
   }
 }
 
 // map7, map1: the TMA tensor maps of q7 (C, 7C) int8 and w1 (C, C) bf16,
-// boxes of KC bytes x BN / 2 rows, swizzled over their KC-byte rows.
-template <int NW, int KC, int CL>
+// boxes of KC and KC / 2 bytes x BN / 2 rows, swizzled over those rows.
+template <int BN, int KC, int CL>
 __global__ void __launch_bounds__(THREADS, 1)
 resunit_int8_kernel(const __grid_constant__ CUtensorMap map7,
                     const __grid_constant__ CUtensorMap map1, const Params p) {
-  constexpr int BN = 2 * NW;
   extern __shared__ uint8_t smem_raw[];
-  // [ring: stages x BN x KC][q1: R x C][s2: 64 x C bf16][mbarriers]
+  // [ring: stages x (BN + BM) x KC / 2][q1: R x C][mbarriers]
   uint8_t* smem = smem_raw + (ALIGN - smem_addr(smem_raw) % ALIGN) % ALIGN;
   const uint32_t ring = smem_addr(smem);
-  const uint32_t q1 = ring + p.stages * BN * KC;
-  const uint32_t s2 = q1 + p.rows * p.C;
-  const uint32_t full = s2 + BM * p.C * 2, empty = full + 8 * MAX_STAGES;
+  const uint32_t q1 = ring + p.stages * (BN + BM) * KC / 2;
+  const uint32_t full = q1 + p.rows * p.C, empty = full + 8 * MAX_STAGES;
   const uint32_t q1_ready = empty + 8 * MAX_STAGES, q1_empty = q1_ready + 8 * 7;
+  const uint32_t s2_ready = q1_empty + 8;
   const uint32_t rank = CL > 1 ? cluster_rank() : 0;
   if (threadIdx.x == 0) {
     for (int s = 0; s < p.stages; ++s) {
@@ -511,6 +522,7 @@ resunit_int8_kernel(const __grid_constant__ CUtensorMap map7,
     }
     for (int j = 0; j < 7; ++j) mbar_init(q1_ready + 8 * j, QUANT_THREADS);
     mbar_init(q1_empty, CONSUMER_WARPS);
+    mbar_init(s2_ready, CONSUMER_THREADS);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   // the peer's barriers are initialized before any multicast or remote arrival
@@ -520,11 +532,11 @@ resunit_int8_kernel(const __grid_constant__ CUtensorMap map7,
     __syncthreads();
   if (threadIdx.x >= 256) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 160;");
-    consume<NW, KC, CL>(p, ring, q1, s2, full, empty, q1_ready, q1_empty, rank);
+    consume<BN, KC, CL>(p, ring, q1, full, empty, q1_ready, q1_empty, s2_ready, rank);
   } else {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 96;");
     if (threadIdx.x == 0)
-      load_weights<BN, KC, CL>(&map7, &map1, p, ring, full, empty, rank);
+      load_weights<BN, KC, CL>(&map7, &map1, p, ring, full, empty, s2_ready, rank);
     else if (threadIdx.x >= 32)
       quantize<CL>(p, smem + (q1 - ring), q1_ready, q1_empty, rank);
   }
@@ -541,12 +553,12 @@ struct Device {
 Device g_devices[MAX_DEVICES];
 std::mutex g_device_lock;
 
-template <int NW, int KC, int CL>
+template <int BN, int KC, int CL>
 cudaError_t set_smem_limit(int dev, int optin) {
   static std::atomic<int> done[MAX_DEVICES];
   if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      resunit_int8_kernel<NW, KC, CL>, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+      resunit_int8_kernel<BN, KC, CL>, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err == cudaSuccess) done[dev].store(1, std::memory_order_release);
   return err;
 }
@@ -562,7 +574,7 @@ const Device* device(int dev) {
     if (cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&d.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
             cudaSuccess ||
-        set_smem_limit<64, 64, 2>(dev, d.optin) != cudaSuccess)
+        set_smem_limit<128, 128, 2>(dev, d.optin) != cudaSuccess)
       return nullptr;
     // every instantiation takes one CTA per SM (its registers), so one
     // stands for all: how many 2-CTA clusters the card keeps resident
@@ -577,7 +589,7 @@ const Device* device(int dev) {
     cfg.dynamicSmemBytes = d.optin;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    if (cudaOccupancyMaxActiveClusters(&d.clusters, resunit_int8_kernel<64, 64, 2>, &cfg) !=
+    if (cudaOccupancyMaxActiveClusters(&d.clusters, resunit_int8_kernel<128, 128, 2>, &cfg) !=
         cudaSuccess) {
       cudaGetLastError();  // clear it: the plan then streams per CTA
       d.clusters = 0;
@@ -591,28 +603,25 @@ struct Plan {
   int bn, kc, n_tiles, rows, stages, smem, cl, grid, tiles, row_tiles, groups;
 };
 
-// N tiles of equal width: the fewest of at most 256 channels, each BN of
-// 64, 96, 128, 192, 256 wide (the last one ragged where BN does not divide C).
+// N tiles of equal width: the fewest of at most 128 channels, each BN of
+// 64, 96 or 128 wide (the last one ragged where BN does not divide C).
 int pick_bn(int C, int* n_tiles) {
-  *n_tiles = (C + 255) / 256;
+  *n_tiles = (C + 127) / 128;
   const int need = (C + *n_tiles - 1) / *n_tiles;
-  constexpr int widths[4] = {64, 96, 128, 192};
-  for (int bn : widths) {
-    if (bn >= need) return bn;
-  }
-  return 256;
+  return need <= 64 ? 64 : need <= 96 ? 96 : 128;
 }
 
 // `cluster` 1 or 2 asks for that many CTAs a cluster, 0 for the default (2
 // where there are two tiles and the card keeps 2-CTA clusters resident).
+// Slices of KC = 128 bytes where four stages fit beside the q1 tile, else 64.
 bool make_plan(int B, int T, int C, int dil, int cluster, const Device& dv, Plan& pl) {
   if (!valid_shape(B, T, C, dil) || cluster < 0 || cluster > 2) return false;
   pl.bn = pick_bn(C, &pl.n_tiles);
   pl.rows = (BM + 6 * dil) | 1;
-  const long long fixed = ALIGN + (long long)pl.rows * C + 2LL * BM * C + 8LL * (2 * MAX_STAGES + 8);
+  const long long fixed = ALIGN + (long long)pl.rows * C + 8LL * (2 * MAX_STAGES + 9);
   const long long room = dv.optin - fixed;
-  pl.kc = room / (pl.bn * 64) >= 4 ? 64 : 32;
-  const long long stage = (long long)pl.bn * pl.kc;
+  pl.kc = room / ((pl.bn + BM) * 64) >= 4 ? 128 : 64;
+  const long long stage = (long long)(pl.bn + BM) * pl.kc / 2;
   const long long stages = room / stage < MAX_STAGES ? room / stage : MAX_STAGES;
   if (stages < 2) return false;
   pl.stages = (int)stages;
@@ -627,10 +636,10 @@ bool make_plan(int B, int T, int C, int dil, int cluster, const Device& dv, Plan
   return true;
 }
 
-template <int NW, int KC, int CL>
+template <int BN, int KC, int CL>
 cudaError_t launch_cfg(const CUtensorMap* maps, const Params& prm, const Plan& pl, int dev,
                        int optin, cudaStream_t stream) {
-  const cudaError_t err = set_smem_limit<NW, KC, CL>(dev, optin);
+  const cudaError_t err = set_smem_limit<BN, KC, CL>(dev, optin);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
@@ -644,31 +653,29 @@ cudaError_t launch_cfg(const CUtensorMap* maps, const Params& prm, const Plan& p
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = CL > 1 ? 1 : 0;
-  // maps: q7 and w1 for KC = 64, then for KC = 32
-  const int m = KC == 64 ? 0 : 2;
-  return cudaLaunchKernelEx(&cfg, resunit_int8_kernel<NW, KC, CL>, maps[m], maps[m + 1], prm);
+  // maps: q7 and w1 for KC = 128, then for KC = 64
+  const int m = KC == 128 ? 0 : 2;
+  return cudaLaunchKernelEx(&cfg, resunit_int8_kernel<BN, KC, CL>, maps[m], maps[m + 1], prm);
 }
 
 template <int KC, int CL>
-cudaError_t dispatch_nw(const CUtensorMap* maps, const Params& prm, const Plan& pl, int dev,
+cudaError_t dispatch_bn(const CUtensorMap* maps, const Params& prm, const Plan& pl, int dev,
                         int optin, cudaStream_t s) {
   switch (pl.bn) {
-    case 64: return launch_cfg<32, KC, CL>(maps, prm, pl, dev, optin, s);
-    case 96: return launch_cfg<48, KC, CL>(maps, prm, pl, dev, optin, s);
-    case 128: return launch_cfg<64, KC, CL>(maps, prm, pl, dev, optin, s);
-    case 192: return launch_cfg<96, KC, CL>(maps, prm, pl, dev, optin, s);
-    case 256: return launch_cfg<128, KC, CL>(maps, prm, pl, dev, optin, s);
+    case 64: return launch_cfg<64, KC, CL>(maps, prm, pl, dev, optin, s);
+    case 96: return launch_cfg<96, KC, CL>(maps, prm, pl, dev, optin, s);
+    case 128: return launch_cfg<128, KC, CL>(maps, prm, pl, dev, optin, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 cudaError_t dispatch(const CUtensorMap* maps, const Params& prm, const Plan& pl, int dev, int optin,
                      cudaStream_t s) {
-  if (pl.kc == 64)
-    return pl.cl == 2 ? dispatch_nw<64, 2>(maps, prm, pl, dev, optin, s)
-                      : dispatch_nw<64, 1>(maps, prm, pl, dev, optin, s);
-  return pl.cl == 2 ? dispatch_nw<32, 2>(maps, prm, pl, dev, optin, s)
-                    : dispatch_nw<32, 1>(maps, prm, pl, dev, optin, s);
+  if (pl.kc == 128)
+    return pl.cl == 2 ? dispatch_bn<128, 2>(maps, prm, pl, dev, optin, s)
+                      : dispatch_bn<128, 1>(maps, prm, pl, dev, optin, s);
+  return pl.cl == 2 ? dispatch_bn<64, 2>(maps, prm, pl, dev, optin, s)
+                    : dispatch_bn<64, 1>(maps, prm, pl, dev, optin, s);
 }
 
 }  // namespace
@@ -690,19 +697,19 @@ extern "C" int facodec_resunit_int8_amax(const float* x, const float* alpha1, co
 extern "C" int facodec_resunit_int8_maps_bytes() { return 4 * (int)sizeof(CUtensorMap); }
 
 // The TMA tensor maps of the packed weights, q7 (C, 7C) int8 K-major (K
-// index tap * C + in) and w1 (C, C) bf16, for slices of 64 and of 32 bytes,
-// written to `maps` (host memory, facodec_resunit_int8_maps_bytes()). They
-// hold the weights' device addresses: build them once per packed weight.
-// Returns a cudaError_t.
+// index tap * C + in) and w1 (C, C) bf16, for q7 slices of 128 and of 64
+// bytes (w1's of half as many), written to `maps` (host memory,
+// facodec_resunit_int8_maps_bytes()). They hold the weights' device
+// addresses: build them once per packed weight. Returns a cudaError_t.
 extern "C" int facodec_resunit_int8_maps(const int8_t* q7, const uint16_t* w1, int C, void* maps) {
   if (C <= 0 || C % 32 != 0) return (int)cudaErrorInvalidValue;
   int n_tiles = 0;
   const int half = pick_bn(C, &n_tiles) / 2;
   CUtensorMap m[4];
   for (int i = 0; i < 2; ++i) {
-    const int kc = i == 0 ? 64 : 32;
+    const int kc = i == 0 ? 128 : 64;
     if (!encode_map(&m[2 * i], q7, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, C, 7 * C, half, kc) ||
-        !encode_map(&m[2 * i + 1], w1, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, C, C, half, kc / 2))
+        !encode_map(&m[2 * i + 1], w1, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, C, C, half, kc / 4))
       return (int)cudaErrorInvalidValue;
   }
   memcpy(maps, m, sizeof(m));
@@ -710,7 +717,7 @@ extern "C" int facodec_resunit_int8_maps(const int8_t* q7, const uint16_t* w1, i
 }
 
 // The plan of a call on device `dev` (current), for reports: {BN, KC (bytes
-// of a weight slice), N tiles, ring stages, shared-memory bytes, CTAs a
+// of a q7 slice's rows), N tiles, ring stages, shared-memory bytes, CTAs a
 // cluster, grid, row tiles}. `cluster` as facodec_resunit_int8's. Returns 0,
 // or cudaErrorInvalidValue for shapes the kernel refuses.
 extern "C" int facodec_resunit_int8_plan(int B, int T, int C, int dil, int cluster, int dev,
@@ -723,11 +730,23 @@ extern "C" int facodec_resunit_int8_plan(int B, int T, int C, int dil, int clust
   return 0;
 }
 
+// Bytes of the device scratch a call needs (each CTA's BM x C bf16 s2 tile),
+// or -1 for shapes the kernel refuses. `cluster` and `dev` as
+// facodec_resunit_int8's.
+extern "C" long long facodec_resunit_int8_scratch_bytes(int B, int T, int C, int dil, int cluster,
+                                                        int dev) {
+  const Device* dv = device(dev);
+  Plan pl;
+  if (dv == nullptr || !make_plan(B, T, C, dil, cluster, *dv, pl)) return -1;
+  return (long long)pl.grid * BM * C * 2;
+}
+
 // C entry point, bound with ctypes: the unit on x (B, T, C) float32 into
 // out, with the row maxima amax (facodec_resunit_int8_amax), the weights of
 // `maps` (facodec_resunit_int8_maps) and the packed operands (sw, b7, the
 // alphas and reciprocals float32, b1 bf16 as 16-bit patterns), the pads
-// and ext of facodec_resunit_f32. c7_out (B, T, C) float32 and q1_out
+// and ext of facodec_resunit_f32, and `scratch` of
+// facodec_resunit_int8_scratch_bytes. c7_out (B, T, C) float32 and q1_out
 // (B, T + 6d, C) int8 may be null; given, they get the conv7's output and
 // the quantized padded input. `cluster`: 0 for the default, or 1 or 2 CTAs
 // a cluster; `dev`: the index of the current device. Returns a cudaError_t
@@ -736,17 +755,17 @@ extern "C" int facodec_resunit_int8(const float* x, const float* amax, const voi
                                     const float* sw, const float* b7, const uint16_t* b1,
                                     const float* alpha1, const float* recip1, const float* alpha2,
                                     const float* recip2, float* out, float* c7_out, int8_t* q1_out,
-                                    int B, int T, int C, int dil, int pad_left, int ext, int cluster,
-                                    int dev, void* stream) {
+                                    void* scratch, int B, int T, int C, int dil, int pad_left,
+                                    int ext, int cluster, int dev, void* stream) {
   const Device* dv = device(dev);
   Plan pl;
-  if (dv == nullptr || !make_plan(B, T, C, dil, cluster, *dv, pl) ||
+  if (dv == nullptr || scratch == nullptr || !make_plan(B, T, C, dil, cluster, *dv, pl) ||
       !valid_pads(T, dil, pad_left, ext))
     return (int)cudaErrorInvalidValue;
-  const Params prm{x,      amax,        sw,     b7,         b1,       alpha1,    recip1,
-                   alpha2, recip2,      out,    c7_out,     q1_out,   T,         C,
-                   dil,    pad_left,    ext,    pl.n_tiles, pl.rows,  pl.stages, pl.tiles,
-                   pl.row_tiles, pl.groups};
+  const Params prm{x,        amax,   sw,     b7,         b1,       alpha1,
+                   recip1,   alpha2, recip2, out,        c7_out,   q1_out,
+                   static_cast<uint16_t*>(scratch), T, C, dil, pad_left, ext,
+                   pl.n_tiles, pl.rows, pl.stages, pl.tiles, pl.row_tiles, pl.groups};
   return (int)dispatch(static_cast<const CUtensorMap*>(maps), prm, pl, dev, dv->optin,
                        static_cast<cudaStream_t>(stream));
 }

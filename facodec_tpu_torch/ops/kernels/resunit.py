@@ -695,8 +695,8 @@ def fused_residual_unit_int8_packed(x, pack: Int8Pack, dilation: int,
 
 @functools.lru_cache(maxsize=None)
 def _int8_entry_points():
-    """(row-maxima entry, tensor-map builder, map bytes, unit entry, plan)
-    from csrc/resunit_int8.cu, typed once per process."""
+    """(row-maxima entry, tensor-map builder, map bytes, unit entry, plan,
+    scratch size) from csrc/resunit_int8.cu, typed once per process."""
     lib = build.library("resunit_int8")
     amax = lib.facodec_resunit_int8_amax
     amax.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -706,12 +706,15 @@ def _int8_entry_points():
     maps.restype = ctypes.c_int
     lib.facodec_resunit_int8_maps_bytes.restype = ctypes.c_int
     fn = lib.facodec_resunit_int8
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     plan = lib.facodec_resunit_int8_plan
     plan.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     plan.restype = ctypes.c_int
-    return amax, maps, lib.facodec_resunit_int8_maps_bytes(), fn, plan
+    size = lib.facodec_resunit_int8_scratch_bytes
+    size.argtypes = [ctypes.c_int] * 6
+    size.restype = ctypes.c_longlong
+    return amax, maps, lib.facodec_resunit_int8_maps_bytes(), fn, plan, size
 
 
 def launch_int8_amax(x, alpha1, recip1, out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -748,14 +751,18 @@ def launch_int8(x, amax, pack: Int8Pack, dilation: int, pad_left: int, ext: int,
     x = aligned16(x.contiguous())
     q7, sw, w1, *rest = (aligned16(t.contiguous()) for t in pack)
     out = torch.empty_like(x) if out is None else out
-    fn = _int8_entry_points()[3]
+    fn, size = (_int8_entry_points()[i] for i in (3, 5))
     maps = tma_maps(q7, w1, "int8")
+    dev = x.device.index
     with torch.cuda.device(x.device):
+        # each CTA's s2 tile (the 1x1's operand), which the kernel reads back by bulk copy
+        nbytes = size(B, T, C, dilation, cluster, dev)
+        scratch = torch.empty(max(nbytes, 16), dtype=torch.uint8, device=x.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), amax.data_ptr(), ctypes.addressof(maps),
                  *(t.data_ptr() for t in (sw, *rest, out)),
                  None if c7 is None else c7.data_ptr(), None if q1 is None else q1.data_ptr(),
-                 B, T, C, dilation, pad_left, ext, cluster, x.device.index, stream)
+                 scratch.data_ptr(), B, T, C, dilation, pad_left, ext, cluster, dev, stream)
     if err != 0:
         why = " (shapes the kernel refuses: C, d, and shared memory)" if err == 1 else ""
         raise RuntimeError(f"fused_residual_unit: int8 kernel launch failed, cudaError {err}{why}")
