@@ -104,7 +104,7 @@ constexpr int THREADS = 512;      // warpgroups 0 and 1 produce, 2 and 3 consume
 constexpr int QUANT_THREADS = 224;  // warps 1-7
 constexpr int CONSUMER_WARPS = 8;
 constexpr int CONSUMER_THREADS = 256;
-constexpr int BM = 128;           // rows of a tile: 64 a consumer warpgroup
+constexpr int BM = 64;            // rows of a tile
 constexpr int MAX_STAGES = 16;
 constexpr int ALIGN = 1024;       // of the ring's base
 constexpr int MAX_DEVICES = 64;
@@ -180,12 +180,13 @@ struct Params {
 struct Tile {
   int b, t0;
   bool live;
-  float sx;
+  float sx, rcp;  // the row's scale and its reciprocal
   __device__ __forceinline__ Tile(const Params& p, int tile) {
     live = tile < p.tiles;
     b = live ? tile / p.row_tiles : 0;
     t0 = live ? (tile % p.row_tiles) * BM : 0;
     sx = __fmul_rn(fmaxf(__ldg(p.amax + b), 1e-12f), INV127);
+    rcp = __frcp_rn(sx);
   }
 };
 
@@ -200,7 +201,7 @@ template <int BN, int KC, int CL>
 __device__ void load_weights(const CUtensorMap* map7, const CUtensorMap* map1, const Params& p,
                              uint32_t ring, uint32_t full, uint32_t empty, uint32_t s2_ready,
                              uint32_t rank) {
-  constexpr int HALF = BN / 2, STAGE = (BN + BM) * KC / 2, A_BYTES = BM * KC / 2;
+  constexpr int HALF = BN / 2, STAGE = BN * KC, A_BYTES = BM * KC / 2;
   const int s7 = (7 * p.C + KC - 1) / KC, s1 = 4 * p.C / KC;
   const uint8_t* s2 = reinterpret_cast<const uint8_t*>(p.s2g) + (size_t)blockIdx.x * BM * p.C * 2;
   int it = 0;
@@ -232,73 +233,103 @@ __device__ void load_weights(const CUtensorMap* map7, const CUtensorMap* map1, c
   }
 }
 
+// One unit of the quantizers' work: 8 channels of one padded row, its x
+// loaded ahead of its turn.
+struct QUnit {
+  float4 v[2];
+  int r, c, q;  // tile row, channel, row of x (-1: a zero row)
+};
+
 // Warps 1-7: q1 = clip(rint(snake1(xpad) / sx)) of each tile's R padded
 // rows into the q1 tile ([channel / 16][row][16 B]; rows past the padded
-// input are zero), in seven parts: part 0 rows 0-127 (tap 0's), part j the
-// d rows tap j adds; each behind its mbarrier. 8 channels a thread at a time,
-// two rows' loads in flight.
+// input are zero), in seven parts: part 0 rows 0-63 (tap 0's), part j the d
+// rows tap j adds; each behind its mbarrier, on which a thread arrives once
+// it has stored its units of the part. A thread takes units of 8 channels
+// in row order, QUANT_THREADS apart, with the x of the next two in flight
+// while it computes one.
 template <int CL>
 __device__ void quantize(const Params& p, uint8_t* q1, uint32_t q1_ready, uint32_t q1_empty,
                          uint32_t rank) {
   const int i0 = threadIdx.x - 32, C = p.C, c8 = C / 8, Tp = p.T + 6 * p.dil;
+  const int n = (BM + 6 * p.dil) * c8;  // units of a tile
   int k = 0;
   for (int g = blockIdx.x / CL; g < p.groups; g += gridDim.x / CL, ++k) {
     const Tile tl(p, g * CL + rank);
     const float* xb = p.x + (size_t)tl.b * p.T * C;
+    auto fetch = [&](QUnit& u, int e) {
+      if (e >= n) return;
+      const int row = e / c8, pr = tl.t0 + row;
+      u.r = row;
+      u.c = 8 * (e - row * c8);
+      u.q = tl.live && pr < Tp ? padded_row(pr, p.T, p.ext, p.pad_left) : -1;
+      if (u.q >= 0) {
+        const float4* src = reinterpret_cast<const float4*>(xb + (size_t)u.q * C + u.c);
+        u.v[0] = __ldg(src);
+        u.v[1] = __ldg(src + 1);
+      }
+    };
+    int parts = 0;  // parts this thread has arrived on
+    auto arrive_before = [&](int part) {
+      if (parts >= part) return;
+      fence_async_smem();
+      for (; parts < part; ++parts) mbar_arrive(q1_ready + 8 * parts);
+    };
+    auto finish = [&](const QUnit& u, int e) {
+      if (e >= n) return;
+      arrive_before(u.r < BM ? 0 : 1 + (u.r - BM) / p.dil);
+      uint32_t w[2] = {0u, 0u};
+      if (u.q >= 0) {
+        float s[8], qv[8];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4 a = __ldg(reinterpret_cast<const float4*>(p.alpha1 + u.c) + h);
+          const float4 rc = __ldg(reinterpret_cast<const float4*>(p.recip1 + u.c) + h);
+          s[4 * h] = snakef(u.v[h].x, a.x, rc.x);
+          s[4 * h + 1] = snakef(u.v[h].y, a.y, rc.y);
+          s[4 * h + 2] = snakef(u.v[h].z, a.z, rc.z);
+          s[4 * h + 3] = snakef(u.v[h].w, a.w, rc.w);
+        }
+        // rint(s / sx): y = s * (1 / sx) is within 3 ulps (under 1e-4, |y| <= 128)
+        // of the rounded quotient, so where y lies further than 1e-4 from a half
+        // rint(y) is the quotient's rint; near one (rarely) the IEEE division
+        // decides, as in the plain version.
+        bool near_half = false;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float y = __fmul_rn(s[i], tl.rcp);
+          qv[i] = rintf(y);
+          near_half |= fabsf(__fsub_rn(y, qv[i])) > 0.4999f;
+        }
+        if (near_half) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) qv[i] = rintf(__fdiv_rn(s[i], tl.sx));
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int qi = (int)fminf(fmaxf(qv[i], -127.f), 127.f);
+          w[i >> 2] |= (uint32_t)(uint8_t)(int8_t)qi << (8 * (i & 3));
+        }
+      }
+      *reinterpret_cast<uint2*>(q1 + ((size_t)(u.c >> 4) * p.rows + u.r) * 16 + (u.c & 15)) =
+          make_uint2(w[0], w[1]);
+      const int pr = tl.t0 + u.r;
+      if (p.q1_out != nullptr && tl.live && pr < Tp && (u.r < BM || tl.t0 + BM >= p.T))
+        *reinterpret_cast<uint2*>(p.q1_out + ((size_t)tl.b * Tp + pr) * C + u.c) =
+            make_uint2(w[0], w[1]);
+    };
+    QUnit ua, ub;
     // one thread polls the barrier; the others sleep in the named barrier
     if (i0 == 0) mbar_wait(q1_empty, (k & 1) ^ 1);
     quant_sync();
-    for (int j = 0; j < 7; ++j) {
-      const int r0 = j == 0 ? 0 : BM + (j - 1) * p.dil, n = (j == 0 ? BM : p.dil) * c8;
-      for (int e0 = i0; e0 < n; e0 += 2 * QUANT_THREADS) {
-        float4 v[2][2], a[2][2], rc[2][2];
-        int r[2], c[2], q[2];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int e = e0 + u * QUANT_THREADS, rr = e / c8;
-          r[u] = r0 + rr;
-          c[u] = 8 * (e - rr * c8);
-          const int pr = tl.t0 + r[u];
-          q[u] = e < n && tl.live && pr < Tp ? padded_row(pr, p.T, p.ext, p.pad_left) : -1;
-          if (q[u] >= 0) {
-            const float* src = xb + (size_t)q[u] * C + c[u];
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              v[u][h] = __ldg(reinterpret_cast<const float4*>(src) + h);
-              a[u][h] = __ldg(reinterpret_cast<const float4*>(p.alpha1 + c[u]) + h);
-              rc[u][h] = __ldg(reinterpret_cast<const float4*>(p.recip1 + c[u]) + h);
-            }
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          if (e0 + u * QUANT_THREADS >= n) break;
-          uint32_t w[2] = {0u, 0u};
-          if (q[u] >= 0) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const float s[4] = {snakef(v[u][h].x, a[u][h].x, rc[u][h].x),
-                                  snakef(v[u][h].y, a[u][h].y, rc[u][h].y),
-                                  snakef(v[u][h].z, a[u][h].z, rc[u][h].z),
-                                  snakef(v[u][h].w, a[u][h].w, rc[u][h].w)};
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                const float qv = fminf(fmaxf(rintf(__fdiv_rn(s[i], tl.sx)), -127.f), 127.f);
-                w[h] |= (uint32_t)(uint8_t)(int8_t)(int)qv << (8 * i);
-              }
-            }
-          }
-          *reinterpret_cast<uint2*>(q1 + ((size_t)(c[u] >> 4) * p.rows + r[u]) * 16 + (c[u] & 15)) =
-              make_uint2(w[0], w[1]);
-          const int pr = tl.t0 + r[u];
-          if (p.q1_out != nullptr && tl.live && pr < Tp && (r[u] < BM || tl.t0 + BM >= p.T))
-            *reinterpret_cast<uint2*>(p.q1_out + ((size_t)tl.b * Tp + pr) * C + c[u]) =
-                make_uint2(w[0], w[1]);
-        }
-      }
-      fence_async_smem();
-      mbar_arrive(q1_ready + 8 * j);
+    fetch(ua, i0);
+    fetch(ub, i0 + QUANT_THREADS);
+    for (int e = i0; e < n; e += 2 * QUANT_THREADS) {
+      finish(ua, e);
+      fetch(ua, e + 2 * QUANT_THREADS);
+      finish(ub, e + QUANT_THREADS);
+      fetch(ub, e + 3 * QUANT_THREADS);
     }
+    arrive_before(7);
   }
 }
 
@@ -415,18 +446,17 @@ __device__ __forceinline__ void store_out(const float (&acc)[NW / 2], const uint
   }
 }
 
-// Warpgroups 2 and 3 (cw = 0, 1), each 64 rows of the tile and all BN
-// output channels of an N tile: per tile, the conv7 (int8) into the s2
-// tile, then the 1x1 (bf16) into out.
-template <int BN, int KC, int CL>
+// Warpgroups 2 and 3 (cw = 0, 1), each NW = BN / 2 of an N tile's output
+// channels: per tile, the conv7 (int8) into the s2 tile, then the 1x1
+// (bf16) into out.
+template <int NW, int KC, int CL>
 __device__ void consume(const Params& p, uint32_t ring, uint32_t q1, uint32_t full, uint32_t empty,
                         uint32_t q1_ready, uint32_t q1_empty, uint32_t s2_ready, uint32_t rank) {
-  constexpr int STAGE = (BN + BM) * KC / 2;
+  constexpr int BN = 2 * NW, STAGE = BN * KC;
   const int tid = threadIdx.x - 256, cw = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-  const int r0 = 64 * cw + 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
+  const int r0 = 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
   const int C = p.C, K7 = 7 * C, s7 = (K7 + KC - 1) / KC, s1 = 4 * C / KC;
   uint16_t* s2 = p.s2g + (size_t)blockIdx.x * BM * C;
-  const uint32_t q1w = q1 + 64 * cw * 16;  // this warpgroup's first q1 row
   Ring<CL> rg{ring, full, empty, p.stages, lane, 0, 0, -1};
   int k = 0;
 
@@ -434,23 +464,23 @@ __device__ void consume(const Params& p, uint32_t ring, uint32_t q1, uint32_t fu
     const Tile tl(p, g * CL + rank);
     // 1. the conv7 in int8, one N tile at a time; c7 -> the s2 tile
     for (int nt = 0; nt < p.n_tiles; ++nt) {
-      int acc[BN / 2];
+      int acc[NW / 2];
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+      for (int i = 0; i < NW / 2; ++i) acc[i] = 0;
       int tap = 0, ch = 0, ready = nt == 0 ? -1 : 6;  // the q1 parts this N tile has waited for
       for (int sl = 0; sl < s7; ++sl) {
         const int last = (min(sl * KC + KC, K7) - 1) / C;  // the slice's last tap
         while (ready < last) mbar_wait(q1_ready + 8 * ++ready, k & 1);
         const int s = rg.next();
-        const uint64_t b = desc_sw<KC>(ring + s * STAGE);
+        const uint64_t b = desc_sw<KC>(ring + s * STAGE + cw * NW * KC);  // this warpgroup's rows
         fence_regs(acc);
-        if (sl == 0) wgmma_fence();
+        wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < KC / 32; ++ks) {
-          if (tap < 7) {
-            const uint32_t a = q1w + ((ch >> 4) * p.rows + tap * p.dil) * 16;
-            wgmma_s8<BN>(acc, desc_a(a, p.rows * 16), b + 2 * ks);
-          }
+          // past 7C (the last slice where C % KC != 0) the weights read as zeros,
+          // and A's rows (tap 7) still lie in the q1 tile
+          const uint32_t a = q1 + ((ch >> 4) * p.rows + tap * p.dil) * 16;
+          wgmma_s8<NW>(acc, desc_a(a, p.rows * 16), b + 2 * ks);
           ch += 32;
           if (ch == C) {
             ch = 0;
@@ -464,53 +494,54 @@ __device__ void consume(const Params& p, uint32_t ring, uint32_t q1, uint32_t fu
       rg.drain();
       fence_regs(acc);
       if (nt == p.n_tiles - 1 && lane == 0) mbar_arrive(q1_empty);  // q1's last reader is done
-      store_s2<BN>(acc, p, tl, s2, nt * BN + cq, r0);
+      store_s2<NW>(acc, p, tl, s2, nt * BN + cw * NW + cq, r0);
     }
     fence_async_global();
     mbar_arrive(s2_ready);  // the s2 tile is stored: thread 0 may copy it
 
     // 2. the 1x1 in bf16 on the s2 tile; out = x + bf16(bf16(acc) + bf16(b1))
     for (int nt = 0; nt < p.n_tiles; ++nt) {
-      const int col0 = nt * BN + cq;
-      uint32_t b1[BN / 8];
+      const int col0 = nt * BN + cw * NW + cq;
+      uint32_t b1[NW / 8];
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
+      for (int j = 0; j < NW / 8; ++j)
         b1[j] = __ldg(reinterpret_cast<const uint32_t*>(p.b1 + min(col0 + 8 * j, C - 2)));
-      float acc[BN / 2];
+      float acc[NW / 2];
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
       for (int sl = 0; sl < s1; ++sl) {
         const int s = rg.next();
         const uint32_t st = ring + s * STAGE;
-        const uint64_t b = desc_sw<KC / 2>(st);
-        const uint32_t a = st + BN * KC / 2 + 64 * cw * 16;  // the s2 slice behind the weights
+        const uint64_t b = desc_sw<KC / 2>(st + cw * NW * KC / 2);
+        const uint32_t a = st + BN * KC / 2;  // the s2 slice behind the weights
         fence_regs(acc);
-        if (sl == 0) wgmma_fence();
+        wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < KC / 64; ++ks)
-          wgmma<BN>(acc, desc_a(a + ks * 2 * BM * 16, BM * 16), b + 2 * ks);
+          wgmma<NW>(acc, desc_a(a + ks * 2 * BM * 16, BM * 16), b + 2 * ks);
         wgmma_commit();
         rg.issued(s);
         fence_regs(acc);
       }
       rg.drain();
       fence_regs(acc);
-      store_out<BN>(acc, b1, p, tl, col0, r0);
+      store_out<NW>(acc, b1, p, tl, col0, r0);
     }
   }
 }
 
 // map7, map1: the TMA tensor maps of q7 (C, 7C) int8 and w1 (C, C) bf16,
 // boxes of KC and KC / 2 bytes x BN / 2 rows, swizzled over those rows.
-template <int BN, int KC, int CL>
+template <int NW, int KC, int CL>
 __global__ void __launch_bounds__(THREADS, 1)
 resunit_int8_kernel(const __grid_constant__ CUtensorMap map7,
                     const __grid_constant__ CUtensorMap map1, const Params p) {
+  constexpr int BN = 2 * NW;
   extern __shared__ uint8_t smem_raw[];
-  // [ring: stages x (BN + BM) x KC / 2][q1: R x C][mbarriers]
+  // [ring: stages x BN x KC][q1: R x C][mbarriers]
   uint8_t* smem = smem_raw + (ALIGN - smem_addr(smem_raw) % ALIGN) % ALIGN;
   const uint32_t ring = smem_addr(smem);
-  const uint32_t q1 = ring + p.stages * (BN + BM) * KC / 2;
+  const uint32_t q1 = ring + p.stages * BN * KC;
   const uint32_t full = q1 + p.rows * p.C, empty = full + 8 * MAX_STAGES;
   const uint32_t q1_ready = empty + 8 * MAX_STAGES, q1_empty = q1_ready + 8 * 7;
   const uint32_t s2_ready = q1_empty + 8;
@@ -532,7 +563,7 @@ resunit_int8_kernel(const __grid_constant__ CUtensorMap map7,
     __syncthreads();
   if (threadIdx.x >= 256) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 160;");
-    consume<BN, KC, CL>(p, ring, q1, full, empty, q1_ready, q1_empty, s2_ready, rank);
+    consume<NW, KC, CL>(p, ring, q1, full, empty, q1_ready, q1_empty, s2_ready, rank);
   } else {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 96;");
     if (threadIdx.x == 0)
@@ -553,12 +584,12 @@ struct Device {
 Device g_devices[MAX_DEVICES];
 std::mutex g_device_lock;
 
-template <int BN, int KC, int CL>
+template <int NW, int KC, int CL>
 cudaError_t set_smem_limit(int dev, int optin) {
   static std::atomic<int> done[MAX_DEVICES];
   if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      resunit_int8_kernel<BN, KC, CL>, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+      resunit_int8_kernel<NW, KC, CL>, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err == cudaSuccess) done[dev].store(1, std::memory_order_release);
   return err;
 }
@@ -603,12 +634,16 @@ struct Plan {
   int bn, kc, n_tiles, rows, stages, smem, cl, grid, tiles, row_tiles, groups;
 };
 
-// N tiles of equal width: the fewest of at most 128 channels, each BN of
-// 64, 96 or 128 wide (the last one ragged where BN does not divide C).
+// N tiles of equal width: the fewest of at most 256 channels, each BN of
+// 64, 96, 128, 192 or 256 wide (the last one ragged where BN does not divide C).
 int pick_bn(int C, int* n_tiles) {
-  *n_tiles = (C + 127) / 128;
+  *n_tiles = (C + 255) / 256;
   const int need = (C + *n_tiles - 1) / *n_tiles;
-  return need <= 64 ? 64 : need <= 96 ? 96 : 128;
+  constexpr int widths[4] = {64, 96, 128, 192};
+  for (int bn : widths) {
+    if (bn >= need) return bn;
+  }
+  return 256;
 }
 
 // `cluster` 1 or 2 asks for that many CTAs a cluster, 0 for the default (2
@@ -620,8 +655,8 @@ bool make_plan(int B, int T, int C, int dil, int cluster, const Device& dv, Plan
   pl.rows = (BM + 6 * dil) | 1;
   const long long fixed = ALIGN + (long long)pl.rows * C + 8LL * (2 * MAX_STAGES + 9);
   const long long room = dv.optin - fixed;
-  pl.kc = room / ((pl.bn + BM) * 64) >= 4 ? 128 : 64;
-  const long long stage = (long long)(pl.bn + BM) * pl.kc / 2;
+  pl.kc = room / (pl.bn * 128) >= 4 ? 128 : 64;
+  const long long stage = (long long)pl.bn * pl.kc;
   const long long stages = room / stage < MAX_STAGES ? room / stage : MAX_STAGES;
   if (stages < 2) return false;
   pl.stages = (int)stages;
@@ -636,10 +671,10 @@ bool make_plan(int B, int T, int C, int dil, int cluster, const Device& dv, Plan
   return true;
 }
 
-template <int BN, int KC, int CL>
+template <int NW, int KC, int CL>
 cudaError_t launch_cfg(const CUtensorMap* maps, const Params& prm, const Plan& pl, int dev,
                        int optin, cudaStream_t stream) {
-  const cudaError_t err = set_smem_limit<BN, KC, CL>(dev, optin);
+  const cudaError_t err = set_smem_limit<NW, KC, CL>(dev, optin);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
@@ -655,16 +690,18 @@ cudaError_t launch_cfg(const CUtensorMap* maps, const Params& prm, const Plan& p
   cfg.numAttrs = CL > 1 ? 1 : 0;
   // maps: q7 and w1 for KC = 128, then for KC = 64
   const int m = KC == 128 ? 0 : 2;
-  return cudaLaunchKernelEx(&cfg, resunit_int8_kernel<BN, KC, CL>, maps[m], maps[m + 1], prm);
+  return cudaLaunchKernelEx(&cfg, resunit_int8_kernel<NW, KC, CL>, maps[m], maps[m + 1], prm);
 }
 
 template <int KC, int CL>
 cudaError_t dispatch_bn(const CUtensorMap* maps, const Params& prm, const Plan& pl, int dev,
                         int optin, cudaStream_t s) {
   switch (pl.bn) {
-    case 64: return launch_cfg<64, KC, CL>(maps, prm, pl, dev, optin, s);
-    case 96: return launch_cfg<96, KC, CL>(maps, prm, pl, dev, optin, s);
-    case 128: return launch_cfg<128, KC, CL>(maps, prm, pl, dev, optin, s);
+    case 64: return launch_cfg<32, KC, CL>(maps, prm, pl, dev, optin, s);
+    case 96: return launch_cfg<48, KC, CL>(maps, prm, pl, dev, optin, s);
+    case 128: return launch_cfg<64, KC, CL>(maps, prm, pl, dev, optin, s);
+    case 192: return launch_cfg<96, KC, CL>(maps, prm, pl, dev, optin, s);
+    case 256: return launch_cfg<128, KC, CL>(maps, prm, pl, dev, optin, s);
     default: return cudaErrorInvalidValue;
   }
 }

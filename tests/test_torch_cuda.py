@@ -282,14 +282,14 @@ def test_resunit_int8_matches_plain(B, C, dilation, T, causal):
                        dilation, causal)
 
 
-# The edges of the int8 unit's tiling (csrc/resunit_int8.cu: 128-row tiles,
+# The edges of the int8 unit's tiling (csrc/resunit_int8.cu: 64-row tiles,
 # a persistent grid of 2-CTA clusters sharing each weight slice): fewer row
 # tiles than SMs (B = 1, T = 100); 133 tiles (7 x 19, one past the SM
 # count: a cluster takes a second pair, the last pair half a dummy); T not
 # a multiple of the tile at d = 9, causal and not; C = 96 and 160 at d = 9
 # (one N tile and two, ragged at 160); the widest units the mma.sync kernel
 # it replaced took (C = 800 at d = 9, 992 at d = 1).
-INT8_TILING_CASES = [(1, 768, 3, 100, True), (7, 768, 9, 2400, False), (2, 768, 9, 1001, True),
+INT8_TILING_CASES = [(1, 768, 3, 100, True), (7, 768, 9, 1200, False), (2, 768, 9, 1001, True),
                      (2, 768, 9, 1001, False), (2, 96, 9, 777, True), (2, 160, 9, 300, True),
                      (1, 800, 9, 200, True), (1, 992, 1, 200, False)]
 
@@ -328,9 +328,9 @@ def test_resunit_int8_deterministic(dilation):
 
 
 def test_resunit_int8_plan():
-    """The int8 unit's plan at the flagship's width: 128-wide N tiles (six),
+    """The int8 unit's plan at the flagship's width: 256-wide N tiles (three),
     128-byte weight slices with at least four ring stages at every
-    dilation, 128-row tiles (152 for the decode's 4 x 4800 rows), a 2-CTA
+    dilation, 64-row tiles (300 for the decode's 4 x 4800 rows), a 2-CTA
     cluster over many tiles and none over one, a grid no larger than the
     card; a unit too wide for two ring stages beside its q1 tile is
     refused."""
@@ -338,8 +338,8 @@ def test_resunit_int8_plan():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for d in (1, 3, 9):
         plan = resunit.int8_plan(4, 4800, 768, d)
-        assert (plan["bn"], plan["n_tiles"], plan["kc"], plan["cluster"]) == (128, 6, 128, 2), plan
-        assert plan["stages"] >= 4 and plan["grid"] <= sms and plan["tiles"] == 152, plan
+        assert (plan["bn"], plan["n_tiles"], plan["kc"], plan["cluster"]) == (256, 3, 128, 2), plan
+        assert plan["stages"] >= 4 and plan["grid"] <= sms and plan["tiles"] == 300, plan
     one = resunit.int8_plan(1, 50, 768, 9)
     assert (one["cluster"], one["grid"], one["tiles"]) == (1, 1, 1), one
     assert resunit.int8_plan(1, 50, 768, 9, cluster=2)["grid"] == 2
