@@ -224,9 +224,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    units of that decode: the row maxima, the quantized padded input and
    the conv7 output bit-equal, the output <= 2 bf16 ulps. Per shape: the
    kernel's device time (50 launches in one CUDA graph; per dilation also
-   the unit alone, its share of its bound, the same unit with each CTA
-   streaming its own weights instead of a 2-CTA cluster sharing them, and
-   its plan: N tile, weight slice, ring stages, cluster, grid), the wrapper's
+   the unit alone, its share of its bound and its plan: N tile, weight
+   slice, ring stages, grid), the wrapper's
    (`fused_residual_unit` under the policy, packing per call) and the
    plain version's, the bound (the bf16 forms: 16 C^2 FLOP a row at 989
    TFLOP/s or the bytes at 3.35 TB/s; the int8 unit: 14 C^2 int8
@@ -3040,7 +3039,7 @@ def phase_policy_units(calls: list, route: str, title: str) -> dict:
     pol = {"f32io": "bfloat16", "f32io_act": "bfloat16_act", "int8": "int8"}[route]
     tot = dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, bound_ms=0.0, flops=0, int8_ops=0)
     if route == "int8":
-        tot.update(unit_ms=0.0, unit_cluster1_ms=0.0, amax_ms=0.0)
+        tot.update(unit_ms=0.0, amax_ms=0.0)
     bound_of = {"operations": 0.0, "bytes": 0.0}
     worst_abs = worst_ulps = 0.0
     for unit, x in calls:
@@ -3082,19 +3081,16 @@ def phase_policy_units(calls: list, route: str, title: str) -> dict:
                     resunit.launch_int8(x, amax, pack, d, pl, ext, out)
                 amax_ms = device_ms(lambda: resunit.launch_int8_amax(x, pack.alpha1, pack.recip1,
                                                                      amax), POLICY_GRAPH_LAUNCHES)
-                # the unit alone, as the path runs it (a 2-CTA cluster shares each
-                # weight slice) and with each CTA streaming its own weights
-                unit_ms, unit1_ms = (device_ms(
-                    lambda cl=cl: resunit.launch_int8(x, amax, pack, d, pl, ext, out, cluster=cl),
-                    POLICY_GRAPH_LAUNCHES) for cl in (0, 1))
+                # the unit alone, its share of its bound (operations) and its tiling
+                unit_ms = device_ms(lambda: resunit.launch_int8(x, amax, pack, d, pl, ext, out),
+                                    POLICY_GRAPH_LAUNCHES)
                 ops, flop, _ = int8_unit_cost(B, T, C)
                 unit_bound = 1e3 * (ops / INT8_OPS + flop / BF16_FLOPS)
                 plan = resunit.int8_plan(B, T, C, d, device=x.device)
                 tot["unit_ms"] += unit_ms
-                tot["unit_cluster1_ms"] += unit1_ms
                 tot["amax_ms"] += amax_ms
                 log(f"  int8 unit alone d={d}: {unit_ms:.4f} ms ({unit_bound / unit_ms:.1%} of its "
-                    f"{unit_bound:.4f} ms bound), without the cluster {unit1_ms:.4f} ms; plan {plan}")
+                    f"{unit_bound:.4f} ms bound); plan {plan}")
                 extra += f"; row maxima alone {amax_ms:.4f} ms"
                 plain = lambda: resunit.residual_unit_int8_reference(*args)  # noqa: E731
             else:
@@ -3137,8 +3133,8 @@ def phase_policy_units(calls: list, route: str, title: str) -> dict:
             f"{equal:.4%} bit-equal, worst {ulps:.2f} ulps, max abs {err:.3e}{extra}")
     by_all = max(bound_of, key=bound_of.get)
     if route == "int8":
-        log(f"  {len(calls)} units: the unit alone {tot['unit_ms']:.4f} ms, without the cluster "
-            f"{tot['unit_cluster1_ms']:.4f} ms, the row maxima {tot['amax_ms']:.4f} ms")
+        log(f"  {len(calls)} units: the unit alone {tot['unit_ms']:.4f} ms, the row maxima "
+            f"{tot['amax_ms']:.4f} ms")
     log(f"  {len(calls)} units: kernel {tot['ms']:.3f} ms ({tot['bound_ms'] / tot['ms']:.1%} of the "
         f"{tot['bound_ms']:.3f} ms bound, {by_all}), wrapper {tot['wrapper_ms']:.3f} ms, plain "
         f"{tot['plain_ms']:.3f} ms")
@@ -3396,8 +3392,8 @@ def main() -> None:
              replaces="facodec_tpu/ops/pallas/resunit.py:273",
              launches=pol["launches"]["hybrid_int8"]["int8"],
              amax_launches=pol["launches"]["hybrid_int8"]["amax"], policy="hybrid_int8",
-             status="redesigned: wgmma s8 and bf16, TMA weight ring shared by a 2-CTA cluster, "
-                    "persistent grid",
+             status="redesigned: wgmma s8 and bf16, TMA weight ring, ping-pong consumer "
+                    "warpgroups, persistent grid",
              library_ms=None, **pol["k2"]),
     ]
     log(f"streaming: chunk 16 batch 1 p50 {st16['p50_ms']:.2f} ms ({st16['rtf']:.1f}x realtime, "

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the residual unit's wgmma
 // kernels, csrc/resunit_bf16.cu and csrc/resunit_int8.cu: mbarriers, TMA
-// copies (with the cluster multicast form), proxy fences, wgmma with its
+// and bulk copies, proxy fences, wgmma (bf16 and int8) with its
 // shared-memory matrix descriptors, and the host's TMA tensor-map encoder.
 #pragma once
 
@@ -19,13 +19,6 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
 }
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-// An arrival on the barrier at the same offset in the shared memory of
-// cluster CTA `rank` (this CTA's own where rank is its own).
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(bar), "r"(rank));
-  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];" ::"r"(remote) : "memory");
 }
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
@@ -61,16 +54,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(n), "r"(bar)
       : "memory");
 }
-// The same box into the same offset `dst` of every CTA of the cluster in
-// `mask`; it completes its bytes on the barrier at offset `bar` of each.
-__device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorMap* map, int k,
-                                                   int n, uint32_t bar, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(n), "r"(bar), "h"(mask)
-      : "memory");
-}
 // `bytes` contiguous bytes of global memory into shared memory; they
 // complete on `bar`.
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
@@ -88,15 +71,6 @@ __device__ __forceinline__ void fence_async_smem() {
 // The same for global memory (a scratch tile read by bulk copies).
 __device__ __forceinline__ void fence_async_global() {
   asm volatile("fence.proxy.async.global;" ::: "memory");
-}
-// Every thread of every CTA of the cluster: arrive, then wait for all.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\n\tbarrier.cluster.wait.acquire;" ::: "memory");
-}
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
 }
 
 __device__ __forceinline__ void wgmma_fence() {

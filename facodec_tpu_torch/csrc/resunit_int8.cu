@@ -18,9 +18,10 @@
 // with x float32 (a W8A8 conv before it returns float32), q7 the conv7's
 // weight quantized per output channel over (tap, in) (`pack_int8`: (C, 7C),
 // K index tap * C + in) with scales sw, and xpad x padded as SConv1d pads
-// (reflect; causal (6d, 0)). Every step but the 1x1's float32 sum is written
-// with __fmul_rn / __fadd_rn / __fdiv_rn, so q1, sx and c7 are the plain
-// version's bits; the 1x1's sum differs from it in order only. Forward only.
+// (reflect; causal (6d, 0)). Every step but the 1x1's float32 sum gives the
+// plain version's bits (__fmul_rn / __fadd_rn, and rint(s1 / sx) as the
+// IEEE quotient's, see `quantize`); the 1x1's sum differs from it in order
+// only. Forward only.
 //
 // Two launches. The row scale pools over a whole batch row, so no tile can
 // quantize before the row's maximum is known:
@@ -31,12 +32,12 @@
 // What bounds it. Per output row: 14 C^2 int8 operations (7 C^2 MACs) and
 // 2 C^2 bf16 FLOP, on 8 C bytes (x in, out out, float32): at C = 768 about
 // 1350 int8 operations a byte, far above the card's ridge (1979 TOPS /
-// 3.35 TB/s = 590), so the tensor cores bound it. Two things stand between
-// them and that bound: the weights (5.3 MB at C = 768: q7 4.1 MB, w1 1.2 MB)
-// stream from L2 once per 64-row tile, 128 int8 operations per byte of L2
-// read, about what L2 can feed 132 SMs at the tensor cores' rate; and the
-// quantization (snake, IEEE division, rint) of a tile's 64 + 6d rows is
-// CUDA-core work of the order of the tile's tensor-core time.
+// 3.35 TB/s = 590), so the tensor cores bound it. What stands between a
+// CTA and that bound: its weight stream (5.3 MB at C = 768 per 64-row tile,
+// 128 int8 operations a byte: one SM takes them from L2 only as fast as the
+// ring keeps bytes in flight, whatever the other SMs do), and CUDA-core work
+// of the order of the tensor cores' (the quantization of 64 + 6d rows, the
+// snake2 of the conv7's epilogue).
 //
 // Design:
 // 1. wgmma. The conv7 is wgmma.mma_async m64nNk32 .s32.s8.s8, the 1x1
@@ -44,48 +45,47 @@
 //    operands must both be K-major: q1's rows and q7's are). An N tile is BN
 //    output channels (64, 96, 128, 192 or 256; 256 at C = 768, three N
 //    tiles), split between two consumer warpgroups of NW = BN / 2 channels.
-// 2. q1 is quantized once per tile, into shared memory in the 16-byte
-//    octet-column order of the bf16 kernel's s1 ([channel / 16][row][16 B]):
-//    a core matrix (8 rows x 16 B) is 128 contiguous bytes from any start
-//    row, so tap j's A descriptor is tap 0's with its start moved j * d rows.
-//    The row count R = 64 + 6d is made odd, so that one row's stores spread
-//    over the banks. Seven quantizer warps fill it in tap order (rows 0-63,
-//    then d rows per tap), each part behind an mbarrier, while the consumers
-//    run the previous tile's 1x1 (which reads s2, not q1), and go on during
-//    this tile's first N tile, whose tap-j slices wait for part j only.
-// 3. Weights by TMA. One producer thread streams K slices of KC bytes (q7,
-//    and w1 as bytes) x BN rows through a ring of stages guarded by full /
-//    empty mbarriers, with the 64-byte swizzle for KC = 64 and the 32-byte
-//    for KC = 32. Slices run in K order over 7C; a k32 step never straddles
-//    two taps (C % 32 == 0), and each step's A descriptor has its own tap.
-// 4. A 2-CTA cluster shares the weight stream: each CTA's producer loads
-//    half of each slice's rows and multicasts it into both CTAs, whose
-//    consumers release a stage in both (remote mbarrier arrivals), so L2
-//    serves each weight byte once per two tiles. (`cluster` = 1 streams a
-//    CTA's own.)
-// 5. A persistent grid: one CTA per SM (a cluster per SM pair, as many as
-//    the card keeps resident) walks the row tiles of all batch rows; each
-//    tile reads its own row's scale from amax.
-// 6. s2 stays on chip as the 64 x C bf16 tile in the same octet-column
-//    layout; it is the 1x1's A. Nothing is written to device memory but out
-//    (and c7 / q1 where the caller asks for them).
-// Warp roles (512 threads): warp 0 issues the TMA copies, warps 1-7
-// quantize, warpgroups 2 and 3 issue the wgmma and run the epilogues.
-// setmaxnreg gives the consumers 160 registers and the others 96.
+// 2. q1 is quantized once per 64-row tile, into shared memory in the
+//    16-byte octet-column order of the bf16 kernel's s1 ([channel / 16]
+//    [row][16 B]): a core matrix (8 rows x 16 B) is 128 contiguous bytes from
+//    any start row, so tap j's A descriptor is tap 0's with its start moved
+//    j * d rows. The row count R = 64 + 6d is made odd, so that one row's
+//    stores spread over the banks. Seven quantizer warps fill it in tap
+//    order (rows 0-63, then d rows per tap), each part behind an mbarrier,
+//    while the consumers run the previous tile's 1x1 (which does not read
+//    q1), and go on during this tile's first N tile, whose tap-j slices wait
+//    for part j only.
+// 3. Weights by TMA. One producer thread streams K slices of KC = 128 bytes
+//    (64 where fewer than four such stages fit) x BN rows of q7 (128- or
+//    64-byte swizzle) through a ring of stages guarded by full / empty
+//    mbarriers. Slices run in K order over 7C; a k32 step never straddles two
+//    taps (C % 32 == 0), and each step's A descriptor has its own tap.
+// 4. s2 leaves shared memory for the ring: the conv7's epilogue stores the
+//    64 x C bf16 tile in the same octet-column order into the CTA's slice of
+//    a device scratch (it stays in L2), and each 1x1 slice brings KC / 2
+//    bytes of w1's rows by TMA with the same channels of that tile by bulk
+//    copy behind them. The deep ring this frees is what feeds the tensor
+//    cores: a 2-stage ring beside an on-chip s2 tile left the conv7 waiting
+//    for weights most of the time.
+// 5. A persistent grid: one CTA per SM walks the row tiles of all batch
+//    rows; each tile reads its own row's scale from amax.
+// Warp roles (512 threads): warp 0 issues the copies, warps 1-7 quantize,
+// warpgroups 2 and 3 issue the wgmma and run the epilogues. setmaxnreg
+// gives the consumers 160 registers and the others 96.
 //
 // Shared memory per CTA at C = 768 (227 KB; the ring takes what is left):
-//   d   q1 (R x C int8)   s2 (64 x C bf16)   ring                 total
-//   1   71 x 768  = 53 KB     96 KB          4 x 16 KB (KC 64)   215 KB
-//   3   83 x 768  = 62 KB     96 KB          4 x 16 KB (KC 64)   224 KB
-//   9   119 x 768 = 89 KB     96 KB          5 x 8 KB (KC 32)    227 KB
-// KC = 64 where four such stages fit, else 32; shapes where two stages do
-// not fit are refused (the entry returns cudaErrorInvalidValue): every C (a
-// multiple of 32) up to 832 at d = 9 and 1024 at d = 1 is taken.
+//   d   q1 (R x C int8)      ring                     total
+//   1   71 x 768  = 53 KB    5 x 32 KB (KC 128)       214 KB
+//   3   83 x 768  = 62 KB    5 x 32 KB                223 KB
+//   9   119 x 768 = 89 KB    4 x 32 KB                218 KB
+// Shapes where two stages do not fit beside the q1 tile are refused (the
+// entry returns cudaErrorInvalidValue): every C (a multiple of 32) up to
+// 1664 at d = 9 and 2784 at d = 1 is taken.
 //
-// The host side reads the card's SM count, opt-in shared memory and
-// resident clusters once per device (the caller passes the device index),
-// and sets each instantiation's shared-memory limit once per device: no
-// device query on the launch path.
+// The host side reads the card's SM count and opt-in shared memory once per
+// device (the caller passes the device index), and sets each
+// instantiation's shared-memory limit once per device: no device query on
+// the launch path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,13 +100,13 @@
 
 namespace {
 
-constexpr int THREADS = 512;      // warpgroups 0 and 1 produce, 2 and 3 consume
+constexpr int THREADS = 512;        // warpgroups 0 and 1 produce, 2 and 3 consume
 constexpr int QUANT_THREADS = 224;  // warps 1-7
 constexpr int CONSUMER_WARPS = 8;
 constexpr int CONSUMER_THREADS = 256;
-constexpr int BM = 64;            // rows of a tile
+constexpr int BM = 64;              // rows of a tile
 constexpr int MAX_STAGES = 16;
-constexpr int ALIGN = 1024;       // of the ring's base
+constexpr int ALIGN = 1024;         // of the ring's base
 constexpr int MAX_DEVICES = 64;
 constexpr float INV127 = (float)(1.0 / 127.0);
 
@@ -156,6 +156,7 @@ __global__ void __launch_bounds__(256) resunit_int8_amax(const float* __restrict
   }
 }
 
+
 // ------------------------------------------------------------------ unit
 struct Params {
   const float* x;
@@ -173,18 +174,15 @@ struct Params {
   int rows;        // R, rows of the q1 tile: BM + 6d, made odd
   int stages;      // weight slices the ring holds
   int tiles, row_tiles;  // row tiles in all, and per batch row
-  int groups;      // groups of CL consecutive tiles, one per cluster at a time
 };
 
-// A CTA's tile of group g (past the last tile: a dummy that stores nothing)
+// A row tile and its batch row's scale.
 struct Tile {
   int b, t0;
-  bool live;
   float sx, rcp;  // the row's scale and its reciprocal
   __device__ __forceinline__ Tile(const Params& p, int tile) {
-    live = tile < p.tiles;
-    b = live ? tile / p.row_tiles : 0;
-    t0 = live ? (tile % p.row_tiles) * BM : 0;
+    b = tile / p.row_tiles;
+    t0 = (tile % p.row_tiles) * BM;
     sx = __fmul_rn(fmaxf(__ldg(p.amax + b), 1e-12f), INV127);
     rcp = __frcp_rn(sx);
   }
@@ -193,14 +191,12 @@ struct Tile {
 // Thread 0: every slice the consumers take, in their order, into the ring:
 // per tile, for each N tile the 7C / KC slices of q7 (KC bytes x BN rows);
 // then, once the consumers have stored the tile's s2, for each N tile the
-// 4C / KC slices of the 1x1, each KC / 2 bytes of w1's rows beside the same
-// channels of the CTA's s2 tile (BM rows, by bulk copy). Each weight box is
-// half a slice's rows: with CL = 2 this CTA's half, multicast into both
-// CTAs of the cluster.
-template <int BN, int KC, int CL>
+// 4C / KC slices of the 1x1, each KC / 2 bytes of w1's rows with the same
+// channels of the CTA's s2 tile (BM rows, by bulk copy) behind them. A
+// weight slice comes as two boxes of BN / 2 rows.
+template <int BN, int KC>
 __device__ void load_weights(const CUtensorMap* map7, const CUtensorMap* map1, const Params& p,
-                             uint32_t ring, uint32_t full, uint32_t empty, uint32_t s2_ready,
-                             uint32_t rank) {
+                             uint32_t ring, uint32_t full, uint32_t empty, uint32_t s2_ready) {
   constexpr int HALF = BN / 2, STAGE = BN * KC, A_BYTES = BM * KC / 2;
   const int s7 = (7 * p.C + KC - 1) / KC, s1 = 4 * p.C / KC;
   const uint8_t* s2 = reinterpret_cast<const uint8_t*>(p.s2g) + (size_t)blockIdx.x * BM * p.C * 2;
@@ -212,17 +208,13 @@ __device__ void load_weights(const CUtensorMap* map7, const CUtensorMap* map1, c
     mbar_wait(empty + 8 * s, ((it / p.stages) & 1) ^ 1);
     const uint32_t dst = ring + s * STAGE, bar = full + 8 * s;
     mbar_expect_tx(bar, BN * rb + a);
-    if constexpr (CL == 1) {
-      tma_load(dst, map, k, n, bar);
-      tma_load(dst + HALF * rb, map, k, n + HALF, bar);
-    } else {
-      tma_load_multicast(dst + rank * HALF * rb, map, k, n + rank * HALF, bar, (1 << CL) - 1);
-    }
+    tma_load(dst, map, k, n, bar);
+    tma_load(dst + HALF * rb, map, k, n + HALF, bar);
     if (a > 0) bulk_load(dst + BN * rb, src, a, bar);
     ++it;
   };
   int k = 0;
-  for (int g = blockIdx.x / CL; g < p.groups; g += gridDim.x / CL, ++k) {
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++k) {
     for (int nt = 0; nt < p.n_tiles; ++nt)
       for (int sl = 0; sl < s7; ++sl) load(map7, sl * KC, nt * BN, KC, nullptr, 0);
     mbar_wait(s2_ready, k & 1);
@@ -247,21 +239,19 @@ struct QUnit {
 // it has stored its units of the part. A thread takes units of 8 channels
 // in row order, QUANT_THREADS apart, with the x of the next two in flight
 // while it computes one.
-template <int CL>
-__device__ void quantize(const Params& p, uint8_t* q1, uint32_t q1_ready, uint32_t q1_empty,
-                         uint32_t rank) {
+__device__ void quantize(const Params& p, uint8_t* q1, uint32_t q1_ready, uint32_t q1_empty) {
   const int i0 = threadIdx.x - 32, C = p.C, c8 = C / 8, Tp = p.T + 6 * p.dil;
   const int n = (BM + 6 * p.dil) * c8;  // units of a tile
   int k = 0;
-  for (int g = blockIdx.x / CL; g < p.groups; g += gridDim.x / CL, ++k) {
-    const Tile tl(p, g * CL + rank);
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++k) {
+    const Tile tl(p, tile);
     const float* xb = p.x + (size_t)tl.b * p.T * C;
     auto fetch = [&](QUnit& u, int e) {
       if (e >= n) return;
       const int row = e / c8, pr = tl.t0 + row;
       u.r = row;
       u.c = 8 * (e - row * c8);
-      u.q = tl.live && pr < Tp ? padded_row(pr, p.T, p.ext, p.pad_left) : -1;
+      u.q = pr < Tp ? padded_row(pr, p.T, p.ext, p.pad_left) : -1;
       if (u.q >= 0) {
         const float4* src = reinterpret_cast<const float4*>(xb + (size_t)u.q * C + u.c);
         u.v[0] = __ldg(src);
@@ -313,7 +303,7 @@ __device__ void quantize(const Params& p, uint8_t* q1, uint32_t q1_ready, uint32
       *reinterpret_cast<uint2*>(q1 + ((size_t)(u.c >> 4) * p.rows + u.r) * 16 + (u.c & 15)) =
           make_uint2(w[0], w[1]);
       const int pr = tl.t0 + u.r;
-      if (p.q1_out != nullptr && tl.live && pr < Tp && (u.r < BM || tl.t0 + BM >= p.T))
+      if (p.q1_out != nullptr && pr < Tp && (u.r < BM || tl.t0 + BM >= p.T))
         *reinterpret_cast<uint2*>(p.q1_out + ((size_t)tl.b * Tp + pr) * C + u.c) =
             make_uint2(w[0], w[1]);
     };
@@ -333,23 +323,14 @@ __device__ void quantize(const Params& p, uint8_t* q1, uint32_t q1_ready, uint32
   }
 }
 
-// The consumers' side of the ring: `stage` and `phase` are the next slice's
-// ring stage and full-barrier parity; `held` the stage whose wgmma may still
-// run (released once the next slice's is issued and it has finished).
-template <int CL>
+// A consumer warpgroup's side of the ring: `stage` and `phase` are the next
+// slice's ring stage and full-barrier parity; `held` the stage whose wgmma
+// may still run (released once the next slice's is issued and it has
+// finished).
 struct Ring {
-  uint32_t ring, full, empty;
+  uint32_t full, empty;
   int stages, lane, stage, phase, held;
 
-  __device__ __forceinline__ void release(int s) {
-    if (lane != 0) return;
-    if constexpr (CL == 1) {
-      mbar_arrive(empty + 8 * s);
-    } else {
-#pragma unroll
-      for (int r = 0; r < CL; ++r) mbar_arrive_cluster(empty + 8 * s, r);
-    }
-  }
   // Waits for the next slice; returns its stage.
   __device__ __forceinline__ int next() {
     mbar_wait(full + 8 * stage, phase);
@@ -364,12 +345,12 @@ struct Ring {
   // (one group stays in flight), so its stage goes back to the producer.
   __device__ __forceinline__ void issued(int s) {
     wgmma_wait<1>();
-    if (held >= 0) release(held);
+    if (held >= 0 && lane == 0) mbar_arrive(empty + 8 * held);
     held = s;
   }
   __device__ __forceinline__ void drain() {
     wgmma_wait<0>();
-    if (held >= 0) release(held);
+    if (held >= 0 && lane == 0) mbar_arrive(empty + 8 * held);
     held = -1;
   }
 };
@@ -409,7 +390,7 @@ __device__ __forceinline__ void store_s2(const int (&acc)[NW / 2], const Params&
             __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), sc1), b7[jj].y);
         *reinterpret_cast<uint32_t*>(s2 + ((col >> 3) * BM + r) * 8 + (col & 7)) =
             pack_bf(snakef(c0, al[jj].x, rc[jj].x), snakef(c1, al[jj].y, rc[jj].y));
-        if (p.c7_out != nullptr && tl.live && tl.t0 + r < p.T)
+        if (p.c7_out != nullptr && tl.t0 + r < p.T)
           *reinterpret_cast<float2*>(p.c7_out + ((size_t)tl.b * p.T + tl.t0 + r) * p.C + col) =
               make_float2(c0, c1);
       }
@@ -439,7 +420,7 @@ __device__ __forceinline__ void store_out(const float (&acc)[NW / 2], const uint
         const int j = j0 + jj, col = col0 + 8 * j, t = tl.t0 + r0 + 8 * h;
         const float y0 = round_bf(__fadd_rn(round_bf(acc[4 * j + 2 * h]), lo_bf(b1[j])));
         const float y1 = round_bf(__fadd_rn(round_bf(acc[4 * j + 2 * h + 1]), hi_bf(b1[j])));
-        if (tl.live && t < p.T && col < p.C)
+        if (t < p.T && col < p.C)
           *reinterpret_cast<float2*>(p.out + ((size_t)tl.b * p.T + t) * p.C + col) =
               make_float2(__fadd_rn(xv[jj][h].x, y0), __fadd_rn(xv[jj][h].y, y1));
       }
@@ -449,19 +430,19 @@ __device__ __forceinline__ void store_out(const float (&acc)[NW / 2], const uint
 // Warpgroups 2 and 3 (cw = 0, 1), each NW = BN / 2 of an N tile's output
 // channels: per tile, the conv7 (int8) into the s2 tile, then the 1x1
 // (bf16) into out.
-template <int NW, int KC, int CL>
+template <int NW, int KC>
 __device__ void consume(const Params& p, uint32_t ring, uint32_t q1, uint32_t full, uint32_t empty,
-                        uint32_t q1_ready, uint32_t q1_empty, uint32_t s2_ready, uint32_t rank) {
+                        uint32_t q1_ready, uint32_t q1_empty, uint32_t s2_ready) {
   constexpr int BN = 2 * NW, STAGE = BN * KC;
   const int tid = threadIdx.x - 256, cw = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int r0 = 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
   const int C = p.C, K7 = 7 * C, s7 = (K7 + KC - 1) / KC, s1 = 4 * C / KC;
   uint16_t* s2 = p.s2g + (size_t)blockIdx.x * BM * C;
-  Ring<CL> rg{ring, full, empty, p.stages, lane, 0, 0, -1};
+  Ring rg{full, empty, p.stages, lane, 0, 0, -1};
   int k = 0;
 
-  for (int g = blockIdx.x / CL; g < p.groups; g += gridDim.x / CL, ++k) {
-    const Tile tl(p, g * CL + rank);
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++k) {
+    const Tile tl(p, tile);
     // 1. the conv7 in int8, one N tile at a time; c7 -> the s2 tile
     for (int nt = 0; nt < p.n_tiles; ++nt) {
       int acc[NW / 2];
@@ -497,7 +478,7 @@ __device__ void consume(const Params& p, uint32_t ring, uint32_t q1, uint32_t fu
       store_s2<NW>(acc, p, tl, s2, nt * BN + cw * NW + cq, r0);
     }
     fence_async_global();
-    mbar_arrive(s2_ready);  // the s2 tile is stored: thread 0 may copy it
+    mbar_arrive(s2_ready);  // this thread's part of the s2 tile is stored
 
     // 2. the 1x1 in bf16 on the s2 tile; out = x + bf16(bf16(acc) + bf16(b1))
     for (int nt = 0; nt < p.n_tiles; ++nt) {
@@ -532,7 +513,7 @@ __device__ void consume(const Params& p, uint32_t ring, uint32_t q1, uint32_t fu
 
 // map7, map1: the TMA tensor maps of q7 (C, 7C) int8 and w1 (C, C) bf16,
 // boxes of KC and KC / 2 bytes x BN / 2 rows, swizzled over those rows.
-template <int NW, int KC, int CL>
+template <int NW, int KC>
 __global__ void __launch_bounds__(THREADS, 1)
 resunit_int8_kernel(const __grid_constant__ CUtensorMap map7,
                     const __grid_constant__ CUtensorMap map1, const Params p) {
@@ -545,57 +526,39 @@ resunit_int8_kernel(const __grid_constant__ CUtensorMap map7,
   const uint32_t full = q1 + p.rows * p.C, empty = full + 8 * MAX_STAGES;
   const uint32_t q1_ready = empty + 8 * MAX_STAGES, q1_empty = q1_ready + 8 * 7;
   const uint32_t s2_ready = q1_empty + 8;
-  const uint32_t rank = CL > 1 ? cluster_rank() : 0;
   if (threadIdx.x == 0) {
     for (int s = 0; s < p.stages; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, CONSUMER_WARPS * CL);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
     }
     for (int j = 0; j < 7; ++j) mbar_init(q1_ready + 8 * j, QUANT_THREADS);
     mbar_init(q1_empty, CONSUMER_WARPS);
     mbar_init(s2_ready, CONSUMER_THREADS);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  // the peer's barriers are initialized before any multicast or remote arrival
-  if constexpr (CL > 1)
-    cluster_sync();
-  else
-    __syncthreads();
+  __syncthreads();
   if (threadIdx.x >= 256) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 160;");
-    consume<NW, KC, CL>(p, ring, q1, full, empty, q1_ready, q1_empty, s2_ready, rank);
+    consume<NW, KC>(p, ring, q1, full, empty, q1_ready, q1_empty, s2_ready);
   } else {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 96;");
     if (threadIdx.x == 0)
-      load_weights<BN, KC, CL>(&map7, &map1, p, ring, full, empty, s2_ready, rank);
+      load_weights<BN, KC>(&map7, &map1, p, ring, full, empty, s2_ready);
     else if (threadIdx.x >= 32)
-      quantize<CL>(p, smem + (q1 - ring), q1_ready, q1_empty, rank);
+      quantize(p, smem + (q1 - ring), q1_ready, q1_empty);
   }
-  // no CTA leaves while its peer may still multicast into it or arrive on its barriers
-  if constexpr (CL > 1) cluster_sync();
 }
 
 // ------------------------------------------------------------------- host
 // The card's numbers the plan needs, read once per device.
 struct Device {
   std::atomic<int> ready{0};
-  int sms = 0, optin = 0, clusters = 0;  // SMs, opt-in shared memory, resident 2-CTA clusters
+  int sms = 0, optin = 0;  // SMs, opt-in shared memory a block
 };
 Device g_devices[MAX_DEVICES];
 std::mutex g_device_lock;
 
-template <int NW, int KC, int CL>
-cudaError_t set_smem_limit(int dev, int optin) {
-  static std::atomic<int> done[MAX_DEVICES];
-  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      resunit_int8_kernel<NW, KC, CL>, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  if (err == cudaSuccess) done[dev].store(1, std::memory_order_release);
-  return err;
-}
-
-// The device's numbers, read on its first call (the caller has made `dev`
-// current); null where they cannot be read.
+// The device's numbers, read on its first call; null where they cannot be read.
 const Device* device(int dev) {
   if (dev < 0 || dev >= MAX_DEVICES) return nullptr;
   Device& d = g_devices[dev];
@@ -604,34 +567,15 @@ const Device* device(int dev) {
   if (!d.ready.load(std::memory_order_relaxed)) {
     if (cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&d.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
-            cudaSuccess ||
-        set_smem_limit<128, 128, 2>(dev, d.optin) != cudaSuccess)
+            cudaSuccess)
       return nullptr;
-    // every instantiation takes one CTA per SM (its registers), so one
-    // stands for all: how many 2-CTA clusters the card keeps resident
-    cudaLaunchConfig_t cfg = {};
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = 2;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.gridDim = dim3(d.sms);
-    cfg.blockDim = dim3(THREADS);
-    cfg.dynamicSmemBytes = d.optin;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    if (cudaOccupancyMaxActiveClusters(&d.clusters, resunit_int8_kernel<128, 128, 2>, &cfg) !=
-        cudaSuccess) {
-      cudaGetLastError();  // clear it: the plan then streams per CTA
-      d.clusters = 0;
-    }
     d.ready.store(1, std::memory_order_release);
   }
   return &d;
 }
 
 struct Plan {
-  int bn, kc, n_tiles, rows, stages, smem, cl, grid, tiles, row_tiles, groups;
+  int bn, kc, n_tiles, rows, stages, smem, grid, tiles, row_tiles;
 };
 
 // N tiles of equal width: the fewest of at most 256 channels, each BN of
@@ -646,11 +590,9 @@ int pick_bn(int C, int* n_tiles) {
   return 256;
 }
 
-// `cluster` 1 or 2 asks for that many CTAs a cluster, 0 for the default (2
-// where there are two tiles and the card keeps 2-CTA clusters resident).
 // Slices of KC = 128 bytes where four stages fit beside the q1 tile, else 64.
-bool make_plan(int B, int T, int C, int dil, int cluster, const Device& dv, Plan& pl) {
-  if (!valid_shape(B, T, C, dil) || cluster < 0 || cluster > 2) return false;
+bool make_plan(int B, int T, int C, int dil, const Device& dv, Plan& pl) {
+  if (!valid_shape(B, T, C, dil)) return false;
   pl.bn = pick_bn(C, &pl.n_tiles);
   pl.rows = (BM + 6 * dil) | 1;
   const long long fixed = ALIGN + (long long)pl.rows * C + 8LL * (2 * MAX_STAGES + 9);
@@ -663,56 +605,38 @@ bool make_plan(int B, int T, int C, int dil, int cluster, const Device& dv, Plan
   pl.smem = (int)(fixed + stages * stage);
   pl.row_tiles = (T + BM - 1) / BM;
   pl.tiles = B * pl.row_tiles;
-  pl.cl = cluster != 0 ? cluster : (pl.tiles > 1 && dv.clusters > 0 ? 2 : 1);
-  if (pl.cl == 2 && dv.clusters <= 0) return false;
-  pl.groups = (pl.tiles + pl.cl - 1) / pl.cl;
-  const int slots = pl.cl == 1 ? dv.sms : dv.clusters;
-  pl.grid = pl.cl * (pl.groups < slots ? pl.groups : slots);
+  pl.grid = pl.tiles < dv.sms ? pl.tiles : dv.sms;
   return true;
 }
 
-template <int NW, int KC, int CL>
+template <int NW, int KC>
 cudaError_t launch_cfg(const CUtensorMap* maps, const Params& prm, const Plan& pl, int dev,
                        int optin, cudaStream_t stream) {
-  const cudaError_t err = set_smem_limit<NW, KC, CL>(dev, optin);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(pl.grid);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = pl.smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = CL > 1 ? 1 : 0;
+  // the opt-in limit once per device and instantiation, before any capture
+  static std::atomic<int> done[MAX_DEVICES];
+  if (!done[dev].load(std::memory_order_acquire)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        resunit_int8_kernel<NW, KC>, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err != cudaSuccess) return err;
+    done[dev].store(1, std::memory_order_release);
+  }
   // maps: q7 and w1 for KC = 128, then for KC = 64
   const int m = KC == 128 ? 0 : 2;
-  return cudaLaunchKernelEx(&cfg, resunit_int8_kernel<NW, KC, CL>, maps[m], maps[m + 1], prm);
+  resunit_int8_kernel<NW, KC><<<pl.grid, THREADS, pl.smem, stream>>>(maps[m], maps[m + 1], prm);
+  return cudaGetLastError();
 }
 
-template <int KC, int CL>
+template <int KC>
 cudaError_t dispatch_bn(const CUtensorMap* maps, const Params& prm, const Plan& pl, int dev,
                         int optin, cudaStream_t s) {
   switch (pl.bn) {
-    case 64: return launch_cfg<32, KC, CL>(maps, prm, pl, dev, optin, s);
-    case 96: return launch_cfg<48, KC, CL>(maps, prm, pl, dev, optin, s);
-    case 128: return launch_cfg<64, KC, CL>(maps, prm, pl, dev, optin, s);
-    case 192: return launch_cfg<96, KC, CL>(maps, prm, pl, dev, optin, s);
-    case 256: return launch_cfg<128, KC, CL>(maps, prm, pl, dev, optin, s);
+    case 64: return launch_cfg<32, KC>(maps, prm, pl, dev, optin, s);
+    case 96: return launch_cfg<48, KC>(maps, prm, pl, dev, optin, s);
+    case 128: return launch_cfg<64, KC>(maps, prm, pl, dev, optin, s);
+    case 192: return launch_cfg<96, KC>(maps, prm, pl, dev, optin, s);
+    case 256: return launch_cfg<128, KC>(maps, prm, pl, dev, optin, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-cudaError_t dispatch(const CUtensorMap* maps, const Params& prm, const Plan& pl, int dev, int optin,
-                     cudaStream_t s) {
-  if (pl.kc == 128)
-    return pl.cl == 2 ? dispatch_bn<128, 2>(maps, prm, pl, dev, optin, s)
-                      : dispatch_bn<128, 1>(maps, prm, pl, dev, optin, s);
-  return pl.cl == 2 ? dispatch_bn<64, 2>(maps, prm, pl, dev, optin, s)
-                    : dispatch_bn<64, 1>(maps, prm, pl, dev, optin, s);
 }
 
 }  // namespace
@@ -753,28 +677,24 @@ extern "C" int facodec_resunit_int8_maps(const int8_t* q7, const uint16_t* w1, i
   return 0;
 }
 
-// The plan of a call on device `dev` (current), for reports: {BN, KC (bytes
-// of a q7 slice's rows), N tiles, ring stages, shared-memory bytes, CTAs a
-// cluster, grid, row tiles}. `cluster` as facodec_resunit_int8's. Returns 0,
-// or cudaErrorInvalidValue for shapes the kernel refuses.
-extern "C" int facodec_resunit_int8_plan(int B, int T, int C, int dil, int cluster, int dev,
-                                         int* out) {
+// The plan of a call on device `dev`, for reports: {BN, KC (bytes of a q7
+// slice's rows), N tiles, ring stages, shared-memory bytes, grid, row
+// tiles}. Returns 0, or cudaErrorInvalidValue for shapes the kernel refuses.
+extern "C" int facodec_resunit_int8_plan(int B, int T, int C, int dil, int dev, int* out) {
   const Device* dv = device(dev);
   Plan pl;
-  if (dv == nullptr || !make_plan(B, T, C, dil, cluster, *dv, pl)) return (int)cudaErrorInvalidValue;
-  const int v[8] = {pl.bn, pl.kc, pl.n_tiles, pl.stages, pl.smem, pl.cl, pl.grid, pl.tiles};
+  if (dv == nullptr || !make_plan(B, T, C, dil, *dv, pl)) return (int)cudaErrorInvalidValue;
+  const int v[7] = {pl.bn, pl.kc, pl.n_tiles, pl.stages, pl.smem, pl.grid, pl.tiles};
   memcpy(out, v, sizeof(v));
   return 0;
 }
 
-// Bytes of the device scratch a call needs (each CTA's BM x C bf16 s2 tile),
-// or -1 for shapes the kernel refuses. `cluster` and `dev` as
-// facodec_resunit_int8's.
-extern "C" long long facodec_resunit_int8_scratch_bytes(int B, int T, int C, int dil, int cluster,
-                                                        int dev) {
+// Bytes of the device scratch a call on device `dev` needs (each CTA's
+// BM x C bf16 s2 tile), or -1 for shapes the kernel refuses.
+extern "C" long long facodec_resunit_int8_scratch_bytes(int B, int T, int C, int dil, int dev) {
   const Device* dv = device(dev);
   Plan pl;
-  if (dv == nullptr || !make_plan(B, T, C, dil, cluster, *dv, pl)) return -1;
+  if (dv == nullptr || !make_plan(B, T, C, dil, *dv, pl)) return -1;
   return (long long)pl.grid * BM * C * 2;
 }
 
@@ -785,24 +705,26 @@ extern "C" long long facodec_resunit_int8_scratch_bytes(int B, int T, int C, int
 // and ext of facodec_resunit_f32, and `scratch` of
 // facodec_resunit_int8_scratch_bytes. c7_out (B, T, C) float32 and q1_out
 // (B, T + 6d, C) int8 may be null; given, they get the conv7's output and
-// the quantized padded input. `cluster`: 0 for the default, or 1 or 2 CTAs
-// a cluster; `dev`: the index of the current device. Returns a cudaError_t
-// (0 = launched).
+// the quantized padded input. `dev`: the index of the current device.
+// Returns a cudaError_t (0 = launched).
 extern "C" int facodec_resunit_int8(const float* x, const float* amax, const void* maps,
                                     const float* sw, const float* b7, const uint16_t* b1,
                                     const float* alpha1, const float* recip1, const float* alpha2,
                                     const float* recip2, float* out, float* c7_out, int8_t* q1_out,
                                     void* scratch, int B, int T, int C, int dil, int pad_left,
-                                    int ext, int cluster, int dev, void* stream) {
+                                    int ext, int dev, void* stream) {
   const Device* dv = device(dev);
   Plan pl;
-  if (dv == nullptr || scratch == nullptr || !make_plan(B, T, C, dil, cluster, *dv, pl) ||
+  if (dv == nullptr || scratch == nullptr || !make_plan(B, T, C, dil, *dv, pl) ||
       !valid_pads(T, dil, pad_left, ext))
     return (int)cudaErrorInvalidValue;
-  const Params prm{x,        amax,   sw,     b7,         b1,       alpha1,
-                   recip1,   alpha2, recip2, out,        c7_out,   q1_out,
-                   static_cast<uint16_t*>(scratch), T, C, dil, pad_left, ext,
-                   pl.n_tiles, pl.rows, pl.stages, pl.tiles, pl.row_tiles, pl.groups};
-  return (int)dispatch(static_cast<const CUtensorMap*>(maps), prm, pl, dev, dv->optin,
-                       static_cast<cudaStream_t>(stream));
+  const Params prm{x,      amax,   sw,       b7,         b1,        alpha1,
+                   recip1, alpha2, recip2,   out,        c7_out,    q1_out,
+                   static_cast<uint16_t*>(scratch),      T,         C,
+                   dil,    pad_left,         ext,        pl.n_tiles, pl.rows,
+                   pl.stages, pl.tiles,      pl.row_tiles};
+  const CUtensorMap* m = static_cast<const CUtensorMap*>(maps);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(pl.kc == 128 ? dispatch_bn<128>(m, prm, pl, dev, dv->optin, s)
+                            : dispatch_bn<64>(m, prm, pl, dev, dv->optin, s));
 }

@@ -706,13 +706,13 @@ def _int8_entry_points():
     maps.restype = ctypes.c_int
     lib.facodec_resunit_int8_maps_bytes.restype = ctypes.c_int
     fn = lib.facodec_resunit_int8
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     plan = lib.facodec_resunit_int8_plan
-    plan.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     plan.restype = ctypes.c_int
     size = lib.facodec_resunit_int8_scratch_bytes
-    size.argtypes = [ctypes.c_int] * 6
+    size.argtypes = [ctypes.c_int] * 5
     size.restype = ctypes.c_longlong
     return amax, maps, lib.facodec_resunit_int8_maps_bytes(), fn, plan, size
 
@@ -739,14 +739,12 @@ def launch_int8_amax(x, alpha1, recip1, out: Optional[torch.Tensor] = None) -> t
 
 def launch_int8(x, amax, pack: Int8Pack, dilation: int, pad_left: int, ext: int,
                 out: Optional[torch.Tensor] = None, c7: Optional[torch.Tensor] = None,
-                q1: Optional[torch.Tensor] = None, cluster: int = 0) -> torch.Tensor:
+                q1: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of the int8 unit on checked CUDA operands, into `out` or a
     new tensor (the CUDA implementation of `facodec::resunit_int8`). Given
     `c7` (B, T, C) float32 and `q1` (B, T + 6d, C) int8, the kernel also
     writes its conv7 output and its quantized padded input there, for the
-    tests that hold them bit-equal to the plain version's. `cluster` (1 or
-    2 CTAs sharing each weight slice; 0, the default plan) is for timing
-    the two against each other."""
+    tests that hold them bit-equal to the plain version's."""
     B, T, C = x.shape
     x = aligned16(x.contiguous())
     q7, sw, w1, *rest = (aligned16(t.contiguous()) for t in pack)
@@ -756,13 +754,13 @@ def launch_int8(x, amax, pack: Int8Pack, dilation: int, pad_left: int, ext: int,
     dev = x.device.index
     with torch.cuda.device(x.device):
         # each CTA's s2 tile (the 1x1's operand), which the kernel reads back by bulk copy
-        nbytes = size(B, T, C, dilation, cluster, dev)
+        nbytes = size(B, T, C, dilation, dev)
         scratch = torch.empty(max(nbytes, 16), dtype=torch.uint8, device=x.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), amax.data_ptr(), ctypes.addressof(maps),
                  *(t.data_ptr() for t in (sw, *rest, out)),
                  None if c7 is None else c7.data_ptr(), None if q1 is None else q1.data_ptr(),
-                 scratch.data_ptr(), B, T, C, dilation, pad_left, ext, cluster, dev, stream)
+                 scratch.data_ptr(), B, T, C, dilation, pad_left, ext, dev, stream)
     if err != 0:
         why = " (shapes the kernel refuses: C, d, and shared memory)" if err == 1 else ""
         raise RuntimeError(f"fused_residual_unit: int8 kernel launch failed, cudaError {err}{why}")
@@ -770,18 +768,15 @@ def launch_int8(x, amax, pack: Int8Pack, dilation: int, pad_left: int, ext: int,
     return out
 
 
-def int8_plan(B: int, T: int, C: int, dilation: int, cluster: int = 0,
+def int8_plan(B: int, T: int, C: int, dilation: int,
               device: Optional[torch.device] = None) -> dict:
     """The int8 unit's tiling for a call (card only): N tile width, bytes of
-    a weight slice, N tiles, ring stages, dynamic shared memory in bytes,
-    CTAs a cluster, grid, row tiles."""
+    a q7 slice's rows, N tiles, ring stages, dynamic shared memory in bytes,
+    grid, row tiles."""
     plan = _int8_entry_points()[4]
     device = torch.device("cuda", torch.cuda.current_device()) if device is None else device
-    out = (ctypes.c_int * 8)()
-    with torch.cuda.device(device):
-        err = plan(B, T, C, dilation, cluster, device.index, out)
-    if err != 0:
-        raise ValueError(f"int8_plan: the kernel refuses B={B} T={T} C={C} d={dilation} "
-                         f"cluster={cluster}")
-    keys = ("bn", "kc", "n_tiles", "stages", "smem", "cluster", "grid", "tiles")
+    out = (ctypes.c_int * 7)()
+    if plan(B, T, C, dilation, device.index, out) != 0:
+        raise ValueError(f"int8_plan: the kernel refuses B={B} T={T} C={C} d={dilation}")
+    keys = ("bn", "kc", "n_tiles", "stages", "smem", "grid", "tiles")
     return dict(zip(keys, out))

@@ -282,16 +282,17 @@ def test_resunit_int8_matches_plain(B, C, dilation, T, causal):
                        dilation, causal)
 
 
-# The edges of the int8 unit's tiling (csrc/resunit_int8.cu: 64-row tiles,
-# a persistent grid of 2-CTA clusters sharing each weight slice): fewer row
-# tiles than SMs (B = 1, T = 100); 133 tiles (7 x 19, one past the SM
-# count: a cluster takes a second pair, the last pair half a dummy); T not
+# The edges of the int8 unit's tiling (csrc/resunit_int8.cu: 64-row tiles
+# on a persistent grid, N tiles of up to 256 channels, each split between
+# two consumer warpgroups): fewer row tiles than SMs (B = 1, T = 100); 133
+# tiles (7 x 19, one past the SM count: one CTA takes a second tile); T not
 # a multiple of the tile at d = 9, causal and not; C = 96 and 160 at d = 9
-# (one N tile and two, ragged at 160); the widest units the mma.sync kernel
-# it replaced took (C = 800 at d = 9, 992 at d = 1).
+# (one N tile, ragged at 160); C = 384 (two N tiles of 192); the widest
+# units the mma.sync kernel it replaced took (C = 800 at d = 9, 992 at
+# d = 1).
 INT8_TILING_CASES = [(1, 768, 3, 100, True), (7, 768, 9, 1200, False), (2, 768, 9, 1001, True),
                      (2, 768, 9, 1001, False), (2, 96, 9, 777, True), (2, 160, 9, 300, True),
-                     (1, 800, 9, 200, True), (1, 992, 1, 200, False)]
+                     (2, 384, 9, 500, False), (1, 800, 9, 200, True), (1, 992, 1, 200, False)]
 
 
 @pytest.mark.parametrize("B,C,dilation,T,causal", INT8_TILING_CASES)
@@ -303,24 +304,21 @@ def test_resunit_int8_tiling(B, C, dilation, T, causal):
 
 @pytest.mark.parametrize("dilation", [1, 3, 9])
 def test_resunit_int8_deterministic(dilation):
-    """The flagship decode's int8 units (C = 768, T = 4800, batch 4): two
-    launches of the default plan, and one with each CTA streaming its own
-    weights (no cluster), give the same q1, c7 and out bits: the persistent
-    walk and the shared weight stream change no sum's order."""
+    """The flagship decode's int8 units (C = 768, T = 4800, batch 4): three
+    launches give the same q1, c7 and out bits: the persistent walk changes
+    no sum's order."""
     _need_cuda()
     B, T, C = 4, 4800, 768
     x, *w = _f32_unit_args(B, C, dilation, T, 11 * dilation)
     pack = resunit.pack_int8(*w)
     pl, ext = resunit.reflect_extent(T, dilation, True)
-    assert resunit.int8_plan(B, T, C, dilation)["cluster"] == 2
     runs = []
     with torch.no_grad():
         amax = resunit.launch_int8_amax(x, pack.alpha1, pack.recip1)
-        for cluster in (0, 0, 1):
+        for _ in range(3):
             c7 = torch.empty(B, T, C, device="cuda")
             q1 = torch.empty(B, T + 6 * dilation, C, dtype=torch.int8, device="cuda")
-            out = resunit.launch_int8(x, amax, pack, dilation, pl, ext, c7=c7, q1=q1,
-                                      cluster=cluster)
+            out = resunit.launch_int8(x, amax, pack, dilation, pl, ext, c7=c7, q1=q1)
             runs.append((out, c7, q1))
         torch.cuda.synchronize()
     for again in runs[1:]:
@@ -328,21 +326,19 @@ def test_resunit_int8_deterministic(dilation):
 
 
 def test_resunit_int8_plan():
-    """The int8 unit's plan at the flagship's width: 256-wide N tiles (three),
-    128-byte weight slices with at least four ring stages at every
-    dilation, 64-row tiles (300 for the decode's 4 x 4800 rows), a 2-CTA
-    cluster over many tiles and none over one, a grid no larger than the
-    card; a unit too wide for two ring stages beside its q1 tile is
-    refused."""
+    """The int8 unit's plan at the flagship's width: 256-wide N tiles
+    (three), 128-byte weight slices with at least four ring stages at every
+    dilation, 64-row tiles (300 for the decode's 4 x 4800 rows), a grid of
+    one CTA per SM; a unit too wide for two ring stages beside its q1 tile
+    is refused."""
     _need_cuda()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for d in (1, 3, 9):
         plan = resunit.int8_plan(4, 4800, 768, d)
-        assert (plan["bn"], plan["n_tiles"], plan["kc"], plan["cluster"]) == (256, 3, 128, 2), plan
-        assert plan["stages"] >= 4 and plan["grid"] <= sms and plan["tiles"] == 300, plan
+        assert (plan["bn"], plan["n_tiles"], plan["kc"]) == (256, 3, 128), plan
+        assert plan["stages"] >= 4 and plan["grid"] == sms and plan["tiles"] == 300, plan
     one = resunit.int8_plan(1, 50, 768, 9)
-    assert (one["cluster"], one["grid"], one["tiles"]) == (1, 1, 1), one
-    assert resunit.int8_plan(1, 50, 768, 9, cluster=2)["grid"] == 2
+    assert (one["grid"], one["tiles"]) == (1, 1), one
     with pytest.raises(ValueError):
         resunit.int8_plan(1, 100, 2048, 9)
 
