@@ -3392,8 +3392,8 @@ def main() -> None:
              replaces="facodec_tpu/ops/pallas/resunit.py:273",
              launches=pol["launches"]["hybrid_int8"]["int8"],
              amax_launches=pol["launches"]["hybrid_int8"]["amax"], policy="hybrid_int8",
-             status="redesigned: wgmma s8 and bf16, TMA weight ring, ping-pong consumer "
-                    "warpgroups, persistent grid",
+             status="redesigned: wgmma s8 and bf16, the weights and the s2 tile by TMA and "
+                    "bulk copies through an mbarrier ring, persistent grid",
              library_ms=None, **pol["k2"]),
     ]
     log(f"streaming: chunk 16 batch 1 p50 {st16['p50_ms']:.2f} ms ({st16['rtf']:.1f}x realtime, "

@@ -652,18 +652,6 @@ struct Plan {
 // two such stages fit beside a 64-row s2 tile (C <= 1024), else 32.
 int slice_k(int C) { return C % 64 == 0 && C <= 1024 ? 64 : 32; }
 
-// N tiles of equal width: the fewest of at most 256 channels, each BN of
-// 64, 96, 128, 192, 256 wide (the last one ragged where BN does not divide C).
-int pick_bn(int C, int* n_tiles) {
-  *n_tiles = (C + 255) / 256;
-  const int need = (C + *n_tiles - 1) / *n_tiles;
-  constexpr int widths[4] = {64, 96, 128, 192};
-  for (int bn : widths) {
-    if (bn >= need) return bn;
-  }
-  return 256;
-}
-
 int device_attr(cudaDeviceAttr attr) {
   int dev = 0, v = 0;
   cudaGetDevice(&dev);

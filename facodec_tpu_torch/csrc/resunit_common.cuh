@@ -1,7 +1,8 @@
-// Helpers shared by the residual unit's two sources, csrc/resunit.cu
-// (float32 and halo entries) and csrc/resunit_bf16.cu (bf16 entry): the snake
-// activation with the plain version's rounding, the row index of the
-// SConv1d-padded input, and the shape checks of the C entry points.
+// Helpers shared by the residual unit's sources, csrc/resunit.cu (float32
+// and halo entries), csrc/resunit_bf16.cu (bf16 entry) and
+// csrc/resunit_int8.cu (int8 unit): the snake activation with the plain
+// version's rounding, the row index of the SConv1d-padded input, the shape
+// checks of the C entry points, and the wgmma kernels' N tiles.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -44,6 +45,19 @@ __device__ __forceinline__ int padded_row(int p, int T, int ext, int pad_left) {
 
 bool valid_shape(int B, int T, int C, int dil) {
   return C > 0 && C % 32 == 0 && B > 0 && T > 0 && dil > 0;
+}
+
+// The wgmma kernels' N tiles (csrc/resunit_bf16.cu, csrc/resunit_int8.cu),
+// of equal width: the fewest of at most 256 channels, each BN of
+// 64, 96, 128, 192 or 256 wide (the last one ragged where BN does not divide C).
+int pick_bn(int C, int* n_tiles) {
+  *n_tiles = (C + 255) / 256;
+  const int need = (C + *n_tiles - 1) / *n_tiles;
+  constexpr int widths[4] = {64, 96, 128, 192};
+  for (int bn : widths) {
+    if (bn >= need) return bn;
+  }
+  return 256;
 }
 
 // The pads are (pad_left, 6d - pad_left); reflection needs ext > either.

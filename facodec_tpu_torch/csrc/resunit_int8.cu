@@ -578,18 +578,6 @@ struct Plan {
   int bn, kc, n_tiles, rows, stages, smem, grid, tiles, row_tiles;
 };
 
-// N tiles of equal width: the fewest of at most 256 channels, each BN of
-// 64, 96, 128, 192 or 256 wide (the last one ragged where BN does not divide C).
-int pick_bn(int C, int* n_tiles) {
-  *n_tiles = (C + 255) / 256;
-  const int need = (C + *n_tiles - 1) / *n_tiles;
-  constexpr int widths[4] = {64, 96, 128, 192};
-  for (int bn : widths) {
-    if (bn >= need) return bn;
-  }
-  return 256;
-}
-
 // Slices of KC = 128 bytes where four stages fit beside the q1 tile, else 64.
 bool make_plan(int B, int T, int C, int dil, const Device& dv, Plan& pl) {
   if (!valid_shape(B, T, C, dil)) return false;
