@@ -18,10 +18,9 @@
 // with x float32 (a W8A8 conv before it returns float32), q7 the conv7's
 // weight quantized per output channel over (tap, in) (`pack_int8`: (C, 7C),
 // K index tap * C + in) with scales sw, and xpad x padded as SConv1d pads
-// (reflect; causal (6d, 0)). Every step but the 1x1's float32 sum gives the
-// plain version's bits (__fmul_rn / __fadd_rn, and rint(s1 / sx) as the
-// IEEE quotient's, see `quantize`); the 1x1's sum differs from it in order
-// only. Forward only.
+// (reflect; causal (6d, 0)). Every step but the 1x1's float32 sum is written
+// with __fmul_rn / __fadd_rn / __fdiv_rn, so q1, sx and c7 are the plain
+// version's bits; the 1x1's sum differs from it in order only. Forward only.
 //
 // Two launches. The row scale pools over a whole batch row, so no tile can
 // quantize before the row's maximum is known:
@@ -179,12 +178,11 @@ struct Params {
 // A row tile and its batch row's scale.
 struct Tile {
   int b, t0;
-  float sx, rcp;  // the row's scale and its reciprocal
+  float sx;  // the row's scale
   __device__ __forceinline__ Tile(const Params& p, int tile) {
     b = tile / p.row_tiles;
     t0 = (tile % p.row_tiles) * BM;
     sx = __fmul_rn(fmaxf(__ldg(p.amax + b), 1e-12f), INV127);
-    rcp = __frcp_rn(sx);
   }
 };
 
@@ -269,35 +267,17 @@ __device__ void quantize(const Params& p, uint8_t* q1, uint32_t q1_ready, uint32
       arrive_before(u.r < BM ? 0 : 1 + (u.r - BM) / p.dil);
       uint32_t w[2] = {0u, 0u};
       if (u.q >= 0) {
-        float s[8], qv[8];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const float4 a = __ldg(reinterpret_cast<const float4*>(p.alpha1 + u.c) + h);
           const float4 rc = __ldg(reinterpret_cast<const float4*>(p.recip1 + u.c) + h);
-          s[4 * h] = snakef(u.v[h].x, a.x, rc.x);
-          s[4 * h + 1] = snakef(u.v[h].y, a.y, rc.y);
-          s[4 * h + 2] = snakef(u.v[h].z, a.z, rc.z);
-          s[4 * h + 3] = snakef(u.v[h].w, a.w, rc.w);
-        }
-        // rint(s / sx): y = s * (1 / sx) is within 3 ulps (under 1e-4, |y| <= 128)
-        // of the rounded quotient, so where y lies further than 1e-4 from a half
-        // rint(y) is the quotient's rint; near one (rarely) the IEEE division
-        // decides, as in the plain version.
-        bool near_half = false;
+          const float s[4] = {snakef(u.v[h].x, a.x, rc.x), snakef(u.v[h].y, a.y, rc.y),
+                              snakef(u.v[h].z, a.z, rc.z), snakef(u.v[h].w, a.w, rc.w)};
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float y = __fmul_rn(s[i], tl.rcp);
-          qv[i] = rintf(y);
-          near_half |= fabsf(__fsub_rn(y, qv[i])) > 0.4999f;
-        }
-        if (near_half) {
-#pragma unroll
-          for (int i = 0; i < 8; ++i) qv[i] = rintf(__fdiv_rn(s[i], tl.sx));
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int qi = (int)fminf(fmaxf(qv[i], -127.f), 127.f);
-          w[i >> 2] |= (uint32_t)(uint8_t)(int8_t)qi << (8 * (i & 3));
+          for (int i = 0; i < 4; ++i) {
+            const float qv = fminf(fmaxf(rintf(__fdiv_rn(s[i], tl.sx)), -127.f), 127.f);
+            w[h] |= (uint32_t)(uint8_t)(int8_t)(int)qv << (8 * i);
+          }
         }
       }
       *reinterpret_cast<uint2*>(q1 + ((size_t)(u.c >> 4) * p.rows + u.r) * 16 + (u.c & 15)) =
