@@ -1,7 +1,6 @@
 """Drive the PyTorch port on one CUDA card and hold its kernels to their plain versions.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --policies    (phase 15 alone, after phase 1)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -224,8 +223,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    units of that decode: the row maxima, the quantized padded input and
    the conv7 output bit-equal, the output <= 2 bf16 ulps. Per shape: the
    kernel's device time (50 launches in one CUDA graph; per dilation also
-   the unit alone, its share of its bound and its plan: N tile, weight
-   slice, ring stages, grid), the wrapper's
+   the unit alone and its share of its bound), the wrapper's
    (`fused_residual_unit` under the policy, packing per call) and the
    plain version's, the bound (the bf16 forms: 16 C^2 FLOP a row at 989
    TFLOP/s or the bytes at 3.35 TB/s; the int8 unit: 14 C^2 int8
@@ -433,7 +431,7 @@ def phase_device() -> str:
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "entry function" in line:
+            if any(k in line for k in ("registers", "spill", "entry function", "warning")):
                 log(f"  ptxas {name}: {line.strip()}")
     return smi
 
@@ -3081,16 +3079,15 @@ def phase_policy_units(calls: list, route: str, title: str) -> dict:
                     resunit.launch_int8(x, amax, pack, d, pl, ext, out)
                 amax_ms = device_ms(lambda: resunit.launch_int8_amax(x, pack.alpha1, pack.recip1,
                                                                      amax), POLICY_GRAPH_LAUNCHES)
-                # the unit alone, its share of its bound (operations) and its tiling
+                # the unit alone and its share of its bound (operations)
                 unit_ms = device_ms(lambda: resunit.launch_int8(x, amax, pack, d, pl, ext, out),
                                     POLICY_GRAPH_LAUNCHES)
                 ops, flop, _ = int8_unit_cost(B, T, C)
                 unit_bound = 1e3 * (ops / INT8_OPS + flop / BF16_FLOPS)
-                plan = resunit.int8_plan(B, T, C, d, device=x.device)
                 tot["unit_ms"] += unit_ms
                 tot["amax_ms"] += amax_ms
                 log(f"  int8 unit alone d={d}: {unit_ms:.4f} ms ({unit_bound / unit_ms:.1%} of its "
-                    f"{unit_bound:.4f} ms bound); plan {plan}")
+                    f"{unit_bound:.4f} ms bound)")
                 extra += f"; row maxima alone {amax_ms:.4f} ms"
                 plain = lambda: resunit.residual_unit_int8_reference(*args)  # noqa: E731
             else:
@@ -3460,21 +3457,6 @@ def main() -> None:
                                              "count": torch.cuda.device_count()}}))
 
 
-def policies_alone() -> None:
-    """Phase 15 alone (`python3 chip_smoke.py --policies`): the flagship
-    codec (seed 0), its hybrid view and a CPU copy, each warmed by one
-    round trip on the card, then phase 15."""
-    smi = phase_device()
-    codec = FACodec.from_fields(FLAGSHIP, seed=0, device="cuda")
-    codec_hy = FACodec(codec.encoder, codec.quantizer, codec.decoder, precision="hybrid")
-    cpu = FACodec.from_fields(FLAGSHIP, seed=0, device="cpu")
-    w = sweep_wave(BATCH, SECONDS)
-    for c in (codec, codec_hy):
-        c.decode(c.encode(w))
-    phase_policies(codec, codec_hy, cpu, w, smi)
-    log(f"total {time.perf_counter() - _START:.1f} s")
-
-
 if __name__ == "__main__":
-    policies_alone() if sys.argv[1:] == ["--policies"] else main()
+    main()
     sys.stdout.flush()

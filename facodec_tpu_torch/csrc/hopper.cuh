@@ -1,12 +1,16 @@
 // Hopper (sm_90a) building blocks shared by the residual unit's wgmma
 // kernels, csrc/resunit_bf16.cu and csrc/resunit_int8.cu: mbarriers, TMA
 // and bulk copies, proxy fences, wgmma (bf16 and int8) with its
-// shared-memory matrix descriptors, and the host's TMA tensor-map encoder.
+// shared-memory matrix descriptors, the host's TMA tensor-map encoder, and
+// the card's numbers a launch plan needs, read once per device.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <mutex>
 
 namespace {
 
@@ -284,6 +288,33 @@ __device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t a, uint64_t
 }
 
 // ------------------------------------------------------------------- host
+constexpr int MAX_DEVICES = 64;
+
+// The card's numbers a launch plan needs.
+struct DeviceInfo {
+  std::atomic<int> ready{0};
+  int sms = 0, optin = 0;  // SMs, opt-in shared memory a block
+};
+
+// Device `dev`'s numbers, read on its first call and kept: no device query
+// after that. Null where they cannot be read.
+inline const DeviceInfo* device_info(int dev) {
+  static DeviceInfo devices[MAX_DEVICES];
+  static std::mutex lock;
+  if (dev < 0 || dev >= MAX_DEVICES) return nullptr;
+  DeviceInfo& d = devices[dev];
+  if (d.ready.load(std::memory_order_acquire)) return &d;
+  std::lock_guard<std::mutex> guard(lock);
+  if (!d.ready.load(std::memory_order_relaxed)) {
+    if (cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&d.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+            cudaSuccess)
+      return nullptr;
+    d.ready.store(1, std::memory_order_release);
+  }
+  return &d;
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,

@@ -55,10 +55,10 @@
 //    q1), and go on during this tile's first N tile, whose tap-j slices wait
 //    for part j only.
 // 3. Weights by TMA. One producer thread streams K slices of KC = 128 bytes
-//    (64 where fewer than four such stages fit) x BN rows of q7 (128- or
-//    64-byte swizzle) through a ring of stages guarded by full / empty
-//    mbarriers. Slices run in K order over 7C; a k32 step never straddles two
-//    taps (C % 32 == 0), and each step's A descriptor has its own tap.
+//    x BN rows of q7 (128-byte swizzle) through a ring of stages guarded by
+//    full / empty mbarriers. Slices run in K order over 7C; a k32 step never
+//    straddles two taps (C % 32 == 0), and each step's A descriptor has its
+//    own tap.
 // 4. s2 leaves shared memory for the ring: the conv7's epilogue stores the
 //    64 x C bf16 tile in the same octet-column order into the CTA's slice of
 //    a device scratch (it stays in L2), and each 1x1 slice brings KC / 2
@@ -78,13 +78,14 @@
 //   3   83 x 768  = 62 KB    5 x 32 KB                223 KB
 //   9   119 x 768 = 89 KB    4 x 32 KB                218 KB
 // Shapes where two stages do not fit beside the q1 tile are refused (the
-// entry returns cudaErrorInvalidValue): every C (a multiple of 32) up to
-// 1664 at d = 9 and 2784 at d = 1 is taken.
+// entry returns cudaErrorInvalidValue): with 227 KB a CTA every C (a
+// multiple of 32) up to 1376 at d = 9, 1984 at d = 3 and 2304 at d = 1 is
+// taken.
 //
 // The host side reads the card's SM count and opt-in shared memory once per
-// device (the caller passes the device index), and sets each
-// instantiation's shared-memory limit once per device: no device query on
-// the launch path.
+// device (`device_info`, csrc/hopper.cuh; the caller passes the device
+// index), and sets each instantiation's shared-memory limit once per
+// device: no device query on the launch path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,7 +93,6 @@
 #include <string.h>
 
 #include <atomic>
-#include <mutex>
 
 #include "hopper.cuh"
 #include "resunit_common.cuh"
@@ -104,9 +104,9 @@ constexpr int QUANT_THREADS = 224;  // warps 1-7
 constexpr int CONSUMER_WARPS = 8;
 constexpr int CONSUMER_THREADS = 256;
 constexpr int BM = 64;              // rows of a tile
+constexpr int KC = 128;             // bytes of a q7 slice's rows (w1's: KC / 2)
 constexpr int MAX_STAGES = 16;
 constexpr int ALIGN = 1024;         // of the ring's base
-constexpr int MAX_DEVICES = 64;
 constexpr float INV127 = (float)(1.0 / 127.0);
 
 __device__ __forceinline__ uint16_t f2bf(float v) {
@@ -192,7 +192,7 @@ struct Tile {
 // 4C / KC slices of the 1x1, each KC / 2 bytes of w1's rows with the same
 // channels of the CTA's s2 tile (BM rows, by bulk copy) behind them. A
 // weight slice comes as two boxes of BN / 2 rows.
-template <int BN, int KC>
+template <int BN>
 __device__ void load_weights(const CUtensorMap* map7, const CUtensorMap* map1, const Params& p,
                              uint32_t ring, uint32_t full, uint32_t empty, uint32_t s2_ready) {
   constexpr int HALF = BN / 2, STAGE = BN * KC, A_BYTES = BM * KC / 2;
@@ -410,7 +410,7 @@ __device__ __forceinline__ void store_out(const float (&acc)[NW / 2], const uint
 // Warpgroups 2 and 3 (cw = 0, 1), each NW = BN / 2 of an N tile's output
 // channels: per tile, the conv7 (int8) into the s2 tile, then the 1x1
 // (bf16) into out.
-template <int NW, int KC>
+template <int NW>
 __device__ void consume(const Params& p, uint32_t ring, uint32_t q1, uint32_t full, uint32_t empty,
                         uint32_t q1_ready, uint32_t q1_empty, uint32_t s2_ready) {
   constexpr int BN = 2 * NW, STAGE = BN * KC;
@@ -438,8 +438,9 @@ __device__ void consume(const Params& p, uint32_t ring, uint32_t q1, uint32_t fu
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < KC / 32; ++ks) {
-          // past 7C (the last slice where C % KC != 0) the weights read as zeros,
-          // and A's rows (tap 7) still lie in the q1 tile
+          // the last slice runs past 7C where C % KC != 0: no step is issued
+          // there (tap 7's A rows would run past the q1 tile)
+          if (sl * KC + ks * 32 >= K7) break;
           const uint32_t a = q1 + ((ch >> 4) * p.rows + tap * p.dil) * 16;
           wgmma_s8<NW>(acc, desc_a(a, p.rows * 16), b + 2 * ks);
           ch += 32;
@@ -493,7 +494,7 @@ __device__ void consume(const Params& p, uint32_t ring, uint32_t q1, uint32_t fu
 
 // map7, map1: the TMA tensor maps of q7 (C, 7C) int8 and w1 (C, C) bf16,
 // boxes of KC and KC / 2 bytes x BN / 2 rows, swizzled over those rows.
-template <int NW, int KC>
+template <int NW>
 __global__ void __launch_bounds__(THREADS, 1)
 resunit_int8_kernel(const __grid_constant__ CUtensorMap map7,
                     const __grid_constant__ CUtensorMap map1, const Params p) {
@@ -519,54 +520,30 @@ resunit_int8_kernel(const __grid_constant__ CUtensorMap map7,
   __syncthreads();
   if (threadIdx.x >= 256) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 160;");
-    consume<NW, KC>(p, ring, q1, full, empty, q1_ready, q1_empty, s2_ready);
+    consume<NW>(p, ring, q1, full, empty, q1_ready, q1_empty, s2_ready);
   } else {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 96;");
     if (threadIdx.x == 0)
-      load_weights<BN, KC>(&map7, &map1, p, ring, full, empty, s2_ready);
+      load_weights<BN>(&map7, &map1, p, ring, full, empty, s2_ready);
     else if (threadIdx.x >= 32)
       quantize(p, smem + (q1 - ring), q1_ready, q1_empty);
   }
 }
 
 // ------------------------------------------------------------------- host
-// The card's numbers the plan needs, read once per device.
-struct Device {
-  std::atomic<int> ready{0};
-  int sms = 0, optin = 0;  // SMs, opt-in shared memory a block
-};
-Device g_devices[MAX_DEVICES];
-std::mutex g_device_lock;
-
-// The device's numbers, read on its first call; null where they cannot be read.
-const Device* device(int dev) {
-  if (dev < 0 || dev >= MAX_DEVICES) return nullptr;
-  Device& d = g_devices[dev];
-  if (d.ready.load(std::memory_order_acquire)) return &d;
-  std::lock_guard<std::mutex> guard(g_device_lock);
-  if (!d.ready.load(std::memory_order_relaxed)) {
-    if (cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&d.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
-            cudaSuccess)
-      return nullptr;
-    d.ready.store(1, std::memory_order_release);
-  }
-  return &d;
-}
-
 struct Plan {
-  int bn, kc, n_tiles, rows, stages, smem, grid, tiles, row_tiles;
+  int bn, n_tiles, rows, stages, smem, grid, tiles, row_tiles;
 };
 
-// Slices of KC = 128 bytes where four stages fit beside the q1 tile, else 64.
-bool make_plan(int B, int T, int C, int dil, const Device& dv, Plan& pl) {
+// As many ring stages as fit beside the q1 tile (up to MAX_STAGES); fewer
+// than two are refused.
+bool make_plan(int B, int T, int C, int dil, const DeviceInfo& dv, Plan& pl) {
   if (!valid_shape(B, T, C, dil)) return false;
   pl.bn = pick_bn(C, &pl.n_tiles);
   pl.rows = (BM + 6 * dil) | 1;
   const long long fixed = ALIGN + (long long)pl.rows * C + 8LL * (2 * MAX_STAGES + 9);
   const long long room = dv.optin - fixed;
-  pl.kc = room / (pl.bn * 128) >= 4 ? 128 : 64;
-  const long long stage = (long long)pl.bn * pl.kc;
+  const long long stage = (long long)pl.bn * KC;
   const long long stages = room / stage < MAX_STAGES ? room / stage : MAX_STAGES;
   if (stages < 2) return false;
   pl.stages = (int)stages;
@@ -577,32 +554,29 @@ bool make_plan(int B, int T, int C, int dil, const Device& dv, Plan& pl) {
   return true;
 }
 
-template <int NW, int KC>
+template <int NW>
 cudaError_t launch_cfg(const CUtensorMap* maps, const Params& prm, const Plan& pl, int dev,
                        int optin, cudaStream_t stream) {
   // the opt-in limit once per device and instantiation, before any capture
   static std::atomic<int> done[MAX_DEVICES];
   if (!done[dev].load(std::memory_order_acquire)) {
     const cudaError_t err = cudaFuncSetAttribute(
-        resunit_int8_kernel<NW, KC>, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+        resunit_int8_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err != cudaSuccess) return err;
     done[dev].store(1, std::memory_order_release);
   }
-  // maps: q7 and w1 for KC = 128, then for KC = 64
-  const int m = KC == 128 ? 0 : 2;
-  resunit_int8_kernel<NW, KC><<<pl.grid, THREADS, pl.smem, stream>>>(maps[m], maps[m + 1], prm);
+  resunit_int8_kernel<NW><<<pl.grid, THREADS, pl.smem, stream>>>(maps[0], maps[1], prm);
   return cudaGetLastError();
 }
 
-template <int KC>
 cudaError_t dispatch_bn(const CUtensorMap* maps, const Params& prm, const Plan& pl, int dev,
                         int optin, cudaStream_t s) {
   switch (pl.bn) {
-    case 64: return launch_cfg<32, KC>(maps, prm, pl, dev, optin, s);
-    case 96: return launch_cfg<48, KC>(maps, prm, pl, dev, optin, s);
-    case 128: return launch_cfg<64, KC>(maps, prm, pl, dev, optin, s);
-    case 192: return launch_cfg<96, KC>(maps, prm, pl, dev, optin, s);
-    case 256: return launch_cfg<128, KC>(maps, prm, pl, dev, optin, s);
+    case 64: return launch_cfg<32>(maps, prm, pl, dev, optin, s);
+    case 96: return launch_cfg<48>(maps, prm, pl, dev, optin, s);
+    case 128: return launch_cfg<64>(maps, prm, pl, dev, optin, s);
+    case 192: return launch_cfg<96>(maps, prm, pl, dev, optin, s);
+    case 256: return launch_cfg<128>(maps, prm, pl, dev, optin, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -623,44 +597,29 @@ extern "C" int facodec_resunit_int8_amax(const float* x, const float* alpha1, co
 }
 
 // Bytes of the tensor maps facodec_resunit_int8_maps writes.
-extern "C" int facodec_resunit_int8_maps_bytes() { return 4 * (int)sizeof(CUtensorMap); }
+extern "C" int facodec_resunit_int8_maps_bytes() { return 2 * (int)sizeof(CUtensorMap); }
 
 // The TMA tensor maps of the packed weights, q7 (C, 7C) int8 K-major (K
-// index tap * C + in) and w1 (C, C) bf16, for q7 slices of 128 and of 64
-// bytes (w1's of half as many), written to `maps` (host memory,
-// facodec_resunit_int8_maps_bytes()). They hold the weights' device
-// addresses: build them once per packed weight. Returns a cudaError_t.
+// index tap * C + in) and w1 (C, C) bf16, boxes of KC and KC / 2 bytes,
+// written to `maps` (host memory, facodec_resunit_int8_maps_bytes()). They
+// hold the weights' device addresses: build them once per packed weight.
+// Returns a cudaError_t.
 extern "C" int facodec_resunit_int8_maps(const int8_t* q7, const uint16_t* w1, int C, void* maps) {
   if (C <= 0 || C % 32 != 0) return (int)cudaErrorInvalidValue;
   int n_tiles = 0;
   const int half = pick_bn(C, &n_tiles) / 2;
-  CUtensorMap m[4];
-  for (int i = 0; i < 2; ++i) {
-    const int kc = i == 0 ? 128 : 64;
-    if (!encode_map(&m[2 * i], q7, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, C, 7 * C, half, kc) ||
-        !encode_map(&m[2 * i + 1], w1, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, C, C, half, kc / 4))
-      return (int)cudaErrorInvalidValue;
-  }
+  CUtensorMap m[2];
+  if (!encode_map(&m[0], q7, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, C, 7 * C, half, KC) ||
+      !encode_map(&m[1], w1, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, C, C, half, KC / 4))
+    return (int)cudaErrorInvalidValue;
   memcpy(maps, m, sizeof(m));
-  return 0;
-}
-
-// The plan of a call on device `dev`, for reports: {BN, KC (bytes of a q7
-// slice's rows), N tiles, ring stages, shared-memory bytes, grid, row
-// tiles}. Returns 0, or cudaErrorInvalidValue for shapes the kernel refuses.
-extern "C" int facodec_resunit_int8_plan(int B, int T, int C, int dil, int dev, int* out) {
-  const Device* dv = device(dev);
-  Plan pl;
-  if (dv == nullptr || !make_plan(B, T, C, dil, *dv, pl)) return (int)cudaErrorInvalidValue;
-  const int v[7] = {pl.bn, pl.kc, pl.n_tiles, pl.stages, pl.smem, pl.grid, pl.tiles};
-  memcpy(out, v, sizeof(v));
   return 0;
 }
 
 // Bytes of the device scratch a call on device `dev` needs (each CTA's
 // BM x C bf16 s2 tile), or -1 for shapes the kernel refuses.
 extern "C" long long facodec_resunit_int8_scratch_bytes(int B, int T, int C, int dil, int dev) {
-  const Device* dv = device(dev);
+  const DeviceInfo* dv = device_info(dev);
   Plan pl;
   if (dv == nullptr || !make_plan(B, T, C, dil, *dv, pl)) return -1;
   return (long long)pl.grid * BM * C * 2;
@@ -681,7 +640,7 @@ extern "C" int facodec_resunit_int8(const float* x, const float* amax, const voi
                                     const float* recip2, float* out, float* c7_out, int8_t* q1_out,
                                     void* scratch, int B, int T, int C, int dil, int pad_left,
                                     int ext, int dev, void* stream) {
-  const Device* dv = device(dev);
+  const DeviceInfo* dv = device_info(dev);
   Plan pl;
   if (dv == nullptr || scratch == nullptr || !make_plan(B, T, C, dil, *dv, pl) ||
       !valid_pads(T, dil, pad_left, ext))
@@ -693,6 +652,5 @@ extern "C" int facodec_resunit_int8(const float* x, const float* amax, const voi
                    pl.stages, pl.tiles,      pl.row_tiles};
   const CUtensorMap* m = static_cast<const CUtensorMap*>(maps);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(pl.kc == 128 ? dispatch_bn<128>(m, prm, pl, dev, dv->optin, s)
-                            : dispatch_bn<64>(m, prm, pl, dev, dv->optin, s));
+  return (int)dispatch_bn(m, prm, pl, dev, dv->optin, s);
 }

@@ -695,8 +695,8 @@ def fused_residual_unit_int8_packed(x, pack: Int8Pack, dilation: int,
 
 @functools.lru_cache(maxsize=None)
 def _int8_entry_points():
-    """(row-maxima entry, tensor-map builder, map bytes, unit entry, plan,
-    scratch size) from csrc/resunit_int8.cu, typed once per process."""
+    """(row-maxima entry, tensor-map builder, map bytes, unit entry, scratch
+    size) from csrc/resunit_int8.cu, typed once per process."""
     lib = build.library("resunit_int8")
     amax = lib.facodec_resunit_int8_amax
     amax.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -708,13 +708,10 @@ def _int8_entry_points():
     fn = lib.facodec_resunit_int8
     fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    plan = lib.facodec_resunit_int8_plan
-    plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    plan.restype = ctypes.c_int
     size = lib.facodec_resunit_int8_scratch_bytes
     size.argtypes = [ctypes.c_int] * 5
     size.restype = ctypes.c_longlong
-    return amax, maps, lib.facodec_resunit_int8_maps_bytes(), fn, plan, size
+    return amax, maps, lib.facodec_resunit_int8_maps_bytes(), fn, size
 
 
 def launch_int8_amax(x, alpha1, recip1, out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -749,7 +746,7 @@ def launch_int8(x, amax, pack: Int8Pack, dilation: int, pad_left: int, ext: int,
     x = aligned16(x.contiguous())
     q7, sw, w1, *rest = (aligned16(t.contiguous()) for t in pack)
     out = torch.empty_like(x) if out is None else out
-    fn, size = (_int8_entry_points()[i] for i in (3, 5))
+    fn, size = (_int8_entry_points()[i] for i in (3, 4))
     maps = tma_maps(q7, w1, "int8")
     dev = x.device.index
     with torch.cuda.device(x.device):
@@ -767,16 +764,3 @@ def launch_int8(x, amax, pack: Int8Pack, dilation: int, pad_left: int, ext: int,
     build.count_launch(fused_residual_unit, "int8_launches")
     return out
 
-
-def int8_plan(B: int, T: int, C: int, dilation: int,
-              device: Optional[torch.device] = None) -> dict:
-    """The int8 unit's tiling for a call (card only): N tile width, bytes of
-    a q7 slice's rows, N tiles, ring stages, dynamic shared memory in bytes,
-    grid, row tiles."""
-    plan = _int8_entry_points()[4]
-    device = torch.device("cuda", torch.cuda.current_device()) if device is None else device
-    out = (ctypes.c_int * 7)()
-    if plan(B, T, C, dilation, device.index, out) != 0:
-        raise ValueError(f"int8_plan: the kernel refuses B={B} T={T} C={C} d={dilation}")
-    keys = ("bn", "kc", "n_tiles", "stages", "smem", "grid", "tiles")
-    return dict(zip(keys, out))

@@ -289,17 +289,26 @@ def test_resunit_int8_matches_plain(B, C, dilation, T, causal):
 # a multiple of the tile at d = 9, causal and not; C = 96 and 160 at d = 9
 # (one N tile, ragged at 160); C = 384 (two N tiles of 192); the widest
 # units the mma.sync kernel it replaced took (C = 800 at d = 9, 992 at
-# d = 1).
+# d = 1); and a unit too wide for two weight stages beside its q1 tile
+# (C = 2048 at d = 9), which the entry refuses.
 INT8_TILING_CASES = [(1, 768, 3, 100, True), (7, 768, 9, 1200, False), (2, 768, 9, 1001, True),
                      (2, 768, 9, 1001, False), (2, 96, 9, 777, True), (2, 160, 9, 300, True),
                      (2, 384, 9, 500, False), (1, 800, 9, 200, True), (1, 992, 1, 200, False)]
+INT8_REFUSED = (1, 2048, 9, 100, True)
 
 
-@pytest.mark.parametrize("B,C,dilation,T,causal", INT8_TILING_CASES)
+@pytest.mark.parametrize("B,C,dilation,T,causal", INT8_TILING_CASES + [INT8_REFUSED])
 def test_resunit_int8_tiling(B, C, dilation, T, causal):
     _need_cuda()
-    _check_packed_form("int8", _f32_unit_args(B, C, dilation, T, 5 * C + dilation + T),
-                       dilation, causal)
+    args = _f32_unit_args(B, C, dilation, T, 5 * C + dilation + T)
+    if (B, C, dilation, T, causal) == INT8_REFUSED:
+        x, pack = args[0], resunit.pack_int8(*args[1:])
+        pl, ext = resunit.reflect_extent(T, dilation, causal)
+        with torch.no_grad(), pytest.raises(RuntimeError, match="refuses"):
+            amax = resunit.launch_int8_amax(x, pack.alpha1, pack.recip1)
+            resunit.launch_int8(x, amax, pack, dilation, pl, ext)
+        return
+    _check_packed_form("int8", args, dilation, causal)
 
 
 @pytest.mark.parametrize("dilation", [1, 3, 9])
@@ -323,24 +332,6 @@ def test_resunit_int8_deterministic(dilation):
         torch.cuda.synchronize()
     for again in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(runs[0], again))
-
-
-def test_resunit_int8_plan():
-    """The int8 unit's plan at the flagship's width: 256-wide N tiles
-    (three), 128-byte weight slices with at least four ring stages at every
-    dilation, 64-row tiles (300 for the decode's 4 x 4800 rows), a grid of
-    one CTA per SM; a unit too wide for two ring stages beside its q1 tile
-    is refused."""
-    _need_cuda()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for d in (1, 3, 9):
-        plan = resunit.int8_plan(4, 4800, 768, d)
-        assert (plan["bn"], plan["n_tiles"], plan["kc"]) == (256, 3, 128), plan
-        assert plan["stages"] >= 4 and plan["grid"] == sms and plan["tiles"] == 300, plan
-    one = resunit.int8_plan(1, 50, 768, 9)
-    assert (one["grid"], one["tiles"]) == (1, 1), one
-    with pytest.raises(ValueError):
-        resunit.int8_plan(1, 100, 2048, 9)
 
 
 def test_residual_unit_routes_by_policy(monkeypatch):
