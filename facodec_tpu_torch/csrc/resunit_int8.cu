@@ -438,10 +438,11 @@ __device__ void consume(const Params& p, uint32_t ring, uint32_t q1, uint32_t fu
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < KC / 32; ++ks) {
-          // the last slice runs past 7C where C % KC != 0: no step is issued
-          // there (tap 7's A rows would run past the q1 tile)
-          if (sl * KC + ks * 32 >= K7) break;
-          const uint32_t a = q1 + ((ch >> 4) * p.rows + tap * p.dil) * 16;
+          // past 7C (the last slice, where C % KC != 0) q7 reads as zeros:
+          // those steps take tap 0's rows, which lie in the q1 tile (not
+          // issuing them made ptxas serialize the wgmma, C7519)
+          const int tp = tap < 7 ? tap : 0;
+          const uint32_t a = q1 + ((ch >> 4) * p.rows + tp * p.dil) * 16;
           wgmma_s8<NW>(acc, desc_a(a, p.rows * 16), b + 2 * ks);
           ch += 32;
           if (ch == C) {
