@@ -288,8 +288,11 @@ from facodec_tpu_torch.ops import vq_math
 from facodec_tpu_torch.ops.precision import policy
 from facodec_tpu_torch.ops.kernels import build, resunit, vq
 from facodec_tpu_torch.parallel import mesh, ranks
+from facodec_tpu_torch.profile import RESUNIT_BF16, RESUNIT_F32, RESUNIT_INT8
+from facodec_tpu_torch.profile import VQ as PROFILE_VQ
+from facodec_tpu_torch.profile import W8A8_GEMM as W8A8_KIND
 from facodec_tpu_torch.profile import device_ms as traced_device_ms
-from facodec_tpu_torch.profile import print_breakdown, train_profile
+from facodec_tpu_torch.profile import kind_of, print_breakdown, round_trip_profile, train_profile
 from facodec_tpu_torch.train.data import PseudoDataset, collate, segment_batch, to_device
 from facodec_tpu_torch.train.loop import build_models, latest_checkpoint, run_training
 from facodec_tpu_torch.train.optimizers import build_optimizers
@@ -1356,7 +1359,7 @@ def phase_group_ticks(codec: FACodec, chunk: int, capacity: int) -> dict:
     return out
 
 
-LIVE_SECONDS = 5.0  # each live stream's length, and each solo session's it is held to
+LIVE_SECONDS = 3.0  # each live stream's length, and each solo session's it is held to
 
 
 def phase_live(codec_hy: FACodec) -> dict:
@@ -1681,7 +1684,7 @@ def phase_train(smi: str) -> dict:
             + ", ".join(f"{k} {v:.2f}" for k, v in prof["phases"].items()))
         print_breakdown(prof["by_kind"], prof["by_name"], prof["count"], prof["traced_wall_ms"])
         kernel_ms = {kind: prof["by_kind"].get(kind, 0.0)
-                     for kind in ("residual-unit kernel", "VQ kernel")}
+                     for kind in (RESUNIT_F32, PROFILE_VQ)}
         del state, step_fn
         torch.cuda.empty_cache()
     finally:
@@ -1827,7 +1830,7 @@ def phase_red_train(smi: str) -> dict:
             + ", ".join(f"{k} {v:.2f}" for k, v in prof["phases"].items()))
         print_breakdown(prof["by_kind"], prof["by_name"], prof["count"], prof["traced_wall_ms"])
         kernel_ms = {kind: prof["by_kind"].get(kind, 0.0)
-                     for kind in ("residual-unit kernel", "VQ kernel")}
+                     for kind in (RESUNIT_F32, PROFILE_VQ)}
         del state, step_fn
         torch.cuda.empty_cache()
     finally:
@@ -2529,20 +2532,23 @@ def _timed_reduce():
     return events, undo
 
 
-def _world_env(world: int) -> dict:
-    saved = {k: os.environ.get(k) for k in (*mesh.ENV_KEYS, "LOCAL_WORLD_SIZE")}
-    os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE=str(world),
-                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
-                      MASTER_PORT=str(mesh.free_port()))
-    return saved
-
-
-def _restore_env(saved: dict) -> None:
-    for k, v in saved.items():
-        if v is None:
-            os.environ.pop(k, None)
-        else:
-            os.environ[k] = v
+@contextlib.contextmanager
+def _world_env(world: int):
+    """torchrun's environment for this process as rank 0 of `world`, at a
+    store it holds (`mesh.rank_store`), restored when the block ends."""
+    keys = (*mesh.ENV_KEYS, "LOCAL_WORLD_SIZE", "TORCHELASTIC_USE_AGENT_STORE")
+    saved = {k: os.environ.get(k) for k in keys}
+    try:
+        with mesh.rank_store() as store_env:
+            os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE=str(world),
+                              LOCAL_WORLD_SIZE=str(world), **store_env)
+            yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def dp_items() -> list:
@@ -2675,26 +2681,27 @@ def phase_dp_nccl(smi: str) -> dict:
         with deterministic():
             runs["plain"] = dp_train("codec", "cuda", f"{d}/plain", DP_STEPS)
             red["plain"] = dp_train("redecoder", "cuda", f"{d}/red_plain", RED_DP_STEPS)
-            saved = _world_env(1)
-            try:
-                for key, steps, opts in (("cut", DP_CUT, dict(save_freq=1)),
-                                         ("resumed", DP_STEPS, {})):
-                    n0 = len(events)
-                    runs[key] = dp_train("codec", "cuda", f"{d}/dp", steps, **opts)
-                    reduce_ms += _reduce_ms(events[n0:], len(runs[key]["step_ms"]))
-                    if key == "cut":
-                        backend = torch.distributed.get_backend()
-                        ckpt = latest_checkpoint(f"{d}/dp")
-                        if backend != "nccl" or not (ckpt or "").endswith(
-                                f"_step_{DP_CUT - 1:05d}.pth"):
-                            raise AssertionError(f"14a: backend {backend}, checkpoint {ckpt}")
-                red["cut"] = dp_train("redecoder", "cuda", f"{d}/red_dp", RED_DP_STEPS,
-                                      save_freq=1)
-                red["resumed"] = dp_train("redecoder", "cuda", f"{d}/red_dp", RED_DP_STEPS)
-            finally:
-                if torch.distributed.is_initialized():
-                    torch.distributed.destroy_process_group()
-                _restore_env(saved)
+            with _world_env(1):
+                try:
+                    for key, steps, opts in (("cut", DP_CUT, dict(save_freq=1)),
+                                             ("resumed", DP_STEPS, {})):
+                        n0 = len(events)
+                        runs[key] = dp_train("codec", "cuda", f"{d}/dp", steps, **opts)
+                        reduce_ms += _reduce_ms(events[n0:], len(runs[key]["step_ms"]))
+                        if key == "cut":
+                            backend = torch.distributed.get_backend()
+                            ckpt = latest_checkpoint(f"{d}/dp")
+                            if backend != "nccl" or not (ckpt or "").endswith(
+                                    f"_step_{DP_CUT - 1:05d}.pth"):
+                                raise AssertionError(f"14a: backend {backend}, checkpoint "
+                                                     f"{ckpt}")
+                    red["cut"] = dp_train("redecoder", "cuda", f"{d}/red_dp", RED_DP_STEPS,
+                                          save_freq=1)
+                    red["resumed"] = dp_train("redecoder", "cuda", f"{d}/red_dp",
+                                              RED_DP_STEPS)
+                finally:
+                    if torch.distributed.is_initialized():
+                        torch.distributed.destroy_process_group()
             runs["plain again"] = dp_train("codec", "cuda", f"{d}/plain_again", DP_STEPS)
     finally:
         undo()
@@ -3008,6 +3015,12 @@ INT8_OPS = 1979e12  # int8 tensor-core peak, operations/s
 CODE_SHARE_MIN = 0.9  # bfloat16 codes equal to float32's (the JAX package saw 96.67%)
 
 
+# the kernels' launches of one flagship round trip under each policy
+POLICY_LAUNCHES = {"float32": dict(f32=24, vq=6), "hybrid": dict(f32=12, bf16=12, vq=6),
+                   "bfloat16": dict(f32io=24, vq=6),
+                   "hybrid_int8": dict(f32=12, amax=3, int8=3, act=3, bf16=6, vq=6)}
+
+
 def policy_counts() -> dict:
     f = resunit.fused_residual_unit
     out = {k: getattr(f, attr) for k, attr in POLICY_COUNTERS.items()}
@@ -3177,9 +3190,6 @@ def phase_policies(codec: FACodec, codec_hy: FACodec, cpu: FACodec, w: np.ndarra
     log("phase 15c: round trips in turns (float32, hybrid, bfloat16, hybrid_int8, then "
         "reversed), encode -> decode")
     codecs = {"float32": codec, "hybrid": codec_hy, "bfloat16": codec_bf, "hybrid_int8": codec_i8}
-    expected = {"float32": dict(f32=24, vq=6), "hybrid": dict(f32=12, bf16=12, vq=6),
-                "bfloat16": dict(f32io=24, vq=6),
-                "hybrid_int8": dict(f32=12, amax=3, int8=3, act=3, bf16=6, vq=6)}
     times = {p: [] for p in codecs}
     files, waves, launches = {}, {}, {}
     for p in (*codecs, *reversed(codecs)):
@@ -3192,7 +3202,7 @@ def phase_policies(codec: FACodec, codec_hy: FACodec, cpu: FACodec, w: np.ndarra
         torch.cuda.synchronize()
         times[p].append(time.perf_counter() - t0)
         n = {k: v for k, v in policy_counts().items() if v}
-        want = expected[p]
+        want = POLICY_LAUNCHES[p]
         if n != want:
             raise AssertionError(f"{p} round trip launched {n}, expected {want}")
         launches[p] = n
@@ -3230,6 +3240,119 @@ def phase_policies(codec: FACodec, codec_hy: FACodec, cpu: FACodec, w: np.ndarra
     log(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
     return dict(k1=k1, k1a=k1a, k2=k2, times=times, launches=launches, bf16_code_share=share,
                 si_sdr_db=sdr, cpu_gaps=gaps)
+
+
+# ---------------------------------------------------------------- phase 16
+BENCH_BATCH, BENCH_SECONDS = 16, 10.0  # the bench's headline shape
+BENCH_POLICIES = ("hybrid_int8", "float32", "hybrid")  # 16a: the headline, then the others
+BENCH_STREAM_SECONDS = 2.0  # 16b
+# 16d: a traced round trip's device launches by residual-unit form (the I/O
+# form of resunit_bf16_kernel is its last template argument: 0 the bf16
+# entry, 1 the act form) and VQ kernel (two a search)
+TRACED_LAUNCHES = {"hybrid": dict(f32=12, bf16=12, act=0, amax=0, int8=0, vq=12),
+                   "hybrid_int8": dict(f32=12, bf16=6, act=3, amax=3, int8=3, vq=12)}
+
+
+def _bf16_io_form(name: str) -> int:
+    m = re.search(r"resunit_bf16_kernel<([^<>]*)>", name)
+    if m is None:
+        raise AssertionError(f"16d: no template arguments in the kernel name {name!r}")
+    return int(m.group(1).split(",")[-1])
+
+
+def traced_forms(count: dict) -> dict:
+    """Launches by residual-unit form and VQ kernel, from a trace's kernel
+    names and counts."""
+    out = dict(f32=0, bf16=0, act=0, amax=0, int8=0, vq=0)
+    for name, n in count.items():
+        kind = kind_of(name)
+        if kind == RESUNIT_F32:
+            out["f32"] += n
+        elif kind == RESUNIT_BF16:
+            out["act" if _bf16_io_form(name) == 1 else "bf16"] += n
+        elif kind == RESUNIT_INT8:
+            out["amax" if "resunit_int8_amax" in name else "int8"] += n
+        elif kind == PROFILE_VQ:
+            out["vq"] += n
+    return out
+
+
+def phase_bench(codec: FACodec, smi: str) -> dict:
+    """16a-c: the three bench commands as a user runs them (their `main`),
+    each with the kernels' counts set to 0 before it and read after it;
+    16d: a traced hybrid and hybrid_int8 round trip through
+    utils/profiling.py, by kind, form and annotated range."""
+    from facodec_tpu_torch import bench, bench_streaming, bench_train
+
+    t_phase = time.perf_counter()
+    calls = 1 + bench.REPEATS * bench.ITERS
+    log(f"phase 16a: bench --fast (encode_decode_rtf, FACodec.reconstruct_tensor) under "
+        f"{', '.join(BENCH_POLICIES)}, batch {BENCH_BATCH} x {BENCH_SECONDS:.0f} s, "
+        f"{calls} round trips each; 0 < mfu <= 1 [{smi}]")
+    lines, launches = {}, {}
+    for p in BENCH_POLICIES:
+        reset_counts()
+        line = bench.main(batch=BENCH_BATCH, seconds=BENCH_SECONDS, precision=p, fast=True)
+        n = {k: v for k, v in policy_counts().items() if v}
+        want = {k: v * calls for k, v in POLICY_LAUNCHES[p].items()}
+        if n != want:
+            raise AssertionError(f"16a {p}: the bench launched {n}, expected {want}")
+        if not 0 < line["mfu"] <= 1 or line["precision"] != p:
+            raise AssertionError(f"16a {p}: {line}")
+        lines[p], launches[p] = line, POLICY_LAUNCHES[p]
+    log("  rtf " + ", ".join(f"{p} {v['value']}x (mfu {v['mfu']})" for p, v in lines.items())
+        + f"; launches a round trip {launches}")
+
+    log(f"phase 16b: bench streaming --fast (streaming_chunk_p50_ms), batch 1 x "
+        f"{BENCH_STREAM_SECONDS:.0f} s of 4-frame chunks, the causal redecoder, a group of 8 "
+        f"[{smi}]")
+    reset_counts()
+    stream = bench_streaming.main(seconds=BENCH_STREAM_SECONDS, fast=True)
+    n = policy_counts()
+    if not (n["halo"] and n["vq"]) or n["f32"] or stream["device_op_ms"] is None:
+        raise AssertionError(f"16b: launches {n}, device_op_ms {stream['device_op_ms']}")
+    log(f"  launches {n}")
+
+    log(f"phase 16c: bench train --fast (train_step_ms), FLAGSHIP_TRAIN batch {TRAIN_BATCH} x "
+        f"{TRAIN_FRAMES} frames, 4 steps [{smi}]")
+    reset_counts()
+    train = bench_train.main(batch=TRAIN_BATCH, seg_frames=TRAIN_FRAMES, fast=True)
+    n = {k: v for k, v in policy_counts().items() if v}
+    if n != dict(f32=24 * 4, vq=6 * 4) or not train["value"] > 0:
+        raise AssertionError(f"16c: 4 steps launched {n}, expected 24 and 6 a step")
+    log(f"  launches {n}")
+
+    log(f"phase 16d: traced round trips (utils.profiling.trace, aggregate_device_trace), "
+        f"hybrid and hybrid_int8, batch {BATCH} x {SECONDS:.0f} s [{smi}]")
+    wt = torch.from_numpy(sweep_wave(BATCH, SECONDS)).cuda()
+    profiles = {}
+    for p, want in TRACED_LAUNCHES.items():
+        c = bench.with_policy(codec, p)
+        c.reconstruct_tensor(wt)
+        reset_counts()
+        prof = round_trip_profile(c, wt)
+        wrapped = {k: v for k, v in policy_counts().items() if v}
+        log(f"  {p}:")
+        print_breakdown(prof["by_kind"], prof["by_name"], prof["count"], prof["traced_wall_ms"])
+        total = sum(prof["by_kind"].values())
+        log("  by annotated range: " + ", ".join(
+            f"{k} {v:.2f} ms ({v / total:.1%})"
+            for k, v in sorted(prof["by_range"].items(), key=lambda kv: -kv[1])))
+        lost = [name for name in prof["count"] if ("resunit" in name or "vq_" in name)
+                and kind_of(name) == "other"]
+        got = traced_forms(prof["count"])
+        w8a8 = sum(n for name, n in prof["count"].items() if kind_of(name) == W8A8_KIND)
+        log(f"  launches by form (trace) {got}; the wrappers' counts {wrapped}; W8A8 GEMMs "
+            f"{w8a8}")
+        if lost or got != want or wrapped != POLICY_LAUNCHES[p]:
+            raise AssertionError(f"16d {p}: kernels of kind 'other' {lost}, launches {got} "
+                                 f"(expected {want}), wrappers {wrapped}")
+        if (w8a8 > 0) != (p == "hybrid_int8"):
+            raise AssertionError(f"16d {p}: {w8a8} launches of kind {W8A8_KIND!r}")
+        profiles[p] = dict(by_kind=dict(prof["by_kind"]), by_range=prof["by_range"],
+                           launches=got, traced_wall_ms=prof["traced_wall_ms"])
+    log(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(lines=lines, launches=launches, stream=stream, train=train, profiles=profiles)
 
 
 def main() -> None:
@@ -3288,6 +3411,7 @@ def main() -> None:
     f32_codes = hy.pop("f")
     bf = phase_bf16(unit_inputs((codec_hy.decoder,), lambda: codec_hy.decode(f32_codes), 12))
     pol = phase_policies(codec, codec_hy, cpu, w, smi)
+    bn = phase_bench(codec, smi)
     sv = phase_serve(codec_hy)
     live = phase_live(codec_hy)
     art = phase_artifact(codec, w, smi)
@@ -3323,16 +3447,20 @@ def main() -> None:
     dp = phase_dp(smi)
     shard2 = dp["shard"]["2 on cuda:0"]["launches"]
 
+    def bench_launches(key: str) -> dict:
+        """The kernel's launches in one round trip of the bench (16a), by policy."""
+        return {p: bn["launches"][p].get(key, 0) for p in BENCH_POLICIES}
+
     # no single PyTorch call computes either function: library_ms is null
     kernels = [
         dict(name="fused_residual_unit", route="cuda", source="facodec_tpu_torch/csrc/resunit.cu",
              replaces="facodec_tpu/ops/pallas/resunit.py:273", launches=main_path["resunit"],
              vc_launches=vc_counts[0], stream_launches=st16["halo"],
              hybrid_launches=hy["launches"]["f32"], train_launches=tr["per_step"]["f32"],
-             train_ms=tr["kernel_ms"]["residual-unit kernel"],
+             train_ms=tr["kernel_ms"][RESUNIT_F32],
              train_grad_max_rel=tk["grad_max_rel"],
              redecoder_train_launches=rt["per_step"]["f32"],
-             redecoder_train_ms=rt["kernel_ms"]["residual-unit kernel"],
+             redecoder_train_ms=rt["kernel_ms"][RESUNIT_F32],
              redecoder_grad_max_rel=rk["grad_max_rel"],
              teacher_train_launches=own_tr["per_step"]["f32"],
              eval_launches=own_sc["eval_launches"]["float32"]["f32"],
@@ -3342,14 +3470,15 @@ def main() -> None:
              dp_gloo_step_launches=dp["gloo"]["fused"]["launches"][0],
              sharded_reconstruct_launches=shard2["float32"]["f32"],
              sharded_hybrid_launches=shard2["hybrid"]["f32"], bound_by="operations",
+             bench_launches=bench_launches("f32"), bench_train_launches=24,
              library_ms=None, **ru, **halo),
         dict(name="nearest_code", route="cuda", source="facodec_tpu_torch/csrc/vq.cu",
              replaces="facodec_tpu/ops/pallas/vq.py:76", launches=main_path["vq"],
              vc_launches=vc_counts[1], stream_launches=st16["vq"],
              hybrid_launches=hy["launches"]["vq"], train_launches=tr["per_step"]["vq"],
-             train_ms=tr["kernel_ms"]["VQ kernel"], train_grad_max_rel=tk["vq_grad_max_rel"],
+             train_ms=tr["kernel_ms"][PROFILE_VQ], train_grad_max_rel=tk["vq_grad_max_rel"],
              redecoder_train_launches=rt["per_step"]["vq"],
-             redecoder_train_ms=rt["kernel_ms"]["VQ kernel"],
+             redecoder_train_ms=rt["kernel_ms"][PROFILE_VQ],
              teacher_train_launches=own_tr["per_step"]["vq"],
              eval_launches=own_sc["eval_launches"]["float32"]["vq"],
              artifact_launches=art["launches"]["float32"]["vq"],
@@ -3357,6 +3486,7 @@ def main() -> None:
              dp_gloo_step_launches=dp["gloo"]["fused"]["launches"][1],
              sharded_reconstruct_launches=shard2["float32"]["vq"],
              sharded_hybrid_launches=shard2["hybrid"]["vq"],
+             bench_launches=bench_launches("vq"), bench_train_launches=6,
              bound_by="operations", library_ms=None, **vqr),
         # the bf16 entry (csrc/resunit_bf16.cu): its main path is the hybrid
         # round trip (the serve default), whose 12 decoder units it runs
@@ -3372,23 +3502,27 @@ def main() -> None:
              sharded_hybrid_launches=shard2["hybrid"]["bf16"],
              decode_kernels=hy["decode_kernels"],
              decode_kernels_per_call_pack=hy["decode_kernels_per_call_pack"], library_ms=None,
+             bench_launches=bench_launches("bf16"),
              hybrid_int8_launches=pol["launches"]["hybrid_int8"].get("bf16", 0), **bf),
         # phase 15: the bf16 kernel's float32-in/out forms and the int8 unit
         dict(name="fused_residual_unit_f32io", route="cuda",
              source="facodec_tpu_torch/csrc/resunit_bf16.cu",
              replaces="facodec_tpu/ops/pallas/resunit.py:273",
              launches=pol["launches"]["bfloat16"]["f32io"], policy="bfloat16", library_ms=None,
+             bench_launches=bench_launches("f32io"),
              **pol["k1"]),
         dict(name="fused_residual_unit_f32io_act", route="cuda",
              source="facodec_tpu_torch/csrc/resunit_bf16.cu",
              replaces="facodec_tpu/ops/pallas/resunit.py:273",
              launches=pol["launches"]["hybrid_int8"]["act"], policy="hybrid_int8",
+             bench_launches=bench_launches("act"),
              library_ms=None, **pol["k1a"]),
         dict(name="fused_residual_unit_int8", route="cuda",
              source="facodec_tpu_torch/csrc/resunit_int8.cu",
              replaces="facodec_tpu/ops/pallas/resunit.py:273",
              launches=pol["launches"]["hybrid_int8"]["int8"],
              amax_launches=pol["launches"]["hybrid_int8"]["amax"], policy="hybrid_int8",
+             bench_launches=bench_launches("int8"),
              status="redesigned: wgmma s8 and bf16, the weights and the s2 tile by TMA and "
                     "bulk copies through an mbarrier ring, persistent grid",
              library_ms=None, **pol["k2"]),
@@ -3449,6 +3583,14 @@ def main() -> None:
         f"{p} {', '.join(f'{t:.3f}' for t in v)}" for p, v in pol["times"].items())
         + f"; bfloat16 codes equal to float32's {pol['bf16_code_share']:.4%}; SI-SDR vs float32 "
         + "; ".join(f"{p} {min(v):.2f} dB" for p, v in pol["si_sdr_db"].items()) + f" [{smi}]")
+    log("bench: " + "; ".join(f"{p} {v['value']}x realtime, mfu {v['mfu']}"
+                              for p, v in bn["lines"].items())
+        + f" (batch {BENCH_BATCH} x {BENCH_SECONDS:.0f} s); streaming chunk p50 "
+        f"{bn['stream']['value']} ms, device {bn['stream']['device_op_ms']} ms; train step "
+        f"{bn['train']['value']} ms; traced hybrid / hybrid_int8 device ms by kind "
+        + "; ".join(f"{p} " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+            r["by_kind"].items(), key=lambda kv: -kv[1])[:5]) for p, r in bn["profiles"].items())
+        + f" [{smi}]")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -14,6 +14,10 @@
   train-redecoder
                 redecoder GAN training against a frozen codec (stage 2),
                 resuming from the latest checkpoint
+  bench         one-card benchmarks, one JSON line each: `bench` or
+                `bench roundtrip` (encode_decode_rtf, bench.py), `bench
+                streaming` (streaming_chunk_p50_ms, bench_streaming.py),
+                `bench train` (train_step_ms, bench_train.py)
 
 Each command runs on the card unless given `--device cpu`. `train` and
 `train-redecoder` run data-parallel over every visible GPU (one rank each,
@@ -26,6 +30,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from facodec_tpu_torch import bench, bench_streaming, bench_train
 from facodec_tpu_torch.cli import codec as codec_cli
 from facodec_tpu_torch.cli import convert as convert_cli
 from facodec_tpu_torch.cli import export_model as export_cli
@@ -33,6 +38,8 @@ from facodec_tpu_torch.cli import reconstruct as reconstruct_cli
 from facodec_tpu_torch.cli import serve as serve_cli
 from facodec_tpu_torch.cli import stream as stream_cli
 from facodec_tpu_torch.cli import train as train_cli
+
+BENCHES = {"roundtrip": bench, "streaming": bench_streaming, "train": bench_train}
 
 
 def main(argv=None):
@@ -47,12 +54,19 @@ def main(argv=None):
     export_cli.add_args(sub.add_parser("export"))
     train_cli.add_args(sub.add_parser("train"))
     train_cli.add_redecoder_args(sub.add_parser("train-redecoder"))
+    p_bench = sub.add_parser("bench")
+    p_bench.add_argument("what", nargs="?", default="roundtrip", choices=tuple(BENCHES))
+    for module in BENCHES.values():
+        module.add_args(p_bench)
     commands = {"reconstruct": reconstruct_cli.main, "convert": convert_cli.main,
                 "encode": codec_cli.main_encode, "decode": codec_cli.main_decode,
                 "stream": stream_cli.main, "serve": serve_cli.main, "export": export_cli.main,
                 "train": train_cli.main,
-                "train-redecoder": train_cli.main_redecoder}
+                "train-redecoder": train_cli.main_redecoder,
+                "bench": lambda args: BENCHES[args.what].run(args)}
     args = parser.parse_args(argv)
+    if args.command == "bench" and args.what != "roundtrip" and args.precision:
+        parser.error(f"bench {args.what} runs float32; --precision is the round trip's")
     return commands[args.command](args)
 
 

@@ -19,7 +19,9 @@ from a torch checkpoint by `from_config`.
 
 Every call runs with TF32 off for cuDNN convolutions and cuBLAS matmuls,
 scoped to the call: cuDNN convolutions default to TF32 on Hopper, and the
-codes of a float32 codec must not depend on it.
+codes of a float32 codec must not depend on it. The one-shot calls mark
+their parts "encode", "quantize" and "decode" for a trace
+(utils/profiling.py).
 
 `FACodec(precision=)` takes the policies of ops/precision.py, aliases
 included: "float32" (the default); "hybrid", which encodes in float32
@@ -54,6 +56,7 @@ from facodec_tpu_torch.ops.precision import check as check_policy
 from facodec_tpu_torch.ops.precision import entry_policies, get_policy, policy
 from facodec_tpu_torch.parallel.mesh import make_devices
 from facodec_tpu_torch.utils.config import load_config
+from facodec_tpu_torch.utils.profiling import annotate
 from facodec_tpu_torch.utils.weights import init_random_, load_torch_checkpoint
 
 SR = 24000
@@ -322,11 +325,13 @@ class FACodec:
         the timbre pools each row's first wave_lens // 300 frames only (a
         batch zero-padded to a length bucket)."""
         with float32_exact(), policy(self.enc_policy):
-            z = self.encoder(wave[:, :, None])
-            if wave_lens is None:
-                return self.quantizer.forward_v2(z, wave, n_c=self.n_c)
-            return self.quantizer.forward_v2(z, wave, n_c=self.n_c, full_waves=wave,
-                                             wave_lens=wave_lens)
+            with annotate("encode"):
+                z = self.encoder(wave[:, :, None])
+            with annotate("quantize"):
+                if wave_lens is None:
+                    return self.quantizer.forward_v2(z, wave, n_c=self.n_c)
+                return self.quantizer.forward_v2(z, wave, n_c=self.n_c, full_waves=wave,
+                                                 wave_lens=wave_lens)
 
     @_sharded
     @torch.no_grad()
@@ -334,7 +339,7 @@ class FACodec:
                       use_c: bool = True, use_r: bool = True) -> torch.Tensor:
         """Code streams (B, n, T) + timbre (B, d) -> float32 wave (B, T),
         from the selected streams."""
-        with float32_exact(), policy(self.dec_policy):
+        with float32_exact(), policy(self.dec_policy), annotate("decode"):
             outs = self.quantizer.decode_streams_v2(codes_p, codes_c, codes_r, timbre,
                                                     use_p, use_c, use_r)
             return self.decoder(outs)[:, :, 0].float()
@@ -343,7 +348,7 @@ class FACodec:
     @torch.no_grad()
     def decode_latent(self, outs: torch.Tensor) -> torch.Tensor:
         """Decoder-ready latent (B, T', d) -> float32 wave (B, T)."""
-        with float32_exact(), policy(self.dec_policy):
+        with float32_exact(), policy(self.dec_policy), annotate("decode"):
             return self.decoder(outs)[:, :, 0].float()
 
     @_sharded

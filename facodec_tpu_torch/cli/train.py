@@ -33,7 +33,7 @@ import os
 
 import torch
 
-from facodec_tpu_torch.parallel.mesh import data_world, free_port, launched
+from facodec_tpu_torch.parallel.mesh import data_world, launched, rank_store
 from facodec_tpu_torch.train.loop import run_training
 from facodec_tpu_torch.train.redecoder_loop import run_redecoder_training
 from facodec_tpu_torch.utils.config import load_config
@@ -71,10 +71,9 @@ def n_ranks(config_path, device: str) -> int:
     return math.gcd(batch_size, torch.cuda.device_count())
 
 
-def _rank_main(rank: int, world: int, port: int, fn, kwargs) -> None:
+def _rank_main(rank: int, world: int, store_env: dict, fn, kwargs) -> None:
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
-                      MASTER_PORT=str(port))
+                      LOCAL_WORLD_SIZE=str(world), **store_env)
     _report(fn(**kwargs))
 
 
@@ -89,8 +88,9 @@ def launch(fn, config_path, device: str, **kwargs):
     import torch.multiprocessing as mp
 
     print(f"starting {n} data-parallel ranks, one per GPU", flush=True)
-    mp.start_processes(_rank_main, args=(n, free_port(), fn, kwargs), nprocs=n, join=True,
-                       start_method="spawn")
+    with rank_store() as store_env:
+        mp.start_processes(_rank_main, args=(n, store_env, fn, kwargs), nprocs=n, join=True,
+                           start_method="spawn")
     return True
 
 

@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import contextlib
 import os
-import socket
 from dataclasses import dataclass
 from datetime import timedelta
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
@@ -131,11 +130,24 @@ def make_devices() -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(count)]
 
 
-def free_port() -> int:
-    """A free TCP port on this host, for a process group's MASTER_PORT."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+@contextlib.contextmanager
+def rank_store() -> Iterator[Dict[str, str]]:
+    """The rendezvous of ranks that this process starts on this host: a
+    TCPStore that this process holds, on a port the OS picks as the store
+    binds it. Yields the environment (MASTER_ADDR, MASTER_PORT and
+    TORCHELASTIC_USE_AGENT_STORE, as torchrun's agent sets them) under which
+    each rank's `init_distributed` joins that store as a client; the store
+    closes when the block ends. The port stays bound from its choice to the
+    group's end, so no other process (another group's ranks, an outgoing
+    connection) can take it between the two, as it could from a port
+    probed, closed and handed to rank 0 to bind again."""
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False,
+                          timeout=TIMEOUT)
+    try:
+        yield dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(store.port),
+                   TORCHELASTIC_USE_AGENT_STORE="True")
+    finally:
+        del store
 
 
 def _buckets(tensors: Sequence[torch.Tensor]) -> Iterator[List[torch.Tensor]]:

@@ -3,7 +3,8 @@
 `spawn_ranks(world, python_args)` runs `python *python_args` once per rank
 with the environment that `torchrun` sets (RANK, LOCAL_RANK, WORLD_SIZE,
 LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT) and the package importable, so
-each process joins the group through `mesh.init_distributed`. Each spawn has
+each process joins the group through `mesh.init_distributed`, at a store
+that this process holds for them (`mesh.rank_store`). Each spawn has
 its own timeout: a rank that fails or outlives it ends every rank, and the
 call raises with the ranks' output, so a dead rank never leaves the others
 waiting in a collective.
@@ -18,7 +19,7 @@ import tempfile
 import time
 from typing import List, Mapping, Optional
 
-from facodec_tpu_torch.parallel.mesh import free_port
+from facodec_tpu_torch.parallel.mesh import rank_store
 
 PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -34,8 +35,13 @@ def spawn_ranks(world: int, python_args: List[str], timeout: float = 600.0,
     base = dict(os.environ, **(env or {}))
     base["PYTHONPATH"] = os.pathsep.join(p for p in (PACKAGE_ROOT, base.get("PYTHONPATH"))
                                          if p)
-    base.update(WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
-                MASTER_PORT=str(free_port()))
+    base.update(WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+    with rank_store() as store_env:
+        return _run_ranks(world, python_args, timeout, dict(base, **store_env))
+
+
+def _run_ranks(world: int, python_args: List[str], timeout: float,
+               base: Mapping[str, str]) -> List[str]:
     logs = [open(_log_path(r), "w+") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, *python_args],
                               env=dict(base, RANK=str(r), LOCAL_RANK=str(r)),

@@ -1,16 +1,20 @@
 """Where the card's time goes in one flagship codec round trip, or in one
 flagship training step.
 
-    python -m facodec_tpu_torch.profile [batch] [seconds]
+    python -m facodec_tpu_torch.profile [batch] [seconds] [--precision P]
     python -m facodec_tpu_torch.profile train
     python -m facodec_tpu_torch.profile train-redecoder
 
-Builds the flagship codec (seeded random weights) on the card, runs
-encode -> decode untraced five times (host clock around a synchronise),
-then once under `torch.profiler`, and prints the device-kernel time of the
-traced run by kind and its top kernels. Kernel times are summed from the
-trace's device events; the `aten::` rows of `key_averages()` repeat the same
-time and are left out. `train` does the same for the training step of
+Builds the flagship codec (seeded random weights) on the card under the
+precision policy `--precision` (any name ops/precision.py takes; default
+float32), runs the bench's round trip (`FACodec.reconstruct_tensor`:
+encode -> quantize -> decode of the quantized latent) untraced five times
+(host clock around a synchronise), then once under `utils.profiling.trace`,
+and prints the traced run's device time by kind, by kernel (with launches)
+and by annotated range (the API's "encode", "quantize" and "decode").
+Kernel times are summed from the trace's device events
+(`utils.profiling.device_events`): the host's `aten::` rows repeat the
+same time and are left out. `train` does the same for the training step of
 `config.FLAGSHIP_TRAIN` at the loop's batch (4 x 80 frames of
 `PseudoDataset`): `train_profile` times a steady step's parts between CUDA
 events recorded at the step's phase marks, then traces one more step.
@@ -21,21 +25,39 @@ decoder, discriminator). Needs a CUDA card.
 
 from __future__ import annotations
 
+import argparse
+import os
 import subprocess
-import sys
+import tempfile
 import time
 from collections import defaultdict
+from typing import Iterable
 
 import torch
 
 from facodec_tpu_torch.api import FACodec
 from facodec_tpu_torch.config import FLAGSHIP
+from facodec_tpu_torch.ops.precision import POLICY_NAMES
+from facodec_tpu_torch.utils.profiling import (DeviceEvent, aggregate_device_trace,
+                                               device_events, force_completion, trace)
 from facodec_tpu_torch.utils.signals import sweep_wave
+
+# Each form of the residual unit has a kind of its own, so that two
+# policies' profiles compare form by form.
+RESUNIT_F32 = "residual unit, float32 and halo (resunit_kernel)"
+RESUNIT_BF16 = "residual unit, bf16 forms (resunit_bf16_kernel)"
+RESUNIT_INT8 = "residual unit, int8 (resunit_int8_amax + _kernel)"
+VQ = "VQ kernel"
+W8A8_GEMM = "W8A8 int8 GEMMs (torch._int_mm)"
 
 # (kind, substrings of the kernel name), first match wins
 KINDS = (
-    ("residual-unit kernel", ("resunit_kernel",)),
-    ("VQ kernel", ("vq_norm_kernel", "vq_search_kernel")),
+    (RESUNIT_BF16, ("resunit_bf16_kernel",)),
+    (RESUNIT_INT8, ("resunit_int8_kernel", "resunit_int8_amax")),
+    (RESUNIT_F32, ("resunit_kernel",)),
+    (VQ, ("vq_norm_kernel", "vq_search_kernel")),
+    # cuBLASLt's s8 x s8 -> s32 kernels, which carry the operand types in their names
+    (W8A8_GEMM, ("i8i8", "s8s8", "s8_s8", "i8_i8", "imma", "int8", "igemm")),
     ("cuDNN LSTM", ("LSTM", "lstm", "gemmSN", "RNN", "rnn")),
     ("copies", ("copy", "Copy", "memcpy", "Memcpy")),
     ("reflect pads", ("reflection_pad", "ReflectionPad")),
@@ -53,25 +75,30 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def device_ms(prof) -> tuple:
-    """(ms by kind, ms by kernel name, launches by kernel name) of the
-    device events of a finished `torch.profiler` trace."""
+def breakdown(events: Iterable[DeviceEvent]) -> tuple:
+    """(ms by kind, ms by kernel name, launches by kernel name) of a trace's
+    device events."""
     by_kind, by_name, count = defaultdict(float), defaultdict(float), defaultdict(int)
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = ev.time_range.elapsed_us()
-        by_kind[kind_of(ev.name)] += us / 1e3
-        by_name[ev.name] += us / 1e3
+    for ev in events:
+        by_kind[kind_of(ev.name)] += ev.ms
+        by_name[ev.name] += ev.ms
         count[ev.name] += 1
     return by_kind, by_name, count
+
+
+def device_ms(prof) -> tuple:
+    """`breakdown` of a finished `torch.profiler` run, read from its
+    Chrome trace as `utils.profiling` reads one."""
+    with tempfile.TemporaryDirectory() as d:
+        prof.export_chrome_trace(os.path.join(d, "run.pt.trace.json"))
+        return breakdown(device_events(d))
 
 
 def train_profile(step_fn, batch, generator) -> dict:
     """One steady step with a CUDA event at each phase mark (device ms per
     phase, in the step's order: the stream's time between the marks, idle
-    gaps included), then one step under torch.profiler: its device-kernel
-    ms by kind, by kernel and launches, and the traced wall ms."""
+    gaps included), then one step under `trace`: its device-kernel ms by
+    kind, by kernel and launches, and the traced wall ms."""
     events = [("start", torch.cuda.Event(enable_timing=True))]
 
     def mark(name):
@@ -84,13 +111,13 @@ def train_profile(step_fn, batch, generator) -> dict:
     step_fn(batch, generator, mark=mark)
     torch.cuda.synchronize()
     phases = {name: a.elapsed_time(b) for (_, a), (name, b) in zip(events, events[1:])}
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        step_fn(batch, generator)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_kind, by_name, count = device_ms(prof)
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d):
+            t0 = time.perf_counter()
+            step_fn(batch, generator)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_kind, by_name, count = breakdown(device_events(d))
     return dict(phases=phases, by_kind=by_kind, by_name=by_name, count=count,
                 traced_wall_ms=wall * 1e3)
 
@@ -100,7 +127,8 @@ def print_breakdown(by_kind, by_name, count, wall_ms: float, top: int = 15) -> N
     print(f"device kernels {total:.1f} ms of a traced wall {wall_ms:.1f} ms "
           f"({total / wall_ms:.1%})")
     for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
-        print(f"  {kind:28s} {ms:9.2f} ms {ms / total:6.1%}")
+        n = sum(c for name, c in count.items() if kind_of(name) == kind)
+        print(f"  {kind:52s} {ms:9.2f} ms {ms / total:6.1%} {n:6d} launches")
     print("top kernels:")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {ms:9.2f} ms {count[name]:5d} x  {name[:110]}")
@@ -109,6 +137,22 @@ def print_breakdown(by_kind, by_name, count, wall_ms: float, top: int = 15) -> N
         print("top kernels of kind 'other':")
         for ms, name in other[:8]:
             print(f"  {ms:9.2f} ms {count[name]:5d} x  {name[:110]}")
+
+
+def round_trip_profile(codec: FACodec, wave: torch.Tensor) -> dict:
+    """One traced `reconstruct_tensor` of `wave`: the `breakdown` of its
+    device events, the annotated ranges' ms (`aggregate_device_trace`) and
+    the traced wall ms."""
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            force_completion(codec.reconstruct_tensor(wave))
+            wall = time.perf_counter() - t0
+        by_kind, by_name, count = breakdown(device_events(d))
+        _, by_range, _ = aggregate_device_trace(d, printout=False)
+    return dict(by_kind=by_kind, by_name=by_name, count=count, by_range=dict(by_range),
+                traced_wall_ms=wall * 1e3)
 
 
 def redecoder_step_fn(seed: int = 0):
@@ -158,34 +202,38 @@ def _device() -> None:
     print(f"device: {smi}")
 
 
-def main(batch: int = 4, seconds: float = 10.0) -> None:
+def main(batch: int = 4, seconds: float = 10.0, precision: str = "float32") -> None:
     _device()
-    codec = FACodec.from_fields(FLAGSHIP, seed=0)
-    w = sweep_wave(batch, seconds)
-    codec.decode(codec.encode(w))  # builds the kernels, warms cuDNN up
+    codec = FACodec.from_fields(FLAGSHIP, seed=0, precision=precision)
+    w = torch.from_numpy(sweep_wave(batch, seconds)).cuda()
+    codec.reconstruct_tensor(w)  # builds the kernels, warms cuDNN up
     times = []
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        codec.decode(codec.encode(w))
-        torch.cuda.synchronize()
+        force_completion(codec.reconstruct_tensor(w))
         times.append(time.perf_counter() - t0)
-    print(f"untraced encode -> decode, batch {batch} x {seconds:g} s: "
+    print(f"untraced round trip ({precision}), batch {batch} x {seconds:g} s: "
           + ", ".join(f"{t:.4f}" for t in times) + " s")
+    out = round_trip_profile(codec, w)
+    print(f"traced round trip ({precision}):")
+    print_breakdown(out["by_kind"], out["by_name"], out["count"], out["traced_wall_ms"])
+    total = sum(out["by_kind"].values())
+    print("by annotated range:")
+    for name, ms in sorted(out["by_range"].items(), key=lambda kv: -kv[1]):
+        print(f"  {ms:9.2f} ms {ms / total:6.1%}  {name}")
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        codec.decode(codec.encode(w))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    print("traced encode -> decode:")
-    print_breakdown(*device_ms(prof), wall * 1e3)
+
+def _args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(prog="python -m facodec_tpu_torch.profile")
+    p.add_argument("what", nargs="*", help="[batch] [seconds], or train, or train-redecoder")
+    p.add_argument("--precision", default="float32", choices=POLICY_NAMES)
+    return p.parse_args(argv)
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] in (["train"], ["train-redecoder"]):
-        main_train(redecoder=sys.argv[1] == "train-redecoder")
+    args = _args()
+    if args.what[:1] in (["train"], ["train-redecoder"]):
+        main_train(redecoder=args.what[0] == "train-redecoder")
     else:
-        main(*(f(a) for f, a in zip((int, float), sys.argv[1:])))
+        main(*(f(a) for f, a in zip((int, float), args.what)), precision=args.precision)

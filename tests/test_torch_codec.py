@@ -166,7 +166,10 @@ def test_import_leaves_jax_out():
             "facodec_tpu_torch.cli.evaluate, facodec_tpu_torch.cli.extract_targets, "
             "facodec_tpu_torch.cli.assemble_data, facodec_tpu_torch.ops.kernels.ops, "
             "facodec_tpu_torch.ops.kernels.build, facodec_tpu_torch.nn.conv, "
-            "facodec_tpu_torch.utils.export, facodec_tpu_torch.cli.export_model; "
+            "facodec_tpu_torch.utils.export, facodec_tpu_torch.cli.export_model, "
+            "facodec_tpu_torch.bench, facodec_tpu_torch.bench_streaming, "
+            "facodec_tpu_torch.bench_train, facodec_tpu_torch.utils.profiling, "
+            "facodec_tpu_torch.utils.flops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'facodec_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

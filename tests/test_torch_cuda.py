@@ -1385,3 +1385,37 @@ def test_two_replicas_on_one_card_match_unsharded():
             print(f"hybrid, 2 replicas against the batch-3 call: err/scale {gap:.3e} at the "
                   f"worst sample, {rms:.3e} in RMS")
             assert rms <= 2e-2 and gap < 8e-2, (rms, gap)
+
+
+# The kernels' launches in one flagship round trip of the bench, by policy:
+# the float32 entry, the bf16 entry, its act form, the int8 unit's two
+# launches and the VQ search (facodec_tpu_torch/bench.py).
+BENCH_LAUNCHES = {"float32": [24, 0, 0, 0, 0, 6], "hybrid": [12, 12, 0, 0, 0, 6],
+                  "bfloat16_act": [0, 24, 0, 0, 0, 6], "hybrid_int8": [12, 6, 3, 3, 3, 6]}
+
+
+@pytest.fixture(scope="module")
+def bench_codec():
+    from facodec_tpu_torch import bench
+    _need_cuda()
+    return bench.build_codec(torch.device("cuda"), "float32")
+
+
+@pytest.mark.parametrize("policy", list(BENCH_LAUNCHES))
+def test_bench_round_trip_launches(bench_codec, policy):
+    """`bench.timed_rtf`'s call (`reconstruct_tensor` under the policy) at
+    flagship width, batch 1 x 1 s: each kernel form launched as its route
+    asks, and a finite wave of the input's shape."""
+    from facodec_tpu_torch import bench
+    codec = bench.with_policy(bench_codec, policy)
+    wave = bench.bench_wave(1, 1.0, codec.device)
+    codec.reconstruct_tensor(wave)
+    f_ = resunit.fused_residual_unit
+    names = ("launches", "bf16_launches", "f32io_act_launches", "int8_amax_launches",
+             "int8_launches")
+    before = [getattr(f_, n) for n in names] + [vq.nearest_code.launches]
+    y = codec.reconstruct_tensor(wave)
+    torch.cuda.synchronize()
+    after = [getattr(f_, n) for n in names] + [vq.nearest_code.launches]
+    assert [b - a for a, b in zip(before, after)] == BENCH_LAUNCHES[policy]
+    assert y.shape == wave.shape and bool(torch.isfinite(y).all())
