@@ -95,7 +95,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    (50 ms) chunks: tick times with 1, 4 and 8 active slots, and 10 ticks at
    8 slots under torch.profiler. Then a `StreamingService` with group
    capacity 8 behind `make_stream_server`, and 1, 4 and 8 concurrent
-   connections of 5 s each from a client process of their own (the port's
+   connections of 3 s each from a client process of their own (the port's
    `stream_wav` in threads, each sending as fast as it is answered):
    per-tick p50 / p95, slots per tick, each stream's time per chunk against
    the 50 ms of audio it carries; every stream's output within 1e-3 of a
@@ -176,7 +176,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    abs (float32) or 1e-3 err/scale (hybrid) of live with the live path's
    launches (24 float32 units and 6 VQ; 12, 12 bf16 and 6), the hybrid
    artifact's encode, decode and reconstruct too, and reconstruct times,
-   live and artifact in turns, 5 each. 13b: an `ArtifactService` (batch 4)
+   live and artifact in turns, 3 each. 13b: an `ArtifactService` (batch 4)
    and a live `CodecService` of the same cap and bucket behind
    `make_server`, 8 concurrent 10 s /reconstruct requests to each in turns
    (live, artifact, artifact, live): requests/s, and each served wave within
@@ -236,6 +236,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    float32's, each wave's SI-SDR against the float32 wave, and for each
    policy the card's decode against the CPU's on equal codes (batch 1 x
    2 s, err / scale <= 2e-2 at the worst sample).
+16. The port's benchmarks, as `python -m facodec_tpu_torch bench ...` runs
+   them (their `main`; each prints its JSON line), each between a reset and
+   a read of the kernels' counts (runs after phase 15). 16a: `bench --fast`
+   under hybrid_int8, float32 and hybrid, batch 16 x 10 s: 31 round trips
+   each, every one launching its policy's kernels (phase 15c's counts), and
+   0 < mfu <= 1. 16b: `bench streaming --fast`, 2 s of 4-frame chunks, the
+   causal redecoder and a group of 8: the halo entry and the VQ search
+   launched, the one-shot entry not, a device time read from its trace.
+   16c: `bench train --fast`, FLAGSHIP_TRAIN at 4 x 80 frames, 4 steps: 24
+   residual-unit and 6 VQ launches a step. 16d: a traced hybrid and
+   hybrid_int8 round trip at 4 x 10 s through `utils.profiling.trace` and
+   `aggregate_device_trace` (`profile.round_trip_profile`): device time by
+   kind, by kernel and by annotated range (encode, quantize, decode); no
+   residual-unit or VQ kernel of kind "other"; the trace's launches by form
+   (hybrid: 12 `resunit_kernel`, 12 `resunit_bf16_kernel`; hybrid_int8: 12,
+   6 bf16 and 3 act forms, 3 + 3 int8; both 6 VQ searches of two kernels)
+   equal to the wrappers' counts; W8A8 GEMMs under hybrid_int8 only.
 
 The line before the last is the kernels' JSON summary; the last line is the
 run's JSON result. The kernels' `train_launches` are a training step's,
@@ -253,6 +270,8 @@ and `sharded_hybrid_launches` one replica's in a sharded float32 and hybrid
 reconstruct (14d, two replicas on cuda:0). The phase-15 kernels' `ms` is
 the kernel alone (device time), `wrapper_ms` the wrapper's per-call-pack
 call; `launches` are those of one round trip under their policy.
+`bench_launches` are a kernel's launches in one round trip of the bench
+(16a), by policy; `bench_train_launches` a step's of `bench train` (16c).
 """
 
 from __future__ import annotations
@@ -2252,7 +2271,7 @@ def phase_own(smi: str) -> tuple:
 
 ARTIFACT_F32_TOL = 1e-5  # a float32 artifact's waves against the live codec's, max abs
 ARTIFACT_HYBRID_TOL = 1e-3  # a hybrid artifact's waves against the live hybrid codec's, err/scale
-ARTIFACT_TURNS = 5  # timed reconstructs of each, live and artifact in turns
+ARTIFACT_TURNS = 3  # timed reconstructs of each, live and artifact in turns
 
 
 def check_artifact_wave(label: str, prec: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -3335,9 +3354,10 @@ def phase_bench(codec: FACodec, smi: str) -> dict:
         log(f"  {p}:")
         print_breakdown(prof["by_kind"], prof["by_name"], prof["count"], prof["traced_wall_ms"])
         total = sum(prof["by_kind"].values())
-        log("  by annotated range: " + ", ".join(
-            f"{k} {v:.2f} ms ({v / total:.1%})"
-            for k, v in sorted(prof["by_range"].items(), key=lambda kv: -kv[1])))
+        for title, key in (("range", "by_range"), ("range and kind", "by_range_kind")):
+            log(f"  by annotated {title}: " + ", ".join(
+                f"{k} {v:.2f} ms ({v / total:.1%})"
+                for k, v in sorted(prof[key].items(), key=lambda kv: -kv[1])[:10]))
         lost = [name for name in prof["count"] if ("resunit" in name or "vq_" in name)
                 and kind_of(name) == "other"]
         got = traced_forms(prof["count"])
@@ -3350,7 +3370,7 @@ def phase_bench(codec: FACodec, smi: str) -> dict:
         if (w8a8 > 0) != (p == "hybrid_int8"):
             raise AssertionError(f"16d {p}: {w8a8} launches of kind {W8A8_KIND!r}")
         profiles[p] = dict(by_kind=dict(prof["by_kind"]), by_range=prof["by_range"],
-                           launches=got, traced_wall_ms=prof["traced_wall_ms"])
+                           launches=got, w8a8=w8a8, traced_wall_ms=prof["traced_wall_ms"])
     log(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
     return dict(lines=lines, launches=launches, stream=stream, train=train, profiles=profiles)
 

@@ -119,24 +119,24 @@ def bench_wave(batch: int, seconds: float, device: torch.device, seed: int = 1
     return 0.1 * torch.randn(batch, T, generator=gen, device=device)
 
 
-def _sync(device: torch.device) -> None:
+def synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
-def timed_rtf(codec: FACodec, batch: int, seconds: float, repeats: int = REPEATS) -> tuple:
+def timed_rtf(codec: FACodec, batch: int, seconds: float) -> tuple:
     """(rtf, seconds per call) of `reconstruct_tensor` on a bench wave:
-    one warm-up call, then `repeats` of ITERS calls and one synchronise."""
+    one warm-up call, then REPEATS runs of ITERS calls and one synchronise."""
     dev = codec.device
     wave = bench_wave(batch, seconds, dev)
     codec.reconstruct_tensor(wave)
-    _sync(dev)
+    synchronize(dev)
     times = []
-    for _ in range(repeats):
+    for _ in range(REPEATS):
         t0 = time.perf_counter()
         for _ in range(ITERS):
             codec.reconstruct_tensor(wave)
-        _sync(dev)
+        synchronize(dev)
         times.append(time.perf_counter() - t0)
     dt = min(times) / ITERS
     return batch * wave.shape[1] / SR / dt, dt

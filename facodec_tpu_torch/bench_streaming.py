@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from facodec_tpu_torch.api import FARedecoder
-from facodec_tpu_torch.bench import REPEATS, _sync, build_codec, require_device
+from facodec_tpu_torch.bench import REPEATS, build_codec, require_device, synchronize
 from facodec_tpu_torch.config import FLAGSHIP, FLAGSHIP_REDECODER
 from facodec_tpu_torch.models.latency import codec_latency
 from facodec_tpu_torch.models.stream_batch import BatchedStreamGroup
@@ -79,7 +79,7 @@ def main(chunk_frames: int = 4, seconds: float = 8.0, batch: int = 1, fast: bool
     lat = []
     for _ in range(int(seconds * SR) // step):
         chunk = _randn(gen, (batch, step), dev)
-        _sync(dev)  # the input is ready before the clock starts
+        synchronize(dev)  # the input is ready before the clock starts
         t0 = time.perf_counter()
         est, dst, wave, _ = sess.roundtrip_chunk(est, dst, chunk, timbre)
         if wave is None:  # priming: no emission yet
@@ -96,14 +96,14 @@ def main(chunk_frames: int = 4, seconds: float = 8.0, batch: int = 1, fast: bool
     ts, ts2 = [], []
     for _ in range(repeats):
         e2, d2 = est, dst
-        _sync(dev)
+        synchronize(dev)
         t0 = time.perf_counter()
         for c in chunks:
             e2, d2, w, _ = sess.roundtrip_chunk(e2, d2, c, timbre)
         float(w[0, -1])
         ts.append(time.perf_counter() - t0)
         e2, d2 = est, dst  # encode and decode as two calls
-        _sync(dev)
+        synchronize(dev)
         t0 = time.perf_counter()
         for c in chunks:
             e2, outs, _ = sess.encode_chunk(e2, c, timbre)
@@ -218,7 +218,7 @@ def bench_redecoder_vc(dev: torch.device, chunk_frames: int = 4, batch: int = 1,
     lat = []
     for _ in range(max(12, 2 * sess.prime_frames // chunk_frames)):
         cp, cc = chunk()
-        _sync(dev)
+        synchronize(dev)
         t0 = time.perf_counter()
         state, wave = sess.vc_chunk(state, cp, cc, timbre)
         if wave is None:
@@ -230,7 +230,7 @@ def bench_redecoder_vc(dev: torch.device, chunk_frames: int = 4, batch: int = 1,
     ts = []
     for _ in range(repeats):
         s2 = state
-        _sync(dev)
+        synchronize(dev)
         t0 = time.perf_counter()
         for cp, cc in cps:
             s2, w = sess.vc_chunk(s2, cp, cc, timbre)

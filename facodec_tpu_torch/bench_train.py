@@ -41,7 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from facodec_tpu_torch.bench import REPEATS, _sync, require_device
+from facodec_tpu_torch.bench import REPEATS, require_device, synchronize
 from facodec_tpu_torch.config import FLAGSHIP_TRAIN
 from facodec_tpu_torch.train.data import (PseudoDataset, prefetch, segment_batch,
                                           shard_iterator, to_device)
@@ -129,7 +129,7 @@ def main(batch: int = 4, seg_frames: int = 80, fast: bool = False, device: str =
     it = prefetch(shard_iterator(ds, batch, shuffle=False), prepare, depth=2)
     metrics, _ = step_fn(next(it), gen)  # outside the timed window
     float(metrics["loss/gen_all"])
-    _sync(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     n_done = 0
     for seg in it:

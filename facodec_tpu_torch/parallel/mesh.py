@@ -10,7 +10,7 @@ explicitly:
   `torchrun` sets (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT):
   NCCL for CUDA devices, gloo for the CPU or where the caller names it. In
   one plain process (no WORLD_SIZE) it does nothing. A group that does not
-  form raises.
+  form raises; a group still up when the process exits is ended first.
 - `all_reduce_mean_` averages gradients over the ranks in flat buckets of a
   fixed size, one collective a bucket (`ReduceOp.AVG` on NCCL, a sum and a
   division by the world size on gloo), written back in place. The train
@@ -32,6 +32,7 @@ explicitly:
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import os
 from dataclasses import dataclass
@@ -85,7 +86,18 @@ def init_distributed(device="cuda", backend: Optional[str] = None) -> bool:
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method="env://", rank=int(os.environ["RANK"]),
                             world_size=int(os.environ["WORLD_SIZE"]), timeout=TIMEOUT)
+    atexit.unregister(_end_group)  # once, however often a group is formed
+    atexit.register(_end_group)
     return True
+
+
+def _end_group() -> None:
+    """End the process group, if it is still up, before the interpreter
+    finalizes: a gloo group left to Python's teardown could destroy its
+    transport threads in any order and abort the rank (SIGABRT, "terminate
+    called without an active exception") after its work was done."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def is_distributed() -> bool:

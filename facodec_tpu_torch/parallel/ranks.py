@@ -7,7 +7,8 @@ each process joins the group through `mesh.init_distributed`, at a store
 that this process holds for them (`mesh.rank_store`). Each spawn has
 its own timeout: a rank that fails or outlives it ends every rank, and the
 call raises with the ranks' output, so a dead rank never leaves the others
-waiting in a collective.
+waiting in a collective. A rank's process group ends before its process
+does (`mesh.init_distributed`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import List, Mapping, Optional
 from facodec_tpu_torch.parallel.mesh import rank_store
 
 PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+END_GRACE_S = 5.0  # after a rank fails, the others' time to end by themselves
 
 
 def spawn_ranks(world: int, python_args: List[str], timeout: float = 600.0,
@@ -30,8 +32,9 @@ def spawn_ranks(world: int, python_args: List[str], timeout: float = 600.0,
     LOCAL_RANK, WORLD_SIZE, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT set,
     the package importable), e.g. `["-m", "facodec_tpu_torch", "train",
     "--device", "cpu"]`; returns each rank's output. A rank that exits
-    non-zero, or any rank still running after `timeout` seconds, ends them
-    all and raises with their output."""
+    non-zero (after END_GRACE_S for the others to end by themselves), or
+    any rank still running after `timeout` seconds, ends them all and
+    raises with their output."""
     base = dict(os.environ, **(env or {}))
     base["PYTHONPATH"] = os.pathsep.join(p for p in (PACKAGE_ROOT, base.get("PYTHONPATH"))
                                          if p)
@@ -53,6 +56,11 @@ def _run_ranks(world: int, python_args: List[str], timeout: float,
         while any(p.poll() is None for p in procs):
             if any(p.returncode not in (None, 0) for p in procs):
                 failed = "a rank failed"
+                # the others' collectives fail once its group is gone: their
+                # own exit codes say more than a kill's, so wait a moment
+                grace = time.monotonic() + END_GRACE_S
+                while any(p.poll() is None for p in procs) and time.monotonic() < grace:
+                    time.sleep(0.05)
                 break
             if time.monotonic() > deadline:
                 failed = f"ranks still running after {timeout:.0f} s"

@@ -56,8 +56,10 @@ KINDS = (
     (RESUNIT_INT8, ("resunit_int8_kernel", "resunit_int8_amax")),
     (RESUNIT_F32, ("resunit_kernel",)),
     (VQ, ("vq_norm_kernel", "vq_search_kernel")),
-    # cuBLASLt's s8 x s8 -> s32 kernels, which carry the operand types in their names
-    (W8A8_GEMM, ("i8i8", "s8s8", "s8_s8", "i8_i8", "imma", "int8", "igemm")),
+    # `torch._int_mm`'s cuBLASLt kernels (on an H100 with torch 2.11:
+    # cutlass_80_tensorop_i16832gemm_s8_...), named by their int8 MMA shape
+    # or their s8 operands
+    (W8A8_GEMM, ("i16832gemm", "i8816gemm", "gemm_s8", "s8s8", "i8i8", "imma")),
     ("cuDNN LSTM", ("LSTM", "lstm", "gemmSN", "RNN", "rnn")),
     ("copies", ("copy", "Copy", "memcpy", "Memcpy")),
     ("reflect pads", ("reflection_pad", "ReflectionPad")),
@@ -141,18 +143,22 @@ def print_breakdown(by_kind, by_name, count, wall_ms: float, top: int = 15) -> N
 
 def round_trip_profile(codec: FACodec, wave: torch.Tensor) -> dict:
     """One traced `reconstruct_tensor` of `wave`: the `breakdown` of its
-    device events, the annotated ranges' ms (`aggregate_device_trace`) and
-    the traced wall ms."""
+    device events, the annotated ranges' ms (`aggregate_device_trace`), each
+    range's ms by kind, and the traced wall ms."""
     with tempfile.TemporaryDirectory() as d:
         with trace(d):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             force_completion(codec.reconstruct_tensor(wave))
             wall = time.perf_counter() - t0
-        by_kind, by_name, count = breakdown(device_events(d))
+        events = device_events(d)
         _, by_range, _ = aggregate_device_trace(d, printout=False)
+    by_kind, by_name, count = breakdown(events)
+    range_kind: dict = defaultdict(float)
+    for ev in events:
+        range_kind[f"{ev.attribution}: {kind_of(ev.name)}"] += ev.ms
     return dict(by_kind=by_kind, by_name=by_name, count=count, by_range=dict(by_range),
-                traced_wall_ms=wall * 1e3)
+                by_range_kind=dict(range_kind), traced_wall_ms=wall * 1e3)
 
 
 def redecoder_step_fn(seed: int = 0):
@@ -219,9 +225,11 @@ def main(batch: int = 4, seconds: float = 10.0, precision: str = "float32") -> N
     print(f"traced round trip ({precision}):")
     print_breakdown(out["by_kind"], out["by_name"], out["count"], out["traced_wall_ms"])
     total = sum(out["by_kind"].values())
-    print("by annotated range:")
-    for name, ms in sorted(out["by_range"].items(), key=lambda kv: -kv[1]):
-        print(f"  {ms:9.2f} ms {ms / total:6.1%}  {name}")
+    for title, key in (("by annotated range", "by_range"),
+                       ("by annotated range and kind", "by_range_kind")):
+        print(f"{title}:")
+        for name, ms in sorted(out[key].items(), key=lambda kv: -kv[1])[:12]:
+            print(f"  {ms:9.2f} ms {ms / total:6.1%}  {name}")
 
 
 def _args(argv=None) -> argparse.Namespace:

@@ -18,10 +18,10 @@ import pytest
 import torch
 
 from facodec_tpu_torch.profile import (KINDS, RESUNIT_BF16, RESUNIT_F32, RESUNIT_INT8, VQ,
-                                       breakdown, kind_of)
-from facodec_tpu_torch.utils.profiling import (NO_ATTRIBUTION, StepTimer, aggregate_device_trace,
-                                               annotate, device_events, force_completion,
-                                               trace)
+                                       W8A8_GEMM, breakdown, kind_of)
+from facodec_tpu_torch.utils.profiling import (NO_ATTRIBUTION, DeviceEvent, StepTimer,
+                                               aggregate_device_trace, annotate, device_events,
+                                               force_completion, trace)
 
 HOST, DEV = 1234, 0  # the host process's pid, the device's
 
@@ -160,11 +160,16 @@ def test_kind_of_the_kernels_of_the_port():
     for name, kind in names.items():
         assert kind_of(name) == kind != "other"
     assert kind_of("some_unknown_kernel") == "other"
+    # torch._int_mm's kernel on an H100 (the W8A8 convs), and a float32 GEMM's
+    int_mm = ("void cutlass::Kernel2<cutlass_80_tensorop_i16832gemm_s8_128x64_128x3_tn_align16>"
+              "(cutlass_80_tensorop_i16832gemm_s8_128x64_128x3_tn_align16::Params)")
+    assert kind_of(int_mm) == W8A8_GEMM
+    assert kind_of("sm80_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x64x8_stage3") == \
+        "convolutions and GEMMs"
     assert len({k for k, _ in KINDS}) == len(KINDS)
 
 
 def test_breakdown_by_kind():
-    from facodec_tpu_torch.utils.profiling import DeviceEvent
     evs = [DeviceEvent("void resunit_kernel<2, 4>()", 2.0, "encode"),
            DeviceEvent("void resunit_kernel<2, 4>()", 1.0, "decode"),
            DeviceEvent("vq_search_kernel", 0.5, "quantize")]
