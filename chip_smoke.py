@@ -95,7 +95,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    (50 ms) chunks: tick times with 1, 4 and 8 active slots, and 10 ticks at
    8 slots under torch.profiler. Then a `StreamingService` with group
    capacity 8 behind `make_stream_server`, and 1, 4 and 8 concurrent
-   connections of 3 s each from a client process of their own (the port's
+   connections of 2 s each from a client process of their own (the port's
    `stream_wav` in threads, each sending as fast as it is answered):
    per-tick p50 / p95, slots per tick, each stream's time per chunk against
    the 50 ms of audio it carries; every stream's output within 1e-3 of a
@@ -114,8 +114,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    one seed on the CPU (plain versions) and on the card (kernels), batch
    1 x 20 frames: every loss and gradient norm within 1e-3 relative. 10c:
    `run_training(fields=FLAGSHIP_TRAIN, device="cuda")` with the JAX loop's
-   defaults for 6 steps (the first a warm-up), a checkpoint at step 6 and a
-   resume to step 7: the median step time, steps/s, seconds of audio per
+   defaults for 4 steps (the first a warm-up), a checkpoint at step 4 and a
+   resume to step 5: the median step time, steps/s, seconds of audio per
    second, peak memory, exactly 24 residual-unit and 6 VQ launches a step,
    every loss finite, every module's parameters changed; then one steady
    step's device time per part (CUDA events at the step's phase marks) and
@@ -128,8 +128,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel's custom op against the plain composition's autograd, as
    10a. 11b: one draws-off step, CPU against card, batch 1 x 20 frames,
    within 1e-3 relative. 11c: `run_redecoder_training(fields=
-   FLAGSHIP_REDECODER_TRAIN, device="cuda")` for 6 steps (the first a
-   warm-up), a checkpoint at step 6 and a resume to step 7: median step
+   FLAGSHIP_REDECODER_TRAIN, device="cuda")` for 4 steps (the first a
+   warm-up), a checkpoint at step 4 and a resume to step 5: median step
    time, steps/s, audio seconds per second, peak memory, exactly 24
    residual-unit launches (12 frozen encoder units without a graph, 12
    decoder units through the Function) and 6 VQ searches a step, every loss
@@ -187,8 +187,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    (one on a one-card machine: then the reduce is an identity), on 4
    PseudoDataset utterances (one batch of 4 x 80 frames an epoch), draws
    on, under PyTorch's and cuDNN's deterministic algorithms, in turns:
-   plain (4 steps), data-parallel cut at step 2 after rank 0's epoch
-   checkpoint at step 1, data-parallel resumed from it to step 4, plain
+   plain (3 steps), data-parallel cut at step 2 after rank 0's epoch
+   checkpoint at step 1, data-parallel resumed from it to step 3, plain
    again; parameters and metrics bit-equal, step ms of both, the
    all-reduce's ms a step (CUDA events around each `all_reduce_mean_`) and
    bytes, 24 residual-unit and 6 VQ launches a step; where more GPUs are
@@ -199,7 +199,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    process: the rows each rank kept, the last step's gradients (as the
    updates took them) within 1e-4 of max|g| per module, metrics and
    parameters within rtol 2e-3 atol 2e-4, each rank's launches equal to
-   the one process's.
+   the one process's (a rank other than 0 returns digests of its
+   gradients and parameters, held to rank 0's); each collective's calls
+   and host ms in the last step, timed as 17a's are (a synchronise before
+   and after each), so that the two layouts' step ms compare; the same
+   ranks then run 17a's tensor-parallel runs.
    14c: `run_redecoder_training` as 14a (plain 2 steps, data-parallel cut
    at 2 with a checkpoint at 1, resumed from it), bit-equal. 14d:
    `shard_inference` of FLAGSHIP (float32 and hybrid) and
@@ -253,6 +257,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    (hybrid: 12 `resunit_kernel`, 12 `resunit_bf16_kernel`; hybrid_int8: 12,
    6 bf16 and 3 act forms, 3 + 3 int8; both 6 VQ searches of two kernels)
    equal to the wrappers' counts; W8A8 GEMMs under hybrid_int8 only.
+17. The entry points of tensor-parallel training, `validate` and the webui
+   (after phase 14, whose 14b ranks and one-process runs 17a reuses). 17a:
+   14b's two gloo ranks on cuda:0 run `run_training(fields=FLAGSHIP_TRAIN,
+   tensor_parallel=2)`, data 1 x model 2 (the speaker heads, the phone
+   heads and `timbre_linear` split by rows), fused (2 steps, a checkpoint
+   at step 1) and split (1 step), held to 14b's one-process runs with 14b's
+   tolerances (the gradients and parameters gathered whole); each rank's
+   step ms, its bytes of the sharded tensors and of all parameters and
+   moments against the whole, each collective's calls and host ms in the
+   last step (a synchronise before and after each); then one process
+   resumes the tensor-parallel checkpoint (whole tensors) and gives the
+   one-process step. 17b: `validate` (its `main`) on the card at FLAGSHIP
+   width from a seeded checkpoint in the reference's layout and a golden
+   the port computes on the CPU: its JSON line and exit code as they are,
+   codes >= 0.99 equal to the golden's, mel_l1 within the threshold. 17c:
+   the webui handlers at FLAGSHIP width, `do_reconstruct` on 10 s of int16
+   at 16 kHz and `do_convert` on two 3 s clips, against the same handlers
+   on the CPU within 33 LSB (1e-3 of full scale), with their ms.
 
 The line before the last is the kernels' JSON summary; the last line is the
 run's JSON result. The kernels' `train_launches` are a training step's,
@@ -272,11 +294,17 @@ the kernel alone (device time), `wrapper_ms` the wrapper's per-call-pack
 call; `launches` are those of one round trip under their policy.
 `bench_launches` are a kernel's launches in one round trip of the bench
 (16a), by policy; `bench_train_launches` a step's of `bench train` (16c).
+`tp_step_launches` are one rank's a tensor-parallel step (17a),
+`validate_launches` one `validate` call's (17b: an encode and a
+reconstruct), `webui_reconstruct_launches` and `webui_convert_launches`
+one call of each handler (17c); every kernel's are read from its counter
+in those runs (all float32: 0 for the bf16, float32-in/out and int8 forms).
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -1378,7 +1406,7 @@ def phase_group_ticks(codec: FACodec, chunk: int, capacity: int) -> dict:
     return out
 
 
-LIVE_SECONDS = 3.0  # each live stream's length, and each solo session's it is held to
+LIVE_SECONDS = 2.0  # each live stream's length, and each solo session's it is held to
 
 
 def phase_live(codec_hy: FACodec) -> dict:
@@ -1472,7 +1500,7 @@ TRAIN_BATCH, TRAIN_FRAMES = 4, 80  # the JAX loop's batch and segment
 TRAIN_GRAD_TOL = 1e-4  # a kernel path's gradients against plain autograd's, of max|g|
 VQ_GRAD_TOL = 1e-6  # the codebook gradient against the plain gather's, of max|g|
 STEP_TOL = 1e-3  # a step's losses and gradient norms, card against CPU, relative
-TRAIN_STEPS = 6  # one warm-up step, five timed
+TRAIN_STEPS = 4  # one warm-up step, three timed
 UNIT_GRADS = ("x", "w7", "b7", "w1", "b1", "alpha1", "alpha2")
 
 
@@ -1714,9 +1742,9 @@ def phase_train(smi: str) -> dict:
 
 
 # ------------------------------------------------------------- phase 11
-RED_STEPS = 6  # one warm-up step, five timed
+RED_STEPS = 4  # one warm-up step, three timed
 VARIANT_TOL = 1e-4  # a split or remat step's metrics against the fused step's, relative
-VARIANT_STEPS = 3  # timed steps of each variant after its warm-up
+VARIANT_STEPS = 2  # timed steps of each variant after its warm-up
 
 
 def red_setup(device: str, seed: int = 0) -> tuple:
@@ -1951,7 +1979,7 @@ def phase_variants() -> dict:
 OWN_SECONDS = (1.0, 2.5, 4.0, 5.5, 7.0, 8.5, 10.0, 12.0)
 TEACHER_TOL = 1e-3  # the teacher's F0, card against CPU, of max|F0|
 OWN_STEPS = 4  # run_training with the teacher: one warm-up step, three timed
-TURNS = 3  # rounds of (teacher, offline, offline, teacher) step timings
+TURNS = 2  # rounds of (teacher, offline, offline, teacher) step timings
 # The scorecard, card against CPU (tests/test_torch_cuda.py's limits): the
 # losses relative, the dB metrics, STOI and the F0 probes absolute.
 SCORECARD_TOL = dict(mel_l1=("rel", 1e-3), stft_l1=("rel", 1e-3), snr_db=("abs", 0.05),
@@ -2493,7 +2521,7 @@ def phase_artifact_serve(art_dir: str, params: dict, codec_hy: FACodec, smi: str
 
 
 # ------------------------------------------------------------- phase 14
-DP_STEPS = 4  # 14a: steps of each plain run; the data-parallel run is cut at DP_CUT, then resumed
+DP_STEPS = 3  # 14a: steps of each plain run; the data-parallel run is cut at DP_CUT, then resumed
 DP_CUT = 2  # its epoch's checkpoint is step DP_CUT - 1's: the resumed run starts from there
 RED_DP_STEPS = 2  # 14c: the same for run_redecoder_training
 DP_ITEMS = 4  # 14a-c: utterances (PseudoDataset seed 0): one batch of 4, one epoch, per step
@@ -2615,6 +2643,7 @@ def dp_train(kind: str, device: str, log_dir: str, max_steps: int, record_grads:
     loop_mod.rank_batch = recording_cut
     options = dict(dict(save_interval=NO_SAVE, save_freq=NO_SAVE), **options)
     calls, nbytes = mesh.REDUCED.calls, mesh.REDUCED.bytes
+    model = (mesh.MODEL_SUMS.calls + mesh.GATHERED.calls, mesh.MODEL_SUMS.bytes + mesh.GATHERED.bytes)
     reset_counts()
     try:
         if kind == "codec":
@@ -2627,33 +2656,86 @@ def dp_train(kind: str, device: str, log_dir: str, max_steps: int, record_grads:
                                            log_writer=False, log_interval=1, **options)
     finally:
         step_mod.reduce_gradients, loop_mod.rank_batch = reduce, cut
-    out = dict(step=state.step, metrics=dict(state.metrics), launches=all_counts(), rows=rows,
+    launches = policy_counts()
+
+    def whole(t, p):
+        """A shard of a tensor-parallel run gathered whole (every rank calls it)."""
+        return (mesh.gather_model(t, 0) if mesh.is_sharded(p) else t).cpu()
+
+    named = [(f"{k}.{n}", p) for k, m in state.models.items() for n, p in m.named_parameters()]
+    elem = [(p.numel() * p.element_size(), (p.tp_shard[1] if mesh.is_sharded(p) else 1))
+            for _, p in named]
+    sharded = [(b, n) for b, n in elem if n > 1]
+    out = dict(step=state.step, metrics=dict(state.metrics), launches=launches, rows=rows,
                step_ms={s: 1e3 * t for s, t in state.step_times.items()},
                reduced=[mesh.REDUCED.calls - calls, mesh.REDUCED.bytes - nbytes],
-               params={f"{k}.{n}": p.detach().cpu() for k, m in state.models.items()
-                       for n, p in m.named_parameters()})
+               model=[mesh.MODEL_SUMS.calls + mesh.GATHERED.calls - model[0],
+                      mesh.MODEL_SUMS.bytes + mesh.GATHERED.bytes - model[1]],
+               sharded=[k for k, p in named if mesh.is_sharded(p)],
+               # this process's parameter bytes (AdamW keeps two moments of each), and
+               # the same tensors whole
+               param_bytes=[sum(b for b, _ in elem), sum(b * n for b, n in elem)],
+               sharded_bytes=[sum(b for b, _ in sharded), sum(b * n for b, n in sharded)],
+               params={k: whole(p.detach(), p) for k, p in named})
     if record_grads:
-        out["grads"] = {k: [None if grads.get(id(p)) is None else grads[id(p)].cpu()
+        out["grads"] = {k: [None if grads.get(id(p)) is None else whole(grads[id(p)], p)
                             for p in m.parameters()] for k, m in state.models.items()}
     del state, grads
     torch.cuda.empty_cache()
     return out
 
 
+def _digest(t) -> str:
+    """A tensor's bytes, hashed (None for None)."""
+    if t is None:
+        return None
+    return hashlib.sha1(t.contiguous().numpy().view(np.uint8)).hexdigest()
+
+
 def dp_rank(spec_path: str) -> None:
-    """One spawned rank of 14a/14b (`dp_ranks`): where the spec names a
-    backend, it forms the group over it first (gloo: two ranks on one card,
-    which NCCL refuses); else `run_training` joins it from torchrun's
-    environment. Runs `dp_train` for each of the spec's runs and writes the
-    results to <out>/rank<r>.pt."""
+    """One spawned rank of 14a/14b and 17a (`dp_ranks`): where the spec names
+    a backend, it forms the group over it first (gloo: two ranks on one
+    card, which NCCL refuses); else `run_training` joins it from torchrun's
+    environment. Runs `dp_train` for each of the spec's runs (a run with
+    `tp` at `tensor_parallel=TP_MODEL`; under gloo every run's collectives
+    timed alike, `_time_collectives`, so that 14b's and 17a's step ms are
+    taken the same way) and writes the results to <out>/rank<r>.pt; a rank
+    other than 0 writes its parameters and gradients as digests, which
+    `_same_on_ranks` holds to rank 0's tensors."""
     spec = torch.load(spec_path, weights_only=False)
     if spec["backend"]:
         mesh.init_distributed(spec["device"], spec["backend"])
-    results = [dp_train("codec", spec["device"], run["log_dir"], record_grads=True, **run["args"])
-               for run in spec["runs"]]
-    torch.save(results, os.path.join(spec["out"], f"rank{mesh.data_world()[0]}.pt"))
+    results = []
+    for run in spec["runs"]:
+        records, undo = [], (lambda: None)
+        args = dict(run["args"])
+        if spec["backend"] == "gloo":
+            undo = _time_collectives(records)
+        if run.get("tp"):
+            args["tensor_parallel"] = TP_MODEL
+        try:
+            r = dp_train("codec", spec["device"], run["log_dir"], record_grads=True, **args)
+        finally:
+            undo()
+        r["collectives"] = records
+        if mesh.world_rank()[0] != 0:
+            r["params"] = {k: _digest(v) for k, v in r["params"].items()}
+            r["grads"] = {k: [_digest(g) for g in gs] for k, gs in r["grads"].items()}
+        results.append(r)
+    torch.save(results, os.path.join(spec["out"], f"rank{mesh.world_rank()[0]}.pt"))
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
+
+
+def _same_on_ranks(label: str, res: list) -> None:
+    """Every rank's gradients and parameters are rank 0's, bit for bit."""
+    for rr in res[1:]:
+        for mod, grads in res[0]["grads"].items():
+            if [_digest(g) for g in grads] != rr["grads"][mod]:
+                raise AssertionError(f"{label}: the ranks' {mod} gradients differ")
+        for k, v in res[0]["params"].items():
+            if _digest(v) != rr["params"][k]:
+                raise AssertionError(f"{label}: the ranks' {k} differ")
 
 
 def _same_run(label: str, got: dict, want: dict) -> None:
@@ -2781,11 +2863,14 @@ def _grad_gaps(got: dict, want: dict) -> dict:
     return gaps
 
 
-def dp_ranks(smi: str, world: int, device: str, backend, title: str) -> dict:
+def dp_ranks(smi: str, world: int, device: str, backend, title: str, tp: bool = False) -> dict:
     """`world` spawned ranks (`dp_rank`), each running `run_training` on its
     TRAIN_BATCH / world rows of every batch, fused (2 steps, a checkpoint at
     step 1's epoch end) and split (1 step), against the same runs in this
-    process alone."""
+    process alone. With `tp` the same ranks then run both again at
+    `tensor_parallel=TP_MODEL` for 17a (`phase_tp`), which gets their
+    results, their directory (the fused run's checkpoint) and the
+    one-process runs."""
     variants = {"fused": dict(max_steps=2, save_freq=1),
                 "split": dict(max_steps=1, split_step=True)}
     log(f"{title}: run_training(fields=FLAGSHIP_TRAIN) in each rank, {TRAIN_BATCH // world} rows "
@@ -2795,25 +2880,35 @@ def dp_ranks(smi: str, world: int, device: str, backend, title: str) -> dict:
         f"and parameters rtol {DP_STEP_TOL['rtol']} atol {DP_STEP_TOL['atol']} [{smi}]")
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     d = tempfile.mkdtemp(prefix="dp_ranks_", dir=build.BUILD_DIR)
+    runs = [dict(log_dir=os.path.join(d, k), args=v) for k, v in variants.items()]
+    if tp:
+        runs += [dict(log_dir=os.path.join(d, "tp " + k), args=v, tp=True)
+                 for k, v in variants.items()]
     try:
-        spec = dict(device=device, backend=backend, out=d,
-                    runs=[dict(log_dir=os.path.join(d, k), args=v) for k, v in variants.items()])
+        spec = dict(device=device, backend=backend, out=d, runs=runs)
         torch.save(spec, os.path.join(d, "spec.pt"))
         t0 = time.perf_counter()
         ranks.spawn_ranks(world, ["-c", "import sys, chip_smoke; chip_smoke.dp_rank(sys.argv[1])",
-                                  os.path.join(d, "spec.pt")], timeout=600)
+                                  os.path.join(d, "spec.pt")], timeout=900)
         spawn_s = time.perf_counter() - t0
         ckpt = latest_checkpoint(os.path.join(d, "fused"))
         if not (ckpt or "").endswith("_step_00001.pth"):
             raise AssertionError(f"{title}: rank 0's checkpoint {ckpt}")
         got = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
                for r in range(world)]
-    finally:
+    except BaseException:
         shutil.rmtree(d, ignore_errors=True)
-    out = {"spawn_s": spawn_s}
+        raise
+    if not tp:
+        shutil.rmtree(d, ignore_errors=True)
+    out = {"spawn_s": spawn_s, "one": {}}
+    if tp:
+        out["tp"] = dict(dir=d, results={label: [g[len(variants) + i] for g in got]
+                                         for i, label in enumerate(variants)})
     for i, (label, args) in enumerate(variants.items()):
         one = dp_train("codec", "cuda", os.path.join(build.BUILD_DIR, "dp_one"), record_grads=True,
                        **dict(args, save_freq=NO_SAVE))
+        out["one"][label] = one  # 17a holds the tensor-parallel runs to the same runs
         shutil.rmtree(os.path.join(build.BUILD_DIR, "dp_one"), ignore_errors=True)
         res = [g[i] for g in got]
         n = TRAIN_BATCH // world
@@ -2829,14 +2924,7 @@ def dp_ranks(smi: str, world: int, device: str, backend, title: str) -> dict:
             if not gap <= DP_GRAD_TOL:
                 raise AssertionError(f"{title} {label}: {mod} gradient gap {gap:.3e} > "
                                      f"{DP_GRAD_TOL}")
-        for rr in res[1:]:
-            for mod in one["grads"]:
-                for a, b in zip(res[0]["grads"][mod], rr["grads"][mod]):
-                    if not torch.equal(a, b):
-                        raise AssertionError(f"{title} {label}: the ranks' {mod} gradients differ")
-            for k, v in res[0]["params"].items():
-                if not torch.equal(v, rr["params"][k]):
-                    raise AssertionError(f"{title} {label}: the ranks' {k} differ")
+        _same_on_ranks(f"{title} {label}", res)
         worst = 0.0
         for k, v in one["metrics"].items():
             g = res[0]["metrics"][k]
@@ -2851,15 +2939,20 @@ def dp_ranks(smi: str, world: int, device: str, backend, title: str) -> dict:
             raise AssertionError(f"{title} {label}: launches a step {per}, one process "
                                  f"{_per_step(one)}")
         steps = len(one["step_ms"])
+        last = _step_collectives(res[0], steps) if backend == "gloo" else {}
         log(f"  {label}: metrics within {worst:.2e} relative; each rank's launches a step "
             f"{per[0]} as the one process's; rank step ms "
             f"{[[round(t, 1) for t in rr['step_ms'].values()] for rr in res]} "
             f"({res[0]['reduced'][0] // steps} all-reduce calls, {res[0]['reduced'][1] // steps} "
-            f"bytes a step), one process {[round(t, 1) for t in one['step_ms'].values()]} [{smi}]")
-        out[label] = dict(gaps=gaps, launches=[per[0]["f32"], per[0]["vq"]],
+            f"bytes a step), one process {[round(t, 1) for t in one['step_ms'].values()]}"
+            + (f"; the last step's collectives (calls, host ms) {_format_collectives(last)}"
+               if last else "") + f" [{smi}]")
+        out[label] = dict(gaps=gaps, launches=per[0],
                           rank_ms=[rr["step_ms"][steps] for rr in res],
-                          one_ms=one["step_ms"][steps], reduced=res[0]["reduced"])
-    log(f"  spawn, build and the runs in the ranks {spawn_s:.1f} s")
+                          one_ms=one["step_ms"][steps], reduced=res[0]["reduced"],
+                          collectives=last)
+    log(f"  spawn, build and the runs in the ranks {spawn_s:.1f} s"
+        + (" (17a's tensor-parallel runs included)" if tp else ""))
     return out
 
 
@@ -3016,7 +3109,8 @@ def phase_dp(smi: str) -> dict:
                                  f"phase 14a: {world} NCCL ranks, one per GPU")
     t1 = time.perf_counter()
     gloo = dp_ranks(smi, 2, "cuda:0", "gloo", "phase 14b: 2 gloo ranks on cuda:0 (NCCL refuses "
-                    "two ranks on one card)")
+                    "two ranks on one card; the same ranks then run 17a's tensor-parallel runs)",
+                    tp=True)
     t2 = time.perf_counter()
     shard, codec_hy = phase_shard(smi)
     t3 = time.perf_counter()
@@ -3375,6 +3469,327 @@ def phase_bench(codec: FACodec, smi: str) -> dict:
     return dict(lines=lines, launches=launches, stream=stream, train=train, profiles=profiles)
 
 
+# ---------------------------------------------------------------- phase 17
+TP_MODEL = 2  # 17a: two gloo ranks on cuda:0 as data 1 x model 2
+VALIDATE_SECONDS = 2.0  # 17b: the validate command's default chirp
+# 17b: the reference-schema config of FLAGSHIP (scripts/emit_golden_flagship.py
+# FLAGSHIP_CFG_TEXT) as JSON: the card machine has no pyyaml
+VALIDATE_CONFIG = dict(preprocess_params=dict(sr=SR), model_params=dict(
+    causal=True, lstm=2, norm_f0=True, use_gr_content_f0=False, use_gr_prosody_phone=False,
+    use_gr_timbre_prosody=False, separate_prosody_encoder=True, n_c_codebooks=2,
+    timbre_norm=True, use_gr_content_global_f0=True,
+    DAC=dict(encoder_dim=64, encoder_rates=[2, 5, 5, 6], decoder_dim=1536,
+             decoder_rates=[6, 5, 5, 2], sr=SR)))
+WEBUI_LSB = 33  # 17c: int16 card vs CPU, DECODE_MAX_DIFF of full scale (1e-3 x 32767)
+WEBUI_SECONDS, WEBUI_VC_SECONDS, WEBUI_SR = 10.0, 3.0, 16000
+WEBUI_TURNS = 2  # timed calls of each handler on the card, after one warm-up
+
+
+def _time_collectives(records: list):
+    """In a gloo rank: each all-reduce and all-gather timed on
+    the host clock between two synchronises, recorded as (step, kind, ms)
+    where `step` counts the train steps' calls (None outside a step) and
+    kind names the collective and its group ("model" or "world"). Returns
+    undo."""
+    from facodec_tpu_torch.train import loop as loop_mod
+
+    dist = torch.distributed
+    orig = dict(all_reduce=dist.all_reduce, all_gather=dist.all_gather)
+    makers = {n: getattr(loop_mod, n) for n in ("make_codec_train_step",
+                                                "make_codec_train_step_split")}
+    where = {"step": None, "n": 0}
+
+    def timed(name):
+        fn = orig[name]
+
+        def call(*args, group=None, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, group=group, **kwargs)
+            torch.cuda.synchronize()
+            lay = mesh.layout()
+            kind = "model" if lay is not None and group is lay.model_group else "world"
+            records.append((where["step"], f"{name} {kind}", 1e3 * (time.perf_counter() - t0)))
+            return out
+        return call
+
+    def counted(make):
+        def made(*args, **kwargs):
+            fn = make(*args, **kwargs)
+
+            def step(*a, **k):
+                where["n"] += 1
+                where["step"] = where["n"]
+                try:
+                    return fn(*a, **k)
+                finally:
+                    where["step"] = None
+            return step
+        return made
+
+    for name in orig:
+        setattr(dist, name, timed(name))
+    for name, make in makers.items():
+        setattr(loop_mod, name, counted(make))
+
+    def undo():
+        for name, fn in orig.items():
+            setattr(dist, name, fn)
+        for name, make in makers.items():
+            setattr(loop_mod, name, make)
+
+    return undo
+
+
+def _step_collectives(run: dict, step: int) -> dict:
+    """{kind: (calls, host ms)} of one step's timed collectives."""
+    out = {}
+    for s, kind, ms in run["collectives"]:
+        if s == step:
+            calls, total = out.get(kind, (0, 0.0))
+            out[kind] = (calls + 1, total + ms)
+    return out
+
+
+def _format_collectives(step: dict) -> str:
+    return ", ".join(f"{k} {c} {t:.1f}" for k, (c, t) in sorted(step.items()))
+
+
+def _check_against(label: str, got: dict, want: dict, grads: bool = True) -> tuple:
+    """(gradient gaps of max|g| per module, worst metric's relative gap) of
+    a run against the one-process run, within DP_GRAD_TOL and DP_STEP_TOL."""
+    gaps = _grad_gaps(got["grads"], want["grads"]) if grads else {}
+    for mod, gap in gaps.items():
+        if not gap <= DP_GRAD_TOL:
+            raise AssertionError(f"{label}: {mod} gradient gap {gap:.3e} > {DP_GRAD_TOL}")
+    worst = 0.0
+    for k, v in want["metrics"].items():
+        g = got["metrics"][k]
+        worst = max(worst, abs(g - v) / max(abs(v), 1e-30))
+        if not abs(g - v) <= DP_STEP_TOL["atol"] + DP_STEP_TOL["rtol"] * abs(v):
+            raise AssertionError(f"{label}: {k} {g} vs {v}")
+    for k, v in want["params"].items():
+        torch.testing.assert_close(got["params"][k], v, msg=f"{label}: {k}", **DP_STEP_TOL)
+    return gaps, worst
+
+
+def phase_tp(smi: str, gloo: dict) -> dict:
+    """17a: 14b's two gloo ranks on cuda:0 ran `run_training(fields=
+    FLAGSHIP_TRAIN, tensor_parallel=2)` (data 1 x model 2: the wide heads'
+    rows split over the two ranks) after their data-parallel runs, fused
+    (2 steps, a checkpoint at step 1) and split (1 step); they are held to
+    14b's one-process runs of the same calls. Then one process resumes the
+    tensor-parallel run's step-1 checkpoint to step 2, against the
+    one-process fused run."""
+    log(f"phase 17a: run_training(fields=FLAGSHIP_TRAIN, tensor_parallel={TP_MODEL}) in 14b's 2 "
+        f"gloo ranks on cuda:0 (data 1 x model {TP_MODEL}: the wide heads' rows split), every "
+        f"{TRAIN_BATCH} x {TRAIN_FRAMES} batch whole on each, draws on, fused (2 steps, rank 0 "
+        f"writes a checkpoint at step 1) and split (1 step), against 14b's one-process runs; the "
+        f"last step's gradients within {DP_GRAD_TOL} of max|g| per module, metrics and gathered "
+        f"parameters rtol {DP_STEP_TOL['rtol']} atol {DP_STEP_TOL['atol']}; each collective "
+        f"timed between two synchronises [{smi}]")
+    d, one_runs = gloo["tp"]["dir"], gloo["one"]
+    try:
+        fused_dir = os.path.join(d, "tp fused")
+        firsts = [p for p in os.listdir(fused_dir) if p.endswith("_step_00001.pth")]
+        if not firsts:
+            raise AssertionError(f"17a: rank 0 wrote {os.listdir(fused_dir)}")
+        ckpt = torch.load(os.path.join(fused_dir, firsts[0]), weights_only=True, mmap=True)
+        head = ckpt["net"]["fa_predictors"]["timbre_predictor.weight"].shape
+        mu = ckpt["optimizer"]["fa_predictors"]["mu"]["timbre_predictor.weight"].shape
+        if head != (20000, 1024) or mu != head:
+            raise AssertionError(f"17a: the checkpoint's speaker head {head}, its moment {mu}")
+        del ckpt
+        # the run stopped at step 2 inside its epoch: step 1's is its latest checkpoint
+        resumed = dp_train("codec", "cuda", fused_dir, 2, record_grads=True)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    out = {}
+    for label, res in gloo["tp"]["results"].items():
+        one = one_runs[label]
+        if res[0]["sharded"] != res[1]["sharded"] or len(res[0]["sharded"]) != 7:
+            raise AssertionError(f"17a {label}: sharded {res[0]['sharded']}")
+        for r, rr in enumerate(res):
+            for glob_lens, mine in rr["rows"]:
+                if mine != glob_lens:
+                    raise AssertionError(f"17a {label}: rank {r} kept {mine} of {glob_lens}")
+        gaps, worst = _check_against(f"17a {label}", res[0], one)
+        _same_on_ranks(f"17a {label}", res)
+        per = [_per_step(rr) for rr in res]
+        if any(p != _per_step(one) for p in per):
+            raise AssertionError(f"17a {label}: launches a step {per}, one process "
+                                 f"{_per_step(one)}")
+        if any(v for k, v in per[0].items() if k not in ("f32", "vq")):
+            raise AssertionError(f"17a {label}: a float32 step launched {per[0]}")
+        steps = len(one["step_ms"])
+        last = _step_collectives(res[0], steps)
+        pb, sb = res[0]["param_bytes"], res[0]["sharded_bytes"]
+        log(f"  {label}: gradient gap of max|g| " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                                             gaps.items())
+            + f"; metrics within {worst:.2e} relative; sharded {res[0]['sharded']}")
+        log(f"  {label}: rank step ms {[[round(t, 1) for t in rr['step_ms'].values()] for rr in res]}"
+            f", one process {[round(t, 1) for t in one['step_ms'].values()]}; launches a step "
+            f"{per[0]} on each rank, as the one process's; rank 0 holds {sb[0]} of {sb[1]} bytes of "
+            f"the sharded tensors (x3 with the AdamW moments: {3 * sb[0]} of {3 * sb[1]}), "
+            f"{3 * pb[0]} of {3 * pb[1]} bytes of parameters and moments in all; the last step's "
+            f"collectives (calls, host ms) " + _format_collectives(last)
+            + f"; model-group sums and gathers {res[0]['model'][0]} calls, {res[0]['model'][1]} "
+            f"bytes, all-reduces {res[0]['reduced'][0]} calls, {res[0]['reduced'][1]} bytes in "
+            f"the run [{smi}]")
+        out[label] = dict(gaps=gaps, launches=per[0],
+                          rank_ms=[rr["step_ms"][steps] for rr in res],
+                          one_ms=one["step_ms"][steps], collectives=last,
+                          sharded_bytes=sb, param_bytes=pb)
+    if sorted(resumed["step_ms"]) != [2]:
+        raise AssertionError(f"17a: the resumed run stepped {sorted(resumed['step_ms'])}")
+    gaps, worst = _check_against("17a resumed", resumed, one_runs["fused"])
+    log(f"  one process resumed the tensor-parallel run's step-1 checkpoint (whole tensors) to "
+        f"step 2: gradient gap of max|g| " + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+        + f", metrics within {worst:.2e} relative of the one-process fused run")
+    return out
+
+
+def phase_validate(cpu: FACodec, smi: str) -> dict:
+    """17b: `python -m facodec_tpu_torch validate` (its `main`) on the card
+    at FLAGSHIP width: a seeded checkpoint in the reference's layout (one
+    state dict per module) and a golden that the port computes from it on
+    the CPU (its codes, timbre and reconstruction of the command's chirp)."""
+    from facodec_tpu_torch import api
+    from facodec_tpu_torch.cli import validate
+    from facodec_tpu_torch.models.builder import codec_fields
+
+    fields = codec_fields(VALIDATE_CONFIG["model_params"])
+    if fields != {k: dict(FLAGSHIP[k], **{f: v for f, v in fields[k].items()
+                                          if f not in FLAGSHIP[k]}) for k in fields}:
+        raise AssertionError(f"17b: the config builds {fields}, not FLAGSHIP")
+    log(f"phase 17b: validate --golden on the card, FLAGSHIP (seed 0) from a checkpoint in the "
+        f"reference's layout, the golden from the port on the CPU; the {VALIDATE_SECONDS:.0f} s "
+        f"chirp; codes >= {CODE_MATCH_MIN} equal to the golden's, mel_l1 within the threshold "
+        f"[{smi}]")
+    d = tempfile.mkdtemp(prefix="validate_", dir=build.BUILD_DIR)
+    try:
+        ckpt = os.path.join(d, "pytorch_model.bin")
+        torch.save({k: getattr(cpu, k).state_dict() for k in ("encoder", "quantizer", "decoder")},
+                   ckpt)
+        config = os.path.join(d, "config.json")
+        with open(config, "w") as f:
+            json.dump(VALIDATE_CONFIG, f)
+        wave = validate._test_wave("", VALIDATE_SECONDS)
+        t0 = time.perf_counter()
+        g = cpu.encode(wave[None])
+        golden = os.path.join(d, "golden.npz")
+        np.savez(golden, codes_p=g.codes_p, codes_c=g.codes_c, codes_r=g.codes_r,
+                 timbre=g.timbre, recon=cpu.reconstruct(wave[None]))
+        golden_s = time.perf_counter() - t0
+        seen = []
+        encode = api.FACodec.encode
+        api.FACodec.encode = lambda self, w: seen.append(encode(self, w)) or seen[-1]
+        parser = __import__("argparse").ArgumentParser()
+        validate.add_args(parser)
+        args = parser.parse_args(["--ckpt", ckpt, "--config", config, "--golden", golden,
+                                  "--seconds", str(VALIDATE_SECONDS), "--device", "cuda"])
+        buf = __import__("io").StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = validate.main(args)
+        finally:
+            api.FACodec.encode = encode
+        torch.cuda.synchronize()
+        validate_s = time.perf_counter() - t0
+        counts = policy_counts()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    line = buf.getvalue().strip().splitlines()[-1]
+    out = json.loads(line)
+    names = ("codes_p", "codes_c", "codes_r")
+    same = sum(int((np.asarray(getattr(seen[0], n)) == np.asarray(getattr(g, n))).sum())
+               for n in names)
+    total = sum(getattr(g, n).size for n in names)
+    log(f"  {line}")
+    log(f"  exit code {rc}; codes equal to the golden's {same}/{total} ({same / total:.5f}); "
+        f"launches {counts}; the command {validate_s:.1f} s (the build from the checkpoint "
+        f"included), the golden on the CPU {golden_s:.1f} s [{smi}]")
+    if same / total < CODE_MATCH_MIN:
+        raise AssertionError(f"17b: codes {same / total} < {CODE_MATCH_MIN}")
+    if not out["mel_l1"] <= out["mel_l1_threshold"]:
+        raise AssertionError(f"17b: mel_l1 {out['mel_l1']} > {out['mel_l1_threshold']}")
+    if rc != (0 if out["pass"] else 1) or not (counts["f32"] and counts["vq"]):
+        raise AssertionError(f"17b: exit code {rc} for {out}, launches {counts}")
+    return dict(line=out, rc=rc, code_share=same / total, launches=counts, s=validate_s)
+
+
+def _pcm16(seconds: float, sr: int, seed: int) -> np.ndarray:
+    """A seeded speech-like int16 clip (a gliding tone with noise)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    w = 0.3 * np.sin(2 * np.pi * (140 + 30 * seed + 20 * np.sin(2 * np.pi * 0.5 * t)) * t)
+    return ((w + 0.02 * rng.standard_normal(len(t))) * 32767).astype(np.int16)
+
+
+def phase_webui(cpu: FACodec, smi: str) -> dict:
+    """17c: the webui handlers (`webui.make_handlers`) at FLAGSHIP width on
+    the card against the same handlers on the CPU: `do_reconstruct` on
+    10 s of int16 at 16 kHz (resampled to 24 kHz), `do_convert` on two 3 s
+    int16 clips."""
+    from facodec_tpu_torch import webui
+
+    log(f"phase 17c: webui handlers, FLAGSHIP (seed 0) and FLAGSHIP_REDECODER (seed 1): "
+        f"do_reconstruct on {WEBUI_SECONDS:.0f} s of int16 at {WEBUI_SR} Hz, do_convert on two "
+        f"{WEBUI_VC_SECONDS:.0f} s int16 clips, card against CPU within {WEBUI_LSB} LSB; "
+        f"{WEBUI_TURNS} timed calls each after a warm-up [{smi}]")
+    card = webui.make_handlers(FACodec.from_fields(FLAGSHIP, seed=0, device="cuda"),
+                               FARedecoder.from_fields(FLAGSHIP_REDECODER, seed=1, device="cuda"))
+    host = webui.make_handlers(cpu, FARedecoder.from_fields(FLAGSHIP_REDECODER, seed=1,
+                                                            device="cpu"))
+    rec_in = (WEBUI_SR, _pcm16(WEBUI_SECONDS, WEBUI_SR, 1))
+    vc_in = ((SR, _pcm16(WEBUI_VC_SECONDS, SR, 2)), (SR, _pcm16(WEBUI_VC_SECONDS, SR, 3)))
+    out = {}
+    for name, i, args in (("reconstruct", 0, (rec_in,)), ("convert", 1, vc_in)):
+        fn = card[i]
+        fn(*args)
+        reset_counts()
+        got = fn(*args)
+        counts = policy_counts()
+        times = []
+        for _ in range(WEBUI_TURNS):
+            t0 = time.perf_counter()
+            fn(*args)
+            times.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        want = host[i](*args)
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+        if got[0] != want[0] or got[1].dtype != np.int16 or got[1].shape != want[1].shape:
+            raise AssertionError(f"17c {name}: {got[0]} {got[1].dtype} {got[1].shape} against "
+                                 f"{want[0]} {want[1].shape}")
+        lsb = int(np.abs(got[1].astype(np.int32) - want[1].astype(np.int32)).max())
+        log(f"  do_{name}: {got[1].shape[0]} samples at {got[0]} Hz, card vs CPU max {lsb} LSB; "
+            f"card ms {[round(t, 1) for t in times]} (host clock, the handler's call), CPU "
+            f"{cpu_ms:.0f} ms; launches {counts} [{smi}]")
+        if lsb > WEBUI_LSB or not (counts["f32"] and counts["vq"]):
+            raise AssertionError(f"17c {name}: {lsb} LSB, launches {counts}")
+        out[name] = dict(lsb=lsb, ms=times, cpu_ms=cpu_ms, launches=counts)
+    return out
+
+
+def phase_entry_points(smi: str, gloo: dict) -> dict:
+    """Phase 17: the entry points the slice ports (tensor-parallel
+    training, validate, the webui handlers); `gloo` is 14b's result."""
+    t0 = time.perf_counter()
+    tp = phase_tp(smi, gloo)
+    t1 = time.perf_counter()
+    cpu = FACodec.from_fields(FLAGSHIP, seed=0, device="cpu")
+    va = phase_validate(cpu, smi)
+    t2 = time.perf_counter()
+    ui = phase_webui(cpu, smi)
+    log(f"phase 17: 17a {t1 - t0:.1f} s, 17b {t2 - t1:.1f} s, 17c "
+        f"{time.perf_counter() - t2:.1f} s")
+    del cpu
+    torch.cuda.empty_cache()
+    return dict(tp=tp, validate=va, webui=ui)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -3466,10 +3881,21 @@ def main() -> None:
     own_data, own_tr, own_sc = phase_own(smi)
     dp = phase_dp(smi)
     shard2 = dp["shard"]["2 on cuda:0"]["launches"]
+    ep = phase_entry_points(smi, dp["gloo"])
+    del dp["gloo"]["one"], dp["gloo"]["tp"]  # the runs' tensors, held by 17a
+    tp_launches = ep["tp"]["fused"]["launches"]
+    va_launches = ep["validate"]["launches"]
+    ui_launches = {k: v["launches"] for k, v in ep["webui"].items()}
 
     def bench_launches(key: str) -> dict:
         """The kernel's launches in one round trip of the bench (16a), by policy."""
         return {p: bn["launches"][p].get(key, 0) for p in BENCH_POLICIES}
+
+    def entry_launches(key: str) -> dict:
+        """The kernel's launches on phase 17's entry points, from its counter."""
+        return dict(tp_step_launches=tp_launches[key], validate_launches=va_launches[key],
+                    webui_reconstruct_launches=ui_launches["reconstruct"][key],
+                    webui_convert_launches=ui_launches["convert"][key])
 
     # no single PyTorch call computes either function: library_ms is null
     kernels = [
@@ -3487,10 +3913,11 @@ def main() -> None:
              artifact_launches=art["launches"]["float32"]["f32"],
              artifact_hybrid_launches=art["launches"]["hybrid"]["f32"],
              dp_step_launches=dp["nccl"]["a"]["launches"]["f32"],
-             dp_gloo_step_launches=dp["gloo"]["fused"]["launches"][0],
+             dp_gloo_step_launches=dp["gloo"]["fused"]["launches"]["f32"],
              sharded_reconstruct_launches=shard2["float32"]["f32"],
              sharded_hybrid_launches=shard2["hybrid"]["f32"], bound_by="operations",
              bench_launches=bench_launches("f32"), bench_train_launches=24,
+             **entry_launches("f32"),
              library_ms=None, **ru, **halo),
         dict(name="nearest_code", route="cuda", source="facodec_tpu_torch/csrc/vq.cu",
              replaces="facodec_tpu/ops/pallas/vq.py:76", launches=main_path["vq"],
@@ -3503,10 +3930,11 @@ def main() -> None:
              eval_launches=own_sc["eval_launches"]["float32"]["vq"],
              artifact_launches=art["launches"]["float32"]["vq"],
              dp_step_launches=dp["nccl"]["a"]["launches"]["vq"],
-             dp_gloo_step_launches=dp["gloo"]["fused"]["launches"][1],
+             dp_gloo_step_launches=dp["gloo"]["fused"]["launches"]["vq"],
              sharded_reconstruct_launches=shard2["float32"]["vq"],
              sharded_hybrid_launches=shard2["hybrid"]["vq"],
              bench_launches=bench_launches("vq"), bench_train_launches=6,
+             **entry_launches("vq"),
              bound_by="operations", library_ms=None, **vqr),
         # the bf16 entry (csrc/resunit_bf16.cu): its main path is the hybrid
         # round trip (the serve default), whose 12 decoder units it runs
@@ -3522,27 +3950,27 @@ def main() -> None:
              sharded_hybrid_launches=shard2["hybrid"]["bf16"],
              decode_kernels=hy["decode_kernels"],
              decode_kernels_per_call_pack=hy["decode_kernels_per_call_pack"], library_ms=None,
-             bench_launches=bench_launches("bf16"),
+             bench_launches=bench_launches("bf16"), **entry_launches("bf16"),
              hybrid_int8_launches=pol["launches"]["hybrid_int8"].get("bf16", 0), **bf),
         # phase 15: the bf16 kernel's float32-in/out forms and the int8 unit
         dict(name="fused_residual_unit_f32io", route="cuda",
              source="facodec_tpu_torch/csrc/resunit_bf16.cu",
              replaces="facodec_tpu/ops/pallas/resunit.py:273",
              launches=pol["launches"]["bfloat16"]["f32io"], policy="bfloat16", library_ms=None,
-             bench_launches=bench_launches("f32io"),
+             bench_launches=bench_launches("f32io"), **entry_launches("f32io"),
              **pol["k1"]),
         dict(name="fused_residual_unit_f32io_act", route="cuda",
              source="facodec_tpu_torch/csrc/resunit_bf16.cu",
              replaces="facodec_tpu/ops/pallas/resunit.py:273",
              launches=pol["launches"]["hybrid_int8"]["act"], policy="hybrid_int8",
-             bench_launches=bench_launches("act"),
+             bench_launches=bench_launches("act"), **entry_launches("act"),
              library_ms=None, **pol["k1a"]),
         dict(name="fused_residual_unit_int8", route="cuda",
              source="facodec_tpu_torch/csrc/resunit_int8.cu",
              replaces="facodec_tpu/ops/pallas/resunit.py:273",
              launches=pol["launches"]["hybrid_int8"]["int8"],
              amax_launches=pol["launches"]["hybrid_int8"]["amax"], policy="hybrid_int8",
-             bench_launches=bench_launches("int8"),
+             bench_launches=bench_launches("int8"), **entry_launches("int8"),
              status="redesigned: wgmma s8 and bf16, the weights and the s2 tile by TMA and "
                     "bulk copies through an mbarrier ring, persistent grid",
              library_ms=None, **pol["k2"]),
@@ -3599,6 +4027,13 @@ def main() -> None:
                     for name, r in sh.items())
         + f"; serve requests/s unsharded {[round(r, 2) for r in dp['serve']['rps']['unsharded']]}"
         f" sharded {[round(r, 2) for r in dp['serve']['rps']['sharded']]} [{smi}]")
+    tpf, va, ui = ep["tp"]["fused"], ep["validate"], ep["webui"]
+    log(f"entry points: tensor-parallel fused step (2 gloo ranks, data 1 x model {TP_MODEL}) rank "
+        f"ms {[round(t, 1) for t in tpf['rank_ms']]} against one process {tpf['one_ms']:.1f}, "
+        f"sharded tensors {tpf['sharded_bytes'][0]} of {tpf['sharded_bytes'][1]} bytes a rank; "
+        f"validate {json.dumps(va['line'])} exit {va['rc']}, codes {va['code_share']:.5f}; webui "
+        + "; ".join(f"{k} {[round(t, 1) for t in v['ms']]} ms, {v['lsb']} LSB"
+                    for k, v in ui.items()) + f" [{smi}]")
     log(f"policies: round trips (s, in turns) " + "; ".join(
         f"{p} {', '.join(f'{t:.3f}' for t in v)}" for p, v in pol["times"].items())
         + f"; bfloat16 codes equal to float32's {pol['bf16_code_share']:.4%}; SI-SDR vs float32 "

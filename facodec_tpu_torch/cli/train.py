@@ -23,6 +23,13 @@ GPUs) ranks itself, one per GPU (the JAX loop's "every device" default;
 CUDA_VISIBLE_DEVICES limits it), and runs in this process where that is 1.
 `--device cpu` with WORLD_SIZE set runs gloo ranks on the CPU. A rank that
 fails ends every rank, and the command exits non-zero.
+
+Tensor parallelism: the config key `tensor_parallel: N` shards the wide
+heads over N ranks (parallel/sharding.py). Started alone on the card the
+command then starts gcd(batch_size, visible GPUs // N) x N ranks, the JAX
+loop's (data, model) mesh, and refuses an N above the visible GPUs, where
+JAX's `make_mesh` fails too. Ranks started by the caller (torchrun, gloo
+ranks on the CPU) run any N that divides their number.
 """
 
 from __future__ import annotations
@@ -33,10 +40,15 @@ import os
 
 import torch
 
-from facodec_tpu_torch.parallel.mesh import data_world, launched, rank_store
+from facodec_tpu_torch.parallel.mesh import launched, rank_store, world_rank
 from facodec_tpu_torch.train.loop import run_training
 from facodec_tpu_torch.train.redecoder_loop import run_redecoder_training
 from facodec_tpu_torch.utils.config import load_config
+
+
+TRAIN_DESCRIPTION = ("Codec GAN training. The config's `tensor_parallel: N` shards the wide "
+                     "heads over N GPUs: alone on the card the command starts "
+                     "gcd(batch_size, GPUs // N) x N ranks.")
 
 
 def add_args(p: argparse.ArgumentParser, default: str = "FLAGSHIP_TRAIN") -> None:
@@ -56,19 +68,29 @@ def add_redecoder_args(p: argparse.ArgumentParser) -> None:
 
 def _report(state):
     """Print the run's end (on rank 0 only, where the process is a rank)."""
-    if data_world()[0] == 0:
+    if world_rank()[0] == 0:
         print(f"trained to step {state.step} (epoch {state.epoch}): "
               + ", ".join(f"{k} {v:.4f}" for k, v in sorted(state.metrics.items())))
     return state
 
 
 def n_ranks(config_path, device: str) -> int:
-    """The ranks to start on this node: gcd(batch_size, visible GPUs) on the
-    card, 1 on the CPU or under torchrun (which started them)."""
-    if launched() or torch.device(device).type != "cuda" or not torch.cuda.is_available():
+    """The ranks to start on this node: gcd(batch_size, visible GPUs //
+    tensor_parallel) x tensor_parallel on the card (the config's, else 4 and
+    1), 1 on the CPU or under torchrun (which started them). Raises where
+    tensor_parallel exceeds the visible GPUs."""
+    if launched() or torch.device(device).type != "cuda":
         return 1
-    batch_size = int(load_config(config_path).get("batch_size", 4)) if config_path else 4
-    return math.gcd(batch_size, torch.cuda.device_count())
+    cfg = load_config(config_path) if config_path else {}
+    batch_size = int(cfg.get("batch_size", 4))
+    n_model = int(cfg.get("tensor_parallel", 1))
+    gpus = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n_model > max(gpus, 1):
+        raise ValueError(f"tensor_parallel {n_model} asked for, but torch sees {gpus} CUDA "
+                         f"device(s): each model rank takes a GPU")
+    if gpus == 0:
+        return 1  # run_training names the missing card
+    return math.gcd(batch_size, gpus // n_model) * n_model
 
 
 def _rank_main(rank: int, world: int, store_env: dict, fn, kwargs) -> None:
@@ -87,7 +109,7 @@ def launch(fn, config_path, device: str, **kwargs):
         return _report(fn(**kwargs))
     import torch.multiprocessing as mp
 
-    print(f"starting {n} data-parallel ranks, one per GPU", flush=True)
+    print(f"starting {n} ranks, one per GPU", flush=True)
     with rank_store() as store_env:
         mp.start_processes(_rank_main, args=(n, store_env, fn, kwargs), nprocs=n, join=True,
                            start_method="spawn")

@@ -29,12 +29,18 @@ Embedding = nn.Embedding
 LayerNorm = nn.LayerNorm
 
 
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """x @ weight.T + bias under the precision policy: under bfloat16 the
+    product takes bfloat16-valued operands and the bias is added after it."""
+    if compute_dtype() != torch.bfloat16:
+        return F.linear(x, weight, bias)
+    y = F.linear(bf16_values(x), bf16_values(weight))
+    return y if bias is None else y + bias
+
+
 class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if compute_dtype() != torch.bfloat16:
-            return super().forward(x)
-        y = F.linear(bf16_values(x), bf16_values(self.weight))
-        return y if self.bias is None else y + self.bias
+        return linear(x, self.weight, self.bias)
 
 
 def dropout(x: torch.Tensor, p: float, train: bool,

@@ -28,6 +28,20 @@ explicitly:
   one-process step with the draws on, as the JAX SPMD step does.
 - `make_devices` gives the devices of batch-parallel inference
   (`api.FACodec.shard_inference`), one replica each.
+
+Tensor parallelism (the JAX mesh's `model` axis, `tensor_parallel: N`):
+`form_layout(n_model)` lays the ranks out as a (data, model) grid in
+data-major order, as `facodec_tpu/parallel/mesh.py` `make_mesh` reshapes
+its devices: rank r is data rank r // n_model and model rank r % n_model,
+and every rank joins its data group (the ranks of one model rank) and its
+model group (the ranks of one data rank) by `dist.new_group`. Under a
+layout `data_world`, `local_world`, the draws' row shard, `global_mean` and
+`average_metrics` follow the data group: the ranks of one model group hold
+the same rows and compute the same replicated values. `reduce_gradients`
+averages a gradient of a parameter sharded over the model group
+(parallel/sharding.py) over the data group only, and every other gradient
+over the whole world, as before. `world_rank` is the rank in the whole
+group (rank 0 writes).
 """
 
 from __future__ import annotations
@@ -96,6 +110,8 @@ def _end_group() -> None:
     finalizes: a gloo group left to Python's teardown could destroy its
     transport threads in any order and abort the rank (SIGABRT, "terminate
     called without an active exception") after its work was done."""
+    global _LAYOUT
+    _LAYOUT = None
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -105,22 +121,89 @@ def is_distributed() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def data_world() -> Tuple[int, int]:
-    """(rank, world size) of the process group; (0, 1) without one."""
+def world_rank() -> Tuple[int, int]:
+    """(rank, world size) of the whole process group; (0, 1) without one."""
     if is_distributed():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
 
 
+@dataclass(frozen=True)
+class Layout:
+    """A rank's place in the (data, model) grid, and its two groups."""
+
+    n_data: int
+    n_model: int
+    data_rank: int
+    model_rank: int
+    data_group: object
+    model_group: object
+    world_group: object  # the default group the subgroups were made in
+
+
+_LAYOUT: Optional[Layout] = None
+
+
+def form_layout(n_model: int) -> Optional[Layout]:
+    """Lay the process group out as (world // n_model data, n_model model)
+    ranks, data-major, and return this rank's place; None (no layout) for
+    a model axis of 1. Every rank calls it, with the same n_model: each
+    subgroup is made by every rank. Raises where n_model does not divide
+    the world, as `make_mesh` fails with fewer devices than the model axis."""
+    global _LAYOUT
+    rank, world = world_rank()
+    if n_model < 1 or world % n_model:
+        raise ValueError(f"a world of {world} rank(s) is not divisible by a model axis of "
+                         f"{n_model} (tensor_parallel); start a multiple of {n_model} ranks")
+    if n_model == 1:
+        _LAYOUT = None
+        return None
+    if (_LAYOUT is not None and _LAYOUT.n_model == n_model
+            and _LAYOUT.world_group is dist.group.WORLD):
+        return _LAYOUT
+    n_data = world // n_model
+    data_groups = [dist.new_group([d * n_model + m for d in range(n_data)])
+                   for m in range(n_model)]
+    model_groups = [dist.new_group([d * n_model + m for m in range(n_model)])
+                    for d in range(n_data)]
+    d, m = divmod(rank, n_model)
+    _LAYOUT = Layout(n_data, n_model, d, m, data_groups[m], model_groups[d], dist.group.WORLD)
+    return _LAYOUT
+
+
+def layout() -> Optional[Layout]:
+    """This rank's (data, model) layout where one was formed in the
+    current process group, else None."""
+    if _LAYOUT is None or not is_distributed() or _LAYOUT.world_group is not dist.group.WORLD:
+        return None
+    return _LAYOUT
+
+
+def data_world() -> Tuple[int, int]:
+    """(data rank, data ranks): the rank and size of the process group, or
+    under a layout its data rank and data axis; (0, 1) without a group."""
+    lay = layout()
+    if lay is not None:
+        return lay.data_rank, lay.n_data
+    return world_rank()
+
+
 def local_world() -> Tuple[int, int]:
-    """(local rank, ranks on this node): torchrun's LOCAL_RANK and
-    LOCAL_WORLD_SIZE, else the group's rank and size (one node); (0, 1)
+    """(local data rank, data ranks on this node): torchrun's LOCAL_RANK and
+    LOCAL_WORLD_SIZE, else the group's rank and size (one node), each over
+    the model axis under a layout (a node holds whole model groups); (0, 1)
     without a group."""
-    rank, world = data_world()
+    rank, world = world_rank()
     if world == 1:
         return 0, 1
-    return (int(os.environ.get("LOCAL_RANK", rank)),
-            int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+    lay = layout()
+    n_model = 1 if lay is None else lay.n_model
+    local_rank = int(os.environ.get("LOCAL_RANK", rank))
+    local_size = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if local_size % n_model:
+        raise ValueError(f"{local_size} ranks on this node do not hold whole model groups of "
+                         f"{n_model}")
+    return local_rank // n_model, local_size // n_model
 
 
 def rank_rows(global_rows: int, rank: int, world: int) -> slice:
@@ -195,32 +278,59 @@ def _bucketed_(tensors: Sequence[torch.Tensor], collective) -> None:
 
 @dataclass
 class ReduceStats:
-    """Collectives issued by `all_reduce_mean_` in this process, and their bytes."""
+    """Collectives of one kind issued in this process, and their bytes."""
 
     calls: int = 0
     bytes: int = 0
 
+    def add(self, t: torch.Tensor) -> None:
+        self.calls += 1
+        self.bytes += t.numel() * t.element_size()
 
-REDUCED = ReduceStats()
+
+REDUCED = ReduceStats()  # `all_reduce_mean_`: gradients, metrics, global means
+MODEL_SUMS = ReduceStats()  # `model_sum_`: the sharded heads' input gradients, the clip's sums
+GATHERED = ReduceStats()  # `gather_model`: the sharded heads' outputs (bytes sent)
 
 
 @torch.no_grad()
-def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Average `tensors` over the ranks in place: one all-reduce per flat
-    bucket of up to BUCKET_BYTES, counted in `REDUCED`."""
-    world = dist.get_world_size()
-    nccl = dist.get_backend() == "nccl"
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Average `tensors` over the ranks of `group` (default: every rank) in
+    place: one all-reduce per flat bucket of up to BUCKET_BYTES, counted in
+    `REDUCED`."""
+    world = dist.get_world_size(group)
+    nccl = dist.get_backend(group) == "nccl"
 
     def reduce(flat: torch.Tensor) -> None:
         if nccl:
-            dist.all_reduce(flat, op=dist.ReduceOp.AVG)
+            dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=group)
         else:
-            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
             flat.div_(world)
-        REDUCED.calls += 1
-        REDUCED.bytes += flat.numel() * flat.element_size()
+        REDUCED.add(flat)
 
     _bucketed_(list(tensors), reduce)
+
+
+@torch.no_grad()
+def model_sum_(t: torch.Tensor) -> torch.Tensor:
+    """Sum `t` over this rank's model group in place (one all-reduce,
+    counted in `MODEL_SUMS`); returns it."""
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=layout().model_group)
+    MODEL_SUMS.add(t)
+    return t
+
+
+@torch.no_grad()
+def gather_model(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model group's tensors concatenated along `dim`, in model-rank
+    order (one all-gather, counted in `GATHERED`)."""
+    lay = layout()
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(lay.n_model)]
+    dist.all_gather(parts, t, group=lay.model_group)
+    GATHERED.add(t)
+    return torch.cat(parts, dim=dim)
 
 
 @torch.no_grad()
@@ -229,40 +339,63 @@ def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
     _bucketed_(list(tensors), lambda flat: dist.broadcast(flat, src))
 
 
+def is_sharded(param: torch.Tensor) -> bool:
+    """Whether `param` is a row shard over the model group
+    (parallel/sharding.py marks it)."""
+    return getattr(param, "tp_shard", None) is not None
+
+
 def reduce_gradients(params: Sequence[torch.Tensor],
                      grads: Sequence[Optional[torch.Tensor]]) -> List[Optional[torch.Tensor]]:
     """The step's gradients, averaged over the ranks where this process is
     one: a None gradient becomes zeros first, so every rank sends the same
-    buckets. In one plain process, `grads` unchanged."""
+    buckets. A sharded parameter's gradient is averaged over the data group
+    only (the model group's ranks hold other rows of it); every other one
+    over the whole world (the model group's ranks hold the same value, and
+    the world's mean keeps their replicas equal). In one plain process,
+    `grads` unchanged."""
     if not is_distributed():
         return list(grads)
     full = [torch.zeros_like(p) if g is None else g.contiguous()
             for p, g in zip(params, grads, strict=True)]
-    all_reduce_mean_(full)
+    lay = layout()
+    if lay is None:
+        all_reduce_mean_(full)
+        return full
+    sharded = [is_sharded(p) for p in params]
+    all_reduce_mean_([g for g, s in zip(full, sharded) if not s])
+    if lay.n_data > 1:
+        all_reduce_mean_([g for g, s in zip(full, sharded) if s], group=lay.data_group)
     return full
 
 
+def _data_group():
+    lay = layout()
+    return None if lay is None else lay.data_group
+
+
 def average_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """0-d metrics averaged over the ranks in one collective (the global
-    batch's values where each is a mean over equal rows); unchanged in
-    one plain process."""
-    if not is_distributed() or not metrics:
+    """0-d metrics averaged over the data ranks in one collective (the
+    global batch's values where each is a mean over equal rows); unchanged
+    in one plain process or a data axis of one."""
+    if data_world()[1] == 1 or not metrics:
         return metrics
     keys = list(metrics)
     flat = torch.stack([metrics[k].detach().float() for k in keys])
-    all_reduce_mean_([flat])
+    all_reduce_mean_([flat], group=_data_group())
     return dict(zip(keys, flat.unbind()))
 
 
 def global_mean(x: torch.Tensor) -> torch.Tensor:
     """A rank's mean over its rows -> the value of the global batch's mean
-    (the ranks hold equal rows), with the gradient of the rank's own mean:
-    averaged over the ranks, the gradients of f(global_mean(x)) are those
-    of f of the global mean. x itself in one process or a group of one."""
+    (the data ranks hold equal rows), with the gradient of the rank's own
+    mean: averaged over the ranks, the gradients of f(global_mean(x)) are
+    those of f of the global mean. x itself in one process or a data axis
+    of one."""
     if data_world()[1] == 1:
         return x
     g = x.detach().clone()
-    all_reduce_mean_([g])
+    all_reduce_mean_([g], group=_data_group())
     return g + (x - x.detach())
 
 

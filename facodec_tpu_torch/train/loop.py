@@ -33,9 +33,7 @@ false, the loop reads it as the JDC F0 teacher (the reference's
 `modules/JDC/bst.t7` layout, through `models.jdc.load_jdc_checkpoint`),
 prints `inline F0 teacher: <path>`, and the step runs the teacher on every
 mel segment in place of the batch's F0, as the JAX loop does; a file that
-does not load raises. `tensor_parallel` over 1 (the heads sharded over a
-model axis) raises `NotImplementedError`: tensor parallelism is what is
-left of multi-GPU (ROADMAP Queue 1, item 11).
+does not load raises.
 
 Data parallelism (the JAX loop's `data` mesh axis): started as a rank
 (`torchrun`, or `cli/train.py`, which starts one rank per visible GPU), the
@@ -52,6 +50,23 @@ rank waits at a barrier after each save; every rank resumes from the
 latest checkpoint. The generators' states are saved once: they agree
 across ranks by construction.
 
+Tensor parallelism (`tensor_parallel: N`, the JAX loop's `model` mesh
+axis): the ranks form a (world // N data, N model) layout
+(parallel/mesh.py `form_layout`, data-major as JAX's `make_mesh`); the JAX
+loop's data axis, gcd(batch_size, devices // N), is the world over N here,
+since the ranks are started to fit it (cli/train.py), and it must divide
+the batch. A world that N does not divide raises, one plain process with
+N over 1 too, as `make_mesh` fails with fewer devices than N. The whole
+weights are seeded (or resumed) and broadcast as above, then every rank
+keeps its rows of the wide heads (parallel/sharding.py `shard_training`,
+`tp_param_shardings`'s rule at its default `min_elems`, as the JAX loop
+applies it) and of their AdamW moments. The ranks of one model
+group take the same rows of each batch and make the same draws;
+checkpoints hold the whole tensors, gathered over the model group before
+rank 0 writes, so they load into one process and back. The probes run on
+every rank of a tensor-parallel run (their heads gather), and rank 0 logs
+them.
+
 Draws: the step's (dropout, quantizer dropout, residual mask) from a
 generator on the device seeded with seed + 1; the data order from seed
 114514 + epoch; the segment crops from a CPU generator seeded with seed.
@@ -65,7 +80,7 @@ import os
 import re
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,9 +90,11 @@ import torch.nn as nn
 from facodec_tpu_torch.config import FLAGSHIP_TRAIN
 from facodec_tpu_torch.models.jdc import load_jdc_checkpoint
 from facodec_tpu_torch.models.builder import build_train_from_fields, train_fields
-from facodec_tpu_torch.parallel.mesh import (broadcast_, data_world, init_distributed,
-                                             is_distributed, local_world, rank_device,
-                                             rank_rows)
+from facodec_tpu_torch.parallel.mesh import (broadcast_, data_world, form_layout,
+                                             init_distributed, is_distributed, layout,
+                                             local_world, rank_device, rank_rows, world_rank)
+from facodec_tpu_torch.parallel.sharding import (shard_training, whole_optimizer_state,
+                                                 whole_state_dict)
 from facodec_tpu_torch.train.data import (PseudoDataset, prefetch, segment_batch,
                                           shard_iterator, to_device)
 from facodec_tpu_torch.train.optimizers import AdamW, build_optimizers
@@ -118,12 +135,25 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     return os.path.abspath(ckpts[-1]) if ckpts else None
 
 
+def whole_states(state: TrainState) -> Tuple[Dict, Dict]:
+    """(net, optimizer) of a checkpoint: each module's state dict and each
+    AdamW's, with every shard gathered whole under tensor parallelism (a
+    collective there: every rank calls it)."""
+    if layout() is None:
+        return ({k: m.state_dict() for k, m in state.models.items()},
+                {k: o.state_dict() for k, o in state.optimizers.items()})
+    return ({k: whole_state_dict(m) for k, m in state.models.items()},
+            {k: whole_optimizer_state(o) for k, o in state.optimizers.items()})
+
+
 def save_checkpoint(ckpt_dir: str, state: TrainState, generators: Mapping[str, torch.Generator],
-                    keep: int = 5) -> str:
+                    keep: int = 5, states: Optional[Tuple[Dict, Dict]] = None) -> str:
+    """Write a checkpoint of `state` (its `whole_states`, or `states` where
+    they were gathered already) and keep the newest `keep`."""
     path = os.path.abspath(os.path.join(
         ckpt_dir, f"FAcodec_epoch_{state.epoch:05d}_step_{state.step:05d}.pth"))
-    torch.save(dict(net={k: m.state_dict() for k, m in state.models.items()},
-                    optimizer={k: o.state_dict() for k, o in state.optimizers.items()},
+    net, optimizer = states or whole_states(state)
+    torch.save(dict(net=net, optimizer=optimizer,
                     generators={k: g.get_state() for k, g in generators.items()},
                     step=state.step, epoch=state.epoch), path)
     for old in sorted(glob.glob(os.path.join(ckpt_dir, CKPT_GLOB)), key=_step_of)[:-keep]:
@@ -165,15 +195,6 @@ def build_models(fields: Mapping[str, Mapping[str, Any]], seed: int, device: str
     """The five modules with seeded random weights drawn on the CPU, on `device`."""
     check_device("run_training", device)
     return seeded(build_train_from_fields(fields), MODULES, seed, device)
-
-
-def check_unported(cfg: Mapping[str, Any]) -> None:
-    """Raise on a config key whose JAX behaviour is not ported."""
-    if int(cfg.get("tensor_parallel", 1)) > 1:
-        raise NotImplementedError(f"tensor_parallel {cfg['tensor_parallel']}: sharding the "
-                                  "heads over a model axis is not ported; data parallelism "
-                                  "is, and tensor parallelism is what is left of multi-GPU "
-                                  "(ROADMAP Queue 1, item 11)")
 
 
 def join_ranks(device: str) -> str:
@@ -243,9 +264,9 @@ def run_training(config_path: Optional[str] = None,
     seed = int(cfg.get("seed", 0))
     base_lr = float(cfg.get("base_lr", (cfg.get("loss_params") or {}).get("base_lr", 1e-4)))
 
-    check_unported(cfg)
     device = join_ranks(device)
-    rank_rows(int(cfg.get("batch_size", 4)), *local_world())  # the node's ranks divide it
+    lay = form_layout(int(cfg.get("tensor_parallel", 1)))
+    rank_rows(int(cfg.get("batch_size", 4)), *local_world())  # the node's data ranks divide it
     models = build_models(fields, seed, device)
     optimizers = build_optimizers(models, base_lr=base_lr)
     state = TrainState(models, optimizers, step=0, epoch=0)
@@ -256,6 +277,9 @@ def run_training(config_path: Optional[str] = None,
         load_checkpoint(resume, state, generators)
         print(f"resumed from {resume} (epoch {state.epoch}, step {state.step})")
     broadcast_models(models)
+    shards = shard_training(models, optimizers, lay)
+    if lay is not None and world_rank()[0] == 0:
+        print(f"tensor parallel: data {lay.n_data} x model {lay.n_model}; sharded {shards}")
     make_step = (make_codec_train_step_split if cfg.get("split_step", False)
                  else make_codec_train_step)
     step_fn = make_step(models, optimizers, remat=bool(cfg.get("remat", False)),
@@ -287,17 +311,25 @@ def train_loop(state: TrainState, step_fn, generators: Mapping[str, torch.Genera
     `save_interval` steps and at each epoch's end, until `max_steps`.
     `log_writer=False` logs nothing; None makes a TensorBoard writer where
     TensorBoard imports. Where the process is a rank, only rank 0 logs and
-    saves, and the ranks meet at a barrier after each save."""
-    rank, world = data_world()
+    saves, and the ranks meet at a barrier after each save; under tensor
+    parallelism every rank gathers the checkpoint's shards first and runs
+    the probes."""
+    rank, world = world_rank()
+    data_rank, data_size = data_world()
     local_size = local_world()[1]
     if rank != 0:
         log_writer = False
     elif log_writer is None:
         log_writer = _default_writer(log_dir)
+    tp = layout() is not None
+    probing = [bool(log_writer)]
+    if tp:  # every rank of a model group runs a probe that rank 0 logs
+        dist.broadcast_object_list(probing, src=0)
 
     def save() -> None:
+        states = whole_states(state) if tp else None
         if rank == 0:
-            save_checkpoint(log_dir, state, generators)
+            save_checkpoint(log_dir, state, generators, states=states)
         if world > 1:
             dist.barrier()
 
@@ -308,7 +340,8 @@ def train_loop(state: TrainState, step_fn, generators: Mapping[str, torch.Genera
     for epoch in range(state.epoch, int(cfg.get("epochs", 1000))):
         state.epoch = epoch
         batches = shard_iterator(dataset, int(cfg.get("batch_size", 4)),
-                                 rank=rank // local_size, world_size=world // local_size,
+                                 rank=data_rank // local_size,
+                                 world_size=data_size // local_size,
                                  epoch=epoch, bucket_frames=bucket_frames)
         for seg in prefetch(batches, prepare, depth=int(cfg.get("prefetch", 2))):
             t0 = time.perf_counter()
@@ -322,8 +355,10 @@ def train_loop(state: TrainState, step_fn, generators: Mapping[str, torch.Genera
                         log_writer.add_scalar(f"train/{k}", v, state.step)
                     log_writer.add_scalar("train/time", state.step_times[state.step],
                                           state.step)
-            if probe is not None and log_writer and state.step % probe_interval == 0:
-                log_probe_audio(log_writer, probe(seg), state.step)
+            if probe is not None and probing[0] and state.step % probe_interval == 0:
+                audio = probe(seg)
+                if log_writer:
+                    log_probe_audio(log_writer, audio, state.step)
             if state.step % save_interval == 0:
                 save()
             if max_steps is not None and state.step >= max_steps:

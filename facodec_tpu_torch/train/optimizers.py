@@ -13,7 +13,10 @@ computes it, not as `torch.optim.AdamW` does:
   `count`, saved with the moments.
 The clip is 10 for the discriminator and 1000 for each generator module
 (`GEN_KEYS`). A parameter that got no gradient takes a zero one, so weight
-decay still moves it, as it does under optax.
+decay still moves it, as it does under optax. Under tensor parallelism
+(parallel/sharding.py) a module's parameters may hold rows of a sharded
+one: the clip's norm then sums the shards' squares over the model group,
+so every rank clips by the whole gradient's norm.
 """
 
 from __future__ import annotations
@@ -24,12 +27,24 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from facodec_tpu_torch.parallel.mesh import is_sharded, model_sum_
+
 GEN_KEYS = ("encoder", "quantizer", "decoder", "fa_predictors")
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over every element of every tensor."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+def global_norm(tensors: Sequence[torch.Tensor],
+                sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """sqrt(sum of squares) over every element of every tensor; where
+    `sharded` marks tensors that are row shards over the model group, over
+    the whole tensors they are rows of."""
+    tensors = list(tensors)
+    if not sharded or not any(sharded):
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+    parts = [[t for t, s in zip(tensors, sharded, strict=True) if s == want]
+             for want in (True, False)]
+    sq = [torch.sum(torch.stack(torch._foreach_norm(ts)) ** 2) if ts
+          else torch.zeros((), device=tensors[0].device) for ts in parts]
+    return torch.sqrt(model_sum_(sq[0]) + sq[1])
 
 
 class AdamW:
@@ -59,7 +74,7 @@ class AdamW:
         zero gradient). Returns the gradients' global norm before the clip."""
         g = [torch.zeros_like(p) if t is None else t.detach().clone()
              for p, t in zip(self.params, grads, strict=True)]
-        norm = global_norm(g)
+        norm = global_norm(g, [is_sharded(p) for p in self.params])
         if self.clip_norm is not None:
             scale = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                                 self.clip_norm / norm)

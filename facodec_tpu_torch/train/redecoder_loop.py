@@ -49,7 +49,7 @@ from facodec_tpu_torch.models.builder import (build_encoder_stage_from_fields,
                                               build_redecoder_train_from_fields,
                                               encoder_stage_fields, redecoder_train_fields)
 from facodec_tpu_torch.train.data import PseudoDataset, segment_batch, to_device
-from facodec_tpu_torch.parallel.mesh import local_world, rank_rows
+from facodec_tpu_torch.parallel.mesh import form_layout, local_world, rank_rows
 from facodec_tpu_torch.train.loop import (TrainState, broadcast_models, check_device,
                                           join_ranks, latest_checkpoint, load_checkpoint,
                                           rank_batch, seeded, train_loop)
@@ -116,6 +116,7 @@ def run_redecoder_training(config_path: Optional[str] = None,
                                 f"{pretrained_encoder} not found")
 
     device = join_ranks(device)
+    form_layout(1)  # data parallelism only, as the JAX redecoder loop
     rank_rows(int(cfg.get("batch_size", 4)), *local_world())  # the node's ranks divide it
     codec = build_frozen_codec(fields["codec"], device, pretrained_encoder)
     models = build_redecoder_models(fields, seed, device)

@@ -3,7 +3,9 @@
 A copy of facodec_tpu/utils/config.py: it reads the reference FAcodec
 `configs/config.yml` schema unchanged. `yaml` is imported by `load_config`
 alone, so that the package imports where pyyaml is not installed; there the
-callers build from the module fields of `facodec_tpu_torch.config`.
+callers build from the module fields of `facodec_tpu_torch.config`, or
+write the same schema as a `.json` file, which `load_config` reads with the
+json module (JSON is a subset of YAML, so pyyaml reads such a file alike).
 """
 
 from __future__ import annotations
@@ -43,6 +45,11 @@ def recursive_attrdict(d: Any) -> Any:
 
 
 def load_config(path: str) -> AttrDict:
+    if path.endswith(".json"):
+        import json
+
+        with open(path, "r") as f:
+            return recursive_attrdict(json.load(f))
     try:
         import yaml
     except ImportError as e:

@@ -19,6 +19,11 @@ SPEC's global batch and writes what it returns to OUT/rank<r>.pt. SPEC is a
   deterministic
             run the steps under `deterministic()` (for bit-for-bit
             comparisons on the card)
+  tensor_parallel
+            the model axis of the ranks' (data, model) layout (default 1):
+            the wide heads are sharded (parallel/sharding.py) at
+  min_elems the sharding rule's threshold (default 1 << 20); the gradients
+            and parameters come back whole, gathered over the model group
 
 Called in a plain process, `run_steps` is the one-process reference: the
 same steps on the whole batch.
@@ -35,8 +40,11 @@ from typing import Any, Dict, Iterator, Mapping
 import torch
 import torch.nn as nn
 
-from facodec_tpu_torch.parallel.mesh import (REDUCED, data_world, init_distributed,
-                                             rank_device, rank_rows)
+from facodec_tpu_torch.parallel.mesh import (GATHERED, MODEL_SUMS, REDUCED, data_world,
+                                             form_layout, gather_model, init_distributed,
+                                             is_distributed, is_sharded, rank_device, rank_rows,
+                                             world_rank)
+from facodec_tpu_torch.parallel.sharding import MIN_ELEMS, shard_training
 
 SEED = 0  # the loops' default seed
 
@@ -96,15 +104,19 @@ def run_steps(spec: Mapping[str, Any], device: str) -> Dict[str, Any]:
     {module: [tensor]} of the last step (as the update took them, reduced
     over the ranks), "params": {module.name: tensor} after, "launches":
     [kernel launches per step], "rows": [first, stop), "reduced":
-    [all-reduce calls and bytes per step]}, tensors on the CPU."""
+    [all-reduce calls and bytes per step], "model": [model-group sums'
+    and gathers' calls and bytes per step], "sharded": [module.name of
+    each sharded parameter]}, tensors on the CPU, whole."""
     from facodec_tpu_torch.ops.kernels import resunit, vq
     from facodec_tpu_torch.train import redecoder_step
     from facodec_tpu_torch.train import step as codec_step
     from facodec_tpu_torch.train.data import to_device
     from facodec_tpu_torch.train.optimizers import build_optimizers
 
+    lay = form_layout(int(spec.get("tensor_parallel", 1)) if is_distributed() else 1)
     models, frozen = build(spec, device)
     optimizers = build_optimizers(models, base_lr=1e-4)
+    shard_training(models, optimizers, lay, int(spec.get("min_elems", MIN_ELEMS)))
     split = bool(spec.get("split", False))
     if spec["kind"] == "codec":
         make = (codec_step.make_codec_train_step_split if split
@@ -120,20 +132,29 @@ def run_steps(spec: Mapping[str, Any], device: str) -> Dict[str, Any]:
     local = to_device({k: v[rows] for k, v in batch.items()}, device)
     generator = torch.Generator(device=device).manual_seed(SEED + 1)
     out: Dict[str, Any] = {"metrics": [], "launches": [], "rows": [rows.start, rows.stop],
-                           "reduced": []}
+                           "reduced": [], "model": []}
     for _ in range(int(spec.get("steps", 1))):
         before = (resunit.fused_residual_unit.launches, vq.nearest_code.launches,
-                  REDUCED.calls, REDUCED.bytes)
+                  REDUCED.calls, REDUCED.bytes, MODEL_SUMS.calls + GATHERED.calls,
+                  MODEL_SUMS.bytes + GATHERED.bytes)
         with deterministic(bool(spec.get("deterministic", False))):
             metrics, grads = step_fn(local, generator)
         out["metrics"].append({k: float(v) for k, v in metrics.items()})
         out["launches"].append([resunit.fused_residual_unit.launches - before[0],
                                 vq.nearest_code.launches - before[1]])
         out["reduced"].append([REDUCED.calls - before[2], REDUCED.bytes - before[3]])
-    out["grads"] = {k: [None if g is None else g.detach().cpu() for g in gs]
-                    for k, gs in grads.items()}
-    out["params"] = {f"{k}.{n}": p.detach().cpu() for k, m in models.items()
+        out["model"].append([MODEL_SUMS.calls + GATHERED.calls - before[4],
+                             MODEL_SUMS.bytes + GATHERED.bytes - before[5]])
+
+    def whole(t, p):
+        return (gather_model(t.detach(), dim=0) if is_sharded(p) else t.detach()).cpu()
+
+    out["grads"] = {k: [None if g is None else whole(g, p)
+                        for g, p in zip(gs, optimizers[k].params)] for k, gs in grads.items()}
+    out["params"] = {f"{k}.{n}": whole(p, p) for k, m in models.items()
                      for n, p in m.named_parameters()}
+    out["sharded"] = [f"{k}.{n}" for k, m in models.items() for n, p in m.named_parameters()
+                      if is_sharded(p)]
     return out
 
 
@@ -148,7 +169,7 @@ def main(argv=None) -> None:
         raise SystemExit("dp_harness: run as a rank (WORLD_SIZE set); see spawn_ranks")
     device = str(rank_device(args.device))
     results = [run_steps(s, device) for s in torch.load(args.spec, weights_only=False)]
-    torch.save(results, os.path.join(args.out, f"rank{data_world()[0]}.pt"))
+    torch.save(results, os.path.join(args.out, f"rank{world_rank()[0]}.pt"))
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
 

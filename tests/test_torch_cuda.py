@@ -1419,3 +1419,127 @@ def test_bench_round_trip_launches(bench_codec, policy):
     after = [getattr(f_, n) for n in names] + [vq.nearest_code.launches]
     assert [b - a for a, b in zip(before, after)] == BENCH_LAUNCHES[policy]
     assert y.shape == wave.shape and bool(torch.isfinite(y).all())
+
+
+# ------------------------------------------- tensor parallelism, validate, webui
+TP_DP_FIELDS = dict(DP_FIELDS, fa_predictors=dict(DP_FIELDS["fa_predictors"], n_speakers=4096,
+                                                  n_phone_classes=33))
+
+
+def test_two_gloo_tp_ranks_on_one_card_match_one_process(tmp_path):
+    """Two ranks on cuda:0 over gloo as data 1 x model 2 (the speaker heads
+    and their biases and `timbre_linear` split by rows, the 33-class phone
+    heads refused), every draw on, fused and split: each rank launches the
+    one process's kernels a step, and the gradients and parameters gathered
+    whole and the metrics hold to the one-process step on the card with
+    the data-parallel case's tolerances."""
+    _need_cuda()
+    import dp_harness
+
+    specs = [dict(kind="codec", fields=TP_DP_FIELDS, batch=_dp_batch(), split=s,
+                  tensor_parallel=2, min_elems=1024) for s in (0, 1)]
+    torch.save(specs, tmp_path / "spec.pt")
+    _dp_spawn(2, tmp_path / "spec.pt", tmp_path, "--device", "cuda:0", "--backend", "gloo")
+    got = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    for i, spec in enumerate(specs):
+        one = dp_harness.run_steps(spec, "cuda")
+        assert one["launches"] == [[12 * (1 + i), 6 * (1 + i)]]
+        for r in range(2):
+            assert got[r][i]["launches"] == one["launches"]
+            assert got[r][i]["rows"] == [0, 4] and got[r][i]["model"][0][0] > 0
+        assert len(got[0][i]["sharded"]) == 5 and got[0][i]["sharded"] == got[1][i]["sharded"]
+        gaps = {}
+        for mod, grads in one["grads"].items():
+            pairs = [(a, b) for a, b in zip(got[0][i]["grads"][mod], grads) if b is not None]
+            scale = max(float(b.abs().max()) for _, b in pairs)
+            gaps[mod] = max(float((a - b).abs().max()) for a, b in pairs) / scale
+        print(f"split {i}: gradient gaps of max|g| {gaps}")
+        assert max(gaps.values()) <= 1e-4, gaps
+        for k, v in one["metrics"][0].items():
+            np.testing.assert_allclose(got[0][i]["metrics"][0][k], v, rtol=2e-3, atol=2e-4,
+                                       err_msg=k)
+        for k, v in one["params"].items():
+            torch.testing.assert_close(got[0][i]["params"][k], v, rtol=2e-3, atol=2e-4, msg=k)
+            assert torch.equal(got[0][i]["params"][k], got[1][i]["params"][k]), k
+
+
+# SMALL_CODEC in the reference schema, as JSON (no pyyaml on the card's machine)
+SMALL_CONFIG = dict(preprocess_params=dict(sr=24000), model_params=dict(
+    causal=True, lstm=1, norm_f0=True, use_gr_content_f0=False, use_gr_prosody_phone=False,
+    use_gr_timbre_prosody=False, separate_prosody_encoder=True, n_c_codebooks=2,
+    timbre_norm=True, use_gr_content_global_f0=True, latent_dim=64, codebook_size=32,
+    style_hidden_dim=32, prosody_hidden_dim=16,
+    DAC=dict(encoder_dim=32, encoder_rates=[2, 5, 5, 6], decoder_dim=512,
+             decoder_rates=[6, 5, 5, 2], sr=24000)))
+
+
+def test_validate_on_card_against_cpu_golden(tmp_path, capsys):
+    """`validate --golden` on the card from a seeded checkpoint in the
+    reference's layout, the golden made by the port on the CPU: the JSON
+    line and an exit code that agrees with it, codes >= 0.99 equal to the
+    golden's (chip_smoke.py's card-vs-CPU rule), mel_l1 within 0.05 (the
+    JAX package's test threshold for random weights), and the kernels
+    launched."""
+    _need_cuda()
+    import argparse
+    import json
+
+    from facodec_tpu_torch.cli import validate
+
+    config = str(tmp_path / "config.json")
+    with open(config, "w") as f:
+        json.dump(SMALL_CONFIG, f)
+    cpu = FACodec.from_config(config, seed=5, device="cpu")
+    ckpt = str(tmp_path / "pytorch_model.bin")
+    torch.save({k: getattr(cpu, k).state_dict() for k in ("encoder", "quantizer", "decoder")},
+               ckpt)
+    wave = validate._test_wave("", 1.0)
+    g = cpu.encode(wave[None])
+    golden = str(tmp_path / "golden.npz")
+    np.savez(golden, codes_p=g.codes_p, codes_c=g.codes_c, codes_r=g.codes_r, timbre=g.timbre,
+             recon=cpu.reconstruct(wave[None]))
+    p = argparse.ArgumentParser()
+    validate.add_args(p)
+    before = resunit.fused_residual_unit.launches, vq.nearest_code.launches
+    rc = validate.main(p.parse_args(["--ckpt", ckpt, "--config", config, "--golden", golden,
+                                     "--seconds", "1.0", "--mel-threshold", "0.05"]))
+    torch.cuda.synchronize()
+    assert resunit.fused_residual_unit.launches > before[0] and vq.nearest_code.launches > before[1]
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    print(out)
+    assert rc == (0 if out["pass"] else 1)
+    assert out["mel_l1"] <= 0.05
+    card = FACodec.from_config(config, ckpt, device="cuda").encode(wave[None])
+    same = sum(int((getattr(card, n) == getattr(g, n)).sum()) for n in ("codes_p", "codes_c",
+                                                                        "codes_r"))
+    total = sum(getattr(g, n).size for n in ("codes_p", "codes_c", "codes_r"))
+    assert same / total >= 0.99
+
+
+def test_webui_handlers_card_equal_cpu():
+    """`webui.make_handlers` on the card against the same handlers on the
+    CPU (one seed each): do_reconstruct on 1 s of int16 at 16 kHz and
+    do_convert on two 0.5 s clips within 33 LSB (1e-3 of full scale, the
+    float32 round trip's card-vs-CPU rule), with the kernels launched."""
+    _need_cuda()
+    from facodec_tpu_torch import webui
+
+    def handlers(device):
+        return webui.make_handlers(FACodec.from_fields(SMALL_CODEC, seed=0, device=device),
+                                   FARedecoder.from_fields(SMALL_REDECODER, seed=1,
+                                                           device=device))
+
+    card, host = handlers("cuda"), handlers("cpu")
+    rng = np.random.default_rng(0)
+    rec_in = (16000, (0.3 * np.sin(np.arange(16000) * 0.05) * 32767).astype(np.int16))
+    vc_in = tuple((24000, (0.2 * rng.standard_normal(12000) * 32767).astype(np.int16))
+                  for _ in range(2))
+    for i, args in ((0, (rec_in,)), (1, vc_in)):
+        before = resunit.fused_residual_unit.launches, vq.nearest_code.launches
+        got = card[i](*args)
+        assert resunit.fused_residual_unit.launches > before[0]
+        assert vq.nearest_code.launches > before[1]
+        want = host[i](*args)
+        assert got[0] == want[0] == 24000 and got[1].dtype == np.int16
+        assert got[1].shape == want[1].shape
+        assert np.abs(got[1].astype(np.int32) - want[1].astype(np.int32)).max() <= 33

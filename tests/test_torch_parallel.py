@@ -16,7 +16,8 @@
   the whole batch; the same for the redecoder step; with the draws off, the
   two ranks against JAX's step on a 2-device data mesh; and two-rank
   `run_training`: rank 0 alone writes, a resume equals the run that goes
-  on, and the generators agree across ranks.
+  on, and the generators agree across ranks; and the fused codec step of
+  two tensor-parallel ranks (data 1 x model 2) against one process.
 
 Tolerances of the steps: metrics and updated parameters within rtol 2e-3
 and atol 2e-4 (tests/test_parallel.py's data-parallel step against one
@@ -61,6 +62,7 @@ from facodec_tpu_torch.utils.weights import init_random_, load_jax_params
 
 import dp_harness
 import test_torch_train_step as step_golden
+from test_torch_tp import check_tp_step
 from test_torch_redecoder_train import FIELDS as RED_FIELDS
 from test_torch_train_loop import FIELDS as CODEC_FIELDS
 
@@ -380,9 +382,15 @@ def test_train_command_starts_one_rank_per_gpu(monkeypatch, gpus, launched, want
 
 
 def test_tensor_parallel_still_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="tensor parallelism is what is left"):
-        loop.run_training(fields=CODEC_FIELDS, device="cpu", log_dir=str(tmp_path),
+    """Named for the refusal it held before tensor parallelism was ported:
+    what still raises is a layout that the ranks cannot form (one plain
+    process and a model axis of 2). Two spawned gloo ranks at data 1 x
+    model 2 train the fused codec step as one process does
+    (tests/test_torch_tp.py `check_tp_step`)."""
+    with pytest.raises(ValueError, match="not divisible by a model axis of 2"):
+        loop.run_training(fields=CODEC_FIELDS, device="cpu", log_dir=str(tmp_path / "one"),
                           max_steps=1, tensor_parallel=2)
+    check_tp_step(tmp_path, split=False)
 
 
 # ------------------------------------------------------------ spawned ranks

@@ -295,12 +295,16 @@ def test_loop_logs_probes(tmp_path):
 
 
 def test_loop_raises_on_unported_keys(tmp_path):
-    """`tensor_parallel: 2` raises; an F0_path with `inline_f0: false` trains
-    on the batch's F0 without reading the file (tests/test_torch_jdc.py runs
+    """`tensor_parallel: 2` in one plain process raises the layout's error
+    (a world of 1 does not divide over a model axis of 2, where JAX's
+    `make_mesh` fails on one device too; ranks train it,
+    tests/test_torch_tp.py); an F0_path with `inline_f0: false` trains on
+    the batch's F0 without reading the file (tests/test_torch_jdc.py runs
     an existing F0_path as the inline teacher)."""
     f0 = tmp_path / "jdc.pth"
     f0.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="a world of 1 rank.s. is not divisible by a model "
+                                         "axis of 2"):
         train(tmp_path, tensor_parallel=2)
     # the offline targets, as the JAX loop takes them with inline_f0 off
     assert train(tmp_path / "off", F0_path=str(f0), inline_f0=False).step == 1
