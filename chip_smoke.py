@@ -94,7 +94,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 9a. Live streams. First a `BatchedStreamGroup` of capacity 8 alone, 4-frame
    (50 ms) chunks: tick times with 1, 4 and 8 active slots, and 10 ticks at
    8 slots under torch.profiler. Then a `StreamingService` with group
-   capacity 8 behind `make_stream_server`, and 1, 4 and 8 concurrent
+   capacity 8 behind `make_stream_server`, and 1 and 8 concurrent
    connections of 2 s each from a client process of their own (the port's
    `stream_wav` in threads, each sending as fast as it is answered):
    per-tick p50 / p95, slots per tick, each stream's time per chunk against
@@ -166,8 +166,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 13. AOT export and serving from an artifact (runs after 9a, on the phase-3
    codec's modules, seeded weights saved first as a port checkpoint):
    `export_codec` of a hybrid artifact (all five functions) and a float32
-   one (`encode_masked`, `reconstruct_masked`) at batch 4 x 10 s, export
-   seconds per function and artifact bytes against the checkpoint's (the
+   one (`reconstruct_masked`; the hybrid artifact's encode is the float32
+   encode, and its codes are held to both live codecs') at batch 4 x 10 s,
+   export seconds per function and artifact bytes against the checkpoint's (the
    artifact must be smaller: it stores no parameter); `ExportedCodec` with
    `load_params` from the checkpoint and its first reconstruct (its
    program's load included) against `FACodec.from_fields` with the
@@ -176,7 +177,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    abs (float32) or 1e-3 err/scale (hybrid) of live with the live path's
    launches (24 float32 units and 6 VQ; 12, 12 bf16 and 6), the hybrid
    artifact's encode, decode and reconstruct too, and reconstruct times,
-   live and artifact in turns, 3 each. 13b: an `ArtifactService` (batch 4)
+   live and artifact in turns, 2 each. 13b: an `ArtifactService` (batch 4)
    and a live `CodecService` of the same cap and bucket behind
    `make_server`, 8 concurrent 10 s /reconstruct requests to each in turns
    (live, artifact, artifact, live): requests/s, and each served wave within
@@ -243,8 +244,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 16. The port's benchmarks, as `python -m facodec_tpu_torch bench ...` runs
    them (their `main`; each prints its JSON line), each between a reset and
    a read of the kernels' counts (runs after phase 15). 16a: `bench --fast`
-   under hybrid_int8, float32 and hybrid, batch 16 x 10 s: 31 round trips
-   each, every one launching its policy's kernels (phase 15c's counts), and
+   under hybrid_int8, float32 and hybrid, batch 16 x 10 s: 11 round trips
+   each (one run of 10 after the warm-up, where the bench makes 3), every one launching its policy's kernels (phase 15c's counts), and
    0 < mfu <= 1. 16b: `bench streaming --fast`, 2 s of 4-frame chunks, the
    causal redecoder and a group of 8: the halo entry and the VQ search
    launched, the one-shot entry not, a device time read from its trace.
@@ -275,6 +276,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    the webui handlers at FLAGSHIP width, `do_reconstruct` on 10 s of int16
    at 16 kHz and `do_convert` on two 3 s clips, against the same handlers
    on the CPU within 33 LSB (1e-3 of full scale), with their ms.
+18. The opt-in W8A8 LSTM recurrence (csrc/lstm_int8.cu) with
+   FACODEC_LSTM_INT8=1 set inside this phase only (every other phase runs
+   without it, and the kernel's count reads 0 before and after it); it
+   runs after phase 13, on the phase-3 codec's modules. 18a: the kernel
+   against its plain version on the operands of the flagship decoder's 2
+   layers in one hybrid decode at 4 x 10 s (B = 4, T = 800, H = 1536,
+   captured at the SLSTM's call): y and hT within 1e-3, cT within 2e-3,
+   the share of y bit-equal; per layer the kernel's time (median of events
+   around one launch), the plain version's, the int8 operations and bytes,
+   the bound (1979 int8 TOPS or 3.35 TB/s), one grid barrier's time (a
+   launch of T barriers alone on the same grid) and the serial floor (T of
+   them). 18b: hybrid and hybrid_int8 round trips at 4 x 10 s without and
+   with the flag: the decode launches the kernel 0 and 2 times and the other
+   kernels alike; codes and timbre equal (the encode is float32); the
+   flagged wave's gap to the flagless; the decoder LSTM's device time each
+   way (cuDNN; the projections and the kernel), the decode's in turns; the
+   flagged hybrid decode on the card against the flagged CPU decode at
+   1 x 2 s within phase 8's 2e-2 err / scale. 18c: a `StreamingFACodec`
+   decode of the 4 x 10 s latent under bfloat16_act and the flag, in
+   4-frame chunks after the decoder's first span: 2 launches a chunk; the
+   wave against the flagged one-shot hybrid decode within phase 8's 8e-2
+   err / scale for decodes that round apart (the stream's residual units
+   run float32, the one-shot's bf16); the SLSTM's streamed output and final (h, c), captured with
+   hooks, against one shot on the same input within 1e-5, bit-equality
+   said. 18d: a traced hybrid_int8 round trip under the flag
+   (`profile.round_trip_profile`): the kernel's kind and 2 launches in the
+   trace and the wrapper, no cuDNN LSTM in the decode. 18e: the hybrid
+   `decode` exported with the flag set at 4 x 10 s: 2 `facodec::lstm_int8`
+   nodes and no `aten.lstm`, 2 launches a call with the flag unset, the
+   wave within phase 13's 1e-3 err / scale of the live flagged decode.
 
 The line before the last is the kernels' JSON summary; the last line is the
 run's JSON result. The kernels' `train_launches` are a training step's,
@@ -299,10 +330,16 @@ call; `launches` are those of one round trip under their policy.
 reconstruct), `webui_reconstruct_launches` and `webui_convert_launches`
 one call of each handler (17c); every kernel's are read from its counter
 in those runs (all float32: 0 for the bf16, float32-in/out and int8 forms).
+The `lstm_int8` entry (phase 18) is not a TPU kernel's port: `replaces`
+names the JAX package's XLA scan; `launches` are a flagged hybrid decode's,
+`ms`, `plain_ms` and `bound_ms` the decoder's two layers', `library_ms`
+null (no PyTorch call computes it) and `cudnn_lstm_ms` the flagless
+decoder LSTM's (cuDNN, another function: float32 weights, no quantization).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import hashlib
 import json
@@ -329,14 +366,18 @@ from facodec_tpu_torch.codec_file import FACodecFile
 from facodec_tpu_torch.config import (FLAGSHIP, FLAGSHIP_REDECODER, FLAGSHIP_REDECODER_TRAIN,
                                       FLAGSHIP_TRAIN)
 from facodec_tpu_torch.models.dac import ResidualUnit
-from facodec_tpu_torch.models.streaming import HOP, StreamingFACodec
+from facodec_tpu_torch.models.streaming import HOP, StreamingFACodec, min_first_frames_decoder
 from facodec_tpu_torch.models.quantize import ResidualVectorQuantize, VectorQuantize
+from facodec_tpu_torch.nn import lstm as nn_lstm
+from facodec_tpu_torch.nn.lstm import SLSTM
 from facodec_tpu_torch.ops import vq_math
 from facodec_tpu_torch.ops.precision import policy
 from facodec_tpu_torch.ops.kernels import build, resunit, vq
+from facodec_tpu_torch.ops.kernels import lstm as klstm
 from facodec_tpu_torch.parallel import mesh, ranks
 from facodec_tpu_torch.profile import RESUNIT_BF16, RESUNIT_F32, RESUNIT_INT8
 from facodec_tpu_torch.profile import VQ as PROFILE_VQ
+from facodec_tpu_torch.profile import LSTM_INT8 as LSTM_INT8_KIND
 from facodec_tpu_torch.profile import W8A8_GEMM as W8A8_KIND
 from facodec_tpu_torch.profile import device_ms as traced_device_ms
 from facodec_tpu_torch.profile import kind_of, print_breakdown, round_trip_profile, train_profile
@@ -1407,6 +1448,7 @@ def phase_group_ticks(codec: FACodec, chunk: int, capacity: int) -> dict:
 
 
 LIVE_SECONDS = 2.0  # each live stream's length, and each solo session's it is held to
+LIVE_STREAMS = (1, 8)  # concurrent connections a run (4 was cut for time)
 
 
 def phase_live(codec_hy: FACodec) -> dict:
@@ -1454,7 +1496,7 @@ def phase_live(codec_hy: FACodec) -> dict:
                 return np.load(os.path.join(tmp, stem + ".out.npy")), info["wall"]
 
             run_clients(sweep_wave(1, 1.0, seed=29), "warm")
-            for n in (1, 4, 8):
+            for n in LIVE_STREAMS:
                 waves = sweep_wave(n, LIVE_SECONDS, seed=30 + n)
                 disp.tick_s.clear()
                 tick_counts.clear()
@@ -2299,7 +2341,7 @@ def phase_own(smi: str) -> tuple:
 
 ARTIFACT_F32_TOL = 1e-5  # a float32 artifact's waves against the live codec's, max abs
 ARTIFACT_HYBRID_TOL = 1e-3  # a hybrid artifact's waves against the live hybrid codec's, err/scale
-ARTIFACT_TURNS = 3  # timed reconstructs of each, live and artifact in turns
+ARTIFACT_TURNS = 2  # timed reconstructs of each, live and artifact in turns
 
 
 def check_artifact_wave(label: str, prec: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -2320,8 +2362,8 @@ def check_artifact_wave(label: str, prec: str, got: torch.Tensor, want: torch.Te
 
 
 def phase_artifact(codec: FACodec, w: np.ndarray, smi: str) -> dict:
-    """Phase 13: export hybrid (all five functions) and float32 (the two
-    masked ones) artifacts of the flagship codec at batch B x 10 s, load
+    """Phase 13: export hybrid (all five functions) and float32
+    (`reconstruct_masked`) artifacts of the flagship codec at batch B x 10 s, load
     them with the weights of a port checkpoint, hold them to the live codec
     (codes equal, waves, launches), time them against it in turns, and serve
     the hybrid one over HTTP against a live CodecService."""
@@ -2337,7 +2379,7 @@ def phase_artifact(codec: FACodec, w: np.ndarray, smi: str) -> dict:
         ckpt_bytes = os.path.getsize(ckpt)
         dirs, export_s, art_bytes = {}, {}, {}
         for prec, fns in (("hybrid", tuple(export.FUNCTIONS)),
-                          ("float32", ("encode_masked", "reconstruct_masked"))):
+                          ("float32", ("reconstruct_masked",))):
             dirs[prec] = os.path.join(tmp, prec)
             rep = export.export_codec(live[prec], dirs[prec], batch=B, seconds=SECONDS,
                                       functions=fns)
@@ -2376,14 +2418,18 @@ def phase_artifact(codec: FACodec, w: np.ndarray, smi: str) -> dict:
         for prec in ("float32", "hybrid"):
             exp, c = exported[prec], live[prec]
             with torch.no_grad():
+                # the hybrid artifact's encode is the float32 encode (the
+                # float32 artifact exports only reconstruct_masked)
                 _, codes, timbre = c.encode_tensor(wt, lens)
-                cp, cc, cr, tm = exp.encode_masked(params, wt, lens)
+                cp, cc, cr, tm = exported["hybrid"].encode_masked(params, wt, lens)
                 for name, a, b in zip(("codes_p", "codes_c", "codes_r"), (cp, cc, cr), codes):
                     if not torch.equal(a, b):
-                        raise AssertionError(f"{prec} artifact {name} differ from live's "
+                        raise AssertionError(f"the hybrid artifact's {name} differ from the "
+                                             f"live {prec} codec's "
                                              f"({int((a != b).sum())} of {a.numel()})")
                 if not torch.equal(tm, timbre):
-                    raise AssertionError(f"{prec} artifact timbre differs from live's")
+                    raise AssertionError(f"the hybrid artifact's timbre differs from the live "
+                                         f"{prec} codec's")
                 reset_counts()
                 y_art = exp.reconstruct_masked(params, wt, lens)
                 torch.cuda.synchronize()
@@ -2398,7 +2444,7 @@ def phase_artifact(codec: FACodec, w: np.ndarray, smi: str) -> dict:
                 raise AssertionError(f"{prec}: the artifact launched {n_art}, live {n_live}")
             launches[prec] = n_art
             gaps[prec] = check_artifact_wave(f"{prec} reconstruct_masked", prec, y_art, y_live)
-            if prec == "hybrid":  # the other three functions of the artifact
+            if prec == "hybrid":  # the artifact's other three functions
                 with torch.no_grad():
                     enc = exp.encode(params, wt)
                     _, codes, timbre = c.encode_tensor(wt)
@@ -3358,6 +3404,7 @@ def phase_policies(codec: FACodec, codec_hy: FACodec, cpu: FACodec, w: np.ndarra
 # ---------------------------------------------------------------- phase 16
 BENCH_BATCH, BENCH_SECONDS = 16, 10.0  # the bench's headline shape
 BENCH_POLICIES = ("hybrid_int8", "float32", "hybrid")  # 16a: the headline, then the others
+BENCH_REPEATS = 1  # 16a: runs of bench.ITERS calls a policy (the bench's 3 cut for time)
 BENCH_STREAM_SECONDS = 2.0  # 16b
 # 16d: a traced round trip's device launches by residual-unit form (the I/O
 # form of resunit_bf16_kernel is its last template argument: 0 the bf16
@@ -3398,21 +3445,28 @@ def phase_bench(codec: FACodec, smi: str) -> dict:
     from facodec_tpu_torch import bench, bench_streaming, bench_train
 
     t_phase = time.perf_counter()
-    calls = 1 + bench.REPEATS * bench.ITERS
+    calls = 1 + BENCH_REPEATS * bench.ITERS
     log(f"phase 16a: bench --fast (encode_decode_rtf, FACodec.reconstruct_tensor) under "
         f"{', '.join(BENCH_POLICIES)}, batch {BENCH_BATCH} x {BENCH_SECONDS:.0f} s, "
         f"{calls} round trips each; 0 < mfu <= 1 [{smi}]")
     lines, launches = {}, {}
-    for p in BENCH_POLICIES:
-        reset_counts()
-        line = bench.main(batch=BENCH_BATCH, seconds=BENCH_SECONDS, precision=p, fast=True)
-        n = {k: v for k, v in policy_counts().items() if v}
+    repeats, bench.REPEATS = bench.REPEATS, BENCH_REPEATS
+    try:
+        for p in BENCH_POLICIES:
+            reset_counts()
+            lines[p] = bench.main(batch=BENCH_BATCH, seconds=BENCH_SECONDS, precision=p,
+                                  fast=True)
+            launches[p] = {k: v for k, v in policy_counts().items() if v}
+    finally:
+        bench.REPEATS = repeats
+    for p, line in lines.items():
+        n = launches[p]
         want = {k: v * calls for k, v in POLICY_LAUNCHES[p].items()}
         if n != want:
             raise AssertionError(f"16a {p}: the bench launched {n}, expected {want}")
         if not 0 < line["mfu"] <= 1 or line["precision"] != p:
             raise AssertionError(f"16a {p}: {line}")
-        lines[p], launches[p] = line, POLICY_LAUNCHES[p]
+        launches[p] = POLICY_LAUNCHES[p]
     log("  rtf " + ", ".join(f"{p} {v['value']}x (mfu {v['mfu']})" for p, v in lines.items())
         + f"; launches a round trip {launches}")
 
@@ -3790,6 +3844,323 @@ def phase_entry_points(smi: str, gloo: dict) -> dict:
     return dict(tp=tp, validate=va, webui=ui)
 
 
+# ---------------------------------------------------------------- phase 18
+LSTM_INT8_TOL = dict(y=1e-3, hT=1e-3, cT=2e-3)  # 18a: the kernel against its plain version
+STREAM_LSTM_TOL = 1e-5  # 18c: the decoder LSTM in 4-frame chunks against one shot
+LSTM_CHUNK = 4  # 18c: frames a chunk (50 ms)
+INT8_OPS = 1979e12  # dense int8 tensor-core peak of one H100 SXM
+LSTM_POLICIES = ("hybrid", "hybrid_int8")
+
+
+@contextlib.contextmanager
+def lstm_int8_flag(on: bool):
+    """FACODEC_LSTM_INT8 set to 1 or 0 inside the block, then restored: the
+    flag is process-wide, and every phase but 18 runs without it."""
+    old = os.environ.get("FACODEC_LSTM_INT8")
+    os.environ["FACODEC_LSTM_INT8"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("FACODEC_LSTM_INT8", None)
+        else:
+            os.environ["FACODEC_LSTM_INT8"] = old
+
+
+class _LayerCalls:
+    """Stands in for `ops.kernels.lstm` inside nn/lstm.py: records the
+    operands of each `lstm_int8` call and passes it on (its launches are
+    counted as ever)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(klstm, name)
+
+    def lstm_int8(self, *args):
+        self.calls.append(args)
+        return klstm.lstm_int8(*args)
+
+
+def decoder_lstm_calls(codec: FACodec, f) -> tuple:
+    """(the decoder SLSTM's input, each layer's `lstm_int8` operands) in one
+    flagged decode of f."""
+    m = decoder_slstm(codec)
+    seen, rec = [], _LayerCalls()
+    hook = m.register_forward_pre_hook(lambda mod, args: seen.append(args[0]))
+    nn_lstm.lstm_kernel = rec
+    try:
+        with lstm_int8_flag(True):
+            codec.decode(f)
+    finally:
+        nn_lstm.lstm_kernel = klstm
+        hook.remove()
+    return seen[0], rec.calls
+
+
+def decoder_slstm(codec: FACodec) -> SLSTM:
+    (m,) = [m for m in codec.decoder.modules() if isinstance(m, SLSTM)]
+    return m
+
+
+def lstm_int8_cost(B: int, T: int, H: int) -> tuple:
+    """(int8 operations, bytes) of one layer: 2 B T 4H H; x_proj, w_q, its
+    scales, h0 and c0 read once, y, hT and cT written once."""
+    return (2 * B * T * 4 * H * H,
+            4 * B * T * 4 * H + 4 * H * H + 4 * 4 * H + 4 * 2 * B * H + 4 * (B * T * H + 2 * B * H))
+
+
+def phase_lstm_int8(codec: FACodec, cpu: FACodec, smi: str) -> dict:
+    """Phase 18: the opt-in W8A8 LSTM recurrence (FACODEC_LSTM_INT8=1 inside
+    this phase only) on the flagship decoder's SLSTM (H = 1536, 2 layers)."""
+    t_phase = time.perf_counter()
+    if klstm.lstm_int8.launches:
+        raise AssertionError(f"the W8A8 LSTM kernel launched {klstm.lstm_int8.launches} times "
+                             f"before phase 18, where the flag is off")
+    if "FACODEC_LSTM_INT8_MIN_BYTES" in os.environ:
+        raise AssertionError("phase 18 runs at the default FACODEC_LSTM_INT8_MIN_BYTES")
+    w = sweep_wave(BATCH, SECONDS)
+    codecs = {p: FACodec(codec.encoder, codec.quantizer, codec.decoder, precision=p)
+              for p in LSTM_POLICIES}
+    m = decoder_slstm(codec)
+    f32 = codec.encode(w)
+    x, calls = decoder_lstm_calls(codecs["hybrid"], f32)
+    B, T, H = x.shape[0], x.shape[1], m.lstm.hidden_size
+    dev = x.device
+
+    log(f"phase 18a: the W8A8 LSTM kernel (csrc/lstm_int8.cu) vs plain on the decoder's {len(calls)} "
+        f"layers of one hybrid decode, B={B} T={T} H={H}; y, hT within {LSTM_INT8_TOL['y']}, cT "
+        f"within {LSTM_INT8_TOL['cT']}; bound at {INT8_OPS / 1e12:.0f} int8 TOPS or "
+        f"{HBM_BYTES_S / 1e12:.2f} TB/s [{smi}]")
+    plan = klstm.plan(B, H, dev)
+    log(f"  launch shape {plan}")
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0, floor_ms=0.0)
+    worst = 0.0
+    for k, args in enumerate(calls):
+        with torch.no_grad():
+            got = klstm.lstm_int8(*args)
+            want = klstm.lstm_int8_reference(*args)
+            torch.cuda.synchronize()
+        errs = {n: float((a - b).abs().max()) for n, a, b in zip(("y", "hT", "cT"), got, want)}
+        equal = float((got[0] == want[0]).float().mean())
+        for n, e in errs.items():
+            if not e <= LSTM_INT8_TOL[n]:
+                raise AssertionError(f"18a layer {k}: {n} off by {e} > {LSTM_INT8_TOL[n]}")
+        worst = max(worst, *errs.values())
+        tk = median_ms(lambda: klstm.lstm_int8(*args))
+        tp = median_ms(lambda: klstm.lstm_int8_reference(*args), repeats=1)
+        barrier_ms = median_ms(lambda: klstm.barriers(B, H, T, dev), repeats=3) / T
+        ops, nbytes = lstm_int8_cost(B, T, H)
+        bound = 1e3 * max(ops / INT8_OPS, nbytes / HBM_BYTES_S)
+        by = "operations" if ops / INT8_OPS >= nbytes / HBM_BYTES_S else "bytes"
+        floor = T * barrier_ms
+        for key, v in (("ms", tk), ("plain_ms", tp), ("bound_ms", bound), ("ops", ops),
+                       ("floor_ms", floor)):
+            tot[key] += v
+        log(f"  layer {k}: max|x_proj| {args[0].abs().max().item():.3e}; errors {errs}, y "
+            f"bit-equal {equal:.4%}; kernel {tk:.3f} ms ({tk / T * 1e3:.2f} us a step), plain "
+            f"{tp:.2f} ms; {ops:.4e} int8 operations, {nbytes} bytes: bound {bound:.4f} ms "
+            f"({by}), {bound / tk:.2%} of it reached; one grid barrier {barrier_ms * 1e3:.3f} us, "
+            f"so a serial floor of {floor:.3f} ms ({floor / tk:.1%} of the kernel)")
+    n_layers = len(calls)
+    del calls
+
+    log(f"phase 18b: hybrid and hybrid_int8 round trips, batch {BATCH} x {SECONDS:.0f} s, "
+        f"without and with the flag [{smi}]")
+    cudnn_ms = None
+    out = dict(decoder_lstm_ms={}, decode_ms={}, gap={}, launches={})
+    wc = sweep_wave(1, 2.0, seed=3)
+    for p, c in codecs.items():
+        runs = {}
+        for on in (False, True):
+            with lstm_int8_flag(on):
+                reset_counts()
+                klstm.lstm_int8.launches = 0
+                f = c.encode(w)
+                y = c.decode(f)
+                torch.cuda.synchronize()
+                runs[on] = (f, y, dict(policy_counts(), lstm=klstm.lstm_int8.launches))
+        (f0, y0, n0), (f1, y1, n1) = runs[False], runs[True]
+        log(f"  {p}: launches without the flag {n0}, with it {n1}")
+        if n0["lstm"] != 0 or n1["lstm"] != 2:
+            raise AssertionError(f"18b {p}: the decode launched the W8A8 LSTM {n0['lstm']} times "
+                                 f"without the flag, {n1['lstm']} with it (expected 0 and 2)")
+        if {k: v for k, v in n0.items() if k != "lstm"} != {k: v for k, v in n1.items()
+                                                           if k != "lstm"}:
+            raise AssertionError(f"18b {p}: the flag changed the other kernels' launches")
+        for name in ("codes_p", "codes_c", "codes_r", "timbre"):
+            if not np.array_equal(getattr(f0, name), getattr(f1, name)):
+                raise AssertionError(f"18b {p}: {name} differ with the flag (the encode is "
+                                     f"float32)")
+        worst_w, rms_w = wave_gap(y1, y0)
+        if not np.isfinite(y1).all() or y1.shape != y0.shape:
+            raise AssertionError(f"18b {p}: the flagged wave is not finite or not {y0.shape}")
+        xin = [None]
+        hook = m.register_forward_pre_hook(lambda mod, args: xin.__setitem__(0, args[0]))
+        c.decode(f1)
+        hook.remove()
+        lstm_ms, dec_ms = {}, {False: [], True: []}
+        with torch.no_grad(), float32_exact(), policy(c.dec_policy):
+            for on in (False, True):
+                with lstm_int8_flag(on):
+                    lstm_ms[on] = median_ms(lambda: m(xin[0]))
+        for on in (False, True, True, False):
+            with lstm_int8_flag(on):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                c.decode(f1)
+                torch.cuda.synchronize()
+                dec_ms[on].append(1e3 * (time.perf_counter() - t0))
+        if p == "hybrid":
+            cudnn_ms = lstm_ms[False]
+        log(f"  {p}: codes and timbre equal with and without the flag; flagged wave against "
+            f"the flagless: err/scale {worst_w:.3e} at the worst sample, {rms_w:.3e} in RMS; "
+            f"the decoder LSTM (device, median) {lstm_ms[False]:.3f} ms flagless (cuDNN) -> "
+            f"{lstm_ms[True]:.3f} ms flagged (projections + kernel); the decode (host clock, in "
+            f"turns off, on, on, off) {[round(t, 2) for t in dec_ms[False]]} ms flagless, "
+            f"{[round(t, 2) for t in dec_ms[True]]} ms flagged [{smi}]")
+        if p == "hybrid":  # the card against the CPU, once: the kernel is the same under both
+            cpu_p = FACodec(cpu.encoder, cpu.quantizer, cpu.decoder, precision=p)
+            fc = c.encode(wc)
+            with lstm_int8_flag(True):
+                before = klstm.lstm_int8.launches
+                y_gpu = c.decode(fc)
+                y_cpu = cpu_p.decode(fc)
+                if klstm.lstm_int8.launches != before + 2:
+                    raise AssertionError(f"18b {p}: the card's 1 x 2 s decode did not launch "
+                                         f"twice")
+            out["card_cpu"] = check_hybrid_gap(f"{p} flagged decode card vs CPU, batch 1 x 2 s",
+                                               y_gpu, y_cpu)
+        out["decoder_lstm_ms"][p] = {"flagless": lstm_ms[False], "flagged": lstm_ms[True]}
+        out["decode_ms"][p] = {"flagless": dec_ms[False], "flagged": dec_ms[True]}
+        out["gap"][p] = dict(worst=worst_w, rms=rms_w)
+        out["launches"][p] = n1["lstm"]
+
+    c = codecs["hybrid"]
+    wt = torch.from_numpy(w).cuda()
+    outs, codes_t, timbre_t = c.encode_tensor(wt)
+    first = -(-min_first_frames_decoder(codec.decoder.rates) // LSTM_CHUNK) * LSTM_CHUNK
+    log(f"phase 18c: a StreamingFACodec decode under bfloat16_act and the flag, batch {B} x "
+        f"{SECONDS:.0f} s: a {first}-frame first chunk, then {LSTM_CHUNK}-frame chunks, against "
+        f"the flagged one-shot hybrid decode of the same latent (phase 8's {HYBRID_VS_F32} "
+        f"err/scale for decodes that round apart: the stream's residual units run float32, "
+        f"the one-shot's bf16); the "
+        f"decoder SLSTM's streamed output and final (h, c) against one shot on its streamed "
+        f"input within {STREAM_LSTM_TOL} [{smi}]")
+    sess = StreamingFACodec(codec.encoder, codec.quantizer, codec.decoder,
+                            chunk_frames=LSTM_CHUNK, n_c=codec.n_c)
+    xs, ys = [], []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: xs.append(args[0])),
+             m.register_forward_hook(lambda mod, args, out: ys.append(out))]
+    bounds = [0, *range(first, outs.shape[1], LSTM_CHUNK), outs.shape[1]]
+    parts, per_chunk = [], []
+    try:
+        with lstm_int8_flag(True), policy("bfloat16_act"):
+            st = sess.init_decode_state(B)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i, j in zip(bounds, bounds[1:]):
+                before = klstm.lstm_int8.launches
+                st, yc = sess.decode_chunk(st, outs[:, i:j])
+                per_chunk.append(klstm.lstm_int8.launches - before)
+                parts.append(yc)
+            torch.cuda.synchronize()
+            chunk_ms = 1e3 * (time.perf_counter() - t0) / len(parts)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    y_stream = torch.cat(parts, 1).float().cpu().numpy()
+    with lstm_int8_flag(True):
+        y_one = c.decode_latent(outs).cpu().numpy()
+        with torch.no_grad(), float32_exact(), policy("bfloat16_act"):
+            y1, (h1, c1) = m(torch.cat(xs, 1), return_state=True)
+    ys_cat, (hs_, cs_) = torch.cat([o[0] for o in ys], 1), ys[-1][1]
+    n_chunks = len(parts)
+    gaps = [float((a - b).abs().max()) for a, b in ((ys_cat, y1), (hs_, h1), (cs_, c1))]
+    bit = all(torch.equal(a, b) for a, b in ((ys_cat, y1), (hs_, h1), (cs_, c1)))
+    log(f"  {n_chunks} chunks, launches a chunk {sorted(set(per_chunk))}, {chunk_ms:.3f} ms a "
+        f"chunk (host clock); the SLSTM streamed against one shot: y, h, c off by {gaps} "
+        f"({'bit-equal' if bit else 'not bit-equal'})")
+    if set(per_chunk) != {n_layers} or len(xs) != n_chunks:
+        raise AssertionError(f"18c: launches a chunk {sorted(set(per_chunk))}, {len(xs)} SLSTM "
+                             f"calls for {n_chunks} chunks (expected {n_layers} and one each)")
+    if not max(gaps) <= STREAM_LSTM_TOL:
+        raise AssertionError(f"18c: the SLSTM streamed vs one shot {gaps} > {STREAM_LSTM_TOL}")
+    if y_stream.shape != y_one.shape or not np.isfinite(y_stream).all():
+        raise AssertionError(f"18c: the streamed wave {y_stream.shape} against {y_one.shape}, "
+                             f"or not finite")
+    stream_wave = wave_gap(y_stream, y_one)
+    log(f"  the streamed flagged decode against the one-shot: err/scale {stream_wave[0]:.3e} at "
+        f"the worst sample (limit {HYBRID_VS_F32}), {stream_wave[1]:.3e} in RMS")
+    if not stream_wave[0] <= HYBRID_VS_F32:
+        raise AssertionError(f"18c: the streamed wave {stream_wave[0]} > {HYBRID_VS_F32}")
+    del xs, ys, parts
+
+    log(f"phase 18d: a traced hybrid_int8 round trip under the flag (profile.round_trip_profile), "
+        f"batch {BATCH} x {SECONDS:.0f} s [{smi}]")
+    wt = torch.from_numpy(w).cuda()
+    with lstm_int8_flag(True):
+        c = codecs["hybrid_int8"]
+        c.reconstruct_tensor(wt)
+        reset_counts()
+        klstm.lstm_int8.launches = 0
+        prof = round_trip_profile(c, wt)
+        wrapped = dict({k: v for k, v in policy_counts().items() if v},
+                       lstm=klstm.lstm_int8.launches)
+    print_breakdown(prof["by_kind"], prof["by_name"], prof["count"], prof["traced_wall_ms"])
+    total = sum(prof["by_kind"].values())
+    log("  by annotated range and kind: " + ", ".join(
+        f"{k} {v:.2f} ms ({v / total:.1%})"
+        for k, v in sorted(prof["by_range_kind"].items(), key=lambda kv: -kv[1])[:10]))
+    traced = sum(n for name, n in prof["count"].items() if kind_of(name) == LSTM_INT8_KIND)
+    decode_cudnn = prof["by_range_kind"].get("decode: cuDNN LSTM", 0.0)
+    log(f"  W8A8 LSTM launches {traced} (trace), {wrapped['lstm']} (wrapper); the wrappers' "
+        f"counts {wrapped}; the decode's cuDNN LSTM {decode_cudnn:.3f} ms")
+    if traced != 2 or wrapped["lstm"] != 2 or decode_cudnn:
+        raise AssertionError(f"18d: {traced} traced and {wrapped['lstm']} wrapped launches of "
+                             f"the W8A8 LSTM, the decode's cuDNN LSTM {decode_cudnn} ms")
+    log(f"phase 18e: the flagged hybrid decode exported (utils/export.py export_codec with the "
+        f"flag set, batch {B} x {SECONDS:.0f} s): {n_layers} facodec::lstm_int8 nodes, no "
+        f"aten.lstm, {n_layers} launches a call with the flag unset, the wave against the live "
+        f"flagged decode within phase 13's {ARTIFACT_HYBRID_TOL} err/scale [{smi}]")
+    hy = codecs["hybrid"]
+    tmp = tempfile.mkdtemp(prefix="facodec_lstm_int8_")
+    try:
+        with lstm_int8_flag(True):
+            rep = export.export_codec(hy, tmp, batch=B, seconds=SECONDS, functions=("decode",))
+        exp = export.ExportedCodec(tmp)
+        nodes = collections.Counter(str(n.target) for n in exp.program("decode").graph.nodes
+                                    if n.op == "call_function")
+        with torch.no_grad():
+            before = klstm.lstm_int8.launches
+            y_art = exp.decode(export.codec_params(hy), *codes_t, timbre_t)
+            torch.cuda.synchronize()
+            n_art = klstm.lstm_int8.launches - before
+            with lstm_int8_flag(True):
+                y_live = hy.decode_tensor(*codes_t, timbre_t)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    export_s = rep["decode"]["seconds"]
+    log(f"  exported in {export_s:.1f} s; op nodes {nodes['facodec.lstm_int8.default']}, "
+        f"aten.lstm {nodes['aten.lstm.input']}; launches {n_art}")
+    if (nodes["facodec.lstm_int8.default"], nodes["aten.lstm.input"], n_art) != (
+            n_layers, 0, n_layers):
+        raise AssertionError(f"18e: {nodes['facodec.lstm_int8.default']} op nodes, "
+                             f"{nodes['aten.lstm.input']} aten.lstm, {n_art} launches")
+    export_gap = check_artifact_wave("18e flagged hybrid decode", "hybrid", y_art, y_live)
+    klstm.lstm_int8.launches = 0  # the phases after this one launch it no time
+    log(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(max_abs_err=worst, bound_by=by, plan=plan, cudnn_lstm_ms=cudnn_ms,
+                barrier_us=tot["floor_ms"] / n_layers / T * 1e3,
+                serial_floor_ms=tot["floor_ms"], stream_gap=max(gaps), stream_bit_equal=bit,
+                stream_launches=n_layers, stream_wave_gap=stream_wave[0], chunk_ms=chunk_ms,
+                export_launches=n_art, export_gap=export_gap, export_s=export_s,
+                profile=dict(by_kind=dict(prof["by_kind"]), by_range=prof["by_range"]),
+                ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+                int8_ops=tot["ops"], **out)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -3850,6 +4221,7 @@ def main() -> None:
     sv = phase_serve(codec_hy)
     live = phase_live(codec_hy)
     art = phase_artifact(codec, w, smi)
+    li = phase_lstm_int8(codec, cpu, smi)
     del codec, codec_hy, codec_vc, cpu, red
     torch.cuda.empty_cache()
 
@@ -3974,6 +4346,15 @@ def main() -> None:
              status="redesigned: wgmma s8 and bf16, the weights and the s2 tile by TMA and "
                     "bulk copies through an mbarrier ring, persistent grid",
              library_ms=None, **pol["k2"]),
+        # phase 18: the opt-in W8A8 LSTM recurrence; its main path is the
+        # flagged hybrid decode, whose decoder SLSTM runs it once a layer.
+        # cuDNN computes another function (float32 weights, no quantization):
+        # its time on the same shapes is cudnn_lstm_ms, not library_ms
+        dict(name="lstm_int8", route="cuda", source="facodec_tpu_torch/csrc/lstm_int8.cu",
+             replaces="facodec_tpu/nn/lstm.py:110",
+             replaces_note="not a TPU kernel: the XLA scan of lstm_layer's int8 branch",
+             launches=li["launches"]["hybrid"], hybrid_int8_launches=li["launches"]["hybrid_int8"],
+             library_ms=None, **{k: v for k, v in li.items() if k not in ("launches", "profile")}),
     ]
     log(f"streaming: chunk 16 batch 1 p50 {st16['p50_ms']:.2f} ms ({st16['rtf']:.1f}x realtime, "
         f"device {st16['device_ms']:.2f} ms of a traced {st16['traced_wall_ms']:.2f} ms), "
@@ -4046,6 +4427,14 @@ def main() -> None:
         + "; ".join(f"{p} " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
             r["by_kind"].items(), key=lambda kv: -kv[1])[:5]) for p, r in bn["profiles"].items())
         + f" [{smi}]")
+    log(f"W8A8 LSTM (FACODEC_LSTM_INT8, phase 18): kernel {li['ms']:.3f} ms for both layers "
+        f"(plain {li['plain_ms']:.1f} ms, bound {li['bound_ms']:.4f} ms, serial floor "
+        f"{li['serial_floor_ms']:.3f} ms); decoder LSTM flagless -> flagged "
+        + "; ".join(f"{p} {v['flagless']:.2f} -> {v['flagged']:.2f} ms"
+                    for p, v in li["decoder_lstm_ms"].items()) + f" [{smi}]")
+    if klstm.lstm_int8.launches:
+        raise AssertionError(f"the W8A8 LSTM kernel launched {klstm.lstm_int8.launches} times "
+                             f"after phase 18, where the flag is off")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

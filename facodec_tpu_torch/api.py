@@ -117,14 +117,14 @@ def _build(who: str, build: Callable[[Mapping], Dict[str, nn.Module]],
 
 def _replicate(module: nn.Module, device: torch.device) -> nn.Module:
     """A copy of `module` on `device`, without the source's kept packed
-    operands (ResidualUnit's pack, SLSTM's rounded LSTM): each replica
-    makes its own on its device."""
+    operands (ResidualUnit's pack, SLSTM's rounded LSTM and int8 weights):
+    each replica makes its own on its device."""
     copy = deepcopy(module).to(device)
     for m in copy.modules():
         if hasattr(m, "_packs"):
             m._packs = {}
         if hasattr(m, "_bf16_cache"):
-            m._bf16_cache = {}
+            m._bf16_cache, m._int8_cache = {}, {}
     return copy
 
 

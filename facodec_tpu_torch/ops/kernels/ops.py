@@ -23,14 +23,18 @@ see it as one node and never reach its `data_ptr()` calls:
   facodec::resunit_int8(x, amax, q7, sw, w1, b7, b1, alpha1, recip1, alpha2,
                         recip2, dilation, causal)
       -> out                      csrc/resunit_int8.cu, on `pack_int8`'s tensors
+  facodec::lstm_int8(x_proj, w_q, w_scale, h0, c0)
+      -> (y, hT, cT)              csrc/lstm_int8.cu, one LSTM layer's W8A8
+                                  recurrence (lstm.py)
 
 Every op has three implementations: a fake one (shapes and dtypes only,
 for tracing), a CUDA one that launches its kernel (the launchers in
-resunit.py and vq.py, which count the launches) or raises, and a CPU one
-that is the plain PyTorch version. No other device has one, and nothing
-catches a build or launch failure. Eagerly, the wrappers in resunit.py and
-vq.py run the plain version of a CPU tensor themselves, without the op's
-dispatch; a program exported on the CPU holds the ops.
+resunit.py, vq.py and lstm.py, which count the launches) or raises, and a
+CPU one that is the plain PyTorch version. No other device has one, and
+nothing catches a build or launch failure. Eagerly, the wrappers in
+resunit.py, vq.py and lstm.py run the plain version of a CPU tensor
+themselves, without the op's dispatch; a program exported on the CPU holds
+the ops.
 
 The float32 entry and the VQ search carry gradients (`register_autograd`):
 the residual unit's is the plain composition's, recomputed from the saved
@@ -57,7 +61,7 @@ import torch
 from torch import Tensor
 
 from facodec_tpu_torch.ops import vq_math
-from facodec_tpu_torch.ops.kernels import resunit, vq
+from facodec_tpu_torch.ops.kernels import lstm, resunit, vq
 
 
 def _new_like(x: Tensor) -> Tensor:
@@ -109,9 +113,9 @@ def resunit_bf16(x: Tensor, w7: Tensor, w1: Tensor, b7: Tensor, b1: Tensor, alph
     # the plain version on the packed operands: they are the bf16 roundings
     # the policy makes of the float32 weights, which it leaves as they are
     C = x.shape[-1]
-    w7 = w7.reshape(C, 7, C).permute(0, 2, 1)
-    return resunit.residual_unit_reference(x, w7, b7, w1[:, :, None], b1, alpha1.reshape(1, C, 1),
-                                           alpha2.reshape(1, C, 1), dilation, causal).contiguous()
+    return resunit.residual_unit_reference(x, resunit.unpack_w7(w7), b7, w1[:, :, None], b1,
+                                           alpha1.reshape(1, C, 1), alpha2.reshape(1, C, 1),
+                                           dilation, causal).contiguous()
 
 
 @resunit_bf16.register_kernel("cuda")
@@ -248,3 +252,21 @@ def _resunit_int8_cuda(x, amax, q7, sw, w1, b7, b1, alpha1, recip1, alpha2, reci
 def _resunit_int8_fake(x, amax, q7, sw, w1, b7, b1, alpha1, recip1, alpha2, recip2, dilation,
                        causal):
     return _new_like(x)
+
+
+# ------------------------------------------------------ W8A8 LSTM layer
+@torch.library.custom_op("facodec::lstm_int8", mutates_args=(), device_types="cpu")
+def lstm_int8(x_proj: Tensor, w_q: Tensor, w_scale: Tensor, h0: Tensor,
+              c0: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    return tuple(t.contiguous() for t in lstm.lstm_int8_reference(x_proj, w_q, w_scale, h0, c0))
+
+
+@lstm_int8.register_kernel("cuda")
+def _lstm_int8_cuda(x_proj, w_q, w_scale, h0, c0):
+    return lstm.launch(x_proj, w_q, w_scale, h0, c0)
+
+
+@lstm_int8.register_fake
+def _lstm_int8_fake(x_proj, w_q, w_scale, h0, c0):
+    B, T, G = x_proj.shape
+    return x_proj.new_empty(B, T, G // 4), _new_like(h0), _new_like(c0)

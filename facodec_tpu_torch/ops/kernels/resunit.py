@@ -565,14 +565,21 @@ def fused_residual_unit_f32io_packed(x, pack: Bf16Pack, dilation: int, causal: b
     return torch.ops.facodec.resunit_bf16_f32io(x, *pack, dilation, causal, act)
 
 
+def unpack_w7(w7: torch.Tensor) -> torch.Tensor:
+    """A pack's (C, 7C) w7 back in torch's (C, C, 7) layout, contiguous as
+    the module's own weight is: a CPU conv sums a strided weight in another
+    order, and one float32 ulp can round a bf16 output the other way."""
+    C = w7.shape[0]
+    return w7.reshape(C, 7, C).permute(0, 2, 1).contiguous()
+
+
 def f32io_reference(x, pack: Bf16Pack, dilation: int, causal: bool, act: bool) -> torch.Tensor:
     """The plain version of the float32-in/out forms on their pack: the
     packed weights are the bf16 roundings the policy makes of the float32
     ones, which it leaves as they are."""
     C = x.shape[-1]
-    w7 = pack.w7.reshape(C, 7, C).permute(0, 2, 1)
     return residual_unit_reference(
-        x, w7, pack.b7, pack.w1[:, :, None], pack.b1, pack.alpha1.reshape(1, C, 1),
+        x, unpack_w7(pack.w7), pack.b7, pack.w1[:, :, None], pack.b1, pack.alpha1.reshape(1, C, 1),
         pack.alpha2.reshape(1, C, 1), dilation, causal, "bfloat16_act" if act else "bfloat16")
 
 

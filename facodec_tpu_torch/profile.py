@@ -49,6 +49,7 @@ RESUNIT_BF16 = "residual unit, bf16 forms (resunit_bf16_kernel)"
 RESUNIT_INT8 = "residual unit, int8 (resunit_int8_amax + _kernel)"
 VQ = "VQ kernel"
 W8A8_GEMM = "W8A8 int8 GEMMs (torch._int_mm)"
+LSTM_INT8 = "W8A8 LSTM recurrence (lstm_int8_kernel)"
 
 # (kind, substrings of the kernel name), first match wins
 KINDS = (
@@ -60,6 +61,8 @@ KINDS = (
     # cutlass_80_tensorop_i16832gemm_s8_...), named by their int8 MMA shape
     # or their s8 operands
     (W8A8_GEMM, ("i16832gemm", "i8816gemm", "gemm_s8", "s8s8", "i8i8", "imma")),
+    # csrc/lstm_int8.cu (FACODEC_LSTM_INT8): ahead of cuDNN's, whose keys match it
+    (LSTM_INT8, ("lstm_int8_kernel", "lstm_barrier_kernel")),
     ("cuDNN LSTM", ("LSTM", "lstm", "gemmSN", "RNN", "rnn")),
     ("copies", ("copy", "Copy", "memcpy", "Memcpy")),
     ("reflect pads", ("reflection_pad", "ReflectionPad")),

@@ -31,7 +31,10 @@ Each function is `FACodec`'s own tensor method, traced under its policy, so
 an artifact computes what the live codec computes: the residual units and
 the VQ search are the `facodec::` custom ops (ops/kernels/ops.py), one node
 each; the LSTMs stay single `aten.lstm` nodes (no decomposition is run, which
-would unroll them). Under `hybrid` the decoder's bf16 operands are packed by
+would unroll them), but for one that runs the opt-in W8A8 recurrence
+(FACODEC_LSTM_INT8=1 while exporting, nn/lstm.py), which is one
+`facodec::lstm_int8` node a layer: the program keeps the route it was
+exported with, whatever the flag says when it runs. Under `hybrid` the decoder's bf16 operands are packed by
 graph ops on every call (models/dac.py `ResidualUnit.kept_pack`), where the
 live codec keeps a pack per weight version.
 

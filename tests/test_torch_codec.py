@@ -170,7 +170,8 @@ def test_import_leaves_jax_out():
             "facodec_tpu_torch.bench, facodec_tpu_torch.bench_streaming, "
             "facodec_tpu_torch.bench_train, facodec_tpu_torch.utils.profiling, "
             "facodec_tpu_torch.utils.flops, facodec_tpu_torch.parallel.sharding, "
-            "facodec_tpu_torch.cli.validate, facodec_tpu_torch.webui; "
+            "facodec_tpu_torch.cli.validate, facodec_tpu_torch.webui, "
+            "facodec_tpu_torch.ops.kernels.lstm, facodec_tpu_torch.nn.lstm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'facodec_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

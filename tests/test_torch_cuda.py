@@ -1543,3 +1543,226 @@ def test_webui_handlers_card_equal_cpu():
         assert got[0] == want[0] == 24000 and got[1].dtype == np.int16
         assert got[1].shape == want[1].shape
         assert np.abs(got[1].astype(np.int32) - want[1].astype(np.int32)).max() <= 33
+
+
+# ------------------------------------------------- W8A8 LSTM recurrence
+# csrc/lstm_int8.cu against its plain version: batch 1, 4, 33 and 128 (RT =
+# 1, 4; at H = 1536 shared memory holds 16 rows a chunk, so 33 rows are three
+# chunks and the 128 streams of a full BatchedStreamGroup eight), widths from
+# a one-unit CTA to the decoder's 1536, one step to 64. y and hT within 1e-3, cT within 2e-3:
+# both sum the int8 products exactly and round alike, so they part only
+# where expf or tanhf differ in a last bit and a quantized h then rounds
+# the other way.
+LSTM_INT8_CASES = [(B, H, T) for B in (1, 4, 33, 128) for H in (16, 96, 1536)
+                   for T in (1, 7, 64)]
+LSTM_INT8_TOL = dict(y=1e-3, hT=1e-3, cT=2e-3)
+
+
+def _lstm_int8_args(B, H, T, given, seed=0):
+    from facodec_tpu_torch.ops.kernels import lstm
+
+    g = torch.Generator(device="cuda").manual_seed(seed + B + H + T)
+    w_hh = (2 * torch.rand(4 * H, H, device="cuda", generator=g) - 1) / H ** 0.5
+    x_proj = 0.5 * torch.randn(B, T, 4 * H, device="cuda", generator=g)
+    h0, c0 = ((0.5 * torch.randn(B, H, device="cuda", generator=g)) if given
+              else torch.zeros(B, H, device="cuda") for _ in range(2))
+    return (x_proj, *lstm.quantize_weight(w_hh), h0, c0)
+
+
+def _assert_lstm_close(got, want):
+    for name, a, b in zip(("y", "hT", "cT"), got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        err = float((a - b).abs().max())
+        assert err <= LSTM_INT8_TOL[name], (name, err)
+
+
+@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("B,H,T", LSTM_INT8_CASES)
+def test_lstm_int8_kernel_matches_plain(B, H, T, given):
+    _need_cuda()
+    from facodec_tpu_torch.ops.kernels import lstm
+
+    args = _lstm_int8_args(B, H, T, given)
+    before = lstm.lstm_int8.launches
+    got = lstm.lstm_int8(*args)
+    assert lstm.lstm_int8.launches == before + 1
+    want = lstm.lstm_int8_reference(*args)
+    torch.cuda.synchronize()
+    _assert_lstm_close(got, want)
+    assert torch.equal(got[0][:, -1], got[1])
+    p = lstm.plan(B, H, args[0].device)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert p["ctas"] <= sms and p["ctas"] * p["units_a_cta"] >= H
+    if H == 1536 and B > 4:
+        assert p["rows_a_chunk"] < B  # the batch runs in several row chunks
+
+
+@pytest.mark.parametrize("split", [1, 13, 63])
+def test_lstm_int8_kernel_chunked_equals_one_shot(split):
+    """Carrying (h, c) across a chunk boundary gives the one-shot bits."""
+    _need_cuda()
+    from facodec_tpu_torch.ops.kernels import lstm
+
+    x_proj, w_q, w_scale, h0, c0 = _lstm_int8_args(4, 1536, 64, True)
+    y, hT, cT = lstm.lstm_int8(x_proj, w_q, w_scale, h0, c0)
+    ya, ha, ca = lstm.lstm_int8(x_proj[:, :split].contiguous(), w_q, w_scale, h0, c0)
+    yb, hb, cb = lstm.lstm_int8(x_proj[:, split:].contiguous(), w_q, w_scale, ha, ca)
+    assert torch.equal(y, torch.cat([ya, yb], 1))
+    assert torch.equal(hT, hb) and torch.equal(cT, cb)
+    assert torch.equal(lstm.lstm_int8(x_proj, w_q, w_scale, h0, c0)[0], y)  # deterministic
+
+
+@pytest.mark.parametrize("fault", ["strided", "float64", "w_q_shape", "odd_width"])
+def test_lstm_int8_kernel_rejects(fault):
+    _need_cuda()
+    from facodec_tpu_torch.ops.kernels import lstm
+
+    args = list(_lstm_int8_args(2, 96, 5, False))
+    if fault == "strided":
+        args[0] = torch.zeros(2, 10, 384, device="cuda")[:, ::2]
+    elif fault == "float64":
+        args[3] = args[3].double()
+    elif fault == "odd_width":  # the kernel reads h's rows as float4s
+        args = list(_lstm_int8_args(2, 18, 5, False))
+    else:
+        args[1] = args[1].t().contiguous()
+    before = lstm.lstm_int8.launches
+    with pytest.raises((ValueError, TypeError)):
+        lstm.lstm_int8(*args)
+    assert lstm.lstm_int8.launches == before
+
+
+def test_lstm_int8_opcheck():
+    _need_cuda()
+    args = _lstm_int8_args(2, 32, 5, True)
+    result = torch.library.opcheck(torch.ops.facodec.lstm_int8.default, args)
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+def test_slstm_int8_card_matches_cpu(monkeypatch):
+    """A 2-layer SLSTM under bfloat16_act and the flag: two launches, the
+    card's output and state against the CPU's (the plain version) within the
+    kernel's limits, and the flagless route launches nothing."""
+    _need_cuda()
+    from facodec_tpu_torch.nn.lstm import SLSTM
+    from facodec_tpu_torch.ops import precision
+    from facodec_tpu_torch.ops.kernels import lstm
+
+    monkeypatch.setenv("FACODEC_LSTM_INT8", "1")
+    monkeypatch.setenv("FACODEC_LSTM_INT8_MIN_BYTES", "0")
+    torch.manual_seed(0)
+    cpu = SLSTM(256, 2).eval()
+    card = SLSTM(256, 2).eval()
+    card.load_state_dict(cpu.state_dict())
+    card.cuda()
+    x = torch.randn(3, 40, 256).bfloat16()
+    with torch.no_grad(), precision.policy("bfloat16_act"), float32_exact():
+        before = lstm.lstm_int8.launches
+        y, (h, c) = card(x.cuda(), return_state=True)
+        assert lstm.lstm_int8.launches == before + 2
+        want = cpu(x, return_state=True)
+        monkeypatch.setenv("FACODEC_LSTM_INT8", "0")
+        card(x.cuda())
+        assert lstm.lstm_int8.launches == before + 2
+    _assert_lstm_close((y.cpu(), h.cpu(), c.cpu()), (want[0], *want[1]))
+
+
+def test_hybrid_codec_int8_lstm_on_card(monkeypatch):
+    """The small codec's hybrid decode with the flag (the decoder's 512-wide
+    SLSTM qualifies at a lowered threshold): one launch a decode, none
+    without the flag and none in the float32 encode; float32's codes; the
+    CPU's flagged decode of the same codes within the hybrid card test's
+    limits (2.5e-2 in RMS, under 8e-2 of the peak at the worst sample)."""
+    _need_cuda()
+    from facodec_tpu_torch.ops.kernels import lstm
+
+    monkeypatch.setenv("FACODEC_LSTM_INT8_MIN_BYTES", "0")
+    codec = FACodec.from_fields(SMALL_CODEC, seed=2, device="cuda", precision="hybrid")
+    cpu = FACodec.from_fields(SMALL_CODEC, seed=2, device="cpu", precision="hybrid")
+    w = sweep_wave(2, 1.0, seed=3)
+    monkeypatch.setenv("FACODEC_LSTM_INT8", "1")
+    before = lstm.lstm_int8.launches
+    f = codec.encode(w)
+    assert lstm.lstm_int8.launches == before
+    y = codec.decode(f)
+    torch.cuda.synchronize()
+    assert lstm.lstm_int8.launches == before + 1
+    want = FACodec(codec.encoder, codec.quantizer, codec.decoder).encode(w)
+    for name in ("codes_p", "codes_c", "codes_r"):
+        np.testing.assert_array_equal(getattr(f, name), getattr(want, name))
+    y_cpu = cpu.decode(f)
+    err = np.abs(y - y_cpu).max() / np.abs(y_cpu).max()
+    rms = np.sqrt(np.mean((y - y_cpu) ** 2) / np.mean(y_cpu ** 2))
+    assert rms <= 2.5e-2 and err < 8e-2, (rms, err)
+    monkeypatch.setenv("FACODEC_LSTM_INT8", "0")
+    codec.decode(f)
+    assert lstm.lstm_int8.launches == before + 1
+
+
+def test_streamed_hybrid_decode_int8_lstm_on_card(monkeypatch):
+    """A StreamingFACodec decode under bfloat16_act with the flag (the
+    decoder's 512-wide SLSTM qualifies at a lowered threshold), a first
+    chunk of the decoder's span and then 4-frame chunks: one launch a chunk,
+    the card's wave against the CPU's session within the hybrid card test's
+    limits, and the card's final (h, c) within the kernel's."""
+    _need_cuda()
+    from facodec_tpu_torch.models.streaming import StreamingFACodec, min_first_frames_decoder
+    from facodec_tpu_torch.ops import precision
+    from facodec_tpu_torch.ops.kernels import lstm
+
+    monkeypatch.setenv("FACODEC_LSTM_INT8", "1")
+    monkeypatch.setenv("FACODEC_LSTM_INT8_MIN_BYTES", "0")
+    outs = torch.from_numpy(np.random.default_rng(23).standard_normal((2, 40, 64))
+                            .astype(np.float32))
+    got = {}
+    for device in ("cpu", "cuda"):
+        codec = FACodec.from_fields(SMALL_CODEC, seed=5, device=device)
+        first = -(-min_first_frames_decoder(codec.decoder.rates) // 4) * 4
+        sess = StreamingFACodec(codec.encoder, codec.quantizer, codec.decoder, chunk_frames=4)
+        bounds = [0, *range(first, 40, 4), 40]
+        st, waves, launched = sess.init_decode_state(2), [], set()
+        with precision.policy("bfloat16_act"):
+            for i, j in zip(bounds, bounds[1:]):
+                before = lstm.lstm_int8.launches
+                st, y = sess.decode_chunk(st, outs[:, i:j].to(device))
+                launched.add(lstm.lstm_int8.launches - before)
+                waves.append(y.float().cpu())
+        assert launched == ({1} if device == "cuda" else {0}), launched
+        h, c = st[0]["model_1"]  # the decoder SLSTM's (h, c)
+        got[device] = torch.cat(waves, 1).numpy(), h.cpu(), c.cpu()
+    (w_cpu, h_cpu, c_cpu), (w_gpu, h_gpu, c_gpu) = got["cpu"], got["cuda"]
+    assert w_gpu.shape == w_cpu.shape == (2, 40 * 300) and np.isfinite(w_gpu).all()
+    err = np.abs(w_gpu - w_cpu).max() / np.abs(w_cpu).max()
+    rms = np.sqrt(np.mean((w_gpu - w_cpu) ** 2) / np.mean(w_cpu ** 2))
+    assert rms <= 2.5e-2 and err < 8e-2, (rms, err)
+    assert float((h_gpu - h_cpu).abs().max()) <= LSTM_INT8_TOL["hT"]
+    assert float((c_gpu - c_cpu).abs().max()) <= LSTM_INT8_TOL["cT"]
+
+
+def test_exported_flagged_decode_on_card(monkeypatch, tmp_path):
+    """The small codec's hybrid decode exported on the card with the flag:
+    one `facodec::lstm_int8` node and no `aten.lstm`; the program launches
+    the kernel once a call with the flag unset, and its wave is within phase
+    13's 1e-3 err/scale of the live flagged decode."""
+    _need_cuda()
+    from facodec_tpu_torch.ops.kernels import lstm
+    from facodec_tpu_torch.utils import export
+
+    monkeypatch.setenv("FACODEC_LSTM_INT8_MIN_BYTES", "0")
+    monkeypatch.setenv("FACODEC_LSTM_INT8", "1")
+    codec = FACodec.from_fields(SMALL_CODEC, seed=5, device="cuda", precision="hybrid")
+    export.export_codec(codec, str(tmp_path), batch=2, seconds=1.0, functions=("decode",))
+    exp = export.ExportedCodec(str(tmp_path))
+    nodes = Counter(str(n.target) for n in exp.program("decode").graph.nodes
+                    if n.op == "call_function")
+    assert nodes["facodec.lstm_int8.default"] == 1 and nodes["aten.lstm.input"] == 0
+    w = torch.from_numpy(sweep_wave(2, 1.0, seed=9)).cuda()
+    _, codes, timbre = codec.encode_tensor(w)
+    want = codec.decode_tensor(*codes, timbre)
+    monkeypatch.setenv("FACODEC_LSTM_INT8", "0")
+    before = lstm.lstm_int8.launches
+    got = exp.decode(export.codec_params(codec), *codes, timbre)
+    torch.cuda.synchronize()
+    assert lstm.lstm_int8.launches == before + 1
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-3

@@ -479,6 +479,27 @@ def test_opcheck(case):
     assert set(result.values()) == {"SUCCESS"}, result
 
 
+@pytest.mark.parametrize("route", ["bf16", "f32io", "f32io_act"])
+def test_packed_cpu_route_equals_eager(route):
+    """The packed bf16 forms' CPU implementations (what a program exported on
+    the CPU runs) equal the eager plain composition bit for bit: both hand
+    the conv a weight in the module's own contiguous layout (a strided one
+    is summed in another order, and one float32 ulp can round a bf16 output
+    the other way)."""
+    ws = _unit(64, seed=7)
+    x = torch.randn(8, 400, 64, generator=torch.Generator().manual_seed(8))
+    if route == "bf16":
+        x = x.bfloat16()
+    pack = resunit.make_pack(route, *ws)
+    with torch.no_grad(), port_precision.policy(resunit.ROUTE_POLICY[route]):
+        want = resunit.residual_unit_reference(x, *ws, 3, True)
+        if route == "bf16":
+            got = torch.ops.facodec.resunit_bf16(x, *pack, 3, True)
+        else:
+            got = torch.ops.facodec.resunit_bf16_f32io(x, *pack, 3, True, route == "f32io_act")
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("precision", ["float32", "hybrid"])
 def test_exported_graph_nodes(exported, precision):
     """reconstruct: one node per residual unit (24 float32, or 12 + 12 with
