@@ -177,10 +177,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    abs (float32) or 1e-3 err/scale (hybrid) of live with the live path's
    launches (24 float32 units and 6 VQ; 12, 12 bf16 and 6), the hybrid
    artifact's encode, decode and reconstruct too, and reconstruct times,
-   live and artifact in turns, 2 each. 13b: an `ArtifactService` (batch 4)
+   live then artifact, one each. 13b: an `ArtifactService` (batch 4)
    and a live `CodecService` of the same cap and bucket behind
    `make_server`, 8 concurrent 10 s /reconstruct requests to each in turns
-   (live, artifact, artifact, live): requests/s, and each served wave within
+   (live, artifact): requests/s, and each served wave within
    err / scale 2e-2 of the live hybrid codec's on the same request.
 14. Training and serving over several GPUs (parallel/; runs last).
    14a: `run_training(fields=FLAGSHIP_TRAIN)` as torchrun starts it, in
@@ -194,6 +194,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    all-reduce's ms a step (CUDA events around each `all_reduce_mean_`) and
    bytes, 24 residual-unit and 6 VQ launches a step; where more GPUs are
    visible, that many spawned NCCL ranks as 14b.
+   Every `run_training` of 14 and 17a draws FLAGSHIP_TRAIN's seeded
+   weights once per process and loads them in later builds
+   (`reused_build`: the same values).
    14b: two spawned ranks on cuda:0 over gloo, each running `run_training`
    on its 2 rows of every 4-row batch, fused (2 steps, rank 0 writes a
    checkpoint at step 1) and split (1 step), against the same runs in one
@@ -307,6 +310,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    nodes and no `aten.lstm`, 2 launches a call with the flag unset, the
    wave within phase 13's 1e-3 err / scale of the live flagged decode.
 
+19. bf16 training and the legacy 4-stream quantizer. 19a (after 10a, on
+   its models and batch): the inputs of the 24 residual units of one
+   FLAGSHIP_TRAIN training forward at 4 x 80 frames under `bfloat16` and
+   under `bfloat16_act` (forward pre-hooks), each through its policy's bf16
+   kernel form with gradients (`bfloat16`: the float32-in/out form,
+   `bfloat16_act`: the bf16 entry; a pack made per call, as in training)
+   and through the plain composition's autograd: one launch of the form and
+   none of the float32 entry, the forward within 2 bf16 ulps at
+   `resunit.bf16_error_scale`, the gradients of x, both weights, both
+   biases and both alphas within 1e-4 x max|g| (both under deterministic
+   algorithms: the backward is the plain composition recomputed from the
+   saved pack); forward and forward+backward ms of both, FLOP and the bf16
+   bound. 19c (after 19a, on the same models from their seeded state): 4
+   steps (one warm-up) of the fused step under float32, bfloat16 and
+   bfloat16_act at 4 x 80 frames: launches a step (24 units in the policy's
+   form, 0 in the float32 entry under a bf16 policy, 6 VQ), every loss
+   finite, every module's parameters float32 and moved, step ms and peak
+   memory, one traced step by kind. 19b (inside 10b, on its models): the
+   same draws-off step at 1 x 20 frames under each bf16 policy, card
+   against CPU, every loss within 2e-2 relative, the gradient norms'
+   gaps printed. 19d (after 18, on the phase-3 codec's encoder):
+   `FAquantizer(timbre_norm=False)` at the flagship quantizer's width on
+   the 4 x 10 s latent: `forward_v1` at n_c = 2 launches the VQ kernel 8
+   times; `encode` codes (c, p, t, r) >= 0.99 equal to a CPU copy's,
+   `decode` of equal codes within 1e-3; their card ms.
+
 The line before the last is the kernels' JSON summary; the last line is the
 run's JSON result. The kernels' `train_launches` are a training step's,
 `train_ms` their device time in the traced step, `train_grad_max_rel` the
@@ -330,6 +359,14 @@ call; `launches` are those of one round trip under their policy.
 reconstruct), `webui_reconstruct_launches` and `webui_convert_launches`
 one call of each handler (17c); every kernel's are read from its counter
 in those runs (all float32: 0 for the bf16, float32-in/out and int8 forms).
+Phase 19 adds, for every kernel, `bf16_train_launches` (its launches a
+19c step under `bfloat16` and `bfloat16_act`); for the bf16 entry
+(`bfloat16_act`) and the float32-in/out form (`bfloat16`) their training
+numbers: `bf16_train_ms` (device time in the traced 19c step),
+`train_grad_max_rel` and `train_fwd_ulps` (19a), `train_fwd_ms`,
+`train_fwd_plain_ms`, `train_fwd_bwd_ms`, `train_fwd_bwd_plain_ms`,
+`train_flops`, `train_bound_ms` and `train_bound_by` (19a's 24 units); for
+the VQ search `v1_launches` (19d's `forward_v1`).
 The `lstm_int8` entry (phase 18) is not a TPU kernel's port: `replaces`
 names the JAX package's XLA scan; `launches` are a flagged hybrid decode's,
 `ms`, `plain_ms` and `bound_ms` the decoder's two layers', `library_ms`
@@ -1681,29 +1718,49 @@ def phase_train_kernels(models: dict, batch: dict) -> dict:
 
 def phase_train_cpu() -> dict:
     """10b: one draws-off step of the flagship at batch 1 x 20 frames, on the
-    CPU (plain versions) and on the card (kernels), from one seed."""
+    CPU (plain versions) and on the card (kernels), from one seed; then 19b:
+    the same step under each bf16 policy, from the same seeded state."""
     log(f"phase 10b: one training step, card against CPU, FLAGSHIP_TRAIN seed 7, batch 1 x 20 "
         f"frames, draws off; losses and gradient norms within {STEP_TOL} relative")
-    out = {}
+    models, start = {}, {}
     for device in ("cpu", "cuda"):
         t0 = time.perf_counter()
-        models = draws_off(build_models(FLAGSHIP_TRAIN, 7, device))
-        step = make_codec_train_step(models, build_optimizers(models))
-        batch = train_batch(1, 20, 3, device, max_s=2.0)
-        t1 = time.perf_counter()
-        metrics = {k: float(v) for k, v in step(batch, None)[0].items()}
-        log(f"  {device}: built in {t1 - t0:.1f} s, step in {time.perf_counter() - t1:.1f} s")
-        out[device] = metrics
-        del models, step
-    worst = 0.0
-    for k in sorted(out["cpu"]):
-        a, b = out["cuda"][k], out["cpu"][k]
-        rel = abs(a - b) / max(abs(b), 1e-12)
-        worst = max(worst, rel)
-        log(f"  {k}: card {a:.6g} cpu {b:.6g} (rel {rel:.2e})")
-        if not (np.isfinite(a) and rel <= STEP_TOL):
-            raise AssertionError(f"{k}: card {a} against CPU {b}")
-    return dict(step_max_rel=worst)
+        models[device] = draws_off(build_models(FLAGSHIP_TRAIN, 7, device))
+        start[device] = {k: {n: t.clone() for n, t in m.state_dict().items()}
+                         for k, m in models[device].items()}
+        log(f"  {device}: built in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for precision in ("float32", *BF16_TRAIN):
+        if precision != "float32":
+            log(f"phase 19b: the same step under {precision}, card against CPU; losses within "
+                f"{BF16_STEP_TOL} relative (two faithful bf16 evaluations sum in other orders "
+                f"and round apart; the CPU tests hold the port to the JAX step by the same "
+                f"limit), gradient norms printed")
+        got = {}
+        for device in ("cpu", "cuda"):
+            for k, m in models[device].items():
+                m.load_state_dict(start[device][k])
+            step = make_codec_train_step(models[device], build_optimizers(models[device]),
+                                         precision=precision)
+            batch = train_batch(1, 20, 3, device, max_s=2.0)
+            t0 = time.perf_counter()
+            got[device] = {k: float(v) for k, v in step(batch, None)[0].items()}
+            log(f"  {precision} {device}: step in {time.perf_counter() - t0:.1f} s")
+        worst = 0.0
+        for k in sorted(got["cpu"]):
+            a, b = got["cuda"][k], got["cpu"][k]
+            rel = abs(a - b) / max(abs(b), 1e-12)
+            log(f"  {precision} {k}: card {a:.6g} cpu {b:.6g} (rel {rel:.2e})")
+            if not np.isfinite(a):
+                raise AssertionError(f"{precision} {k}: card {a}")
+            if precision == "float32" or k.startswith("loss/"):
+                worst = max(worst, rel)
+                if not rel <= (STEP_TOL if precision == "float32" else BF16_STEP_TOL):
+                    raise AssertionError(f"{precision} {k}: card {a} against CPU {b}")
+        out[precision] = worst
+    del models, start
+    torch.cuda.empty_cache()
+    return dict(step_max_rel=out.pop("float32"), bf16_step_max_rel=out)
 
 
 def phase_train(smi: str) -> dict:
@@ -2341,7 +2398,7 @@ def phase_own(smi: str) -> tuple:
 
 ARTIFACT_F32_TOL = 1e-5  # a float32 artifact's waves against the live codec's, max abs
 ARTIFACT_HYBRID_TOL = 1e-3  # a hybrid artifact's waves against the live hybrid codec's, err/scale
-ARTIFACT_TURNS = 2  # timed reconstructs of each, live and artifact in turns
+ARTIFACT_TURNS = 1  # timed reconstructs of each, live then artifact
 
 
 def check_artifact_wave(label: str, prec: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -2507,7 +2564,7 @@ def _concurrent_rps(base: str, blobs: list) -> tuple:
 def phase_artifact_serve(art_dir: str, params: dict, codec_hy: FACodec, smi: str) -> dict:
     """13b: 8 concurrent 10 s /reconstruct requests to an ArtifactService
     (batch 4) and to a live CodecService of the same batch cap and bucket,
-    in turns (live, artifact, artifact, live)."""
+    in turns (live, artifact)."""
     n_req = 8
     art = serve_cli.ArtifactService(art_dir, params, batch_window_ms=200.0)
     live = serve_cli.CodecService(codec_hy, bucket_seconds=SECONDS, max_batch=art.max_batch,
@@ -2529,7 +2586,7 @@ def phase_artifact_serve(art_dir: str, params: dict, codec_hy: FACodec, smi: str
         calls0 = art._batcher.calls
         reset_counts()
         outs = None
-        for k in ("live", "artifact", "artifact", "live"):
+        for k in ("live", "artifact"):
             r, got = _concurrent_rps(base[k], blobs)
             rps[k].append(r)
             if k == "artifact":
@@ -2538,7 +2595,7 @@ def phase_artifact_serve(art_dir: str, params: dict, codec_hy: FACodec, smi: str
         calls = art._batcher.calls - calls0
         log(f"  requests/s (in turns): live {', '.join(f'{r:.2f}' for r in rps['live'])}; "
             f"artifact {', '.join(f'{r:.2f}' for r in rps['artifact'])}; the artifact's "
-            f"{2 * n_req} requests ran as {calls} device calls; launches of all four rounds "
+            f"{n_req} requests ran as {calls} device calls; launches of both rounds "
             f"{n} [{smi}]")
         # each served wave against the live hybrid codec's reconstruct of the
         # request padded into a batch of the artifact's size, through WAV
@@ -2653,6 +2710,31 @@ def dp_items() -> list:
     return [ds[i] for i in range(DP_ITEMS)]
 
 
+_SEEDED: dict = {}  # seed -> FLAGSHIP_TRAIN's seeded weights (CPU state dicts), per process
+
+
+def reused_build(fields, seed: int, device: str) -> dict:
+    """`train.loop.build_models` for `dp_train`'s runs, which build
+    FLAGSHIP_TRAIN many times in one process (14a, 14b's ranks and
+    one-process runs, 17a): the seeded weights are drawn on the CPU once per
+    process and seed, and later builds load them into new modules, the very
+    values a new draw gives."""
+    from facodec_tpu_torch.models.builder import build_train_from_fields
+    from facodec_tpu_torch.train import loop as loop_mod
+
+    if fields is not FLAGSHIP_TRAIN:
+        raise ValueError("reused_build serves FLAGSHIP_TRAIN")
+    if seed not in _SEEDED:
+        models = build_models(fields, seed, "cpu")
+        _SEEDED[seed] = {k: {n: t.clone() for n, t in m.state_dict().items()}
+                         for k, m in models.items()}
+    else:
+        models = build_train_from_fields(fields)
+        for k, m in models.items():
+            m.load_state_dict(_SEEDED[seed][k])
+    return {k: models[k].to(device) for k in loop_mod.MODULES}
+
+
 def dp_train(kind: str, device: str, log_dir: str, max_steps: int, record_grads: bool = False,
              **options) -> dict:
     """`run_training(fields=FLAGSHIP_TRAIN)` ("codec") or
@@ -2671,7 +2753,7 @@ def dp_train(kind: str, device: str, log_dir: str, max_steps: int, record_grads:
     from facodec_tpu_torch.train import step as step_mod
 
     grads, rows = {}, []
-    reduce, cut = step_mod.reduce_gradients, loop_mod.rank_batch
+    reduce, cut, build_fn = step_mod.reduce_gradients, loop_mod.rank_batch, loop_mod.build_models
 
     def recording_reduce(params, gs):
         out = reduce(params, gs)
@@ -2687,6 +2769,7 @@ def dp_train(kind: str, device: str, log_dir: str, max_steps: int, record_grads:
     if record_grads:
         step_mod.reduce_gradients = recording_reduce
     loop_mod.rank_batch = recording_cut
+    loop_mod.build_models = reused_build
     options = dict(dict(save_interval=NO_SAVE, save_freq=NO_SAVE), **options)
     calls, nbytes = mesh.REDUCED.calls, mesh.REDUCED.bytes
     model = (mesh.MODEL_SUMS.calls + mesh.GATHERED.calls, mesh.MODEL_SUMS.bytes + mesh.GATHERED.bytes)
@@ -2701,7 +2784,7 @@ def dp_train(kind: str, device: str, log_dir: str, max_steps: int, record_grads:
                                            max_steps=max_steps, device=device, log_dir=log_dir,
                                            log_writer=False, log_interval=1, **options)
     finally:
-        step_mod.reduce_gradients, loop_mod.rank_batch = reduce, cut
+        step_mod.reduce_gradients, loop_mod.rank_batch, loop_mod.build_models = reduce, cut, build_fn
     launches = policy_counts()
 
     def whole(t, p):
@@ -4161,6 +4244,250 @@ def phase_lstm_int8(codec: FACodec, cpu: FACodec, smi: str) -> dict:
                 int8_ops=tot["ops"], **out)
 
 
+# ---------------------------------------------------------------- phase 19
+BF16_TRAIN = {"bfloat16": "f32io", "bfloat16_act": "bf16"}  # policy -> its units' kernel form
+BF16_TRAIN_COUNTER = {"f32io": "f32io_launches", "bf16": "bf16_launches"}
+BF16_STEP_TOL = 2e-2  # 19b: a bf16 step's losses, card against CPU, relative
+BF16_STEPS = 4  # 19c: one warm-up step, three timed, per policy
+BF16_UNIT_REPEATS = 5  # 19a: timed calls of each unit's forward and forward+backward
+
+
+def bf16_train_unit_checks(units: list, precision: str, gen: torch.Generator) -> dict:
+    """19a, one policy: each captured unit input through its bf16 kernel
+    form with gradients (`fused_residual_unit` under the policy, packing per
+    call as a training forward does) and through the plain composition's
+    autograd on the float32 weights: one launch of the form and none of the
+    float32 entry forward; the output within BF16_MAX_ULPS at
+    `bf16_error_scale`; the gradients of x, both weights, both biases and
+    both alphas within TRAIN_GRAD_TOL x max|g| (both under deterministic
+    algorithms: the backward is the plain composition recomputed from the
+    saved pack); forward and forward+backward times of both."""
+    route = BF16_TRAIN[precision]
+    counter = BF16_TRAIN_COUNTER[route]
+    cost = bf16_unit_cost if route == "bf16" else f32io_unit_cost
+    worst_ulps = worst_grad = 0.0
+    tot = dict(fwd_ms=0.0, fwd_plain_ms=0.0, fwd_bwd_ms=0.0, fwd_bwd_plain_ms=0.0, flops=0,
+               bound_ms=0.0)
+    bound_of = {"operations": 0.0, "bytes": 0.0}
+    for unit, x in units:
+        snake1, conv7, snake2, conv1 = unit.block
+        base = [t.detach().contiguous() for t in (
+            x, conv7.effective_weight(), conv7.bias, conv1.effective_weight(), conv1.bias,
+            snake1.alpha, snake2.alpha)]
+        d, causal = unit.dilation, unit.causal
+        cot = torch.randn(x.shape, device="cuda", generator=gen).to(x.dtype)
+
+        def run(fn, backward=True):
+            leaves = [t.clone().requires_grad_(backward) for t in base]
+            y = fn(*leaves, d, causal)
+            return y, (torch.autograd.grad(y, leaves, cot) if backward else None)
+
+        with float32_exact(), policy(precision):
+            with deterministic():
+                before = (resunit.fused_residual_unit.launches,
+                          getattr(resunit.fused_residual_unit, counter))
+                got, g_kernel = run(resunit.fused_residual_unit)
+                launched = (resunit.fused_residual_unit.launches - before[0],
+                            getattr(resunit.fused_residual_unit, counter) - before[1])
+                want, g_plain = run(resunit.residual_unit_reference)
+            if launched != (0, 1):
+                raise AssertionError(f"19a {precision}: the unit launched {launched} (float32 "
+                                     f"entry, {route} form), expected (0, 1)")
+            scale = resunit.bf16_error_scale(*base, d, causal, route)
+            ulps = resunit.bf16_ulps(got, want, scale).max().item()
+            if not ulps <= BF16_MAX_ULPS:
+                raise AssertionError(f"19a {precision}: forward {ulps:.2f} bf16 ulps off plain")
+            rel = {}
+            for name, a, b in zip(UNIT_GRADS, g_kernel, g_plain):
+                rel[name] = ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                if not rel[name] <= TRAIN_GRAD_TOL:
+                    raise AssertionError(f"19a {precision} C={x.shape[-1]} d={d}: {name} "
+                                         f"gradient {rel[name]:.3e} of max|g| off plain")
+            with torch.no_grad():
+                tk = median_ms(lambda: resunit.fused_residual_unit(*base, d, causal),
+                               BF16_UNIT_REPEATS)
+                tp = median_ms(lambda: resunit.residual_unit_reference(*base, d, causal),
+                               BF16_UNIT_REPEATS)
+            tkb = median_ms(lambda: run(resunit.fused_residual_unit), BF16_UNIT_REPEATS)
+            tpb = median_ms(lambda: run(resunit.residual_unit_reference), BF16_UNIT_REPEATS)
+        worst_ulps, worst_grad = max(worst_ulps, ulps), max(worst_grad, max(rel.values()))
+        B, T, C = x.shape
+        flop, nbytes = cost(B, T, C)
+        b_ms = bound_ms(flop, nbytes, BF16_FLOPS)
+        bound_of["operations" if flop / BF16_FLOPS >= nbytes / HBM_BYTES_S else "bytes"] += b_ms
+        for k, v in (("fwd_ms", tk), ("fwd_plain_ms", tp), ("fwd_bwd_ms", tkb),
+                     ("fwd_bwd_plain_ms", tpb), ("flops", flop), ("bound_ms", b_ms)):
+            tot[k] += v
+        log(f"  {precision} B={B} C={C:4d} T={T:6d} d={d}: forward {ulps:.2f} ulps, gradients "
+            f"(of max|g|) " + " ".join(f"{k} {v:.1e}" for k, v in rel.items())
+            + f"; forward kernel {tk:.3f} ms plain {tp:.3f} ms, forward+backward kernel "
+            f"{tkb:.3f} ms plain {tpb:.3f} ms; bound {b_ms:.4f} ms")
+    bound_by = max(bound_of, key=bound_of.get)
+    log(f"  {precision}: {len(units)} units in the {route} form: forward kernel "
+        f"{tot['fwd_ms']:.3f} ms plain {tot['fwd_plain_ms']:.3f} ms; forward+backward kernel "
+        f"{tot['fwd_bwd_ms']:.3f} ms plain {tot['fwd_bwd_plain_ms']:.3f} ms (the backward "
+        f"recomputes the plain composition); forward FLOP {tot['flops']:.4e}, bf16 bound "
+        f"{tot['bound_ms']:.3f} ms ({bound_by}), share {tot['bound_ms'] / tot['fwd_ms']:.1%}; "
+        f"worst forward {worst_ulps:.2f} ulps, worst gradient {worst_grad:.2e} of max|g|")
+    return dict(tot, max_ulps=worst_ulps, grad_max_rel=worst_grad, bound_by=bound_by, route=route)
+
+
+def phase_bf16_train_units(models: dict, batch: dict, smi: str) -> dict:
+    """19a: the captured inputs of one FLAGSHIP_TRAIN training forward under
+    each bf16 policy (24 units each), through the policy's kernel form (on
+    10a's models and batch)."""
+    log(f"phase 19a: the bf16 kernel forms with gradients on the inputs of one flagship training "
+        f"forward (batch {TRAIN_BATCH} x {TRAIN_FRAMES} frames) under bfloat16 (the float32-in/"
+        f"out form) and bfloat16_act (the bf16 entry): forward <= {BF16_MAX_ULPS} bf16 ulps, "
+        f"gradients of {', '.join(UNIT_GRADS)} within {TRAIN_GRAD_TOL} x max|g| of plain "
+        f"autograd; forward and forward+backward ms (median of {BF16_UNIT_REPEATS}); FLOP and "
+        f"the bf16 bound ({BF16_FLOPS / 1e12:.0f} TFLOP/s, {HBM_BYTES_S / 1e12:.2f} TB/s) [{smi}]")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    out = {}
+    for precision in BF16_TRAIN:
+        units = []
+        hooks = [m.register_forward_pre_hook(lambda mod, args: units.append((mod, args[0])))
+                 for part in (models["encoder"], models["decoder"]) for m in part.modules()
+                 if isinstance(m, ResidualUnit)]
+        with float32_exact(), policy(precision):
+            fwd = gen_forward(models, batch, torch.Generator(device="cuda").manual_seed(1))
+        for h in hooks:
+            h.remove()
+        del fwd
+        want_dtype = torch.bfloat16 if precision == "bfloat16_act" else torch.float32
+        if len(units) != 24 or any(x.dtype != want_dtype for _, x in units):
+            raise AssertionError(f"19a {precision}: {len(units)} unit inputs, dtypes "
+                                 f"{sorted({str(x.dtype) for _, x in units})}")
+        out[precision] = bf16_train_unit_checks(units, precision, gen)
+        del units
+    return out
+
+
+def phase_bf16_train_steps(models: dict, smi: str) -> dict:
+    """19c: steps of FLAGSHIP_TRAIN at TRAIN_BATCH x TRAIN_FRAMES under
+    float32, bfloat16 and bfloat16_act from one seeded state (10a's models
+    as they were built); per policy the launches a step, every loss finite,
+    every module's parameters float32 and moved, step ms and peak memory,
+    then one traced step by kind."""
+    log(f"phase 19c: {BF16_STEPS} steps (1 warm-up) of FLAGSHIP_TRAIN at {TRAIN_BATCH} x "
+        f"{TRAIN_FRAMES} frames under float32, bfloat16 and bfloat16_act (make_codec_train_step, "
+        f"the fused step; one seeded state each); launches a step (24 residual units in the "
+        f"policy's form, 0 in the float32 entry under bf16, 6 VQ), step ms (host clock until the "
+        f"metrics are read), peak memory, one traced step [{smi}]")
+    start = {k: {n: t.clone() for n, t in m.state_dict().items()} for k, m in models.items()}
+    batch = train_batch(TRAIN_BATCH, TRAIN_FRAMES, 11, "cuda")
+    audio_s = TRAIN_BATCH * TRAIN_FRAMES * HOP / SR
+    out = {}
+    for precision in ("float32", *BF16_TRAIN):
+        for k, m in models.items():
+            m.load_state_dict(start[k])
+        step = make_codec_train_step(models, build_optimizers(models), precision=precision)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = []
+        reset_counts()
+        for i in range(BF16_STEPS):
+            t0 = time.perf_counter()
+            metrics, _ = step(batch, gen)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            times.append(1e3 * (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated()
+        c = policy_counts()
+        per_step = {k: v / BF16_STEPS for k, v in c.items() if v}
+        form = BF16_TRAIN.get(precision, "f32")
+        want = {form: 24, "vq": 6}
+        if per_step != want:
+            raise AssertionError(f"19c {precision}: launches a step {per_step}, expected {want}")
+        for k, v in metrics.items():
+            if not np.isfinite(v):
+                raise AssertionError(f"19c {precision}: {k} = {v}")
+        for name, m in models.items():
+            params = list(m.parameters())
+            moved = sum(not torch.equal(p, start[name][n]) for (n, _), p in
+                        zip(m.named_parameters(), params))
+            if moved == 0 or any(p.dtype != torch.float32 for p in params):
+                raise AssertionError(f"19c {precision}: {name} moved {moved}, dtypes "
+                                     f"{sorted({str(p.dtype) for p in params})}")
+        step_ms = statistics.median(times[1:])
+        prof = train_profile(step, batch, gen)
+        kinds = {kind: prof["by_kind"].get(kind, 0.0) for kind in (RESUNIT_F32, RESUNIT_BF16,
+                                                                   PROFILE_VQ)}
+        log(f"  {precision}: step ms first {times[0]:.1f}, then "
+            + ", ".join(f"{t:.1f}" for t in times[1:]) + f"; median {step_ms:.1f} ms, "
+            f"{audio_s * 1e3 / step_ms:.2f} s of audio per s; peak memory {peak / 2**30:.2f} GiB "
+            f"({(peak - base) / 2**30:.2f} GiB over the state); launches a step {per_step}; "
+            f"loss/gen_all {metrics['loss/gen_all']:.6g}, loss/disc {metrics['loss/disc']:.6g}; "
+            f"traced step: device ms of the residual units {kinds[RESUNIT_F32]:.2f} float32, "
+            f"{kinds[RESUNIT_BF16]:.2f} bf16 forms, VQ {kinds[PROFILE_VQ]:.3f} [{smi}]")
+        print_breakdown(prof["by_kind"], prof["by_name"], prof["count"], prof["traced_wall_ms"],
+                        top=8)
+        out[precision] = dict(step_ms=step_ms, times=times, peak_bytes=peak,
+                              peak_over_state=peak - base, per_step=per_step, kernel_ms=kinds,
+                              traced_wall_ms=prof["traced_wall_ms"])
+        del step
+    del start
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_forward_v1(codec: FACodec, cpu: FACodec, w: np.ndarray, smi: str) -> dict:
+    """19d: the legacy 4-stream quantizer (`timbre_norm=False`) at the
+    flagship quantizer's width on the phase-3 codec's encoder latent of the
+    batch of 4 x 10 s: `forward_v1` at n_c = 2 launches the VQ kernel 8
+    times; `encode` and `decode` on the card against the CPU (codes
+    >= CODE_MATCH_MIN equal, decode within DECODE_MAX_DIFF where the codes
+    are equal)."""
+    from facodec_tpu_torch.models.fa_quantizer import FAquantizer
+    from facodec_tpu_torch.utils.weights import init_random_
+
+    fields = dict(FLAGSHIP["quantizer"], timbre_norm=False)
+    log(f"phase 19d: FAquantizer(timbre_norm=False) at the flagship width ({fields['in_dim']}, "
+        f"codebooks {fields['codebook_size']} x {fields['codebook_dim']}, separate prosody "
+        f"encoder {fields['separate_prosody_encoder']}), seed 0, on the flagship encoder's latent "
+        f"of {BATCH} x {SECONDS:.0f} s: forward_v1 (n_c 2), encode, decode; card against CPU "
+        f"[{smi}]")
+    q_cpu = init_random_(FAquantizer(**fields), torch.Generator().manual_seed(0)).eval()
+    q_card = FAquantizer(**fields)
+    q_card.load_state_dict(q_cpu.state_dict())
+    q_card = q_card.cuda().eval()
+    wt = torch.from_numpy(w)
+    with torch.no_grad(), float32_exact():
+        z = codec.encoder(wt.cuda()[:, :, None])
+        reset_counts()
+        outs, quantized, commit, cb = q_card(z, wt.cuda(), n_c=2)
+        torch.cuda.synchronize()
+        launched = vq.nearest_code.launches
+        if launched != 8 or not torch.isfinite(outs).all():
+            raise AssertionError(f"19d: forward_v1 launched {launched} VQ searches (expected 8), "
+                                 f"finite {bool(torch.isfinite(outs).all())}")
+        t = {"forward_v1": median_ms(lambda: q_card(z, wt.cuda(), n_c=2), 3),
+             "encode": median_ms(lambda: q_card.encode(z, wt.cuda(), n_c=2), 3)}
+        codes, _ = q_card.encode(z, wt.cuda(), n_c=2)
+        stacked = torch.cat([codes[0][:, :1], codes[1], codes[2]], 1)
+        t["decode"] = median_ms(lambda: q_card.decode(stacked), 3)
+        total, _ = q_card.decode(stacked)
+        t0 = time.perf_counter()
+        codes_cpu, _ = q_cpu.encode(z.cpu(), wt, n_c=2)
+        total_cpu, _ = q_cpu.decode(stacked.cpu())
+        cpu_s = time.perf_counter() - t0
+    shares = [float((a.cpu() == b).float().mean()) for a, b in zip(codes, codes_cpu)]
+    dec = float((total.cpu() - total_cpu).abs().max())
+    log(f"  forward_v1: 8 VQ launches, outs {tuple(outs.shape)} finite, commitment "
+        f"{float(commit):.4g}, codebook {float(cb):.4g}; codes (c, p, t, r) equal to the CPU's "
+        + ", ".join(f"{v:.5f}" for v in shares) + f"; decode of equal codes max abs {dec:.2e} "
+        f"(limit {DECODE_MAX_DIFF}); card ms forward_v1 {t['forward_v1']:.2f}, encode "
+        f"{t['encode']:.2f}, decode {t['decode']:.2f}; the CPU's encode + decode {cpu_s:.1f} s "
+        f"[{smi}]")
+    if min(shares) < CODE_MATCH_MIN or not dec <= DECODE_MAX_DIFF:
+        raise AssertionError(f"19d: code shares {shares}, decode gap {dec}")
+    del q_card, q_cpu, z
+    torch.cuda.empty_cache()
+    return dict(launches=launched, code_shares=shares, decode_max_abs=dec, ms=t)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -4222,6 +4549,9 @@ def main() -> None:
     live = phase_live(codec_hy)
     art = phase_artifact(codec, w, smi)
     li = phase_lstm_int8(codec, cpu, smi)
+    t19d = time.perf_counter()
+    v1 = phase_forward_v1(codec, cpu, w, smi)
+    t19d = time.perf_counter() - t19d
     del codec, codec_hy, codec_vc, cpu, red
     torch.cuda.empty_cache()
 
@@ -4230,11 +4560,17 @@ def main() -> None:
     n_params = {k: sum(p.numel() for p in m.parameters()) for k, m in train_models.items()}
     log(f"flagship training modules (FLAGSHIP_TRAIN, seed 0): {n_params} parameters, built in "
         f"{time.perf_counter() - t0:.1f} s")
-    tk = phase_train_kernels(train_models, train_batch(TRAIN_BATCH, TRAIN_FRAMES, 0, "cuda"))
-    del train_models
+    batch = train_batch(TRAIN_BATCH, TRAIN_FRAMES, 0, "cuda")
+    tk = phase_train_kernels(train_models, batch)
+    t19 = time.perf_counter()
+    bt_units = phase_bf16_train_units(train_models, batch, smi)
+    bt_steps = phase_bf16_train_steps(train_models, smi)
+    t19 = time.perf_counter() - t19
+    del train_models, batch
     torch.cuda.empty_cache()
     ru["max_abs_err"] = max(ru["max_abs_err"], tk["max_abs_err"])
     tc = phase_train_cpu()
+    bt_cpu = tc["bf16_step_max_rel"]
     tr = phase_train(smi)
 
     t0 = time.perf_counter()
@@ -4269,6 +4605,21 @@ def main() -> None:
                     webui_reconstruct_launches=ui_launches["reconstruct"][key],
                     webui_convert_launches=ui_launches["convert"][key])
 
+    def bf16_train_launches(key: str) -> dict:
+        """The kernel's launches a 19c step under each bf16 training policy."""
+        return dict(bf16_train_launches={p: bt_steps[p]["per_step"].get(key, 0)
+                                         for p in BF16_TRAIN})
+
+    def bf16_train(precision: str) -> dict:
+        """A bf16 form's numbers in training under `precision` (19a, 19c)."""
+        u, st = bt_units[precision], bt_steps[precision]
+        return dict(train_policy=precision, bf16_train_ms=st["kernel_ms"][RESUNIT_BF16],
+                    train_grad_max_rel=u["grad_max_rel"], train_fwd_ulps=u["max_ulps"],
+                    train_fwd_ms=u["fwd_ms"], train_fwd_plain_ms=u["fwd_plain_ms"],
+                    train_fwd_bwd_ms=u["fwd_bwd_ms"], train_fwd_bwd_plain_ms=u["fwd_bwd_plain_ms"],
+                    train_flops=u["flops"], train_bound_ms=u["bound_ms"],
+                    train_bound_by=u["bound_by"])
+
     # no single PyTorch call computes either function: library_ms is null
     kernels = [
         dict(name="fused_residual_unit", route="cuda", source="facodec_tpu_torch/csrc/resunit.cu",
@@ -4289,7 +4640,7 @@ def main() -> None:
              sharded_reconstruct_launches=shard2["float32"]["f32"],
              sharded_hybrid_launches=shard2["hybrid"]["f32"], bound_by="operations",
              bench_launches=bench_launches("f32"), bench_train_launches=24,
-             **entry_launches("f32"),
+             **entry_launches("f32"), **bf16_train_launches("f32"),
              library_ms=None, **ru, **halo),
         dict(name="nearest_code", route="cuda", source="facodec_tpu_torch/csrc/vq.cu",
              replaces="facodec_tpu/ops/pallas/vq.py:76", launches=main_path["vq"],
@@ -4306,7 +4657,7 @@ def main() -> None:
              sharded_reconstruct_launches=shard2["float32"]["vq"],
              sharded_hybrid_launches=shard2["hybrid"]["vq"],
              bench_launches=bench_launches("vq"), bench_train_launches=6,
-             **entry_launches("vq"),
+             **entry_launches("vq"), **bf16_train_launches("vq"), v1_launches=v1["launches"],
              bound_by="operations", library_ms=None, **vqr),
         # the bf16 entry (csrc/resunit_bf16.cu): its main path is the hybrid
         # round trip (the serve default), whose 12 decoder units it runs
@@ -4323,26 +4674,28 @@ def main() -> None:
              decode_kernels=hy["decode_kernels"],
              decode_kernels_per_call_pack=hy["decode_kernels_per_call_pack"], library_ms=None,
              bench_launches=bench_launches("bf16"), **entry_launches("bf16"),
-             hybrid_int8_launches=pol["launches"]["hybrid_int8"].get("bf16", 0), **bf),
+             hybrid_int8_launches=pol["launches"]["hybrid_int8"].get("bf16", 0),
+             **bf16_train_launches("bf16"), **bf16_train("bfloat16_act"), **bf),
         # phase 15: the bf16 kernel's float32-in/out forms and the int8 unit
         dict(name="fused_residual_unit_f32io", route="cuda",
              source="facodec_tpu_torch/csrc/resunit_bf16.cu",
              replaces="facodec_tpu/ops/pallas/resunit.py:273",
              launches=pol["launches"]["bfloat16"]["f32io"], policy="bfloat16", library_ms=None,
              bench_launches=bench_launches("f32io"), **entry_launches("f32io"),
-             **pol["k1"]),
+             **bf16_train_launches("f32io"), **bf16_train("bfloat16"), **pol["k1"]),
         dict(name="fused_residual_unit_f32io_act", route="cuda",
              source="facodec_tpu_torch/csrc/resunit_bf16.cu",
              replaces="facodec_tpu/ops/pallas/resunit.py:273",
              launches=pol["launches"]["hybrid_int8"]["act"], policy="hybrid_int8",
              bench_launches=bench_launches("act"), **entry_launches("act"),
-             library_ms=None, **pol["k1a"]),
+             **bf16_train_launches("act"), library_ms=None, **pol["k1a"]),
         dict(name="fused_residual_unit_int8", route="cuda",
              source="facodec_tpu_torch/csrc/resunit_int8.cu",
              replaces="facodec_tpu/ops/pallas/resunit.py:273",
              launches=pol["launches"]["hybrid_int8"]["int8"],
              amax_launches=pol["launches"]["hybrid_int8"]["amax"], policy="hybrid_int8",
              bench_launches=bench_launches("int8"), **entry_launches("int8"),
+             **bf16_train_launches("int8"),
              status="redesigned: wgmma s8 and bf16, the weights and the s2 tile by TMA and "
                     "bulk copies through an mbarrier ring, persistent grid",
              library_ms=None, **pol["k2"]),
@@ -4432,6 +4785,16 @@ def main() -> None:
         f"{li['serial_floor_ms']:.3f} ms); decoder LSTM flagless -> flagged "
         + "; ".join(f"{p} {v['flagless']:.2f} -> {v['flagged']:.2f} ms"
                     for p, v in li["decoder_lstm_ms"].items()) + f" [{smi}]")
+    log(f"bf16 training (phase 19, {t19:.1f} s for 19a and 19c, {t19d:.1f} s for 19d; 19b in "
+        f"10b): step ms "
+        + "; ".join(f"{p} {v['step_ms']:.1f} (peak {v['peak_bytes'] / 2**30:.2f} GiB)"
+                    for p, v in bt_steps.items())
+        + "; the 24 units forward / forward+backward ms "
+        + "; ".join(f"{p} {v['fwd_ms']:.2f} / {v['fwd_bwd_ms']:.2f} (plain {v['fwd_plain_ms']:.2f}"
+                    f" / {v['fwd_bwd_plain_ms']:.2f}), gradients {v['grad_max_rel']:.2e}"
+                    for p, v in bt_units.items())
+        + "; card vs CPU losses " + ", ".join(f"{p} {v:.2e}" for p, v in bt_cpu.items())
+        + f"; forward_v1 codes {min(v1['code_shares']):.5f} equal to the CPU's [{smi}]")
     if klstm.lstm_int8.launches:
         raise AssertionError(f"the W8A8 LSTM kernel launched {klstm.lstm_int8.launches} times "
                              f"after phase 18, where the flag is off")

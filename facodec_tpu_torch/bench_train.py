@@ -24,8 +24,10 @@ The JAX variables keep their meaning: FACODEC_TRAIN_REMAT=1 recomputes in
 the backward; FACODEC_TRAIN_SPLIT=1|0 picks the split step (default: split
 at batch >= 8); FACODEC_TRAIN_PAIRED_G (default 1): the port's split step
 makes phase G's one discriminator pass over concat(fake, real), so 0 with
-the split step is refused; FACODEC_TRAIN_PRECISION other than float32 is
-refused, as the step refuses it. `--fast` times one step instead of
+the split step is refused; FACODEC_TRAIN_PRECISION picks the step's policy
+(float32, bfloat16 or bfloat16_act, or an alias; the line names it by its
+canonical name; the int8 policies are refused, as the step refuses them).
+`--fast` times one step instead of
 REPEATS runs of ITERS, with and without the pipeline. It runs on the card
 unless given `--device cpu`; without a card it exits non-zero.
 """
@@ -47,7 +49,8 @@ from facodec_tpu_torch.train.data import (PseudoDataset, prefetch, segment_batch
                                           shard_iterator, to_device)
 from facodec_tpu_torch.train.loop import build_models
 from facodec_tpu_torch.train.optimizers import build_optimizers
-from facodec_tpu_torch.train.step import make_codec_train_step, make_codec_train_step_split
+from facodec_tpu_torch.train.step import (check_precision, make_codec_train_step,
+                                          make_codec_train_step_split)
 
 SR, HOP = 24000, 300
 ITERS = 4
@@ -56,7 +59,7 @@ ITERS = 4
 def train_options(batch: int) -> dict:
     """precision, remat, split and paired_g from the JAX bench's variables."""
     split_env = os.environ.get("FACODEC_TRAIN_SPLIT", "")
-    opts = dict(precision=os.environ.get("FACODEC_TRAIN_PRECISION", "float32"),
+    opts = dict(precision=check_precision(os.environ.get("FACODEC_TRAIN_PRECISION", "float32")),
                 remat=os.environ.get("FACODEC_TRAIN_REMAT", "0") == "1",
                 split=split_env == "1" if split_env else batch >= 8,
                 paired_g=os.environ.get("FACODEC_TRAIN_PAIRED_G", "1") != "0")

@@ -11,7 +11,10 @@ the card the policy, x's dtype and the unit's width pick the kernel form
 (`resunit.unit_route`): the float32 entry, the bf16 entry (`bfloat16_act`,
 and `int8`'s units that do not quantize, on a bf16 x), its float32-in/out
 forms (`bfloat16`; `int8`'s units that do not quantize, on a float32 x) or
-the int8 unit (`int8`, `is_int8(7 C)`). Outside the float32 entry (no
+the int8 unit (`int8`, `is_int8(7 C)`). A bf16 training step runs every
+unit in a bf16 form with gradients: under `bfloat16` the float32-in/out
+form (every unit takes a float32 x), under `bfloat16_act` the bf16 entry
+(the encoder's first conv returns bf16, and so does every layer after). Outside the float32 entry (no
 gradient, eval mode) a unit keeps its operands packed for its form and
 repacks only when one of its parameters changes; in a program being
 exported (utils/export.py) the packing is graph ops, on every device.
@@ -66,9 +69,10 @@ class ResidualUnit(nn.Module):
 
     def kept_pack(self, x: torch.Tensor, route: str):
         """The packed operands of kernel form `route` (resunit.unit_route)
-        for x, or None where the unit does not run from a pack: the float32
-        entry, gradients enabled, or training (the packed forms are forward
-        only). A pack is kept per route (codecs of several policies may
+        for x, or None where the unit does not run from a kept pack: the
+        float32 entry, gradients enabled, or training (there the unit packs
+        on every call, with autograd ops, so that the gradients reach the
+        parameters: `resunit.pack_bf16`). A pack is kept per route (codecs of several policies may
         share the modules) and rebuilt when a parameter's version (an
         in-place update) or storage changes, or x's device does. In a
         program being exported it is made by graph ops on every call: the

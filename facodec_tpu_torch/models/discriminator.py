@@ -32,6 +32,12 @@ BANDS = ((0.0, 0.1), (0.1, 0.25), (0.25, 0.5), (0.5, 0.75), (0.75, 1.0))
 
 
 def _leaky(x: torch.Tensor) -> torch.Tensor:
+    """leaky_relu(x, 0.1); on a bf16 x (`bfloat16_act`) the slope is the bf16
+    0.1 and the product rounds to bf16, as JAX's `where(x >= 0, x, 0.1 * x)`
+    with a weakly typed 0.1 computes it (torch's leaky_relu multiplies by the
+    float32 0.1)."""
+    if x.dtype == torch.bfloat16:
+        return torch.where(x >= 0, x, x * torch.tensor(0.1, dtype=x.dtype))
     return F.leaky_relu(x, 0.1)
 
 

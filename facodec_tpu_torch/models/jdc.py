@@ -17,7 +17,11 @@ Layout: NCHW with H = T and W = the 80 mel bins, as the reference's
 unpacked, so its reverse direction reads the whole sequence reversed, as
 the JAX scan does) and a linear layer give F0 = |out|. Modules carry the
 reference state dict's names, so its file loads by key. The forward runs
-with TF32 off (`api.float32_exact`).
+with TF32 off (`api.float32_exact`). Under a bf16 policy (the inline
+teacher of a `bfloat16` or `bfloat16_act` training step) the LSTM and the
+classifier take bf16-rounded operands, as the JAX package's policy
+`matmul`s do (the LSTM every rounding but h's at each step, as `nn.lstm`
+`SLSTM`); its convolutions are plain `lax.conv`s there, float32 here too.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ import torch
 import torch.nn as nn
 
 from facodec_tpu_torch.api import float32_exact
+from facodec_tpu_torch.nn.basic import linear
+from facodec_tpu_torch.ops.precision import bf16_values, compute_dtype
 
 LEAK = 0.01
 UNUSED_PREFIXES = ("detector_conv", "bilstm_detector", "detector", "maxpool")
@@ -101,8 +107,14 @@ class JDCNet(nn.Module):
             x = self.res_block3(self.res_block2(self.res_block1(x)))
             x = self.pool_block(x)  # (B, 256, T, 2)
             feat = x.permute(0, 2, 1, 3).reshape(B, T, 512)
-            y, _ = self.bilstm_classifier(feat)
-            out = self.classifier(y)
+            if compute_dtype() == torch.bfloat16:
+                rounded = {name: bf16_values(p) if name.startswith("weight") else p
+                           for name, p in self.bilstm_classifier.named_parameters()}
+                y, _ = torch.func.functional_call(self.bilstm_classifier, rounded,
+                                                  (bf16_values(feat),))
+            else:
+                y, _ = self.bilstm_classifier(feat)
+            out = linear(y, self.classifier.weight, self.classifier.bias)
         return torch.abs(out[..., 0] if self.num_class == 1 else out), feat
 
 

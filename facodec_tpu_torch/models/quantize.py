@@ -6,7 +6,9 @@ JAX module's train mode: every stage runs, each returns its per-sample
 commitment and codebook losses, the output is straight-through, and the
 first `int(B * quantizer_dropout)` rows keep only their first 1..N stages
 (drawn from the caller's generator) while the residual is updated with each
-stage's unmasked output. The code search goes through
+stage's unmasked output. `forward_losses` is its eval call with the
+losses (the legacy `forward_v1` reads them in eval too). The code search
+goes through
 `ops.kernels.vq.nearest_code` (the CUDA kernel on the card, the plain search
 on the CPU); its gradient reaches the codebook rows it selected.
 """
@@ -107,12 +109,22 @@ class ResidualVectorQuantize(nn.Module):
                 raise ValueError("quantizer dropout draws from a torch.Generator; pass one")
             nq[:n_dropout] = torch.randint(1, N + 1, (n_dropout,), generator=generator,
                                            device=z.device).float()
-        nq = nq[offset: offset + B]
+        return self._stages(z, nq[offset: offset + B], N)
+
+    def forward_losses(self, z: torch.Tensor, n_quantizers: int):
+        """The JAX module's eval call with its losses: (z_q, codes (B, n, T),
+        commitment, codebook) of the first n = min(n_quantizers, N) stages,
+        every row keeping all of them (no draw)."""
+        n = min(int(n_quantizers), self.n_codebooks)
+        return self._stages(z, torch.full((z.shape[0],), float(n_quantizers), device=z.device), n)
+
+    def _stages(self, z: torch.Tensor, nq: torch.Tensor, n: int):
+        """The first n stages, row b summing the stages i < nq[b]."""
         z_q = torch.zeros_like(z)
         residual = z
         commitment = codebook = 0.0
         codes: List[torch.Tensor] = []
-        for i, quantizer in enumerate(self.quantizers):
+        for i, quantizer in enumerate(self.quantizers[:n]):
             z_q_i, commit_i, cb_i, indices = quantizer.forward_train(residual)
             mask = (i < nq).to(z.dtype)
             z_q = z_q + z_q_i * mask[:, None, None]

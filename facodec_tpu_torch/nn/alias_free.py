@@ -5,7 +5,11 @@ around each nonlinearity. The taps are computed in numpy, as the JAX package
 computes them; the torch reference's `*.filter` buffers are not in a
 checkpoint the port reads (utils/weights.py drops them), so each resampler
 holds its taps as a non-persistent buffer built here. The resamplers are
-depthwise convolutions with one set of taps for every channel.
+depthwise convolutions with one set of taps for every channel, in the
+dtype of their input, as the JAX package's `lax.conv` runs on whatever
+dtype comes in: a bf16 input (the predictor heads under `bfloat16_act`)
+takes bf16-rounded taps, sums in float32 and rounds the result to bf16 (on
+the CPU a float32 conv of the bf16 values, rounded after).
 """
 
 from __future__ import annotations
@@ -60,6 +64,13 @@ class _Resample(nn.Module):
         """(C, 1, K): the taps for every channel of a depthwise conv."""
         return self.taps[None, None, :].expand(channels, 1, self.kernel_size)
 
+    def _conv(self, fn, x: torch.Tensor) -> torch.Tensor:
+        """fn(x, taps) over the NCT x, in x's dtype (the module docstring)."""
+        w = self._weight(x.shape[1]).to(x.dtype)
+        if x.dtype == torch.float32 or x.device.type == "cuda":
+            return fn(x, w)
+        return fn(x.float(), w.float()).to(x.dtype)
+
 
 class UpSample1d(_Resample):
     """ratio-x upsampling: edge pad, depthwise transposed conv, trim."""
@@ -74,7 +85,8 @@ class UpSample1d(_Resample):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         C = x.shape[-1]
         xt = F.pad(x.transpose(1, 2), (self.pad, self.pad), mode="replicate")
-        y = self.ratio * F.conv_transpose1d(xt, self._weight(C), stride=self.ratio, groups=C)
+        y = self.ratio * self._conv(
+            lambda a, w: F.conv_transpose1d(a, w, stride=self.ratio, groups=C), xt)
         return y[..., self.pad_left : y.shape[-1] - self.pad_right].transpose(1, 2)
 
 
@@ -90,7 +102,8 @@ class DownSample1d(_Resample):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         C = x.shape[-1]
         xt = F.pad(x.transpose(1, 2), (self.pad_left, self.pad_right), mode="replicate")
-        return F.conv1d(xt, self._weight(C), stride=self.ratio, groups=C).transpose(1, 2)
+        y = self._conv(lambda a, w: F.conv1d(a, w, stride=self.ratio, groups=C), xt)
+        return y.transpose(1, 2)
 
 
 class Activation1d(nn.Module):

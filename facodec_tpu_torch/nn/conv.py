@@ -9,8 +9,9 @@ class). Conv weights are (O, I / groups, K), transposed-conv weights (I, O, K), 
 weights (O, I, Kh, Kw); weight norm keeps
 `weight_g` / `weight_v` as parameters and computes `v * (g / ||v||)` over
 every dim but 0 on each call. Activations are NTC at every public function;
-`F.conv1d` runs on the NCT transpose. `Conv2d` (the discriminators', float32
-only) takes and returns NCHW.
+`F.conv1d` runs on the NCT transpose. `Conv2d` (the discriminators') takes
+and returns NCHW and follows the policy as the 1-D convs do (W8A8 aside:
+the discriminators train, so the int8 policies never reach them).
 
 Under the `bfloat16_act` policy (ops/precision.py) a conv rounds its
 operands to bf16, accumulates in float32, rounds the result to bf16 and
@@ -219,6 +220,11 @@ class Conv2d(_WeightNormConv):
         self._init_weight((out_channels, in_channels, *kernel_size), weight_norm, out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        def fn(a, w):
+            return F.conv2d(a, w, stride=self.stride, padding=self.padding)
+
+        if compute_dtype() == torch.bfloat16:
+            return bf16_op(fn, x, self.effective_weight(), self.bias[None, :, None, None])
         return F.conv2d(x, self.effective_weight(), self.bias, stride=self.stride,
                         padding=self.padding)
 

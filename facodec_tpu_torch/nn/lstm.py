@@ -13,11 +13,14 @@ every step, h) and keeps the (h, c) carries, the gates and the output in
 float32; the output plus the skip (bf16 or float32) is float32. cuDNN cannot round h at each step, and a Python
 loop over the 800 steps of a 10 s decode is not a route on the card. So
 the port runs the float32 LSTM on the bf16-rounded input and weights
-(biases stay float32): every rounding but h's. The rounded weights are a
-cached copy of `lstm`, made again whenever a parameter changes; in a
+(biases stay float32): every rounding but h's. Without gradients the
+rounded weights are a cached copy of `lstm`, made again whenever a
+parameter changes. Where autograd records (a bf16 training step) and in a
 program being exported (utils/export.py) they are graph ops on every call,
 run through `lstm` by `torch.func.functional_call`, which still lowers to
-one `aten.lstm` (cuDNN on the card).
+one `aten.lstm` (cuDNN on the card): the rounding is then part of the
+graph, as JAX's cast is part of its traced forward, and the float32
+weights get their gradients through it.
 
 The JAX package's opt-in W8A8 recurrence (`FACODEC_LSTM_INT8=1`, never a
 default) is ported: where `lstm_int8(H)` holds (the flag, a bf16 policy and
@@ -89,6 +92,9 @@ class SLSTM(nn.Module):
     def _key(self) -> tuple:
         return tuple((p.data_ptr(), p._version) for p in self.lstm.parameters())
 
+    def _records_grad(self) -> bool:
+        return torch.is_grad_enabled() and any(p.requires_grad for p in self.lstm.parameters())
+
     def _bf16_lstm(self) -> nn.LSTM:
         """`lstm` with bf16-rounded weight matrices, cached per parameter
         storage and version."""
@@ -152,7 +158,7 @@ class SLSTM(nn.Module):
             y, new_state = self._int8_forward(x, state)
             y = y + x.float()
         elif compute_dtype() == torch.bfloat16:
-            if torch.compiler.is_exporting():
+            if torch.compiler.is_exporting() or self._records_grad():
                 rounded = {name: bf16_values(p) if name.startswith("weight") else p
                            for name, p in self.lstm.named_parameters()}
                 y, new_state = torch.func.functional_call(self.lstm, rounded,

@@ -8,6 +8,7 @@ see it as one node and never reach its `data_ptr()` calls:
   facodec::resunit_bf16(x, w7, w1, b7, b1, alpha1, recip1, alpha2, recip2,
                         dilation, causal)
       -> out                      csrc/resunit_bf16.cu, on `pack_bf16`'s tensors
+                                  (gradient by `register_autograd`)
   facodec::nearest_code(encodings, codebook)
       -> (zq, indices int32)      csrc/vq.cu (zq first: `opcheck` sums the
                                   outputs into the first one's dtype)
@@ -36,12 +37,17 @@ resunit.py, vq.py and lstm.py run the plain version of a CPU tensor
 themselves, without the op's dispatch; a program exported on the CPU holds
 the ops.
 
-The float32 entry and the VQ search carry gradients (`register_autograd`):
-the residual unit's is the plain composition's, recomputed from the saved
-inputs (the JAX package's `_bwd`); the search passes none to the latents
-and scatter-adds the rows' cotangent into the codebook rows it selected
-(`index_add`, the counterpart of `segment_sum`). The other entries are
-forward only.
+The float32 entry, the bf16 entry, its float32-in/out forms and the VQ
+search carry gradients (`register_autograd`): a residual unit's is the
+plain composition's under its form's policy (`resunit.ROUTE_POLICY`),
+recomputed from the saved inputs (the JAX package's `_bwd`, whose VJP goes
+through `_reference`); for the bf16 forms those inputs are the pack, whose
+making is differentiable (`resunit.pack_bf16`), so the gradients reach the
+float32 weights through the bf16 rounding, and the snake reciprocals get
+none (the plain composition takes them from the alphas). The search passes
+none to the latents and scatter-adds the rows' cotangent into the codebook
+rows it selected (`index_add`, the counterpart of `segment_sum`). The halo
+entry, the int8 unit and the LSTM recurrence are forward only.
 
 The bf16 entries and the int8 unit take the packed weights as tensors;
 their CUDA implementations encode the TMA tensor maps themselves
@@ -92,14 +98,23 @@ def _resunit_f32_setup(ctx, inputs, output):
     ctx.dilation, ctx.causal = dilation, causal
 
 
-def _resunit_f32_backward(ctx, g):
-    needs = ctx.needs_input_grad[:7]
+def _recompute_grads(ctx, g, plain, n_static: int):
+    """The gradients of `plain(*saved tensors)` (the op's plain version)
+    for the tensor inputs that want one, and None for the `n_static`
+    non-tensor arguments after them."""
+    saved = ctx.saved_tensors  # once: a checkpoint's saved tensors unpack only once
+    needs = ctx.needs_input_grad[:len(saved)]
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
-        out = resunit.residual_unit_reference(*leaves, ctx.dilation, ctx.causal)
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+        out = plain(*leaves)
         wanted = [t for t, n in zip(leaves, needs) if n]
-        grads = iter(torch.autograd.grad(out, wanted, g))
-    return (*(next(grads) if n else None for n in needs), None, None)
+        grads = iter(torch.autograd.grad(out, wanted, g, allow_unused=True))
+    return (*(next(grads) if n else None for n in needs), *(None,) * n_static)
+
+
+def _resunit_f32_backward(ctx, g):
+    return _recompute_grads(ctx, g, lambda *t: resunit.residual_unit_reference(
+        *t, ctx.dilation, ctx.causal), 2)
 
 
 resunit_f32.register_autograd(_resunit_f32_backward, setup_context=_resunit_f32_setup)
@@ -110,12 +125,8 @@ resunit_f32.register_autograd(_resunit_f32_backward, setup_context=_resunit_f32_
 def resunit_bf16(x: Tensor, w7: Tensor, w1: Tensor, b7: Tensor, b1: Tensor, alpha1: Tensor,
                  recip1: Tensor, alpha2: Tensor, recip2: Tensor, dilation: int,
                  causal: bool) -> Tensor:
-    # the plain version on the packed operands: they are the bf16 roundings
-    # the policy makes of the float32 weights, which it leaves as they are
-    C = x.shape[-1]
-    return resunit.residual_unit_reference(x, resunit.unpack_w7(w7), b7, w1[:, :, None], b1,
-                                           alpha1.reshape(1, C, 1), alpha2.reshape(1, C, 1),
-                                           dilation, causal).contiguous()
+    pack = resunit.Bf16Pack(w7, w1, b7, b1, alpha1, recip1, alpha2, recip2)
+    return resunit.packed_reference(x, pack, dilation, causal, "bf16").contiguous()
 
 
 @resunit_bf16.register_kernel("cuda")
@@ -128,6 +139,20 @@ def _resunit_bf16_cuda(x, w7, w1, b7, b1, alpha1, recip1, alpha2, recip2, dilati
 @resunit_bf16.register_fake
 def _resunit_bf16_fake(x, w7, w1, b7, b1, alpha1, recip1, alpha2, recip2, dilation, causal):
     return _new_like(x)
+
+
+def _packed_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:9])
+    ctx.static = inputs[9:]
+
+
+def _resunit_bf16_backward(ctx, g):
+    dilation, causal = ctx.static
+    return _recompute_grads(ctx, g, lambda x, *pack: resunit.packed_reference(
+        x, resunit.Bf16Pack(*pack), dilation, causal, "bf16"), 2)
+
+
+resunit_bf16.register_autograd(_resunit_bf16_backward, setup_context=_packed_setup)
 
 
 # ------------------------------------------------------------- VQ search
@@ -199,7 +224,8 @@ def resunit_bf16_f32io(x: Tensor, w7: Tensor, w1: Tensor, b7: Tensor, b1: Tensor
                        alpha1: Tensor, recip1: Tensor, alpha2: Tensor, recip2: Tensor,
                        dilation: int, causal: bool, act: bool) -> Tensor:
     pack = resunit.Bf16Pack(w7, w1, b7, b1, alpha1, recip1, alpha2, recip2)
-    return resunit.f32io_reference(x, pack, dilation, causal, act).contiguous()
+    return resunit.packed_reference(x, pack, dilation, causal,
+                                    "f32io_act" if act else "f32io").contiguous()
 
 
 @resunit_bf16_f32io.register_kernel("cuda")
@@ -214,6 +240,15 @@ def _resunit_bf16_f32io_cuda(x, w7, w1, b7, b1, alpha1, recip1, alpha2, recip2, 
 def _resunit_bf16_f32io_fake(x, w7, w1, b7, b1, alpha1, recip1, alpha2, recip2, dilation,
                              causal, act):
     return _new_like(x)
+
+
+def _resunit_bf16_f32io_backward(ctx, g):
+    dilation, causal, act = ctx.static
+    return _recompute_grads(ctx, g, lambda x, *pack: resunit.packed_reference(
+        x, resunit.Bf16Pack(*pack), dilation, causal, "f32io_act" if act else "f32io"), 3)
+
+
+resunit_bf16_f32io.register_autograd(_resunit_bf16_f32io_backward, setup_context=_packed_setup)
 
 
 # ------------------------------------------------------------ int8 unit

@@ -34,20 +34,19 @@ biases and the snake reciprocals); the TMA tensor maps of both weights are
 encoded at launch (`tma_maps`, kept per weight address).
 `fused_residual_unit` packs on every call; `fused_residual_unit_packed`
 takes a pack that the caller keeps (`models.dac.ResidualUnit` keeps one per
-weight version) or, in a program being exported, makes with graph ops. The
-bf16 entry and the halo entry below are forward only (the hybrid decode and
-streams serve): asked for a gradient on the card, they raise.
+weight version) or, in a program being exported, makes with graph ops.
 
 Under the other precision policies the unit runs in the kernel form that
-`unit_route` picks from the policy, x's dtype and the unit's width, each
-forward only, on operands packed once per weight version (`make_pack`,
-kept by `models.dac.ResidualUnit`), each with its launch count:
+`unit_route` picks from the policy, x's dtype and the unit's width, on
+operands packed once per weight version for inference (`make_pack`, kept by
+`models.dac.ResidualUnit`) and on every call in training, each with its
+launch count:
   - the float32-in/out forms of the bf16 kernel (csrc/resunit_bf16.cu,
     `facodec::resunit_bf16_f32io`, `pack_bf16` with float32 biases):
     `bfloat16` (`f32io_launches`: the conv outputs rounded to bf16 and
     widened, float32 biases) and, with `act`, the bf16 entry's rounding on
     a float32 x and out (`f32io_act_launches`: `int8`'s units whose conv7
-    does not quantize); plain version `f32io_reference`;
+    does not quantize); plain version `packed_reference`;
   - the int8 unit (csrc/resunit_int8.cu, `pack_int8`): the W8A8 conv7 of
     `int8`'s units with `is_int8(7 C)`, two launches, the row maxima of
     |snake1(x)| (`facodec::resunit_int8_amax`, `int8_amax_launches`) and
@@ -57,6 +56,24 @@ kept by `models.dac.ResidualUnit`), each with its launch count:
     operands and conv7 output).
 On the CPU `fused_residual_unit` runs the plain composition under the
 current policy, which every form's plain version equals on its route.
+
+Gradients (bf16 training, the `bfloat16` and `bfloat16_act` steps): the
+bf16 entry and both float32-in/out forms carry them, as the float32 entry
+does, through their ops' `register_autograd`: the backward recomputes the
+plain composition under the form's policy (`ROUTE_POLICY`) from the saved
+inputs (`packed_reference`), as the JAX package's `_bwd` takes its VJP
+through `_reference`; no backward kernel is written, as JAX has none. The
+op's inputs are the pack, and the pack is differentiable: `pack_bf16`
+makes it with autograd ops (the bf16 cast, the permute and reshape of w7,
+the biases' cast, the alphas' reshape), so the gradients flow on from the
+packed bf16 operands to the float32 effective weights (and through the
+weight norm), to the biases and to both alphas, arriving in float32 after
+the bf16 rounding, as JAX's cast is part of its traced forward. The snake
+reciprocals get no gradient of their own: the plain composition forms them
+from the alphas. A training forward packs on every call (the kept pack is
+for no-grad calls). The halo entry (streams serve) and the int8 unit
+(`int8` is inference-only, as in JAX) stay forward only: asked for a
+gradient on the card, they raise.
 
 `fused_residual_unit_stream` runs one chunk of a causal stream through the
 kernel's halo entry (plain version `residual_unit_stream_reference`): the
@@ -290,15 +307,15 @@ def _wants_grad(who: str, *tensors) -> None:
     """Raise where autograd would need a gradient of a forward-only entry."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(f"{who}: this entry is forward only; run it under torch.no_grad() "
-                           "(the float32 one-shot entry carries gradients)")
+                           "(the float32 one-shot entry and the bf16 forms carry gradients)")
 
 
 def fused_residual_unit(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
                         causal: bool) -> torch.Tensor:
     """out = x + conv1x1(snake(conv7(snake(x)))) under the current policy:
     on the card in the kernel form `unit_route` picks, its operands packed
-    for this call (the float32 entry with gradients, the others forward
-    only); on the CPU the plain version under the policy, with gradients."""
+    for this call (every form but the int8 unit with gradients); on the CPU
+    the plain version under the policy, with gradients."""
     _check_unit("fused_residual_unit", x, w7, b7, w1, b1, alpha1, alpha2, dilation,
                 (torch.float32, torch.bfloat16))
     if x.device.type == "cpu" and not torch.compiler.is_exporting():
@@ -306,7 +323,8 @@ def fused_residual_unit(x, w7, b7, w1, b1, alpha1, alpha2, dilation: int,
     route = unit_route(x.dtype, x.shape[-1])
     if route == "f32":
         return torch.ops.facodec.resunit_f32(x, w7, b7, w1, b1, alpha1, alpha2, dilation, causal)
-    _wants_grad(f"fused_residual_unit ({route} entry)", x, w7, b7, w1, b1, alpha1, alpha2)
+    if route == "int8":
+        _wants_grad("fused_residual_unit (int8 unit)", x, w7, b7, w1, b1, alpha1, alpha2)
     return run_packed(route, x, make_pack(route, w7, b7, w1, b1, alpha1, alpha2), dilation,
                       causal)
 
@@ -348,16 +366,17 @@ class Bf16Pack(NamedTuple):
 
 def pack_bf16(w7, b7, w1, b1, alpha1, alpha2, bias_dtype=torch.bfloat16) -> Bf16Pack:
     """The bf16 kernel's operands from the effective (weight-normed) float32
-    weights in torch's layout, with biases of `bias_dtype`."""
+    weights in torch's layout, with biases of `bias_dtype`; made with
+    autograd ops, so that a pack made where autograd records passes the
+    kernel's gradients on to the weights (the module docstring)."""
     C = w7.shape[0]
     bf16 = torch.bfloat16
-    with torch.no_grad():
-        w7p = w7.to(bf16).permute(0, 2, 1).reshape(C, 7 * C).contiguous()
-        w1p = w1[:, :, 0].to(bf16).contiguous()
-        a1, a2 = (a.reshape(C).clone() for a in (alpha1, alpha2))
-        recip1, recip2 = (1.0 / (a + 1e-9) for a in (a1, a2))
-        return Bf16Pack(w7p, w1p, b7.to(bias_dtype).contiguous(), b1.to(bias_dtype).contiguous(),
-                        a1, recip1, a2, recip2)
+    w7p = w7.to(bf16).permute(0, 2, 1).reshape(C, 7 * C).contiguous()
+    w1p = w1[:, :, 0].to(bf16).contiguous()
+    a1, a2 = (a.reshape(C).clone() for a in (alpha1, alpha2))
+    recip1, recip2 = (1.0 / (a + 1e-9) for a in (a1, a2))
+    return Bf16Pack(w7p, w1p, b7.to(bias_dtype).contiguous(), b1.to(bias_dtype).contiguous(),
+                    a1, recip1, a2, recip2)
 
 
 _MAPS: "collections.OrderedDict[tuple, ctypes.Array]" = collections.OrderedDict()
@@ -409,15 +428,14 @@ def _check_pack(who: str, pack, C: int, device, bias=torch.bfloat16) -> None:
 
 
 def fused_residual_unit_packed(x, pack: Bf16Pack, dilation: int, causal: bool) -> torch.Tensor:
-    """The bf16 entry with operands packed by `pack_bf16`, forward only: x
-    (B, T, C) bf16 on the card, or any device's in a program being exported
-    (eagerly on the CPU, `fused_residual_unit` runs the plain version)."""
+    """The bf16 entry with operands packed by `pack_bf16`: x (B, T, C) bf16
+    on the card, or any device's in a program being exported (eagerly on
+    the CPU, `fused_residual_unit` runs the plain version)."""
     who = "fused_residual_unit_packed"
     _check_x(who, x, dilation, (torch.bfloat16,))
     _check_pack(who, pack, x.shape[-1], x.device)
     if x.device.type != "cuda" and not torch.compiler.is_exporting():
         raise ValueError(f"{who}: the packed entry runs on the card only, x is on {x.device}")
-    _wants_grad(who, x)
     return torch.ops.facodec.resunit_bf16(x, *pack, dilation, causal)
 
 
@@ -550,7 +568,7 @@ fused_residual_unit_stream.launches = 0
 def fused_residual_unit_f32io_packed(x, pack: Bf16Pack, dilation: int, causal: bool,
                                      act: bool) -> torch.Tensor:
     """The bf16 kernel's float32-in/out forms on a pack with float32 biases
-    (`pack_bf16(..., torch.float32)`), forward only: with `act` the bf16
+    (`pack_bf16(..., torch.float32)`): with `act` the bf16
     entry's rounding (`bfloat16_act`; the `int8` policy's units that do not
     quantize, given a float32 x), else the `bfloat16` policy's, whose convs
     round their products to bf16 and add the float32 biases in float32. x
@@ -561,7 +579,6 @@ def fused_residual_unit_f32io_packed(x, pack: Bf16Pack, dilation: int, causal: b
     _check_pack(who, pack, x.shape[-1], x.device, bias=torch.float32)
     if x.device.type != "cuda" and not torch.compiler.is_exporting():
         raise ValueError(f"{who}: the packed entry runs on the card only, x is on {x.device}")
-    _wants_grad(who, x)
     return torch.ops.facodec.resunit_bf16_f32io(x, *pack, dilation, causal, act)
 
 
@@ -573,14 +590,17 @@ def unpack_w7(w7: torch.Tensor) -> torch.Tensor:
     return w7.reshape(C, 7, C).permute(0, 2, 1).contiguous()
 
 
-def f32io_reference(x, pack: Bf16Pack, dilation: int, causal: bool, act: bool) -> torch.Tensor:
-    """The plain version of the float32-in/out forms on their pack: the
-    packed weights are the bf16 roundings the policy makes of the float32
-    ones, which it leaves as they are."""
+def packed_reference(x, pack: Bf16Pack, dilation: int, causal: bool,
+                     route: str) -> torch.Tensor:
+    """The plain version of the bf16 kernel's form `route` ("bf16", "f32io"
+    or "f32io_act") on its pack, under the form's policy: the packed weights
+    are the bf16 roundings the policy makes of the float32 ones, which it
+    leaves as they are. Differentiable in x and every packed tensor but the
+    reciprocals (the custom ops' backward)."""
     C = x.shape[-1]
     return residual_unit_reference(
         x, unpack_w7(pack.w7), pack.b7, pack.w1[:, :, None], pack.b1, pack.alpha1.reshape(1, C, 1),
-        pack.alpha2.reshape(1, C, 1), dilation, causal, "bfloat16_act" if act else "bfloat16")
+        pack.alpha2.reshape(1, C, 1), dilation, causal, ROUTE_POLICY[route])
 
 
 def launch_f32io(x, pack: Bf16Pack, dilation: int, pad_left: int, ext: int, act: bool,

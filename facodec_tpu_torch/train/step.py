@@ -31,9 +31,20 @@ to the state the first run started from for the recompute (and restores it
 after): the recompute draws the very masks the forward drew. The kernels'
 custom ops run again inside the recompute.
 
-The loss weights are the reference's. The step runs in float32 with TF32
-off (`api.float32_exact`), as the codec's calls do; bfloat16 training is not
-ported and raises (ROADMAP Queue 1, item 10). Teacher targets (phones,
+The loss weights are the reference's. The step runs with TF32 off
+(`api.float32_exact`), as the codec's calls do, under its `precision`
+policy (ops/precision.py), as the JAX steps wrap their phases in
+`policy(precision)`: `float32` (the default), `bfloat16` (bf16 conv and
+matmul operands, float32 activations) or `bfloat16_act` (bf16 activations
+between layers too), for the generator forward, the discriminator, the
+losses, the teacher and the backward. The generator's outputs are widened
+to float32 at the loss and discriminator boundary, as `gen_forward` does in
+JAX. Parameters, gradients and the Adam moments stay float32; the VQ
+projections and search stay a float32 island. On the card every residual
+unit then runs a bf16 kernel form with gradients (resunit.unit_route: the
+float32-in/out form under `bfloat16`, the bf16 entry under
+`bfloat16_act`). The int8 policies are inference-only and raise, as in
+JAX; so does any name that is not a training policy. Teacher targets (phones,
 speaker) come in the batch, and so does F0 unless an `f0_teacher` is given:
 a `models.jdc.JDCNet` (in eval, frozen) that the step runs on
 `batch["mel_seg"]` under `torch.no_grad()` before anything else, as the
@@ -64,7 +75,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from facodec_tpu_torch.api import float32_exact
-from facodec_tpu_torch.ops.precision import INT8_POLICIES
+from facodec_tpu_torch.ops.precision import INT8_POLICIES, check, get_policy, policy
 from facodec_tpu_torch.losses import (
     cross_entropy, discriminator_loss, focal_loss, generator_adv_losses, l1_loss, log_norm,
     mel_spectrogram_loss, multi_scale_stft_loss, smooth_l1_loss,
@@ -85,10 +96,25 @@ LAMBDA_CONTENT = 5.0
 LAMBDA_SPK = 1.0
 
 
+def _under_policy(fn: Callable) -> Callable:
+    """fn run under the precision policy current now: a recompute in the
+    backward runs where the policy may not be set (autograd runs a CUDA
+    backward on a thread of its own, and the policy is per thread)."""
+    name = get_policy()
+
+    def run(*args):
+        with policy(name):
+            return fn(*args)
+
+    return run
+
+
 def replay_checkpoint(fn: Callable, generator: Optional[torch.Generator]):
     """fn() under non-reentrant `checkpoint`, whose recompute draws from
     `generator` what the first run drew: it starts from the state the first
-    run started from and leaves the generator as it found it."""
+    run started from and leaves the generator as it found it; the recompute
+    runs under the first run's precision policy."""
+    fn = _under_policy(fn)
     if generator is None:
         return checkpoint(fn, use_reentrant=False, preserve_rng_state=False)
     start = generator.get_state()
@@ -107,22 +133,30 @@ def replay_checkpoint(fn: Callable, generator: Optional[torch.Generator]):
 
 
 def maybe_checkpoint(remat: bool, fn: Callable, *args):
-    """fn(*args), recomputed in the backward where `remat` (no draws inside)."""
+    """fn(*args), recomputed in the backward where `remat` (no draws inside),
+    under the precision policy of the first run."""
     if remat:
-        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        return checkpoint(_under_policy(fn), *args, use_reentrant=False,
+                          preserve_rng_state=False)
     return fn(*args)
+
+
+def _f32(t):
+    return t.float() if t is not None and t.is_floating_point() else t
 
 
 def gen_forward(models: Mapping[str, nn.Module], batch: Mapping[str, torch.Tensor],
                 generator: Optional[torch.Generator]):
-    """(pred_wave (B, Tw, 1), commitment, codebook, preds, rev_preds)."""
+    """(pred_wave (B, Tw, 1), commitment, codebook, preds, rev_preds), the
+    wave and the predictions float32 under every policy (JAX's boundary)."""
     wave = batch["wave_seg"][:, :, None]
     z = models["encoder"](wave)
     outs, quantized, commit, cb, timbre = models["quantizer"].forward_v2(
         z, batch["wave_seg"], n_c=2, full_waves=batch["full_waves"],
         wave_lens=batch["wave_lens"], train=True, generator=generator)
     preds, rev_preds = models["fa_predictors"](quantized, timbre)
-    return models["decoder"](outs), commit, cb, preds, rev_preds
+    return (_f32(models["decoder"](outs)), commit, cb, {k: _f32(v) for k, v in preds.items()},
+            {k: _f32(v) for k, v in rev_preds.items()})
 
 
 def disc_pair(disc: nn.Module, fake: torch.Tensor, real: torch.Tensor):
@@ -212,14 +246,21 @@ def _no_mark(name: str) -> None:
     pass
 
 
-def _check_precision(precision: str) -> None:
+TRAIN_POLICIES = ("float32", "bfloat16", "bfloat16_act")
+
+
+def check_precision(precision: str) -> str:
+    """The canonical name of a training policy (ops/precision.py aliases);
+    ValueError for the inference-only int8 policies and for any other name."""
     if str(precision).lower() in INT8_POLICIES:
         raise ValueError(f"precision={precision!r} is inference-only: the W8A8 round() has zero "
                          "gradient, so training under it would silently stop updating the "
-                         "quantized convs. Use float32.")
-    if precision != "float32":
-        raise NotImplementedError(f"precision={precision!r} training is not ported; the step "
-                                  "trains in float32 (ROADMAP Queue 1, item 10)")
+                         "quantized convs. Use float32/bfloat16/bfloat16_act.")
+    name = check(precision)
+    if name not in TRAIN_POLICIES:
+        raise ValueError(f"precision={precision!r} is not a training policy; expected one of "
+                         f"{list(TRAIN_POLICIES)} (or an alias)")
+    return name
 
 
 def with_teacher_f0(f0_teacher: nn.Module, batch: Mapping[str, torch.Tensor]
@@ -231,7 +272,7 @@ def with_teacher_f0(f0_teacher: nn.Module, batch: Mapping[str, torch.Tensor]
 
 
 def _make_step(models: Mapping[str, nn.Module], optimizers: Mapping[str, AdamW], remat: bool,
-               split: bool, f0_teacher: Optional[nn.Module]):
+               split: bool, f0_teacher: Optional[nn.Module], precision: str):
     disc = models["discriminator"]
     if f0_teacher is not None:
         f0_teacher.eval()
@@ -247,7 +288,7 @@ def _make_step(models: Mapping[str, nn.Module], optimizers: Mapping[str, AdamW],
     def train_step(batch: Mapping[str, torch.Tensor], generator: Optional[torch.Generator],
                    mark: Optional[Callable[[str], None]] = None):
         mark = mark or _no_mark
-        with float32_exact(), step_rows(batch["wave_seg"].shape[0]):
+        with float32_exact(), policy(precision), step_rows(batch["wave_seg"].shape[0]):
             if f0_teacher is not None:
                 batch = with_teacher_f0(f0_teacher, batch)
                 mark("teacher")
@@ -297,9 +338,10 @@ def make_codec_train_step(models: Mapping[str, nn.Module], optimizers: Mapping[s
     called with each part's name as the host finishes issuing it:
     "forward", "disc" (phase D with its update), "gen_loss", "backward",
     "update" (a profiler's phase boundaries), after "teacher" where an
-    `f0_teacher` (module docstring) gives the step its F0."""
-    _check_precision(precision)
-    return _make_step(models, optimizers, remat, split=False, f0_teacher=f0_teacher)
+    `f0_teacher` (module docstring) gives the step its F0. `precision` is
+    the step's policy (module docstring)."""
+    return _make_step(models, optimizers, remat, split=False, f0_teacher=f0_teacher,
+                      precision=check_precision(precision))
 
 
 def make_codec_train_step_split(models: Mapping[str, nn.Module],
@@ -312,5 +354,5 @@ def make_codec_train_step_split(models: Mapping[str, nn.Module],
     Marks: "disc" (phase D: its forward, loss and update), "forward" (phase
     G's forward), "gen_loss", "backward", "update", after "teacher" with an
     `f0_teacher`."""
-    _check_precision(precision)
-    return _make_step(models, optimizers, remat, split=True, f0_teacher=f0_teacher)
+    return _make_step(models, optimizers, remat, split=True, f0_teacher=f0_teacher,
+                      precision=check_precision(precision))

@@ -7,6 +7,7 @@ dependencies:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
 
+import contextlib
 import os
 from collections import Counter
 
@@ -738,10 +739,14 @@ def test_resunit_gradients_match_plain(B, C, dilation, T, causal):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item(), n
 
 
-def test_forward_only_entries_refuse_gradients():
-    """The bf16 entry and the halo entry serve only: asked for a gradient
-    they raise; under no_grad they run."""
+def test_forward_only_entries_refuse_gradients(monkeypatch):
+    """The halo entry (streams serve) and the int8 unit (`int8` is
+    inference-only) are forward only: asked for a gradient they raise, and
+    under no_grad they run. The bf16 entry carries gradients since bf16
+    training: asked for one it launches its kernel and returns w7's."""
     _need_cuda()
+    from facodec_tpu_torch.ops import precision
+
     C = 64
     w = [torch.randn(C, C, 7, device="cuda") / 21, torch.zeros(C, device="cuda"),
          torch.randn(C, C, 1, device="cuda") / 8, torch.zeros(C, device="cuda"),
@@ -749,12 +754,133 @@ def test_forward_only_entries_refuse_gradients():
     w[0].requires_grad_(True)
     x = torch.randn(1, 100, C, device="cuda")
     with pytest.raises(RuntimeError, match="forward only"):
-        resunit.fused_residual_unit(x.bfloat16(), *w, 1, True)
-    with pytest.raises(RuntimeError, match="forward only"):
         resunit.fused_residual_unit_stream(x, None, *w, 1)
+    monkeypatch.setattr(precision, "INT8_MIN_FANIN", 7 * C)  # the conv7 quantizes, the 1x1 not
+    with precision.policy("int8"), pytest.raises(RuntimeError, match="forward only"):
+        resunit.fused_residual_unit(x, *w, 1, True)
+    before = resunit.fused_residual_unit.bf16_launches
+    y = resunit.fused_residual_unit(x.bfloat16(), *w, 1, True)
+    assert resunit.fused_residual_unit.bf16_launches == before + 1
+    (g,) = torch.autograd.grad(y.float().sum(), [w[0]])
+    assert g.dtype == torch.float32 and g.abs().max() > 0
     with torch.no_grad():
         resunit.fused_residual_unit(x.bfloat16(), *w, 1, True)
         resunit.fused_residual_unit_stream(x, None, *w, 1)
+        with precision.policy("int8"):
+            resunit.fused_residual_unit(x, *w, 1, True)
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's and cuDNN's deterministic algorithms (warn only): two
+    evaluations of the plain composition's backward then sum alike."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic = saved[2]
+
+
+TRAIN_GRAD_TOL = 1e-4  # chip_smoke.py's: a kernel path's gradients of max|g| off plain autograd
+X_BF16_GRAD_ULPS = 4  # a bf16 x's gradient, in bf16 ulps at max|g| (see the test)
+BF16_FORM_COUNTER = {"bf16": "bf16_launches", "f32io": "f32io_launches",
+                     "f32io_act": "f32io_act_launches"}
+
+
+BF16_GRAD_CASES = [(4, 64, 1, 2400), (4, 128, 3, 600), (4, 256, 9, 240), (4, 512, 9, 60),
+                   (4, 768, 1, 40), (2, 96, 9, 50), (1, 1536, 3, 16)]
+
+
+@pytest.mark.parametrize("route,causal,B,C,dilation,T",
+                         [(r, c, *case) for r, c in (("bf16", True), ("f32io", True),
+                                                     ("f32io", False), ("f32io_act", True),
+                                                     ("f32io_act", False))
+                          for case in BF16_GRAD_CASES])
+def test_bf16_form_gradients_match_plain(route, causal, B, C, dilation, T):
+    """A bf16 kernel form with gradients (bf16 training), under its policy:
+    one launch of the form and none of the float32 entry forward; the
+    output within 2 bf16 ulps of the plain version; the gradients of x,
+    both weights, both biases and both alphas within 1e-4 x max|g| of the
+    plain composition's autograd on the float32 weights (the backward is
+    that composition, recomputed from the saved pack; both under
+    deterministic algorithms, so that the card sums them alike). The bf16
+    entry is held causal, as the codec trains it (no bf16 unit trains
+    non-causal: the redecoder trains in float32): a non-causal unit's
+    reflect pad on a bf16 tensor sends up to three cotangent rows onto one
+    source row where a short input's reflections overlap, and the card's
+    reflect-pad backward, which has no deterministic form, adds them in
+    bf16 by atomics in no fixed order, so two evaluations of the plain
+    composition itself differ there (by 1e-3 of max|g| in alpha1's
+    gradient at B=2, C=96, d=9, T=50)."""
+    _need_cuda()
+    x, *w = _bf16_unit_args(B, C, dilation, T, C + T)
+    x = x if route == "bf16" else x.float() * 1.3
+    pol = resunit.ROUTE_POLICY[route]
+    cot = torch.randn(x.shape, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(1)).to(x.dtype)
+    counter = BF16_FORM_COUNTER[route]
+    from facodec_tpu_torch.ops.precision import policy
+
+    out = {}
+    with float32_exact(), _deterministic(), policy(pol):
+        for name, fn in (("kernel", resunit.fused_residual_unit),
+                         ("plain", resunit.residual_unit_reference)):
+            leaves = [t.clone().requires_grad_(True) for t in (x, *w)]
+            before = (resunit.fused_residual_unit.launches,
+                      getattr(resunit.fused_residual_unit, counter))
+            y = fn(*leaves, dilation, causal)
+            grads = torch.autograd.grad(y, leaves, cot)
+            launched = (resunit.fused_residual_unit.launches - before[0],
+                        getattr(resunit.fused_residual_unit, counter) - before[1])
+            assert launched == ((0, 1) if name == "kernel" else (0, 0)), launched
+            out[name] = y, grads
+        scale = resunit.bf16_error_scale(x, *w, dilation, causal, route)
+    ulps = resunit.bf16_ulps(out["kernel"][0], out["plain"][0], scale)
+    assert ulps.max().item() <= BF16_MAX_ULPS, ulps.max().item()
+    for n, a, b in zip(UNIT_GRADS, out["kernel"][1], out["plain"][1]):
+        assert a.dtype == b.dtype
+        if a.dtype == torch.bfloat16:
+            # a bf16 x's gradient: the reflect pad's backward adds the padded
+            # rows' cotangents onto their sources in bf16 with atomics (no
+            # deterministic form on the card), up to three terms a row where
+            # a short input's reflections overlap, so two evaluations of the
+            # plain composition round apart by bf16 ulps there
+            gap = resunit.bf16_ulps(a, b, b.float().abs().max().expand(b.shape)).max().item()
+            assert gap <= X_BF16_GRAD_ULPS, (n, gap)
+            continue
+        gap = ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+        assert gap <= TRAIN_GRAD_TOL, (n, gap)
+
+
+def test_tma_maps_follow_a_reused_address():
+    """A training forward packs on every call, and the caching allocator
+    hands a new pack the address of a freed one: the TMA maps, kept per
+    address, hold the address and the shape and no values, so the kernel
+    on each new pack (other weights, at an address an earlier pack had)
+    equals the plain version on its own weights."""
+    _need_cuda()
+    x, *_ = _bf16_unit_args(4, 256, 3, 500, 11)
+    seen, reused, outs = set(), 0, []
+    for i in range(6):
+        _, *w = _bf16_unit_args(4, 256, 3, 500, 20 + i)
+        pack = resunit.pack_bf16(*w)
+        key = (pack.w7.data_ptr(), pack.w1.data_ptr())
+        reused += key in seen
+        seen.add(key)
+        got = resunit.fused_residual_unit_packed(x, pack, 3, True)
+        want = resunit.residual_unit_reference(x, *w, 3, True)
+        scale = resunit.bf16_error_scale(x, *w, 3, True)
+        assert resunit.bf16_ulps(got, want, scale).max().item() <= BF16_MAX_ULPS, i
+        outs.append(got)
+        del pack
+    print(f"{reused} of 6 packs took the addresses of an earlier one")
+    assert reused > 0
+    assert not torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.parametrize("M", [37, 3200])
@@ -845,6 +971,89 @@ def test_train_step_with_teacher_card_matches_cpu(jdc_file):
     """The same with the JDC teacher inline on each device."""
     _need_cuda()
     _step_card_vs_cpu(jdc_file)
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "bfloat16_act"])
+def test_bf16_train_step_on_card(precision):
+    """One draws-off step under a bf16 policy on the card: the generator
+    forward launches its 12 residual units in the policy's bf16 form (the
+    float32-in/out form under `bfloat16`, the bf16 entry under
+    `bfloat16_act`; none in the float32 entry) and its 6 VQ searches; every
+    loss finite; every module's parameters float32, finite and moved. The
+    CPU's step on the same state is printed beside it, not held: at these
+    widths a bf16 rounding apart in the encoder can move a code of a
+    32-entry codebook, and the predictors' losses then differ by percents
+    (chip_smoke.py 19b holds the flagship step, card against CPU)."""
+    _need_cuda()
+    from facodec_tpu_torch.train.data import PseudoDataset, collate, segment_batch, to_device
+    from facodec_tpu_torch.train.loop import build_models
+    from facodec_tpu_torch.train.optimizers import build_optimizers
+    from facodec_tpu_torch.train.step import make_codec_train_step
+
+    ds = PseudoDataset(length=2, seed=0, min_s=1.0, max_s=2.0, n_phones=32, n_speakers=16)
+    seg = segment_batch(collate([ds[0], ds[1]], 80), 8, generator=torch.Generator().manual_seed(0))
+    counter = "f32io_launches" if precision == "bfloat16" else "bf16_launches"
+    out = {}
+    for device in ("cpu", "cuda"):
+        models = _no_dropout(build_models(TRAIN_FIELDS, 3, device))
+        start = {k: [p.detach().clone() for p in m.parameters()] for k, m in models.items()}
+        step = make_codec_train_step(models, build_optimizers(models), precision=precision)
+        before = (resunit.fused_residual_unit.launches,
+                  getattr(resunit.fused_residual_unit, counter), vq.nearest_code.launches)
+        metrics, _ = step(to_device(seg, device), None)
+        launched = (resunit.fused_residual_unit.launches - before[0],
+                    getattr(resunit.fused_residual_unit, counter) - before[1],
+                    vq.nearest_code.launches - before[2])
+        assert launched == ((0, 0, 0) if device == "cpu" else (0, 12, 6)), launched
+        for k, m in models.items():
+            params = list(m.parameters())
+            assert all(p.dtype == torch.float32 and torch.isfinite(p).all() for p in params), k
+            assert any(not torch.equal(p, q) for p, q in zip(params, start[k])), k
+        out[device] = {k: float(v) for k, v in metrics.items()}
+    for k in sorted(out["cuda"]):
+        assert np.isfinite(out["cuda"][k]), k
+        print(f"{precision} {k}: card {out['cuda'][k]:.6g} cpu {out['cpu'][k]:.6g}")
+
+
+V1_QUANTIZER = dict(SMALL_CODEC["quantizer"], timbre_norm=False, quantizer_dropout=0.0)
+
+
+@pytest.mark.parametrize("separate", [True, False])
+def test_forward_v1_codes_card_matches_cpu(separate):
+    """The legacy 4-stream quantizer (`timbre_norm=False`) on the card: its
+    `forward_v1` at n_c = 2 launches the VQ kernel 1 + 2 + 2 + 3 times; its
+    `encode` codes against the CPU's (>= 0.99 equal, as the card's codes are
+    held elsewhere) and its streams and `decode` within 1e-4."""
+    _need_cuda()
+    from facodec_tpu_torch.models.fa_quantizer import FAquantizer
+    from facodec_tpu_torch.utils.weights import init_random_
+
+    cpu = FAquantizer(**dict(V1_QUANTIZER, separate_prosody_encoder=separate))
+    init_random_(cpu, torch.Generator().manual_seed(0))
+    card = FAquantizer(**dict(V1_QUANTIZER, separate_prosody_encoder=separate))
+    card.load_state_dict(cpu.state_dict())
+    card = card.cuda().eval()
+    cpu.eval()
+    rng = np.random.default_rng(1)
+    z = torch.from_numpy(rng.standard_normal((2, 40, 64)).astype(np.float32))
+    wave = torch.from_numpy((rng.standard_normal((2, 40 * 300)) * 0.3).astype(np.float32))
+    with torch.no_grad(), float32_exact():
+        before = vq.nearest_code.launches
+        outs = card(z.cuda(), wave.cuda(), n_c=2)
+        assert vq.nearest_code.launches - before == 8
+        want = cpu(z, wave, n_c=2)
+        codes, zs = card.encode(z.cuda(), wave.cuda(), n_c=2)
+        codes_cpu, zs_cpu = cpu.encode(z, wave, n_c=2)
+        total, _ = card.decode(torch.cat([codes_cpu[0][:, :1], codes_cpu[1], codes_cpu[2]],
+                                         1).cuda())
+        total_cpu, _ = cpu.decode(torch.cat([codes_cpu[0][:, :1], codes_cpu[1], codes_cpu[2]], 1))
+    share = np.mean([float((a.cpu() == b).float().mean()) for a, b in zip(codes, codes_cpu)])
+    assert share >= 0.99, share
+    torch.testing.assert_close(total.cpu(), total_cpu, rtol=1e-4, atol=1e-4)
+    if share == 1.0:
+        torch.testing.assert_close(outs[0].cpu(), want[0], rtol=1e-4, atol=1e-4)
+        for a, b in zip(zs, zs_cpu):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
 
 
 def test_run_training_on_card(tmp_path):

@@ -284,8 +284,8 @@ def test_unquantized_unit_under_int8_is_the_act_form(monkeypatch):
             assert resunit.unit_route(torch.float32, C) == "f32io_act"
             got = unit(t(x))
         act = resunit.residual_unit_reference(t(x), *ws, 3, True, "bfloat16_act")
-        packed = resunit.f32io_reference(t(x), resunit.make_pack("f32io_act", *ws), 3, True,
-                                         act=True)
+        packed = resunit.packed_reference(t(x), resunit.make_pack("f32io_act", *ws), 3, True,
+                                          "f32io_act")
         scale = resunit.bf16_error_scale(t(x), *ws, 3, True, "f32io_act")
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), act.numpy())
@@ -304,8 +304,8 @@ def test_bfloat16_unit_matches_jax(d):
         with precision.policy("bfloat16"):
             assert resunit.unit_route(torch.float32, C) == "f32io"
             got = unit(t(x))
-        packed = resunit.f32io_reference(t(x), resunit.make_pack("f32io", *ws), d, True,
-                                         act=False)
+        packed = resunit.packed_reference(t(x), resunit.make_pack("f32io", *ws), d, True,
+                                          "f32io")
         scale = resunit.bf16_error_scale(t(x), *ws, d, True, "f32io")
     assert got.dtype == torch.float32 and want.dtype == jnp.float32
     assert bf16_ulps(got.numpy(), np.asarray(want), scale.numpy()) <= MAX_ULPS
@@ -391,5 +391,5 @@ def test_int8_training_refused(name):
     for make in (make_codec_train_step, make_codec_train_step_split):
         with pytest.raises(ValueError, match="inference-only"):
             make({}, {}, precision=name)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_codec_train_step({}, {}, precision="bfloat16")
+    with pytest.raises(ValueError, match="not a training policy"):
+        make_codec_train_step({}, {}, precision="hybrid")
